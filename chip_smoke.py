@@ -3,25 +3,38 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — unpaired 100 bp DNA reads against the
-config-2 linear index (a seeded 40 Mbp genome, as bench.py config 2) —
-through the aligner's own entry points, and checks it:
+Drives the port's paths through the aligner's own entry points, at the
+config-2 genome size (a seeded 40 Mbp genome, as bench.py config 2), and
+checks them:
 
   1 card    nvidia-smi name and power limit, torch's device name
-  2 build   the four CUDA kernels from hisat2_tpu_torch/csrc (nvcc)
+  2 build   the seven CUDA kernels from hisat2_tpu_torch/csrc (one nvcc
+            per source, in parallel)
   3 index   build (cached under the temp dir) and upload the index
-  4 kernels each kernel on the real intermediates of one 4096-read batch,
-            against its plain torch twin on the card: exact equality,
-            median times of both
-  5 step    the whole device step on the card (kernels) against the step
-            on the CPU (plain versions): equal packed buffers and layouts,
-            spill and full_out
+  4 kernels linear path: each kernel on the real intermediates of one
+            4096-read batch, against its plain torch twin on the card:
+            exact equality, median times of both
+  5 step    the whole linear device step on the card (kernels) against
+            the step on the CPU (plain versions): equal packed buffers and
+            layouts, spill and full_out
   6 slice   16 batches through dispatch/collect, 8 deep, SAM rendered to
             memory: reads/s, aligned share, share of unmodified reads
             placed at their true position (>= 99%), and the launch count
-            of every kernel in that run (> 0)
+            of every kernel of the path in that run (> 0)
   7 cli     `python -m hisat2_tpu_torch align --device cuda` on the mm3
             corpus: SAM body equal to tests/data/mm3_ref_k10.sam.gz
+  8 graph   the graph-DNA two-tier path on the same genome with a variant
+            catalog at the density of HISAT2's GRCh38 graph (12.3 M
+            variants over 3.1 Gbp: 11 M SNVs, 728 K deletions, 555 K
+            insertions): every kernel on the lite and the full pass's
+            intermediates (K5 on the SNV planes, K6+K7 and K8 with SNVs,
+            K10+K11) against its plain twin; the whole lite and full step
+            against the CPU step; 4 batches of reads carrying catalog
+            alleles through dispatch/advance/collect, SAM with Zs
+            tags: reads/s, aligned share, SNV-only reads at their true
+            position (>= 99%), known-indel alignments (> 0), routed share,
+            launch counts (all seven > 0); and the CLI on the committed
+            graph corpus (tests/data/gdna_*) against its oracle
 
 Any failed check raises and exits non-zero.  Without a CUDA device, or
 outside the repository, it exits non-zero and prints no result.  The line
@@ -43,6 +56,16 @@ from collections import deque
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 B, L, N_BATCHES, DEPTH = 4096, 100, 16, 8
+# the graph slice's SAM render (the carried quadratic read_alignments behind
+# the Zs annotator) takes about 3 s per batch: 4 batches still route reads
+# and launch every kernel
+G_BATCHES = 4
+GENOME = 40_000_000
+# HISAT2's GRCh38 graph: 11 M SNVs, 728 K deletions, 555 K insertions over
+# 3.1 Gbp (SURVEY.md), scaled to the genome
+N_SNV = round(11_000_000 * GENOME / 3.1e9)
+N_DEL = round(728_000 * GENOME / 3.1e9)
+N_INS = round(555_000 * GENOME / 3.1e9)
 
 
 def check(cond, msg):
@@ -90,6 +113,73 @@ def simulate(np, rng, g, B, L):
     return codes, quals, lens, start, clean, rc
 
 
+def make_catalog(np, rng, g, path):
+    """A seeded variant catalog over g at GRCh38-graph density, written as
+    a hisat2 .snp file.  Indels are 1-16 bp, mostly 1-3.  Returns the
+    catalog as arrays (kind 0 SNV / 1 deletion / 2 insertion, pos, alt
+    or length, inserted chars)."""
+    n = len(g)
+    nv = N_SNV + N_DEL + N_INS
+    pos = np.sort(rng.choice(np.arange(200, n - 200), nv, replace=False))
+    kind = rng.permutation(np.repeat([0, 1, 2], [N_SNV, N_DEL, N_INS]))
+    ln = np.where(rng.random(nv) < 0.85, rng.integers(1, 4, nv),
+                  rng.integers(4, 17, nv))
+    alt = (g[pos].astype(np.int64) + rng.integers(1, 4, nv)) % 4
+    ins = rng.integers(0, 4, (nv, 16)).astype(np.uint8)
+    acgt = np.array(list("ACGT"))
+    with open(path, "w") as f:
+        for i in range(nv):
+            k = int(kind[i])
+            if k == 0:
+                f.write(f"v{i}\tsingle\tc2\t{pos[i]}\t{acgt[alt[i]]}\n")
+            elif k == 1:
+                f.write(f"v{i}\tdeletion\tc2\t{pos[i]}\t{ln[i]}\n")
+            else:
+                f.write(f"v{i}\tinsertion\tc2\t{pos[i]}\t"
+                        f"{''.join(acgt[ins[i, :ln[i]]])}\n")
+    return kind, pos, alt, ln, ins
+
+
+def simulate_graph(np, rng, g, cat, B, L):
+    """B reads carrying catalog alleles: 40% one catalog SNV and nothing
+    else, 25% one catalog indel (1-16 bp), 20% 1-3 sequencing mismatches,
+    15% reference copies; half reverse-complemented.  Returns codes,
+    quals, lens, the true start, and which reads carry only catalog
+    SNVs."""
+    kind, pos, alt, ln, ins = cat
+    n = len(g)
+    r = rng.random(B)
+    snv_only = r < 0.4
+    has_indel = (r >= 0.4) & (r < 0.65)
+    errs = (r >= 0.65) & (r < 0.85)
+    snvs = np.flatnonzero(kind == 0)
+    indels = np.flatnonzero(kind > 0)
+    off = rng.integers(12, L - 12, B)
+    vid = np.where(snv_only, rng.choice(snvs, B), rng.choice(indels, B))
+    start = np.where(snv_only | has_indel, pos[vid] - off,
+                     rng.integers(0, n - L - 20, B))
+    start = np.clip(start, 0, n - L - 20)
+    codes = g[start[:, None] + np.arange(L)].astype(np.uint8)
+    rows = np.flatnonzero(snv_only)
+    codes[rows, pos[vid[rows]] - start[rows]] = alt[vid[rows]]
+    for i in np.flatnonzero(has_indel):
+        v = vid[i]
+        s, p, k = int(start[i]), int(pos[v]), int(ln[v])
+        if kind[v] == 1:
+            codes[i] = g[np.r_[s:p, p + k:s + L + k]]
+        else:
+            codes[i] = np.concatenate([g[s:p], ins[v, :k], g[p:s + L]])[:L]
+    for k in range(3):
+        sel = errs & (rng.random(B) < 0.7 if k else True)
+        rr = np.flatnonzero(sel)
+        p = rng.integers(0, L, len(rr))
+        codes[rr, p] = (codes[rr, p] + rng.integers(1, 4, len(rr))) % 4
+    rc = rng.random(B) < 0.5
+    codes[rc] = (3 - codes[rc])[:, ::-1]
+    quals = rng.integers(20, 41, (B, L)).astype(np.uint8)
+    return codes, quals, np.full(B, L, np.int32), start, snv_only, rc
+
+
 def median_ms(torch, fn, kw, reps=10):
     for _ in range(2):
         fn(**kw)
@@ -113,6 +203,32 @@ def flat_outputs(x):
     return [x]
 
 
+def compare(torch, name, kern, plain, kw):
+    """Kernel vs plain twin on the same inputs: exact equality.  Returns
+    the max abs error (0) and both median times."""
+    ko, po = flat_outputs(kern(**kw)), flat_outputs(plain(**kw))
+    torch.cuda.synchronize()
+    check(len(ko) == len(po), f"{name}: output arity")
+    err = 0.0
+    for a, b in zip(ko, po):
+        if a is None or b is None:
+            check(a is None and b is None, f"{name}: optional output")
+            continue
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              f"{name}: shape/dtype {a.shape} {b.shape}")
+        err = max(err, float((a.double() - b.double()).abs().max())
+                  if a.numel() else 0.0)
+        check(torch.equal(a, b), f"{name}: kernel != plain")
+    return err, median_ms(torch, kern, kw), median_ms(torch, plain, kw)
+
+
+def run_cli(args, cwd, env, timeout):
+    r = subprocess.run([sys.executable, "-m", "hisat2_tpu_torch"] + args,
+                       cwd=cwd, env=env, capture_output=True, text=True,
+                       timeout=timeout)
+    check(r.returncode == 0, f"CLI {args[0]} failed: {r.stderr[-2000:]}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -125,8 +241,20 @@ def main() -> int:
     from hisat2_tpu_torch.align import driver
     from hisat2_tpu_torch.align.host import read_alignments
     from hisat2_tpu_torch.align.pipeline import TorchAligner
-    from hisat2_tpu_torch.index import FMIndex, build_fm_index
-    from hisat2_tpu_torch.ops import extend, search, splice
+    from hisat2_tpu_torch.index import (FMIndex, VariantDB, attach_variants,
+                                        build_fm_index)
+    from hisat2_tpu_torch.ops import kernel_twins, splice
+
+    twins = kernel_twins()
+    phase_s = {}
+    t_phase = time.perf_counter()
+
+    def phase_done(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        phase_s[name] = now - t_phase
+        print(f"[{name}] phase seconds {phase_s[name]:.1f}")
+        t_phase = now
 
     # 1 card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -141,12 +269,14 @@ def main() -> int:
     # 2 build
     t_build = kernels.build(force=True)
     kernels.load()
-    print(f"[build] nvcc sm_90a, 4 kernels: {t_build:.2f} s")
+    print(f"[build] nvcc sm_90a, {len(kernels.KERNELS)} kernels "
+          f"({', '.join(kernels.KERNELS)}): {t_build:.2f} s")
+    phase_done("build")
 
     # 3 index (config 2: bench.py:211,216-222)
     t0 = time.perf_counter()
     rng = np.random.default_rng(7)
-    g = rng.integers(0, 4, 40_000_000).astype(np.uint8)
+    g = rng.integers(0, 4, GENOME).astype(np.uint8)
     cache = os.path.join(tempfile.gettempdir(),
                          "hisat2_tpu_torch_config2_40M_seed7")
     if os.path.exists(cache + ".npz"):
@@ -163,6 +293,7 @@ def main() -> int:
     t_up = time.perf_counter() - t0
     print(f"[index] 40 Mbp config-2 index {how} in {t_index:.1f} s; upload "
           f"{t_up:.2f} s; {al.dev.nbytes()} bytes resident on the device")
+    phase_done("index")
 
     # 4 kernels vs plain, on the real intermediates of one batch
     srng = np.random.default_rng(2024)
@@ -173,36 +304,22 @@ def main() -> int:
     up = al.upload(codes, quals, lens, minsc)
     cap = {}
     al.step(*up, uniform, capture=cap)
-    pairs = {"fm_search2": (search.partial_search2,
-                            search.partial_search2_plain),
-             "ref_window": (splice.diag_chars, splice.diag_chars_plain),
-             "extend_ungapped": (extend.extend_grouped,
-                                 extend.extend_grouped_plain),
-             "indel_sweep": (splice.self_indel_sweep,
-                             splice.self_indel_sweep_plain)}
-    check(sorted(cap) == sorted(pairs), f"captured {sorted(cap)}")
+    linear = ["fm_search2", "compact_cands", "ref_window", "extend_ungapped",
+              "indel_sweep", "pack_slots"]
+    check(sorted(cap) == sorted(linear), f"captured {sorted(cap)}")
     rows = {}
-    for name, (kern, plain) in pairs.items():
-        kw = cap[name]
-        ko, po = flat_outputs(kern(**kw)), flat_outputs(plain(**kw))
-        torch.cuda.synchronize()
-        check(len(ko) == len(po), f"{name}: output arity")
-        err = 0.0
-        for a, b in zip(ko, po):
-            check(a.shape == b.shape and a.dtype == b.dtype,
-                  f"{name}: shape/dtype {a.shape} {b.shape}")
-            err = max(err, float((a.double() - b.double()).abs().max())
-                      if a.numel() else 0.0)
-            check(torch.equal(a, b), f"{name}: kernel != plain")
-        ms, pms = median_ms(torch, kern, kw), median_ms(torch, plain, kw)
+    for name in linear:
+        err, ms, pms = compare(torch, name, *twins[name], cap[name])
         k = kernels.KERNELS[name]
         rows[name] = {"name": name, "route": "cuda", "source": k.source,
                       "replaces": k.replaces, "max_abs_err": err,
-                      "ms": ms, "plain_ms": pms}
-        shp = [tuple(v.shape) for v in kw.values() if torch.is_tensor(v)]
+                      "linear_ms": ms, "linear_plain_ms": pms}
+        shp = [tuple(v.shape) for v in cap[name].values()
+               if torch.is_tensor(v)]
         print(f"[kernels] {name}: equal to plain (tolerance: exact), "
               f"max_abs_err {err}; kernel {ms:.4f} ms, plain {pms:.4f} ms "
               f"(median of 10; inputs {shp[:4]})")
+    phase_done("kernels")
 
     # 5 whole step: kernels on the card vs plain versions on the CPU
     cpu = TorchAligner(index, device="cpu")
@@ -222,19 +339,20 @@ def main() -> int:
               f"to the CPU plain step; card {1e3 * (t1 - t0):.1f} ms "
               f"(host clock), CPU {t2 - t1:.1f} s")
     del cpu
+    phase_done("step")
 
     # 6 slice: the main path, pipelined like bench.py:137-168
     names = [f"r{i}" for i in range(B)]
     stats = {"reads": 0, "aligned": 0, "clean": 0, "true": 0}
 
-    def emit(handle, batch):
+    def emit(aligner, handle, batch, ref_names, annotate=None):
         codes_, quals_, lens_, start_, clean_, rc_ = batch
-        res = al.collect(handle)
+        res = aligner.collect(handle)
         sink = io.StringIO()
-        w = driver.SamWriter(sink, index.meta.ref_names,
-                             index.meta.ref_lens, no_head=True)
+        w = driver.SamWriter(sink, ref_names, index.meta.ref_lens,
+                             no_head=True, annotator=annotate)
         w.write_batch_raw(names, codes_, quals_, lens_, res.raw,
-                          al.ref_codes,
+                          aligner.ref_codes,
                           finalize=lambda i: read_alignments(res.raw, i))
         cols = res.raw["cols"]
         rd = np.asarray(cols[0])
@@ -247,6 +365,7 @@ def main() -> int:
         stats["aligned"] += len(r0)
         stats["clean"] += int(clean_.sum())
         stats["true"] += int((ok & clean_).sum())
+        return res, sink.getvalue()
 
     al.align_batch(*batches[0][:3])            # warm-up
     run = batches[1:]
@@ -256,9 +375,9 @@ def main() -> int:
     for b in run:
         pend.append((al.dispatch(*b[:3]), b))
         if len(pend) >= DEPTH:
-            emit(*pend.popleft())
+            emit(al, *pend.popleft(), index.meta.ref_names)
     while pend:
-        emit(*pend.popleft())
+        emit(al, *pend.popleft(), index.meta.ref_names)
     t_slice = time.perf_counter() - t0
     launches = kernels.counts()
     rate = stats["reads"] / t_slice
@@ -269,27 +388,24 @@ def main() -> int:
           f"unmodified reads at their true position {share_true:.4f} "
           f"({stats['true']}/{stats['clean']}); launches {launches}")
     check(share_true >= 0.99, "unmodified reads placed true < 99%")
-    for name in pairs:
+    for name in linear:
         check(launches[name] > 0, f"{name} never launched on the main path")
-        rows[name]["launches"] = launches[name]
+        rows[name]["launches_linear"] = launches[name]
+    phase_done("slice")
 
     # 7 CLI on the mm3 corpus
+    env = dict(os.environ, PYTHONPATH=REPO)
     tmp = tempfile.mkdtemp(prefix="h2torch_cli_")
     try:
         with gzip.open(os.path.join(REPO, "tests/data/mm3_genome.fa.gz"),
                        "rb") as f, open(os.path.join(tmp, "g.fa"), "wb") as o:
             o.write(f.read())
-        env = dict(os.environ, PYTHONPATH=REPO)
-        py = [sys.executable, "-m", "hisat2_tpu_torch"]
-        subprocess.run(py + ["build", "g.fa", "idx"], cwd=tmp, env=env,
-                       check=True, capture_output=True, timeout=300)
+        run_cli(["build", "g.fa", "idx"], tmp, env, 300)
         t0 = time.perf_counter()
-        r = subprocess.run(
-            py + ["align", "--no-spliced-alignment", "-f", "-x", "idx",
-                  "-U", os.path.join(REPO, "tests/data/mm3_reads.fa"),
-                  "-k", "10", "-S", "out.sam", "--device", "cuda"],
-            cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
-        check(r.returncode == 0, f"CLI failed: {r.stderr[-2000:]}")
+        run_cli(["align", "--no-spliced-alignment", "-f", "-x", "idx",
+                 "-U", os.path.join(REPO, "tests/data/mm3_reads.fa"),
+                 "-k", "10", "-S", "out.sam", "--device", "cuda"], tmp, env,
+                600)
         with open(os.path.join(tmp, "out.sam")) as f:
             got = [x for x in f if not x.startswith("@")]
         with gzip.open(os.path.join(REPO, "tests/data/mm3_ref_k10.sam.gz"),
@@ -301,8 +417,170 @@ def main() -> int:
               f"s incl. start-up)")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    phase_done("cli")
 
-    print(json.dumps({"kernels": [rows[n] for n in pairs]}))
+    # 8 graph DNA: catalog, two tiers, kernels, steps, slice, CLI
+    del al
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    crng = np.random.default_rng(11)
+    snp = cache + ".snp"
+    cat = make_catalog(np, crng, g, snp)
+    if os.path.exists(cache + ".var.npz"):
+        db = VariantDB.load(cache)
+        how = "loaded from cache"
+    else:
+        attach_variants(index, snp_file=snp)
+        db = index._variants
+        db.save(cache)
+        how = "attached"
+    gal = TorchAligner(index, device="cuda", variants=db)
+    torch.cuda.synchronize()
+    gd = gal.graph_dev
+    print(f"[graph] catalog {N_SNV} SNVs, {N_DEL} deletions, {N_INS} "
+          f"insertions ({how}); indel table E = {gd['ind_ip'].shape[0]}; "
+          f"graph set-up {time.perf_counter() - t0:.1f} s")
+    grng = np.random.default_rng(99)
+    gb = [simulate_graph(np, grng, g, cat, B, L)
+          for _ in range(G_BATCHES + 1)]
+    codes, quals, lens, start, snv_only, rc = gb[0]
+    minsc = gal._minsc(lens)
+    for tier, a in (("lite", gal._fast), ("full", gal)):
+        gup = a.upload(codes, quals, lens, minsc)
+        cap = {}
+        a.step(*gup, True, capture=cap)
+        want = linear[:4] + ["pack_slots"] + (
+            ["inject_indels", "indel_sweep"] if tier == "full" else [])
+        check(sorted(cap) == sorted(want), f"{tier} captured {sorted(cap)}")
+        check(cap["extend_ungapped"]["snv1_win"] is not None,
+              "graph extension without SNV windows")
+        for name in want:
+            err, ms, pms = compare(torch, name, *twins[name], cap[name])
+            row = rows.setdefault(name, {
+                "name": name, "route": "cuda",
+                "source": kernels.KERNELS[name].source,
+                "replaces": kernels.KERNELS[name].replaces,
+                "max_abs_err": 0.0})
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row[f"{tier}_ms"], row[f"{tier}_plain_ms"] = ms, pms
+            print(f"[graph kernels] {tier} {name}: equal to plain "
+                  f"(tolerance: exact); kernel {ms:.4f} ms, plain "
+                  f"{pms:.4f} ms (median of 10)")
+        if tier == "full":
+            inj = splice.inject_indels(**cap["inject_indels"])
+            live = int((inj["event"] >= 0).sum())
+            check(live > 0, "no injected known-indel slot in the batch")
+            rw = cap["ref_window"]
+            for pl in ("snv1", "snv2"):
+                kw = dict(rw, ref_words=gd[pl])
+                err, ms, pms = compare(torch, f"ref_window[{pl}]",
+                                       *twins["ref_window"], kw)
+                rows["ref_window"][f"{pl}_ms"] = ms
+                rows["ref_window"][f"{pl}_plain_ms"] = pms
+                print(f"[graph kernels] ref_window on the {pl} plane: equal "
+                      f"to plain; kernel {ms:.4f} ms, plain {pms:.4f} ms")
+            print(f"[graph kernels] injected known-indel slots in the "
+                  f"batch: {live}")
+    phase_done("graph kernels")
+
+    gcpu = TorchAligner(index, device="cpu", variants=db)
+    for tier in ("_fast", None):
+        a = getattr(gal, tier) if tier else gal
+        c = getattr(gcpu, tier) if tier else gcpu
+        for full in (False, True):
+            t0 = time.perf_counter()
+            bk = a.step(*a.upload(codes, quals, lens, minsc), True, full)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            bp = c.step(*c.upload(codes, quals, lens, minsc), True, full)
+            t2 = time.perf_counter()
+            w = bk.shape[1]
+            nm = "lite" if tier else "full"
+            check(torch.equal(bk.cpu(), bp),
+                  f"graph {nm} packed step full_out={full}")
+            check(a._out_specs[w] == c._out_specs[w]
+                  and a._spill_meta[w] == c._spill_meta[w],
+                  f"graph {nm} _out_specs full_out={full}")
+            print(f"[graph step] {nm} full_out={full}: packed "
+                  f"[{bk.shape[0]}, {w}] equal to the CPU plain step; card "
+                  f"{1e3 * (t1 - t0):.1f} ms (host clock), CPU "
+                  f"{t2 - t1:.1f} s")
+    del gcpu
+    phase_done("graph step")
+
+    stats.update(reads=0, aligned=0, clean=0, true=0)
+    gal.align_batch(*gb[0][:3])                # warm-up
+    routed = n_known = 0
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    pend = deque()
+
+    def gemit(h, b):
+        nonlocal n_known
+        res, _ = emit(gal, h, b, index.meta.ref_names, gal.annotate_snps)
+        n_known += int((np.asarray(res.raw["cols"][22]) >= 0).sum())
+
+    for b in gb[1:]:
+        pend.append((gal.dispatch(*b[:3]), b))
+        if len(pend) >= 2:
+            h = gal.advance(pend[-2][0])
+            if h[0] == "2pass2":
+                routed += int(h[3].size)
+            pend[-2] = (h, pend[-2][1])
+        if len(pend) >= DEPTH:
+            gemit(*pend.popleft())
+    while pend:
+        gemit(*pend.popleft())
+    t_slice = time.perf_counter() - t0
+    launches = kernels.counts()
+    rate = stats["reads"] / t_slice
+    share_al = stats["aligned"] / stats["reads"]
+    share_true = stats["true"] / stats["clean"]
+    print(f"[graph slice] {stats['reads']} reads in {t_slice:.2f} s: "
+          f"{rate:.1f} reads/s on {card}; aligned {share_al:.4f}; "
+          f"SNV-only reads at their true position {share_true:.4f} "
+          f"({stats['true']}/{stats['clean']}); known-indel alignments "
+          f"{n_known}; routed share {routed / stats['reads']:.4f}; "
+          f"launches {launches}")
+    check(share_true >= 0.99, "SNV-only reads placed true < 99%")
+    check(n_known > 0, "no alignment with a known-indel event")
+    for name in kernels.KERNELS:
+        check(launches[name] > 0, f"{name} never launched on the graph path")
+        rows[name]["launches"] = launches[name]
+        if name not in linear:
+            rows[name]["launches_linear"] = 0
+    phase_done("graph slice")
+
+    tmp = tempfile.mkdtemp(prefix="h2torch_gcli_")
+    try:
+        with gzip.open(os.path.join(REPO, "tests/data/gdna_genome.fa.gz"),
+                       "rb") as f, open(os.path.join(tmp, "g.fa"), "wb") as o:
+            o.write(f.read())
+        run_cli(["build", "--snp", os.path.join(REPO, "tests/data/gdna.snp"),
+                 "g.fa", "idx"], tmp, env, 300)
+        t0 = time.perf_counter()
+        run_cli(["align", "--no-spliced-alignment", "-f", "-x", "idx", "-U",
+                 os.path.join(REPO, "tests/data/gdna_reads.fa"), "-S",
+                 "out.sam", "--device", "cuda"], tmp, env, 600)
+        with open(os.path.join(tmp, "out.sam")) as f:
+            got = [x for x in f if not x.startswith("@")]
+        with gzip.open(os.path.join(REPO, "tests/data/gdna_ref.sam.gz"),
+                       "rt") as f:
+            want = f.readlines()
+        check(got == want, "graph CLI SAM body differs from gdna_ref")
+        nzs = sum("Zs:Z:" in x for x in got)
+        print(f"[graph cli] align --device cuda on gdna: {len(got)} SAM "
+              f"records ({nzs} with Zs:Z) equal to the oracle "
+              f"({time.perf_counter() - t0:.1f} s incl. start-up)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_done("graph cli")
+
+    for r in rows.values():
+        r["ms"] = r.get("full_ms", r.get("linear_ms"))
+        r["plain_ms"] = r.get("full_plain_ms", r.get("linear_plain_ms"))
+    print(f"[done] phase seconds {json.dumps(phase_s)}")
+    print(json.dumps({"kernels": [rows[n] for n in kernels.KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

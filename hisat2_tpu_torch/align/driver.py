@@ -4,9 +4,10 @@ run_align, :28-372).
 
 The JAX driver imports hisat2_tpu.align.pipeline (and with it jax) at
 module scope, so this copy exists until the JAX package is split
-(ROADMAP.md).  Modes the port does not run yet are refused with the
-ROADMAP item that will bring them: paired reads, spliced alignment,
-graph (.var.npz) indexes and multi-host runs.
+(ROADMAP.md).  Linear and graph (.var.npz, two-tier) indexes run; modes
+the port does not run yet are refused with the ROADMAP item that will
+bring them: paired reads (on any index), spliced alignment and multi-host
+runs.
 """
 
 from __future__ import annotations
@@ -71,8 +72,6 @@ def _refusal(args, index_base):
     if not args.no_spliced_alignment:
         return ("spliced alignment is not ported yet (ROADMAP.md Queue 1 "
                 "item 5); pass --no-spliced-alignment")
-    if os.path.exists(index_base + ".var.npz"):
-        return "graph (.var.npz) indexes: ROADMAP.md Queue 1 item 3"
     if (getattr(args, "n_hosts", 1) or 1) > 1:
         return "multi-host runs (--n-hosts > 1): ROADMAP.md Queue 1 item 7"
     return None
@@ -119,11 +118,17 @@ def run_align(args) -> int:
         return 1
     index = FMIndex.load(index_base)
     scoring = make_scoring(args)
+    variants = None
+    if os.path.exists(index_base + ".var.npz"):
+        from hisat2_tpu_torch.index import VariantDB
+        variants = VariantDB.load(index_base)
     if args.khits is None:
-        args.khits = 5
+        # -k default: 5 on linear, 10 on graph indexes (hisat2.cpp:3701)
+        args.khits = 10 if (variants is not None
+                            and variants.n_snps) else 5
     aligner = TorchAligner(index, scoring, k=args.khits,
                            no_fw=args.nofw, no_rc=args.norc,
-                           lane_meta=True,
+                           variants=variants, lane_meta=True,
                            max_seeds=getattr(args, "max_seeds", 0),
                            all_hits=getattr(args, "all_hits", False),
                            anchor_stop=not getattr(args, "no_anchorstop",
@@ -146,7 +151,8 @@ def run_align(args) -> int:
                        no_sq=getattr(args, "no_sq", False),
                        no_unal=args.no_unal,
                        rg_id=args.rg_id, rg=args.rg,
-                       annotator=None,
+                       annotator=(aligner.annotate_snps
+                                  if variants is not None else None),
                        rna_strandness=args.rna_strandness,
                        omit_sec_seq=getattr(args, "omit_sec_seq", False))
     met = None
@@ -273,6 +279,12 @@ def run_align(args) -> int:
         n_batches += 1
         pend.append((aligner.dispatch(b.codes, b.quals, b.lens, rdids), b,
                      rdids))
+        if len(pend) >= 2:
+            # advance the mid-queue two-pass handle: its pass-2 bucket
+            # dispatches now and overlaps the newer batches' pass 1
+            # (driver.py:359-364; no-op for a single-pass aligner)
+            h, bb, rr = pend[-2]
+            pend[-2] = (aligner.advance(h), bb, rr)
         if len(pend) >= 3:
             emit(pend.popleft())
     while pend:

@@ -1,24 +1,34 @@
 """The batched aligner on torch (counterpart of
-hisat2_tpu/align/pipeline.py TPUAligner, unpaired linear-DNA main path).
+hisat2_tpu/align/pipeline.py TPUAligner: unpaired DNA against linear and
+graph indexes).
 
 Device half: `_align_device` is the DNA branch of TPUAligner._align_device
 (:725-1446) and `_pack_out` the output packing of _align_device_packed
-(:536-600).  The chain per batch of B reads (2B lanes, fw + rc):
+(:536-600).  The chain per batch of B reads (2B lanes, fw + rc), every
+step a hand kernel on the card:
 
-  partial_search2      kernel 1  (ops/search.py)
-  resolve_consecutive  plain torch gather          (ROADMAP K3)
-  dedup + compaction   plain torch (:884-998)      (ROADMAP K4)
-  diag_chars           kernel 2  (ops/splice.py)
-  extend_grouped       kernel 3  (ops/extend.py), core and extra slots
-  self_indel_sweep     kernel 4  (ops/splice.py), strict and wide rows
-  slot merge, top-Mdev, flags, spill/full_out layout, int32/16/8 packing:
-                       plain torch (:1211-1375, :536-600) (ROADMAP K9)
+  partial_search2          kernel 1  (ops/search.py)
+  resolve + compaction     kernel 5  (ops/compact.py:compact_cands, K3+K4)
+  diag_chars               kernel 2  (ops/splice.py), reference windows and,
+                                     on a graph index, the SNV-plane windows
+  extend_grouped           kernel 3  (ops/extend.py), core and extra slots
+  inject_indels            kernel 7  (ops/splice.py, K10+K11), full pass on
+                                     an index with known ALT indels
+  self_indel_sweep         kernel 4  (ops/splice.py), strict and wide rows
+  top-Mdev, flags, spill   kernel 6  (ops/compact.py:pack_slots, K9)
+
+The per-block concatenation into the unified slot schema and the int32/16/8
+packing (`_pack_out`) are torch glue.  On a graph index the lite tier
+(pipeline.py:307-313) skips the sweep, the injection and the extra slots
+and sets h_sat.
 
 Host half: dispatch() enqueues the step on the current stream and starts
 the device-to-host copy of the packed buffer into pinned memory, recording
 a CUDA event that _fetch_out waits on; the numpy host phase is carried in
-align/host.py.  On a CPU device everything runs the plain versions
-synchronously (that is what the CPU tests compare with the JAX package).
+align/host.py, and the two-tier routing of a graph index (lite pass, then
+the full pass on the routed reads) below, from pipeline.py:1651-1943.  On a
+CPU device everything runs the plain versions synchronously (that is what
+the CPU tests compare with the JAX package).
 """
 
 from __future__ import annotations
@@ -33,10 +43,9 @@ from hisat2_tpu.align.scoring import Scoring
 from hisat2_tpu.index.format import FMIndex, ShardedFMIndex
 from hisat2_tpu.utils import bitops
 
-from ..index.format import score_tables, to_device
+from ..index.format import graph_to_device, score_tables, to_device
 from ..ops import compact as compact_ops
 from ..ops import extend as extend_ops
-from ..ops import resolve as resolve_ops
 from ..ops import search as search_ops
 from ..ops import splice as splice_ops
 from ..utils.intops import wrap_i32
@@ -55,25 +64,21 @@ class TorchAligner(HostPhase):
                  no_rc: bool = False, lane_meta: bool = False,
                  max_seeds: int = 0, all_hits: bool = False,
                  anchor_stop: bool = True, device="cuda",
-                 variants=None, spliced: bool = False, lite: bool = False):
+                 variants=None, spliced: bool = False, lite: bool = False,
+                 _dev=None, _ref_codes=None, _graph_bundle=None):
         if isinstance(index, ShardedFMIndex):
             raise NotImplementedError(
                 "sharded genome-scale indexes: ROADMAP.md Queue 1 item 6")
         if spliced:
             raise NotImplementedError(
                 "spliced alignment: ROADMAP.md Queue 1 item 5")
-        if variants is not None:
-            raise NotImplementedError(
-                "graph (variant) indexes: ROADMAP.md Queue 1 item 3")
-        if lite:
-            raise NotImplementedError(
-                "the two-tier lite pass: ROADMAP.md Queue 1 item 3")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but torch finds no "
                                "CUDA device")
         self.meta = index.meta
         self.scoring = scoring or Scoring()
+        self.lite = lite
         self.anchor_stop = anchor_stop
         self.k = k
         self.all_hits = all_hits
@@ -83,31 +88,56 @@ class TorchAligner(HostPhase):
             self.max_seeds = 10 ** 9
         self.msize = min(max(self.k, self.max_seeds), 64)
         self.max_hits = 4              # TPUAligner's defaults
+        self.ss_slots = 2
         n = index.meta.n
         self.min_k = 0
         while n > 0:
             n >>= 2
             self.min_k += 1
-        # DNA mode (pipeline.py:298-306)
+        # DNA mode (pipeline.py:298-313)
         self.min_hit_len = 16
         self.core_cands = max(k + 1, 6)
         self.max_cands = max(self.core_cands, self.msize + 1)
         self.short_rows = 5
+        if lite:
+            self.lite_cap = 8
+            self.msize = min(self.msize, self.lite_cap)
+            self.max_cands = self.core_cands
         self.cand_per_hit = 4
         self.no_fw = no_fw
         self.no_rc = no_rc
         self.spliced = False
-        self.variants = None
         self.splice_db = None
         self.lane_meta = lane_meta
         self.shards = [index]          # the replay glue reads shards[0]
-        self.ref_codes = bitops.unpack_2bit(np.asarray(index.ref_words),
-                                            index.meta.n)
-        self.dev = to_device(index, self.device)
+        self.ref_codes = (_ref_codes if _ref_codes is not None
+                          else bitops.unpack_2bit(np.asarray(index.ref_words),
+                                                  index.meta.n))
+        # a two-tier twin shares its parent's device index and tables
+        self.dev = _dev if _dev is not None else to_device(index,
+                                                           self.device)
         self.frag_joined = np.asarray(index.frag_joined)
         self.frag_ref = np.asarray(index.frag_ref)
         self.frag_off = np.asarray(index.frag_off)
         self.params = score_tables(self.scoring, self.device)
+        # variant (ALT) database, one shard (pipeline.py:363-411)
+        self.variants = variants
+        self.has_indels = False
+        self.row_db = None             # indel-table row -> VariantDB row
+        if _graph_bundle is not None:
+            (self.graph, self.has_indels, self.graph_dev,
+             self.row_db) = _graph_bundle
+        elif variants is not None and variants.n_snps:
+            from hisat2_tpu.index.graph import build_graph_arrays
+            self.graph = build_graph_arrays(index, variants)
+            self.has_indels = bool(len(self.graph.indel_pos))
+            self.graph_dev, self.row_db = graph_to_device(
+                self.graph, self.has_indels, self.device)
+        else:
+            self.graph = None
+            self.graph_dev = {}
+        self._graph_bundle = (self.graph, self.has_indels, self.graph_dev,
+                              self.row_db)
         sc = self.scoring
         self.splice_params = splice_ops.SpliceParams(
             min_intron=sc.min_intron_len, max_intron=sc.max_intron_len,
@@ -123,6 +153,27 @@ class TorchAligner(HostPhase):
         # packed-buffer layouts, keyed by width (spill and full_out coexist)
         self._out_specs = {}
         self._spill_meta = {}
+        # DNA mode on a graph index: a lite tier-A pass finishes perfect /
+        # near-perfect reads, the full machinery runs only on the routed
+        # subset (pipeline.py:481-494)
+        self._fast = None
+        if (not lite and not all_hits and variants is not None
+                and variants.n_snps):
+            self._fast = TorchAligner(
+                index, scoring=self.scoring, k=k, no_fw=no_fw, no_rc=no_rc,
+                variants=variants, lane_meta=lane_meta, max_seeds=max_seeds,
+                anchor_stop=anchor_stop, device=self.device, lite=True,
+                _dev=self.dev, _ref_codes=self.ref_codes,
+                _graph_bundle=self._graph_bundle)
+        # host-side routing table: reads overlapping a known ALT indel go
+        # to the full pass (pipeline.py:495-505)
+        self._indel_bounds = None
+        if (self._fast is not None and self.graph is not None
+                and len(self.graph.indel_pos)):
+            ip = np.asarray(self.graph.indel_pos, np.int64)
+            il = np.maximum(np.asarray(self.graph.indel_len, np.int64), 0)
+            self._indel_bounds = np.unique(
+                np.concatenate([ip - 1, ip + il + 1]))
 
     # ------------------------------------------------------------------
     def _align_device(self, reads, quals, lens, minsc, uniform: bool,
@@ -143,13 +194,12 @@ class TorchAligner(HostPhase):
         meta = d.meta
         dv = reads.device
         B, L = reads.shape
-        ar_ = torch.arange
         if uniform:
             g = reads.flip(1)
             rc = torch.where(g < 4, 3 - g, 4).to(_I32)
             qr = quals.flip(1)
         else:
-            col = ar_(L, device=dv, dtype=_I32)[None, :]
+            col = torch.arange(L, device=dv, dtype=_I32)[None, :]
             idxr = lens[:, None] - 1 - col
             ok = idxr >= 0
             gi = idxr.clamp(min=0).to(torch.int64)
@@ -170,68 +220,20 @@ class TorchAligner(HostPhase):
                     min_hit_len=self.min_hit_len, min_k=self.min_k,
                     uniform=uniform, anchor_stop=self.anchor_stop)
 
-        w = hits.bot - hits.top                                  # [2B, H]
-        hv = ar_(H, device=dv)[None, :] < hits.nh[:, None]
-        islong_h = (hits.hi - hits.lo) > self.min_k + 2
-        maxsize = max(self.k, self.max_seeds)
-        hv = hv & torch.where(islong_h, w <= maxsize, w <= self.short_rows)
-        P = max(self.cand_per_hit, self.short_rows, self.msize)
-        j = ar_(P, device=dv)
-        cval = hv[:, :, None] & (j[None, None, :] < w[:, :, None])
-        offs = resolve_ops.resolve_consecutive(
-            d.sa, meta.off_rate, torch.where(hv, hits.top, 0), P)
-        starts = (offs - hits.lo[:, :, None]).reshape(N, H * P)
-        cv = cval.reshape(N, H * P)
-
-        # dedup + compaction (pipeline.py:884-998)
-        BIG = 2 ** 30
-        SHORTBIT = 2 ** 30
-        hlen = (hits.hi - hits.lo)[:, :, None]
-        hlen_flat = hlen.expand(N, H, P).reshape(N, H * P)
-        w_flat = w[:, :, None].expand(N, H, P).reshape(N, H * P)
-        align_slot = ((hlen_flat > self.min_k + 2)
-                      & ((w_flat == 1) | ~hits.stopped[:, None]))
-        is_short = ~align_slot
-        SENT = 2 ** 31 - 2
-        ident = torch.where(cv, starts + torch.where(is_short, SHORTBIT, 0),
-                            SENT).to(_I32)
-        Jk = ident.shape[1]
-        kj = ident[:, :, None]
-        kk = ident[:, None, :]
-        tril = torch.ones((Jk, Jk), dtype=torch.bool,
-                          device=dv).tril(-1)[None]            # k < j
-        kept = (ident != SENT) & ~torch.any((kk == kj) & tril, dim=2)
-        # DNA mode: the compaction key is the identity itself (the spliced
-        # branch ranks short slots by distance instead, pipeline.py:923)
-        sj, sk = kj, kk
-        krank = torch.where(
-            kept,
-            (((sk < sj) | ((sk == sj) & tril)) & kept[:, None, :]
-             ).sum(dim=2, dtype=_I32), Jk)
+        # hit gates, full-SA resolve, dedup + compaction (:772-998)
         C = self.max_cands
-        csel = ((krank[:, None, :]
-                 == ar_(C, device=dv, dtype=_I32)[None, :, None])
-                & kept[:, None, :])
-        cvalid = torch.any(csel, dim=2)
-        cstart = compact_ops.select_ranked(csel, starts)
-        cshort = compact_ops.select_ranked(csel, is_short)
-        dup_short = cshort & torch.any(
-            (cstart[:, :, None] == cstart[:, None, :])
-            & ~cshort[:, None, :] & cvalid[:, None, :], dim=2)
-        cvalid = cvalid & ~dup_short
-        ab_flat = hits.abefore[:, :, None].expand(N, H, P).reshape(N, H * P)
-        post_flat = hits.post[:, :, None].expand(N, H, P).reshape(N, H * P)
-        same = (cstart[:, :, None] == starts[:, None, :]) & cv[:, None, :]
-        cab = torch.where(same, ab_flat[:, None, :], BIG).min(dim=2).values
-        cpost = ~torch.any(same & ~post_flat[:, None, :], dim=2)
-        cvalid_long = cvalid & torch.any(same & align_slot[:, None, :],
-                                         dim=2)
-        CC = min(self.core_cands, cstart.shape[1])
-        xstart, xvalid = cstart[:, CC:], cvalid_long[:, CC:]
-        xab, xpost = cab[:, CC:], cpost[:, CC:]
-        cstart, cvalid = cstart[:, :CC].contiguous(), cvalid[:, :CC]
-        cab, cpost = cab[:, :CC], cpost[:, :CC]
-        cvalid_long = cvalid_long[:, :CC]
+        cands = call("compact_cands", compact_ops.compact_cands,
+                     sa=d.sa, top=hits.top, bot=hits.bot, lo=hits.lo,
+                     hi=hits.hi, nh=hits.nh, abefore=hits.abefore,
+                     post=hits.post, stopped=hits.stopped,
+                     P=max(self.cand_per_hit, self.short_rows, self.msize),
+                     C=C, CC=min(self.core_cands, C), min_k=self.min_k,
+                     maxsize=max(self.k, self.max_seeds),
+                     short_rows=self.short_rows,
+                     lite_cap=self.lite_cap if self.lite else 0,
+                     lane_meta=self.lane_meta)
+        cstart, cvalid, cvalid_long, cab, cpost = cands[:5]
+        xstart, xvalid, xab, xpost = cands[5:9]
 
         sp = self.splice_params
         g_budget = max(1, (-int(self.scoring.min_score(L))
@@ -239,10 +241,16 @@ class TorchAligner(HostPhase):
                        // max(min(sp.rd_gap_ext, sp.rf_gap_ext), 1))
         g_budget = min(g_budget, sp.min_intron - 1)
         margin = max(16, g_budget)
+        gd = self.graph_dev
         mstart = torch.where(cvalid, cstart, -1).to(_I32).contiguous()
         ch = call("ref_window", splice_ops.diag_chars,
                   ref_words=d.ref_words, n_text=meta.n, starts=mstart, L=L,
                   margin=margin)
+        s1w = s2w = None
+        if self.graph is not None:
+            # the SNV planes' windows, same starts and margin (:1011-1016)
+            s1w = splice_ops.diag_chars(gd["snv1"], meta.n, mstart, L, margin)
+            s2w = splice_ops.diag_chars(gd["snv2"], meta.n, mstart, L, margin)
         ext = call("extend_ungapped", extend_ops.extend_grouped,
                    n_text=meta.n, reads=ar, quals=aq, lens=al,
                    cand_start=mstart, mm_pen=self.params["mm_pen"],
@@ -251,152 +259,125 @@ class TorchAligner(HostPhase):
                    win_margin=margin,
                    allow_softclip=not self.scoring.no_softclip,
                    uniform_len=uniform, minsc=am,
-                   mm_min=self.scoring.mm_min)
+                   mm_min=self.scoring.mm_min, snv1_win=s1w, snv2_win=s2w)
         ext_x = None
         if xstart.shape[1]:
             xs_m = torch.where(xvalid, xstart, -1).to(_I32).contiguous()
             ch_x = splice_ops.diag_chars(d.ref_words, meta.n, xs_m, L, 0)
+            s1x = s2x = None
+            if self.graph is not None:
+                s1x = splice_ops.diag_chars(gd["snv1"], meta.n, xs_m, L, 0)
+                s2x = splice_ops.diag_chars(gd["snv2"], meta.n, xs_m, L, 0)
             ext_x = extend_ops.extend_grouped(
                 meta.n, ar, aq, al, xs_m, self.params["mm_pen"],
                 self.params["clip_pen"], self.scoring.n_pen, ch_x, 0,
                 allow_softclip=not self.scoring.no_softclip,
-                uniform_len=uniform, minsc=am, mm_min=self.scoring.mm_min)
+                uniform_len=uniform, minsc=am, mm_min=self.scoring.mm_min,
+                snv1_win=s1x, snv2_win=s2x)
         out = {}
+        if self.lite:
+            out["h_sat"] = cands.h_sat
         if self.lane_meta:
-            wpos = torch.where(hv & (w > 0), w, 2 ** 30)
             out.update({"h_rounds": hits.rounds, "h_rn": hits.nrounds,
-                        "h_minw": wpos.min(dim=1).values.to(_I32),
-                        "h_alignable": torch.any(align_slot, dim=1),
+                        "h_minw": cands.h_minw,
+                        "h_alignable": cands.h_alignable,
                         "h_stop": hits.stopped})
 
-        # single-anchor small-gap sweep, strict + wide rows (:1161-1209)
-        selfw = call("indel_sweep", splice_ops.self_indel_sweep,
-                     ch=ch, reads=ar, quals=aq, lens=al, starts=cstart,
-                     valid=cvalid.contiguous(), minsc=am,
-                     mm_pen=self.params["mm_pen"], n_pen=self.scoring.n_pen,
-                     prm=sp, max_gap=g_budget)
-        src_i = selfw.pop("src")
-        Cs = cstart.shape[1]
-        sab = compact_ops.take_cols(cab, src_i)
-        spost = compact_ops.take_cols(cpost, src_i)
-        zc = torch.zeros((N, Cs), dtype=_I32, device=dv)
-        blocks = [dict({k2: selfw[k2] for k2 in
-                        ("score", "d1", "d2", "x", "kind", "spldir")},
-                       ab=sab, post=spost, known=zc, selfgap=zc + 1)]
-        other_d = selfw["w_d1"] + selfw["w_d2"] - cstart
-        eqm = (other_d[:, :, None]
-               == torch.where(cvalid, cstart, -1)[:, None, :])
-        pair_eq = torch.any(eqm, dim=2)
-        oidx = eqm.to(torch.uint8).argmax(dim=2).to(_I32)
-        wab = torch.maximum(sab, torch.where(
-            pair_eq, compact_ops.take_cols(cab, oidx), 0))
-        wpost = spost & torch.where(
-            pair_eq, compact_ops.take_cols(cpost, oidx), True)
-        blocks.append(dict(
-            score=torch.where(pair_eq, selfw["w_score"], -splice_ops._BIG),
-            d1=selfw["w_d1"], d2=selfw["w_d2"], x=selfw["w_x"],
-            kind=torch.where(pair_eq, selfw["w_kind"], 0),
-            spldir=selfw["w_spldir"], ab=wab, post=wpost, known=zc,
-            selfgap=zc))
-
-        # unified slot compaction (:1211-1295)
-        BIGs = 2 ** 30
-        uni = {"score": ext.score, "d1": cstart, "d2": cstart,
-               "x": zc, "kind": zc, "spldir": zc, "known": zc,
-               "ab": cab, "post": cpost.to(_I32),
-               "selfgap": zc, "n_mm": ext.n_mm, "n_n": ext.n_n,
-               "clip_l": ext.clip_l, "clip_r": ext.clip_r,
-               "alt": ext.alt_score,
-               "valid": (cvalid_long & ext.ok).to(_I32)}
+        zc = torch.zeros((N, cstart.shape[1]), dtype=_I32, device=dv)
+        blocks = []
+        if self.has_indels and not self.lite:
+            # known ALT indel injection (:1141-1160)
+            injd = call("inject_indels", splice_ops.inject_indels,
+                        ref_words=d.ref_words, n_text=meta.n, reads=ar,
+                        quals=aq, lens=al, starts=cstart,
+                        valid=cvalid.contiguous(), ch=ch, snv1_w=s1w,
+                        snv2_w=s2w, margin=margin, ip=gd["ind_ip"],
+                        ilen=gd["ind_len"], ins_chars=gd["ind_chars"],
+                        rkey=gd["ind_rkey"], r_ilen=gd["ind_rlen"],
+                        r_row=gd["ind_rrow"], mm_pen=self.params["mm_pen"],
+                        n_pen=self.scoring.n_pen, minsc=am,
+                        snv_delta1=gd["snv1"], snv_delta2=gd["snv2"],
+                        slots=self.ss_slots)
+            src_i = injd.pop("src")
+            zi = torch.zeros_like(src_i)
+            blocks.append(dict(injd, ab=compact_ops.take_cols(cab, src_i),
+                               post=compact_ops.take_cols(cpost, src_i),
+                               known=zi + 1, selfgap=zi))
+        if not self.lite:
+            # single-anchor small-gap sweep, strict + wide rows (:1161-1209)
+            selfw = call("indel_sweep", splice_ops.self_indel_sweep,
+                         ch=ch, reads=ar, quals=aq, lens=al, starts=cstart,
+                         valid=cvalid.contiguous(), minsc=am,
+                         mm_pen=self.params["mm_pen"],
+                         n_pen=self.scoring.n_pen, prm=sp, max_gap=g_budget,
+                         snv1_w=s1w, snv2_w=s2w)
+            src_i = selfw.pop("src")
+            sab = compact_ops.take_cols(cab, src_i)
+            spost = compact_ops.take_cols(cpost, src_i)
+            blocks.append(dict({k2: selfw[k2] for k2 in
+                                ("score", "d1", "d2", "x", "kind", "spldir")},
+                               ab=sab, post=spost, known=zc, selfgap=zc + 1))
+            other_d = selfw["w_d1"] + selfw["w_d2"] - cstart
+            eqm = (other_d[:, :, None]
+                   == torch.where(cvalid, cstart, -1)[:, None, :])
+            pair_eq = torch.any(eqm, dim=2)
+            oidx = eqm.to(torch.uint8).argmax(dim=2).to(_I32)
+            wab = torch.maximum(sab, torch.where(
+                pair_eq, compact_ops.take_cols(cab, oidx), 0))
+            wpost = spost & torch.where(
+                pair_eq, compact_ops.take_cols(cpost, oidx), True)
+            blocks.append(dict(
+                score=torch.where(pair_eq, selfw["w_score"],
+                                  -splice_ops._BIG),
+                d1=selfw["w_d1"], d2=selfw["w_d2"], x=selfw["w_x"],
+                kind=torch.where(pair_eq, selfw["w_kind"], 0),
+                spldir=selfw["w_spldir"], ab=wab, post=wpost, known=zc,
+                selfgap=zc))
         if ext_x is not None:
             zx = torch.zeros((N, xstart.shape[1]), dtype=_I32, device=dv)
             blocks.append(dict(
                 score=torch.where(xvalid & ext_x.ok, ext_x.score,
                                   -splice_ops._BIG),
                 d1=xstart, d2=xstart, x=zx, kind=zx, spldir=zx,
-                known=zx, ab=xab, post=xpost.to(_I32), selfgap=zx,
+                known=zx, ab=xab, post=xpost, selfgap=zx,
                 n_mm=ext_x.n_mm, n_n=ext_x.n_n,
                 clip_l=ext_x.clip_l, clip_r=ext_x.clip_r,
                 alt=ext_x.alt_score))
-        for b in blocks:
+
+        # the unified slot schema (:1211-1277) as one [F, N, Ktot] tensor:
+        # the ungapped slots, then every block; the event row only on an
+        # index with known ALT indels (-1 outside the injected block)
+        fields = compact_ops.SLOT_FIELDS[:17 if self.has_indels else 16]
+        base = dict(score=ext.score, d1=cstart, d2=cstart, x=zc, kind=zc,
+                    spldir=zc, known=zc, ab=cab, post=cpost, selfgap=zc,
+                    n_mm=ext.n_mm, n_n=ext.n_n, clip_l=ext.clip_l,
+                    clip_r=ext.clip_r, alt=ext.alt_score,
+                    valid=cvalid_long & ext.ok)
+        parts = []
+        for b in [base] + blocks:
             zw = torch.zeros_like(b["score"], dtype=_I32)
-            ext_cols = {
-                "n_mm": b.get("n_mm", zw), "n_n": b.get("n_n", zw),
-                "clip_l": b.get("clip_l", zw),
-                "clip_r": b.get("clip_r", zw),
-                "alt": b.get("alt", zw + extend_ops.NO_ALT),
-                "valid": (b["score"] > -BIGs).to(_I32)}
-            uni = {k2: torch.cat(
-                [v2, (ext_cols[k2] if k2 in ext_cols else b[k2]).to(_I32)],
-                dim=1) for k2, v2 in uni.items()}
-        Ktot = uni["score"].shape[1]
+            dflt = {"n_mm": zw, "n_n": zw, "clip_l": zw, "clip_r": zw,
+                    "alt": zw + extend_ops.NO_ALT, "event": zw - 1}
+            if "valid" not in b:
+                dflt["valid"] = b["score"] > -(2 ** 30)
+            parts.append(torch.stack([b.get(f, dflt.get(f)).to(_I32)
+                                      for f in fields]))
+        uni = torch.cat(parts, dim=2)
+        Ktot = uni.shape[2]
         Mdev = min(Ktot, max(10, self.msize + 2))
         use_spill = (not full_out) and Mdev > 2
-        if Mdev < Ktot or use_spill:
-            skey = torch.where(uni["valid"] > 0, -uni["score"], 2 ** 31 - 1)
-            order = torch.sort(skey, dim=1, stable=True).indices[:, :Mdev]
-            uni = {k2: v2.gather(1, order) for k2, v2 in uni.items()}
-        bslot = torch.where(uni["valid"] > 0, uni["score"],
-                            -2 ** 30).argmax(dim=1)
-        uni["alt"] = compact_ops.take_cols(uni["alt"], bslot[:, None])
-        cs = torch.where(uni["spldir"] > 0, 3 + uni["spldir"], uni["kind"])
-        uni["flags"] = (uni["valid"] | (uni["post"] << 1)
-                        | (uni["selfgap"] << 2) | (uni["known"] << 3)
-                        | (cs << 4))
-        for k2 in ("valid", "post", "selfgap", "known", "kind", "spldir"):
-            del uni[k2]
-        uni["dd"] = uni["d2"] - uni["d1"]
-        del uni["d2"]
-        spill_meta = None
-        if use_spill:
-            # SPILL layout (:1319-1369): slots 0-1 dense, the remaining
-            # valid slots compacted into S = 2B rows of 4 packed words
-            Msp = Mdev - 2
-            S = 2 * B
-            spmask = (uni["flags"][:, 2:] & 1) > 0
-            flatm = spmask.reshape(-1)
-            fidx = ar_(N * Msp, device=dv, dtype=_I32)
-            BIGI = 2 ** 30
-            src = torch.sort(torch.where(flatm, fidx, BIGI)).values
-            if src.shape[0] >= S:
-                src = src[:S]
-            else:
-                src = torch.cat([src, torch.full((S - src.shape[0],), BIGI,
-                                                 dtype=_I32, device=dv)])
-            n_sp = flatm.sum()
-            src = torch.where(src >= BIGI, -1, src).to(_I32)
-            src[S - 1] = torch.where(n_sp > S, -2, src[S - 1])
-            gidx = src.clamp(min=0).to(torch.int64)
-
-            def tk(a):
-                return a[:, 2:].reshape(-1)[gidx].to(torch.int64)
-
-            sc16 = uni["score"].clamp(-32768, 32767)
-            w0 = tk(uni["d1"])
-            w1 = ((tk(sc16) & 0xFFFF) | ((tk(uni["flags"]) & 0x7F) << 16)
-                  | (tk(uni["ab"]).clamp(0, 127) << 24))
-            w2 = ((tk(uni["clip_l"]).clamp(0, 255) & 0xFF)
-                  | ((tk(uni["clip_r"]).clamp(0, 255) & 0xFF) << 8)
-                  | ((tk(uni["n_mm"]).clamp(0, 255) & 0xFF) << 16)
-                  | (tk(uni["n_n"]).clamp(0, 127) << 24))
-            w3 = ((tk(uni["x"]).clamp(0, 255) & 0xFF)
-                  | ((tk(uni["dd"]) & 0xFF) << 8))
-            out["sp_src"] = src
-            out["sp_w"] = wrap_i32(torch.stack([w0, w1, w2, w3], dim=1))
-            spill_meta = (Mdev, False)
-            for k2 in list(uni):
-                if k2 != "alt":
-                    uni[k2] = uni[k2][:, :2]
-        for k2, v2 in uni.items():
-            out["u_" + k2] = v2
-        return out, spill_meta
+        out.update(call("pack_slots", compact_ops.pack_slots, uni=uni,
+                        Mdev=Mdev, use_spill=use_spill))
+        return out, ((Mdev, False) if use_spill else None)
 
     @staticmethod
     def _pack_out(out: dict, L: int):
         """One int32 buffer per batch (pipeline.py:536-600): int32
         columns, then int16 pairs, then int8 quads.  Returns (buf,
-        specs)."""
-        I32 = {"u_d1", "u_d2", "u_event", "h_rounds", "sp_src", "sp_w"}
+        specs).  This interleaving of columns with shifts and masks is
+        torch glue (a few elementwise launches), not a ported kernel."""
+        I32 = {"u_d1", "u_d2", "u_event", "h_rounds", "sp_src", "sp_w",
+               "sp_ev"}
         I8 = {"u_flags", "u_dd", "u_ab", "h_alignable", "h_stop", "h_sat"}
         if L <= 127:
             I8 |= {"u_n_mm", "u_n_n", "u_clip_l", "u_clip_r", "u_x"}
@@ -481,10 +462,28 @@ class TorchAligner(HostPhase):
             ev.synchronize()
         return HostPhase._fetch_out(self, host.numpy())
 
+    def _merge(self, packed) -> dict:
+        """_fetch_out, with the indel-event table rows mapped to VariantDB
+        rows (the single-shard branch of _merge_shards,
+        pipeline.py:1949-1958)."""
+        out0 = self._fetch_out(packed)
+        rdb = self.row_db
+        if rdb is not None and "u_event" in out0:
+            v = out0["u_event"]
+            ev = v >= 0
+            v = v.copy()
+            v[ev] = rdb[v[ev]]
+            out0["u_event"] = v
+        return out0
+
     def dispatch(self, codes: np.ndarray, quals: np.ndarray,
                  lens: np.ndarray, rdids: np.ndarray = None):
         """Enqueue one batch (returns before the device finishes); pair
-        with collect()."""
+        with collect().  A two-tier aligner dispatches its lite pass here
+        and returns a two-pass handle (pipeline.py:1660-1662)."""
+        if self._fast is not None:
+            h1 = self._fast.dispatch(codes, quals, lens, rdids)
+            return ("2pass", h1, codes, quals, lens, rdids)
         if rdids is None:
             rdids = np.arange(codes.shape[0], dtype=np.int64)
         minsc = self._minsc(lens)
@@ -493,24 +492,228 @@ class TorchAligner(HostPhase):
         return (packed, codes, quals, lens, rdids, minsc, 0)
 
     def _merge_or_respill(self, packed, codes, quals, lens, rdids):
-        """_fetch_out, re-dispatching with the full_out layout when the
-        spill layout overflowed its S = 2B rows (pipeline.py:1691-1707)."""
+        """_merge, re-dispatching with the full_out layout when the spill
+        layout overflowed its S = 2B rows (pipeline.py:1691-1707)."""
         try:
-            return self._fetch_out(packed)
+            return self._merge(packed)
         except SpillOverflow:
             uniform = bool(np.all(np.asarray(lens) == codes.shape[1]))
-            return self._fetch_out(self._dispatch_packed(
+            return self._merge(self._dispatch_packed(
                 codes, quals, lens, self._minsc(lens), uniform,
                 full_out=True))
 
     def collect(self, handle, paired: bool = False) -> BatchResult:
+        """Finish a dispatched batch: fetch and run the host phase; a
+        two-pass handle runs its remaining stages (pipeline.py:1709-1722;
+        the splice-site fixed point of the spliced aligner is not here)."""
         if paired:
             raise NotImplementedError(
                 "paired-end alignment: ROADMAP.md Queue 1 item 4")
+        if handle[0] == "2pass":
+            return self._finish_two_pass(
+                self._advance_two_pass(handle, paired), paired)
+        if handle[0] == "2pass2":
+            return self._finish_two_pass(handle, paired)
         packed, codes, quals, lens, rdids, minsc, _ = handle
         return self._host_phase(
             self._merge_or_respill(packed, codes, quals, lens, rdids),
             codes, quals, lens, minsc)
+
+    # -- two tiers (pipeline.py:1736-1943, DNA mode: no splice-site DB) --
+    def _dispatch_full(self, codes, quals, lens, rdids=None):
+        """The full device pass on exactly these arrays (:1736-1742)."""
+        saved, self._fast = self._fast, None
+        try:
+            return self.dispatch(codes, quals, lens, rdids)
+        finally:
+            self._fast = saved
+
+    def advance(self, handle, paired: bool = False):
+        """Move a dispatched batch one stage forward (:1744-1755): for a
+        two-pass handle, collect pass 1, route, and dispatch the pass-2
+        bucket, so that pass 2 overlaps later batches' pass 1.  Other
+        handles return unchanged."""
+        if handle[0] == "2pass":
+            return self._advance_two_pass(handle, paired)
+        return handle
+
+    def _route_two_pass(self, st) -> np.ndarray:
+        """Read indices whose pass-1 answer is not final (:1761-1807):
+        unaligned, imperfect and clipped, slot-saturated, or overlapping
+        a known ALT indel."""
+        (has, best, bdirty, r_rd, r_lo, r_hi, sat, processed) = st
+        sp = self.splice_params
+        gapmin = min(sp.rd_gap_open + sp.rd_gap_ext,
+                     sp.rf_gap_open + sp.rf_gap_ext)
+        final = has & ((best >= 0)
+                       | ((best > -gapmin) & ~bdirty))
+        needs = ~final
+        if sat is not None:
+            needs |= sat
+        if self._indel_bounds is not None and r_rd is not None:
+            bnd = self._indel_bounds
+            near = (np.searchsorted(bnd, r_hi + 1)
+                    - np.searchsorted(bnd, r_lo - 1)) > 0
+            needs[r_rd[near]] = True
+        needs &= ~processed
+        return np.flatnonzero(needs)
+
+    def _dispatch_sub(self, codes, quals, lens, rdids, sub):
+        """Dispatch the routed subset through the full pass, padded to a
+        power-of-two bucket (:1809-1828)."""
+        B = codes.shape[0]
+        L = codes.shape[1]
+        Bs = max(256, B // 8)
+        while Bs < sub.size:
+            Bs *= 2
+        Bs = min(Bs, B)
+        n = sub.size
+        sc_ = np.zeros((Bs, L), np.asarray(codes).dtype)
+        sq_ = np.zeros((Bs, L), np.asarray(quals).dtype)
+        sl_ = np.zeros(Bs, np.asarray(lens).dtype)
+        sr_ = np.zeros(Bs, np.int64)
+        sc_[:n] = np.asarray(codes)[sub]
+        sq_[:n] = np.asarray(quals)[sub]
+        sl_[:n] = np.asarray(lens)[sub]
+        sr_[:n] = np.asarray(rdids)[sub]
+        return self._dispatch_full(sc_, sq_, sl_, sr_)
+
+    def _advance_two_pass(self, handle, paired: bool):
+        """Collect pass 1, route, dispatch pass 2 (:1830-1870)."""
+        _, h1, codes, quals, lens, rdids = handle
+        res1 = self._fast.collect(h1, paired=paired)
+        B = res1.n_reads
+        if rdids is None:
+            rdids = np.arange(B, dtype=np.int64)
+        # pass-1 summary per read: any alignment / best score / spans
+        has = np.zeros(B, bool)
+        best = np.full(B, -2 ** 40, np.int64)
+        bdirty = np.zeros(B, bool)      # a best row is clipped/junctioned
+        r_rd = r_lo = r_hi = None
+        if res1.raw is not None and len(res1.raw["cols"][0]):
+            c = res1.raw["cols"]
+            r_rd = np.asarray(c[0])
+            sc = np.asarray(c[8])
+            has[r_rd] = True
+            np.maximum.at(best, r_rd, sc)
+            dirty = (np.asarray(c[5]) > 0) | (np.asarray(c[6]) > 0) \
+                | (np.asarray(c[16]) != 0)
+            isb = sc == best[r_rd]
+            np.logical_or.at(bdirty, r_rd[isb & dirty], True)
+            r_lo = np.asarray(c[4]) + np.asarray(c[5])      # aln_start
+            r_hi = r_lo + np.asarray(c[7])                  # + aln_span
+        # slot saturation (lite tier): reads whose placement pool exceeded
+        # the lite caps re-run through the full pass
+        sat = None
+        if res1.lanes is not None and "h_sat" in res1.lanes:
+            v = np.asarray(res1.lanes["h_sat"])
+            cap = self._fast.lite_cap
+            sat = (v[:B] > cap) | (v[B:2 * B] > cap)
+        processed = np.zeros(B, bool)
+        st = (has, best, bdirty, r_rd, r_lo, r_hi, sat, processed)
+        sub = self._route_two_pass(st)
+        h2 = None
+        if sub.size:
+            processed[sub] = True
+            h2 = self._dispatch_sub(codes, quals, lens, rdids, sub)
+        return ("2pass2", res1, h2, sub)
+
+    def _finish_two_pass(self, stage2, paired: bool) -> BatchResult:
+        """Collect pass 2 and merge it into pass 1 (:1872-1891; without a
+        splice-site DB the routing set cannot grow, so one round)."""
+        _, merged, h2, sub = stage2
+        if h2 is None:
+            return merged
+        res2 = self.collect(h2, paired=paired)
+        return self._merge_two_pass(merged, res2, sub, merged.n_reads)
+
+    def _merge_two_pass(self, res1, res2, sub, B):
+        """Replace subset reads' rows/metadata in res1 with res2's
+        (:1893-1939)."""
+        subset = np.zeros(B, bool)
+        subset[sub] = True
+        cols1 = (res1.raw["cols"] if res1.raw is not None else None)
+        cols2 = (res2.raw["cols"] if res2.raw is not None else None)
+        parts = []
+        if cols1 is not None and len(cols1[0]):
+            rd1 = np.asarray(cols1[0])
+            keep = ~subset[rd1]
+            parts.append([np.asarray(c)[keep] for c in cols1])
+        if cols2 is not None and len(cols2[0]):
+            rd2 = np.asarray(cols2[0])
+            live = rd2 < len(sub)          # padded lanes have no rows
+            remap = sub[rd2[live]]
+            p2 = [np.asarray(c)[live] for c in cols2]
+            p2[0] = remap
+            parts.append(p2)
+        if parts:
+            ncol = len(parts[0])
+            cols = [np.concatenate([p[j] for p in parts])
+                    for j in range(ncol)]
+            order = np.argsort(cols[0], kind="stable")
+            cols = [c[order] for c in cols]
+            raw = {"cols": cols}
+        else:
+            raw = None
+        orient = res1.orient_ranks
+        if orient is not None and res2.orient_ranks is not None:
+            orient = np.array(orient)
+            orient[sub] = np.array(res2.orient_ranks)[:sub.size]
+        lanes = res1.lanes
+        if lanes is not None and res2.lanes is not None:
+            lanes = {k: (np.array(v) if hasattr(v, "shape") else v)
+                     for k, v in lanes.items()}
+            Bs = res2.n_reads
+            for k, v2 in res2.lanes.items():
+                v1 = lanes.get(k)
+                if v1 is None or not hasattr(v2, "shape"):
+                    continue
+                v2 = np.asarray(v2)
+                if v2.shape[0] == 2 * Bs and v1.shape[0] == 2 * B:
+                    v1[sub] = v2[:sub.size]
+                    v1[B + sub] = v2[Bs:Bs + sub.size]
+                    lanes[k] = v1
+        return BatchResult(n_reads=B, lanes=lanes, orient_ranks=orient,
+                           raw=raw)
+
+    # ------------------------------------------------------------------
+    def annotate_snps(self, a, rd_aligned):
+        """(Zs:Z string, aligned-read offsets of SNV-matched columns)
+        for one alignment on a graph index (pipeline.py:1568-1609)."""
+        if self.graph is None:
+            return None, ()
+        g = self.graph
+        entries = []
+        snv_offs = []
+        cl = a.clip_l
+        L_al = len(rd_aligned)
+        rd_len = L_al + cl + a.clip_r
+        segs = [(diag + lo, lo - cl, hi - lo)
+                for (lo, hi, diag) in a.segments(rd_len)[0]]
+        for (jstart, off0, slen) in segs:
+            if slen <= 0:
+                continue
+            lo = int(np.searchsorted(g.snv_joined, jstart))
+            hi = int(np.searchsorted(g.snv_joined, jstart + slen))
+            for t in range(lo, hi):
+                off = off0 + int(g.snv_joined[t]) - jstart
+                if 0 <= off < L_al and rd_aligned[off] == g.snv_alt[t]:
+                    entries.append(
+                        (off, "S",
+                         self.variants.snp_names[int(g.snv_id[t])]))
+                    snv_offs.append(off)
+        if a.junc_kind in (2, 3) and a.junc_known and a.junc_snp >= 0:
+            ch = "D" if a.junc_kind == 2 else "I"
+            entries.append((a.junc_x - cl, ch,
+                            self.variants.snp_names[a.junc_snp]))
+        if not entries:
+            return None, tuple(snv_offs)
+        entries.sort()
+        parts, prev = [], -1
+        for o, ch, nm in entries:
+            parts.append(f"{o - prev - 1}|{ch}|{nm}")
+            prev = o
+        return ",".join(parts), tuple(snv_offs)
 
     def align_batch(self, codes: np.ndarray, quals: np.ndarray,
                     lens: np.ndarray, rdids: np.ndarray = None,

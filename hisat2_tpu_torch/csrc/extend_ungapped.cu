@@ -1,24 +1,27 @@
 // Kernel 3: ungapped extension with closed-form soft clips (K6 + K7 fused).
 //
-// Replaces hisat2_tpu/ops/extend.py:pen_planes (:72, DNA branch without
-// SNV planes) and extend_grouped (:225).  Plain twin:
+// Replaces hisat2_tpu/ops/extend.py:pen_planes (:72, with its SNV
+// branch :100-111) and extend_grouped (:225).  Plain twin:
 // hisat2_tpu_torch/ops/extend.py:extend_grouped_plain (pen_planes +
 // extend_from_planes).
 //
 // One warp per (lane, candidate).  The warp builds the per-column
-// penalties from the candidate's reference window, the read and its
-// qualities, keeps them in shared memory (no penalty plane goes to device
-// memory: in DNA mode nothing else consumes them), and runs warp scans for
+// penalties from the candidate's reference window (and, on a graph index,
+// its two SNV-plane windows: a mismatch that matches a catalog SNV allele
+// is forgiven), the read and its qualities, keeps them in shared memory
+// (no penalty plane goes to device memory: in DNA mode nothing else
+// consumes them), and runs warp scans for
 // the penalty prefix P, the clip-cost prefix Cc and the last/next
 // penalised column.  From those it evaluates, with warp reductions:
 //   - the best left/right clip (ties keep the LARGER clip, i.e. the first
 //     max on the reversed axis as in extend.py) under the >= 7-column
 //     trim-anchor rule, and without it for liveness;
 //   - the alternate (trimmed-representation) score over the anchor forms;
-//   - the mismatch and N counts inside the kept region.
-// All arithmetic stays in int32 exactly as the JAX version; the largest
-// value is L * 100000 (out-of-text penalty), far from overflow for
-// L <= EXT_MAX_L.
+//   - the mismatch, N and SNV-match counts inside the kept region.
+// The SNV branch is a template parameter, so a linear index runs the
+// mismatch test alone.  All arithmetic stays in int32 exactly as the JAX
+// version; the largest value is L * 100000 (out-of-text penalty), far
+// from overflow for L <= EXT_MAX_L.
 //
 // Bound: per candidate it reads L read chars, L quals and L window chars
 // (from L2: the read is shared by the lane's C candidates) and does
@@ -42,6 +45,8 @@ struct ExtArgs {
   const int* mm_pen;
   const int* clip_pen;
   const int* minsc;
+  const int* snv1;  // [NC, W] SNV-plane windows (SNV kernel only)
+  const int* snv2;
   long long NC;
   int C, L, W, margin;
   long long n_text;
@@ -49,12 +54,14 @@ struct ExtArgs {
   int* score;
   int* n_mm;
   int* n_n;
+  int* n_snp;
   int* clip_l;
   int* clip_r;
   uint8_t* ok;
   int* alt;
 };
 
+template <bool SNV>
 __global__ void extend_ungapped_kernel(ExtArgs A) {
   extern __shared__ int smem[];
   const int lane = threadIdx.x & 31;
@@ -64,7 +71,7 @@ __global__ void extend_ungapped_kernel(ExtArgs A) {
   const int L = A.L;
   int* sP = smem + (size_t)wid * (5 * L + 2);
   int* sC = sP + (L + 1);
-  int* sFlag = sC + (L + 1);  // bit0 mm, bit1 N, bit2 penalised column
+  int* sFlag = sC + (L + 1);  // bit0 mm, bit1 N, bit2 penalised, bit3 SNV
   int* sLast = sFlag + L;     // last penalised column <= col, else -1
   int* sNext = sLast + L;     // next penalised column >= col, else BIG
   const long long n = cand / A.C;
@@ -83,12 +90,21 @@ __global__ void extend_ungapped_kernel(ExtArgs A) {
     const bool oob = vp && (pos < 0 || pos >= A.n_text);
     const int rc = min(wc[col], 3);
     const bool isn = vp && r >= 4;
-    const bool mm = vp && r < 4 && r != rc && !oob;
+    const bool mm_raw = vp && r < 4 && r != rc && !oob;
+    bool snp_ok = false;
+    if (SNV) {
+      const long long at = cand * A.W + A.margin + col;
+      const int v1 = min(A.snv1[at], 3), v2 = min(A.snv2[at], 3);
+      snp_ok = mm_raw && ((v1 != 0 && r == ((rc + v1) & 3)) ||
+                          (v2 != 0 && r == ((rc + v2) & 3)));
+    }
+    const bool mm = mm_raw && !snp_ok;
     const int pen = (mm ? A.mm_pen[q] : 0) + (isn ? A.n_pen : 0) +
                     (oob ? EXT_OOB_PEN : 0);
     sP[col + 1] = pen;
     sC[col + 1] = vp ? A.clip_pen[q] : 0;
-    sFlag[col] = (mm ? 1 : 0) | (isn ? 2 : 0) | ((pen > 0 && vp) ? 4 : 0);
+    sFlag[col] = (mm ? 1 : 0) | (isn ? 2 : 0) | ((pen > 0 && vp) ? 4 : 0) |
+                 (snp_ok ? 8 : 0);
   }
   __syncwarp();
   // --- prefix sums P[a] = sum pen[:a], Cc[a] = sum ccost[:a] ---
@@ -224,20 +240,23 @@ __global__ void extend_ungapped_kernel(ExtArgs A) {
     score = -total_pen;
   }
   ok = ok && start >= 0 && score > -(EXT_OOB_PEN / 2);
-  // aligned-region mismatch / N counts
-  int nmm = 0, nn = 0;
+  // aligned-region mismatch / N / SNV-match counts
+  int nmm = 0, nn = 0, nsnp = 0;
   for (int col = lane; col < L; col += 32) {
     const bool keep = col >= clip_l && col < len - clip_r;
     const int f = sFlag[col];
     nmm += (keep && (f & 1)) ? 1 : 0;
     nn += (keep && (f & 2)) ? 1 : 0;
+    if (SNV) nsnp += (keep && (f & 8)) ? 1 : 0;
   }
   nmm = h2_warp_sum(nmm);
   nn = h2_warp_sum(nn);
+  if (SNV) nsnp = h2_warp_sum(nsnp);
   if (lane == 0) {
     A.score[cand] = score;
     A.n_mm[cand] = nmm;
     A.n_n[cand] = nn;
+    A.n_snp[cand] = nsnp;
     A.clip_l[cand] = clip_l;
     A.clip_r[cand] = clip_r;
     A.ok[cand] = ok ? 1 : 0;
@@ -248,28 +267,31 @@ __global__ void extend_ungapped_kernel(ExtArgs A) {
 H2_EXPORT int h2_extend_ungapped(
     const void* reads, const void* quals, const void* lens,
     const void* cand_start, const void* win, const void* mm_pen,
-    const void* clip_pen, const void* minsc, long long NC, int C, int L,
-    int W, int margin, long long n_text, int n_pen, int allow_softclip,
-    int uniform_len, int use_minsc, int mm_min, void* score, void* n_mm,
-    void* n_n, void* clip_l, void* clip_r, void* ok, void* alt,
+    const void* clip_pen, const void* minsc, const void* snv1,
+    const void* snv2, long long NC, int C, int L, int W, int margin,
+    long long n_text, int n_pen, int allow_softclip, int uniform_len,
+    int use_minsc, int mm_min, int use_snv, void* score, void* n_mm,
+    void* n_n, void* n_snp, void* clip_l, void* clip_r, void* ok, void* alt,
     void* stream) {
   if (L > EXT_MAX_L || L < 1) return (int)cudaErrorInvalidValue;
   ExtArgs A{(const int*)reads, (const int*)quals, (const int*)lens,
             (const int*)cand_start, (const int*)win, (const int*)mm_pen,
-            (const int*)clip_pen, (const int*)minsc, NC, C, L, W, margin,
-            n_text, n_pen, allow_softclip, uniform_len, use_minsc, mm_min,
-            (int*)score, (int*)n_mm, (int*)n_n, (int*)clip_l, (int*)clip_r,
-            (uint8_t*)ok, (int*)alt};
+            (const int*)clip_pen, (const int*)minsc, (const int*)snv1,
+            (const int*)snv2, NC, C, L, W, margin, n_text, n_pen,
+            allow_softclip, uniform_len, use_minsc, mm_min,
+            (int*)score, (int*)n_mm, (int*)n_n, (int*)n_snp, (int*)clip_l,
+            (int*)clip_r, (uint8_t*)ok, (int*)alt};
   const size_t smem = (size_t)EXT_WARPS * (5 * L + 2) * sizeof(int);
+  auto kern = use_snv ? extend_ungapped_kernel<true>
+                      : extend_ungapped_kernel<false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        extend_ungapped_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const long long blocks = (NC + EXT_WARPS - 1) / EXT_WARPS;
   if (blocks > 0)
-    extend_ungapped_kernel<<<(unsigned)blocks, 32 * EXT_WARPS, smem,
-                             (cudaStream_t)stream>>>(A);
+    kern<<<(unsigned)blocks, 32 * EXT_WARPS, smem, (cudaStream_t)stream>>>(
+        A);
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,12 @@
 // Kernel 4: single-anchor small-gap (indel) sweep (K8).
 //
-// Replaces hisat2_tpu/ops/splice.py:self_indel_sweep (:952-1104), DNA
-// branch without SNV windows.  Plain twin:
+// Replaces hisat2_tpu/ops/splice.py:self_indel_sweep (:952-1104), with
+// its SNV windows (:998-1002).  Plain twin:
 // hisat2_tpu_torch/ops/splice.py:self_indel_sweep_plain.
 //
-// One block per (lane, candidate).  The candidate's window, the read, its
+// One block per (lane, candidate).  The candidate's window (and on a graph
+// index its two SNV-plane windows: a mismatch that matches a catalog SNV
+// allele costs nothing, but still counts as a raw mismatch), the read, its
 // per-column mismatch penalties and N penalties go to shared memory; the
 // block's warps then build, for every shift delta in [-G, G], the penalty
 // prefix P_delta and the raw-mismatch prefix R_delta over x = 0..L (warp
@@ -17,6 +19,9 @@
 // clamped before packing, so no signed int32 overflow can occur (the
 // packed key itself stays below 2^31 by the PCAP clamp).
 //
+// The SNV branch is a template parameter: on a linear index the block
+// stages one window and runs the mismatch test alone, as before it.
+//
 // Bound: (2G+1) * (L+1) prefix entries per candidate in shared memory and
 // 4G combos per split point; at G = 5, L = 100 this is ~2k int ops per
 // split point, issue-bound.
@@ -28,8 +33,10 @@
 #define SW_MAX_L 1024
 
 // int offset of the 8-byte aligned reduction scratch in shared memory
-__host__ __device__ inline size_t sw_red_offset(int L, int W, int G) {
-  const size_t ints = (size_t)W + 3 * (size_t)L +
+// (nwin windows of W: 1, or 3 with the SNV planes)
+__host__ __device__ inline size_t sw_red_offset(int L, int W, int G,
+                                                int nwin) {
+  const size_t ints = nwin * (size_t)W + 3 * (size_t)L +
                       2 * (size_t)(2 * G + 1) * (L + 1);
   return (ints + 1) & ~(size_t)1;
 }
@@ -43,12 +50,15 @@ struct SwArgs {
   const uint8_t* valid;
   const int* minsc;
   const int* mm_pen;
+  const int* snv1;  // [NC, W] SNV-plane windows (SNV kernel only)
+  const int* snv2;
   long long NC;
   int C, L, W, M, G, n_pen, min_anchor;
   int rd_open, rd_ext, rf_open, rf_ext;
   int* out;  // [10, NC]: score d1 d2 x kind | w_score w_d1 w_d2 w_x w_kind
 };
 
+template <bool SNV>
 __global__ void indel_sweep_kernel(SwArgs A) {
   extern __shared__ int smem[];
   const long long cand = blockIdx.x;
@@ -56,18 +66,26 @@ __global__ void indel_sweep_kernel(SwArgs A) {
   const int L = A.L, W = A.W, M = A.M, G = A.G;
   const int ND = 2 * G + 1;
   int* sCh = smem;          // [W]
-  int* sRd = sCh + W;       // [L]
+  int* sS1 = sCh + W;       // [W] (SNV only)
+  int* sS2 = sS1 + W;       // [W] (SNV only)
+  int* sRd = SNV ? sS2 + W : sCh + W;  // [L]
   int* sMmq = sRd + L;      // [L] mismatch penalty by quality
   int* sIsn = sMmq + L;     // [L] N penalty (0 outside the read)
   int* sP = sIsn + L;       // [ND, L+1]
   int* sR = sP + ND * (L + 1);
   unsigned long long* sRed =
-      (unsigned long long*)(smem + sw_red_offset(L, W, G));
+      (unsigned long long*)(smem + sw_red_offset(L, W, G, SNV ? 3 : 1));
   const long long n = cand / A.C;
   const int len = A.lens[n];
   const int tid = threadIdx.x;
   const int lane = tid & 31, wid = tid >> 5, nw = blockDim.x >> 5;
-  for (int m = tid; m < W; m += blockDim.x) sCh[m] = A.win[cand * W + m];
+  for (int m = tid; m < W; m += blockDim.x) {
+    sCh[m] = A.win[cand * W + m];
+    if (SNV) {
+      sS1[m] = A.snv1[cand * W + m];
+      sS2[m] = A.snv2[cand * W + m];
+    }
+  }
   for (int c = tid; c < L; c += blockDim.x) {
     const int r = A.reads[n * L + c];
     sRd[c] = r;
@@ -88,8 +106,14 @@ __global__ void indel_sweep_kernel(SwArgs A) {
         const int chs = sCh[M + delta + c];
         const int r = sRd[c];
         const bool vp = c < len;
-        const bool mm = vp && r < 4 && chs < 4 && r != chs;
+        bool mm = vp && r < 4 && chs < 4 && r != chs;
         raw = mm ? 1 : 0;
+        if (SNV) {
+          const int v1 = sS1[M + delta + c], v2 = sS2[M + delta + c];
+          if ((v1 != 0 && r == ((chs + v1) & 3)) ||
+              (v2 != 0 && r == ((chs + v2) & 3)))
+            mm = false;
+        }
         pen = (mm ? sMmq[c] : 0) + sIsn[c] + ((vp && chs > 3) ? 100000 : 0);
       }
       const int sp = h2_warp_incl_sum(pen, lane);
@@ -215,25 +239,26 @@ H2_EXPORT int h2_indel_sweep(
     const void* starts, const void* valid, const void* minsc,
     const void* mm_pen, long long NC, int C, int L, int W, int G, int n_pen,
     int min_anchor, int rd_open, int rd_ext, int rf_open, int rf_ext,
-    void* out, void* stream) {
+    void* out, const void* snv1, const void* snv2, int use_snv,
+    void* stream) {
   if (L > SW_MAX_L || L < 1 || W < L || (W - L) % 2 || G < 0 ||
       G > (W - L) / 2)
     return (int)cudaErrorInvalidValue;
   SwArgs A{(const int*)win, (const int*)reads, (const int*)quals,
            (const int*)lens, (const int*)starts, (const uint8_t*)valid,
-           (const int*)minsc, (const int*)mm_pen, NC, C, L, W, (W - L) / 2,
-           G, n_pen, min_anchor, rd_open, rd_ext, rf_open, rf_ext,
-           (int*)out};
-  const size_t smem = sw_red_offset(L, W, G) * sizeof(int) +
-                      2 * (SW_THREADS / 32) * sizeof(unsigned long long);
+           (const int*)minsc, (const int*)mm_pen, (const int*)snv1,
+           (const int*)snv2, NC, C, L, W, (W - L) / 2, G, n_pen, min_anchor,
+           rd_open, rd_ext, rf_open, rf_ext, (int*)out};
+  const size_t smem =
+      sw_red_offset(L, W, G, use_snv ? 3 : 1) * sizeof(int) +
+      2 * (SW_THREADS / 32) * sizeof(unsigned long long);
+  auto kern = use_snv ? indel_sweep_kernel<true> : indel_sweep_kernel<false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        indel_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   if (NC > 0)
-    indel_sweep_kernel<<<(unsigned)NC, SW_THREADS, smem,
-                         (cudaStream_t)stream>>>(A);
+    kern<<<(unsigned)NC, SW_THREADS, smem, (cudaStream_t)stream>>>(A);
   return (int)cudaGetLastError();
 }

@@ -10,6 +10,11 @@ utils/intops.py).  Only what the device step reads is uploaded: the
 blocked table, fchr, ftab2_top, the full suffix array and ref_words
 (sampled-SA indexes, and so the mark planes, are not ported yet).  The
 host keeps ftab_top/ftab_bot (align/hostfm.py) and the fragment tables.
+
+`graph_to_device` uploads a graph index's variant tables (the graph-DNA
+part of pipeline.py:378-402, for one shard): the two 2-bit SNV planes,
+padded like ref_words, and the padded indel event tables of
+hisat2_tpu/index/graph.py:indel_device_tables.
 """
 
 from __future__ import annotations
@@ -56,9 +61,7 @@ def to_device(index: FMIndex, device) -> TorchFMIndex:
     device = torch.device(device)
     blocked = fuse_blocked(index.occ, index.bwt_words, index.occ2,
                            index.bwt2_words)
-    rw = np.asarray(index.ref_words, np.uint32)
-    if len(rw) % 128:
-        rw = np.concatenate([rw, np.zeros(128 - len(rw) % 128, np.uint32)])
+    rw = _pad128(index.ref_words)
     sa = np.asarray(index.sa_marked, np.int32)
     if len(sa) % 8:
         sa = np.concatenate([sa, np.zeros(8 - len(sa) % 8, np.int32)])
@@ -71,6 +74,33 @@ def to_device(index: FMIndex, device) -> TorchFMIndex:
         blocked=u32_to_tensor(blocked, device),
         fchr=i32(index.fchr), ftab2_top=i32(index.ftab2_top), sa=i32(sa),
         ref_words=u32_to_tensor(rw, device), device=device)
+
+
+def _pad128(words: np.ndarray) -> np.ndarray:
+    w = np.asarray(words, np.uint32)
+    if len(w) % 128:
+        w = np.concatenate([w, np.zeros(128 - len(w) % 128, np.uint32)])
+    return w
+
+
+def graph_to_device(graph, has_indels: bool, device):
+    """A GraphArrays (hisat2_tpu/index/graph.py:build_graph_arrays) on
+    `device`: {"snv1", "snv2"} (int32 u32 bits, 128-word padded) and, with
+    indels, the event tables {"ind_ip", "ind_len", "ind_rkey", "ind_rlen",
+    "ind_rrow"} [E] and "ind_chars" [E, 16] at their padded power-of-two
+    capacity E.  Returns (tables, row_db): row_db maps a table row to its
+    VariantDB record and stays on the host (None without indels)."""
+    from hisat2_tpu.index.graph import indel_device_tables
+    device = torch.device(device)
+    tabs = {"snv1": u32_to_tensor(_pad128(graph.snv_delta1), device),
+            "snv2": u32_to_tensor(_pad128(graph.snv_delta2), device)}
+    row_db = None
+    if has_indels:
+        t = indel_device_tables(graph)
+        row_db = t.pop("_row_db")
+        tabs.update({k: torch.from_numpy(np.ascontiguousarray(
+            v, np.int32)).to(device) for k, v in t.items()})
+    return tabs, row_db
 
 
 def score_tables(scoring, device) -> dict:

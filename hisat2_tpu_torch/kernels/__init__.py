@@ -1,7 +1,8 @@
 """Build and bind the hand-written Hopper kernels (csrc/*.cu).
 
 Route (b) of the port's kernel rule: the CUDA C++ sources have a plain C
-interface, `nvcc` compiles all of them for sm_90a into one shared library
+interface, `nvcc` compiles each of them for sm_90a (one process per
+source, all started together) and links them into one shared library
 under hisat2_tpu_torch/build/ on first use, and ctypes binds it (the same
 pattern as hisat2_tpu/native/__init__.py:_build, with nvcc).  Every C
 entry point launches on the caller's stream and returns cudaGetLastError();
@@ -9,7 +10,8 @@ a non-zero code raises here.  Nothing is built or loaded at import time.
 
 Each kernel is a `Kernel` object in KERNELS with a launch counter that
 counts successful launches and nothing else; the ops-level wrappers
-(ops/search.py, ops/splice.py, ops/extend.py) are its only callers.
+(ops/search.py, ops/compact.py, ops/splice.py, ops/extend.py) are its only
+callers.
 """
 
 from __future__ import annotations
@@ -66,15 +68,31 @@ KERNELS = {k.name: k for k in (
            "hisat2_tpu/ops/rank.py:132 ref_chars_block (via "
            "ops/splice.py:277 diag_chars)"),
     Kernel("extend_ungapped", "h2_extend_ungapped",
-           [_P] * 8 + [_LL, _I, _I, _I, _I, _LL] + [_I] * 5 + [_P] * 7
+           [_P] * 10 + [_LL, _I, _I, _I, _I, _LL] + [_I] * 6 + [_P] * 8
            + [_P],
            "hisat2_tpu_torch/csrc/extend_ungapped.cu",
            "hisat2_tpu/ops/extend.py:225 extend_grouped (+ :72 "
-           "pen_planes)"),
+           "pen_planes, with the SNV branch :100-111)"),
     Kernel("indel_sweep", "h2_indel_sweep",
-           [_P] * 8 + [_LL] + [_I] * 10 + [_P, _P],
+           [_P] * 8 + [_LL] + [_I] * 10 + [_P, _P, _P, _I, _P],
            "hisat2_tpu_torch/csrc/indel_sweep.cu",
            "hisat2_tpu/ops/splice.py:952 self_indel_sweep"),
+    Kernel("compact_cands", "h2_compact_cands",
+           [_P] * 9 + [_I] * 10 + [_P] * 12 + [_P],
+           "hisat2_tpu_torch/csrc/compact_cands.cu",
+           "hisat2_tpu/ops/resolve.py:174-186 resolve_consecutive (full "
+           "SA) + align/pipeline.py:772-998 compaction (ops/compact.py:"
+           "22-62)"),
+    Kernel("pack_slots", "h2_pack_slots",
+           [_P] + [_I] * 6 + [_P] * 8 + [_P],
+           "hisat2_tpu_torch/csrc/pack_slots.cu",
+           "hisat2_tpu/align/pipeline.py:1211-1375 slot merge, top-Mdev, "
+           "flags, spill layout"),
+    Kernel("inject_indels", "h2_inject_indels",
+           [_P] * 19 + [_LL] + [_I] * 10 + [_P] * 7 + [_P],
+           "hisat2_tpu_torch/csrc/inject_indels.cu",
+           "hisat2_tpu/ops/splice.py:838 inject_indels (+ ops/extend.py:124 "
+           "live_pen_prefix)"),
 )}
 
 _lib = None
@@ -107,9 +125,10 @@ def _nvcc() -> str:
 
 def build(force: bool = False) -> float:
     """Compile csrc/*.cu into BUILD_DIR/libh2_kernels.so when a source is
-    newer than the library (or always, with force).  Returns the seconds
-    spent compiling (0 when the library was current).  The ptxas
-    register/spill report of the last build is kept in BUILD_DIR/nvcc.log."""
+    newer than the library (or always, with force): one nvcc process per
+    source, all started together, then one link.  Returns the seconds
+    spent (0 when the library was current).  The ptxas register/spill
+    report of the last build is kept in BUILD_DIR/nvcc.log."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     so = os.path.join(BUILD_DIR, LIB_NAME)
     srcs = _sources()
@@ -117,16 +136,39 @@ def build(force: bool = False) -> float:
             os.path.getmtime(s) <= os.path.getmtime(so) for s in srcs):
         return 0.0
     t0 = time.perf_counter()
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-lineinfo",
-           "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", tmp]
-    cmd += [s for s in srcs if s.endswith(".cu")]
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}"
+    objs, procs, log = [], [], []
+    for s in srcs:
+        if not s.endswith(".cu"):
+            continue
+        obj = os.path.join(BUILD_DIR, os.path.basename(s)[:-3] + f".{tag}.o")
+        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-lineinfo",
+               "-Xptxas", "-v", "-Xcompiler", "-fPIC", "-c", s, "-o", obj]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = None
+    for cmd, p in procs:
+        out, err = p.communicate()
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if p.returncode != 0 and failed is None:
+            failed = (p.returncode, err)
+    if failed is None:
+        tmp = f"{so}.{tag}.tmp"
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + r.stdout + r.stderr)
+        if r.returncode != 0:
+            failed = (r.returncode, r.stderr)
     with open(BUILD_LOG, "w") as f:
-        f.write(" ".join(cmd) + "\n" + r.stdout + r.stderr)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n"
-                           f"{r.stderr[-4000:]}")
+        f.write("\n".join(log))
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed is not None:
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n"
+                           f"{failed[1][-4000:]}")
     os.replace(tmp, so)
     return time.perf_counter() - t0
 

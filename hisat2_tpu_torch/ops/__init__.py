@@ -1,1 +1,21 @@
 """hisat2_tpu_torch.ops"""
+
+
+def kernel_twins() -> dict:
+    """{kernel name: (wrapper, plain twin)} for every hand kernel in
+    kernels.KERNELS.  The wrapper launches the kernel on CUDA tensors; the
+    twin takes the same keyword arguments, so a caller can replay a
+    captured call (TorchAligner.step(capture=...)) through both."""
+    from . import compact, extend, search, splice
+    return {
+        "fm_search2": (search.partial_search2, search.partial_search2_plain),
+        "ref_window": (splice.diag_chars, splice.diag_chars_plain),
+        "extend_ungapped": (extend.extend_grouped,
+                            extend.extend_grouped_plain),
+        "indel_sweep": (splice.self_indel_sweep,
+                        splice.self_indel_sweep_plain),
+        "compact_cands": (compact.compact_cands,
+                          compact.compact_candidates_plain),
+        "pack_slots": (compact.pack_slots, compact.pack_slots_plain),
+        "inject_indels": (splice.inject_indels, splice.inject_indels_plain),
+    }

@@ -1,14 +1,15 @@
 """Batched ungapped extension with closed-form soft clips (counterpart of
-hisat2_tpu/ops/extend.py: PenPlanes, ExtendResult, pen_planes :72 and
-extend_grouped :225).
+hisat2_tpu/ops/extend.py: PenPlanes, ExtendResult, pen_planes :72,
+live_pen_prefix :124 and extend_grouped :225).
 
 `extend_grouped` is the wrapper the pipeline calls: on CUDA tensors it
-launches kernel 3 (csrc/extend_ungapped.cu), which fuses pen_planes into
-the extension (in DNA mode nothing else consumes the planes, so none goes
-to device memory); on CPU tensors it runs `extend_grouped_plain`, which is
-`pen_planes` + `extend_from_planes`, ports of the JAX code line by line.
-The SNV branch of pen_planes and live_pen_prefix belong to the graph-DNA
-slice (ROADMAP.md Queue 1 item 3) and are not ported.
+launches kernel 3 (csrc/extend_ungapped.cu), which fuses pen_planes, with
+its SNV branch, into the extension (nothing else on the port's path
+consumes the planes, so none goes to device memory); on CPU tensors it
+runs `extend_grouped_plain`, which is `pen_planes` + `extend_from_planes`,
+ports of the JAX code line by line.  `live_pen_prefix_plain` is the plain
+twin of the device function in csrc/live_prefix.cuh that kernel 7
+(inject_indels, ops/splice.py) calls per live column.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from .. import kernels
 from . import compact as compact_ops
+from . import rank as rk
 
 _OOB_PEN = 100000  # out-of-text column: forces the optimizer to clip it
 NO_ALT = -(2 ** 30)  # alt_score when no alternate representation exists
@@ -46,10 +48,11 @@ class PenPlanes(NamedTuple):
 
 
 def pen_planes(n_text: int, reads, quals, lens, cand_start, mm_pen,
-               n_pen: int, win_chars, win_margin: int = 0) -> PenPlanes:
+               n_pen: int, win_chars, win_margin: int = 0, snv1_win=None,
+               snv2_win=None) -> PenPlanes:
     """Per-column penalty planes from a candidate's reference window
-    (extend.py:72, DNA branch).  win_chars: diag_chars output
-    [B, C, L + 2*win_margin]."""
+    (extend.py:72).  win_chars (and, on a graph index, the SNV-plane
+    windows snv1_win / snv2_win): diag_chars output [B, C, L + 2*margin]."""
     i32 = torch.int32
     L = reads.shape[1]
     rd = reads[:, None, :]
@@ -63,14 +66,105 @@ def pen_planes(n_text: int, reads, quals, lens, cand_start, mm_pen,
     rc = torch.clamp(rc4, max=3)
     isn = vp & (rd >= 4)
     mm_raw = vp & (rd < 4) & (rd != rc) & ~oob
-    snp_ok = torch.zeros_like(mm_raw)
-    mm = mm_raw
+    if snv1_win is not None:
+        v1 = torch.clamp(snv1_win[:, :, win_margin:win_margin + L], max=3)
+        v2 = torch.clamp(snv2_win[:, :, win_margin:win_margin + L], max=3)
+        snp_ok = mm_raw & (((v1 != 0) & (rd == ((rc + v1) & 3)))
+                           | ((v2 != 0) & (rd == ((rc + v2) & 3))))
+        mm = mm_raw & ~snp_ok
+    else:
+        snp_ok = torch.zeros_like(mm_raw)
+        mm = mm_raw
     base = (torch.where(isn, n_pen, 0) + torch.where(oob, _OOB_PEN, 0))
     mmq = mm_pen[q]
     pen = (torch.where(mm, mmq, 0) + base).to(i32)
     pen_raw = (torch.where(mm_raw, mmq, 0) + base).to(i32)
     return PenPlanes(pen=pen, pen_raw=pen_raw, mm=mm, mm_raw=mm_raw,
                      isn=isn, snp_ok=snp_ok, vp=vp)
+
+
+def live_pen_prefix_plain(ref_words, n_text: int, reads, quals, lens,
+                          mm_pen, n_pen: int, fresh, live, pos_list,
+                          snv_delta1=None, snv_delta2=None,
+                          chunk: int = 4096):
+    """extend.py:124 live_pen_prefix, line by line: penalty / raw-mismatch
+    prefix scalars along the LIVE fresh diagonals [N, J] only, at each
+    position of pos_list.  Returns (pen_total, mm_total, [(pen_at_p,
+    mm_at_p), ...]), int32 [N, J], zeros on dead columns.  Both JAX paths
+    are kept: dense when N*J <= chunk, else live columns compacted and
+    walked `chunk` at a time (the results are the same)."""
+    i32 = torch.int32
+    dev = reads.device
+    N, J = fresh.shape
+    L = reads.shape[1]
+    M = N * J
+    nP = len(pos_list)
+    S = 2 + 2 * nP
+    fresh_f = fresh.reshape(-1)
+    pos_f = [p.reshape(-1) for p in pos_list]
+
+    def scalars(colids):
+        colids = colids.to(torch.int64)
+        lane = colids // J
+        rd = reads[lane]
+        q = torch.clamp(quals[lane], max=63).to(torch.int64)
+        ln = lens[lane]
+        st = fresh_f[colids]
+        colL = torch.arange(L, device=dev, dtype=i32)[None, :]
+        posg = st[:, None].to(torch.int64) + colL
+        vp = colL < ln[:, None]
+        oob = vp & ((posg < 0) | (posg >= n_text))
+        rc4 = rk.ref_chars_block(ref_words, n_text, st[:, None], L)[:, 0]
+        rc = torch.clamp(rc4, max=3)
+        isn = vp & (rd >= 4)
+        mm_raw = vp & (rd < 4) & (rd != rc) & ~oob
+        if snv_delta1 is not None:
+            v1 = torch.clamp(rk.ref_chars_block(
+                snv_delta1, n_text, st[:, None], L)[:, 0], max=3)
+            v2 = torch.clamp(rk.ref_chars_block(
+                snv_delta2, n_text, st[:, None], L)[:, 0], max=3)
+            snp_ok = mm_raw & (((v1 != 0) & (rd == ((rc + v1) & 3)))
+                               | ((v2 != 0) & (rd == ((rc + v2) & 3))))
+            mm = mm_raw & ~snp_ok
+        else:
+            mm = mm_raw
+        pen = (torch.where(mm, mm_pen[q], 0)
+               + torch.where(isn, n_pen, 0)
+               + torch.where(oob, _OOB_PEN, 0)).to(i32)
+        mint = mm_raw.to(i32)
+        outs = [pen.sum(dim=1, dtype=i32), mint.sum(dim=1, dtype=i32)]
+        for pf in pos_f:
+            m = colL < pf[colids][:, None]
+            outs.append(torch.where(m, pen, 0).sum(dim=1, dtype=i32))
+            outs.append(torch.where(m, mint, 0).sum(dim=1, dtype=i32))
+        return torch.stack(outs, dim=1)                       # [K, S]
+
+    def unpack(rows):
+        outs = [rows[:, i].reshape(N, J) for i in range(S)]
+        return outs[0], outs[1], [(outs[2 + 2 * i], outs[3 + 2 * i])
+                                  for i in range(nP)]
+
+    lv = live.reshape(-1)
+    if M <= chunk:
+        vals = torch.where(lv[:, None], scalars(torch.arange(M, device=dev)),
+                           0)
+        return unpack(vals)
+    lvi = lv.to(torch.int64)
+    posc = torch.cumsum(lvi, 0) - lvi              # exclusive prefix sum
+    total = int(posc[-1] + lvi[-1])
+    src = torch.sort(1 - lvi, stable=True).indices
+    nch = (M + chunk - 1) // chunk
+    Mp = nch * chunk
+    srcp = torch.zeros(Mp, dtype=torch.int64, device=dev)
+    srcp[:M] = src
+    buf = torch.zeros((Mp, S), dtype=i32, device=dev)
+    k = 0
+    while k * chunk < total:
+        buf[k * chunk:(k + 1) * chunk] = scalars(
+            srcp[k * chunk:(k + 1) * chunk])
+        k += 1
+    rows = buf[torch.clamp(posc, max=Mp - 1)]
+    return unpack(torch.where(lv[:, None], rows, 0))
 
 
 def _argmax_last(v):
@@ -237,10 +331,11 @@ def extend_grouped_plain(n_text: int, reads, quals, lens, cand_start,
                          mm_pen, clip_pen, n_pen: int, win_chars,
                          win_margin: int = 0, allow_softclip: bool = True,
                          uniform_len: bool = False, minsc=None,
-                         mm_min: int = 1) -> ExtendResult:
+                         mm_min: int = 1, snv1_win=None,
+                         snv2_win=None) -> ExtendResult:
     """Plain torch twin of kernel 3: pen_planes + extend_from_planes."""
     planes = pen_planes(n_text, reads, quals, lens, cand_start, mm_pen,
-                        n_pen, win_chars, win_margin)
+                        n_pen, win_chars, win_margin, snv1_win, snv2_win)
     return extend_from_planes(n_text, reads, quals, lens, cand_start,
                               mm_pen, clip_pen, n_pen, allow_softclip,
                               planes, uniform_len, minsc, mm_min)
@@ -249,15 +344,17 @@ def extend_grouped_plain(n_text: int, reads, quals, lens, cand_start,
 def extend_grouped(n_text: int, reads, quals, lens, cand_start, mm_pen,
                    clip_pen, n_pen: int, win_chars, win_margin: int = 0,
                    allow_softclip: bool = True, uniform_len: bool = False,
-                   minsc=None, mm_min: int = 1) -> ExtendResult:
+                   minsc=None, mm_min: int = 1, snv1_win=None,
+                   snv2_win=None) -> ExtendResult:
     """Kernel 3 on CUDA tensors, extend_grouped_plain on CPU tensors.
     win_chars: the candidates' reference windows (splice.diag_chars with
-    margin win_margin)."""
+    margin win_margin); snv1_win / snv2_win: the SNV-plane windows of the
+    same diagonals on a graph index (None: no SNV forgiveness)."""
     if not reads.is_cuda:
         return extend_grouped_plain(
             n_text, reads, quals, lens, cand_start, mm_pen, clip_pen, n_pen,
             win_chars, win_margin, allow_softclip, uniform_len, minsc,
-            mm_min)
+            mm_min, snv1_win, snv2_win)
     i32 = torch.int32
     B, L = reads.shape
     C = cand_start.shape[1]
@@ -271,22 +368,28 @@ def extend_grouped(n_text: int, reads, quals, lens, cand_start, mm_pen,
         kernels.check_cuda(nm, t, i32, shp)
     if minsc is not None:
         kernels.check_cuda("minsc", minsc, i32, (B,))
+    use_snv = snv1_win is not None
+    if use_snv:
+        kernels.check_cuda("snv1_win", snv1_win, i32, (B, C, W))
+        kernels.check_cuda("snv2_win", snv2_win, i32, (B, C, W))
     if L > 1024 or W < L + 2 * win_margin:
         raise ValueError("extend_ungapped: read length above 1024 or a "
                          "window narrower than L + 2*margin")
     dev = reads.device
     e = lambda: torch.empty((B, C), dtype=i32, device=dev)  # noqa: E731
-    score, n_mm, n_n, clip_l, clip_r, alt = e(), e(), e(), e(), e(), e()
+    score, n_mm, n_n, n_snp, clip_l, clip_r, alt = (e(), e(), e(), e(), e(),
+                                                    e(), e())
     ok = torch.empty((B, C), dtype=torch.bool, device=dev)
     kernels.KERNELS["extend_ungapped"].launch(
         reads.data_ptr(), quals.data_ptr(), lens.data_ptr(),
         cand_start.data_ptr(), win_chars.data_ptr(), mm_pen.data_ptr(),
         clip_pen.data_ptr(),
         (minsc if minsc is not None else lens).data_ptr(),
+        (snv1_win if use_snv else win_chars).data_ptr(),
+        (snv2_win if use_snv else win_chars).data_ptr(),
         B * C, C, L, W, win_margin, n_text, n_pen, int(allow_softclip),
-        int(uniform_len), int(minsc is not None), mm_min,
+        int(uniform_len), int(minsc is not None), mm_min, int(use_snv),
         score.data_ptr(), n_mm.data_ptr(), n_n.data_ptr(),
-        clip_l.data_ptr(), clip_r.data_ptr(), ok.data_ptr(), alt.data_ptr(),
-        stream=kernels.stream_of(reads))
-    return ExtendResult(score, n_mm, n_n, torch.zeros_like(score), clip_l,
-                        clip_r, ok, alt)
+        n_snp.data_ptr(), clip_l.data_ptr(), clip_r.data_ptr(),
+        ok.data_ptr(), alt.data_ptr(), stream=kernels.stream_of(reads))
+    return ExtendResult(score, n_mm, n_n, n_snp, clip_l, clip_r, ok, alt)

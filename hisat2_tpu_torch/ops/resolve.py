@@ -1,8 +1,9 @@
 """SA resolution (counterpart of hisat2_tpu/ops/resolve.py).
 
-Only the full-SA branch of resolve_consecutive (:174-186) is ported; it is
-one gather and stays plain torch on both devices (K3 in ROADMAP.md Queue 2
-is the next hand kernel of the main path).
+Only the full-SA branch of resolve_consecutive (:174-186) is ported.  On
+the card it is fused into kernel 5 (csrc/compact_cands.cu, K3+K4); this
+plain version serves ops/compact.py:compact_candidates_plain, the
+kernel's twin.
 """
 
 from __future__ import annotations

@@ -1,14 +1,18 @@
-"""Diagonal windows and the single-anchor indel sweep (counterpart of
-hisat2_tpu/ops/splice.py: constants, SpliceParams, diag_chars :277 and
-self_indel_sweep :952).
+"""Diagonal windows, the single-anchor indel sweep and known ALT indel
+injection (counterpart of hisat2_tpu/ops/splice.py: constants,
+SpliceParams, diag_chars :277, inject_indels :838 and self_indel_sweep
+:952).
 
 `diag_chars` launches kernel 2 (csrc/ref_window.cu) on CUDA tensors and
-runs `diag_chars_plain` on CPU tensors; `self_indel_sweep` likewise
-launches kernel 4 (csrc/indel_sweep.cu) or runs `self_indel_sweep_plain`.
-The plain versions are line-by-line ports of the JAX code.  The splice
-machinery (pair_sweep, select_pairs, second_sweep, inject_*) belongs to
-later slices (ROADMAP.md Queue 2 K10-K16) and the SNV windows of the sweep
-to the graph-DNA slice.
+runs `diag_chars_plain` on CPU tensors; it serves the reference windows
+and, on a graph index, the SNV-plane windows.  `self_indel_sweep`
+launches kernel 4 (csrc/indel_sweep.cu, with the SNV windows) or runs
+`self_indel_sweep_plain`; `inject_indels` launches kernel 7
+(csrc/inject_indels.cu, with live_pen_prefix as a device function) or
+runs `inject_indels_plain`.  The plain versions are line-by-line ports of
+the JAX code.  The splice machinery (pair_sweep, select_pairs,
+second_sweep, inject_known) belongs to the spliced slice (ROADMAP.md
+Queue 2 K13-K18).
 """
 
 from __future__ import annotations
@@ -82,8 +86,10 @@ def _sweep_meta(G):
 
 def self_indel_sweep_plain(ch, reads, quals, lens, starts, valid, minsc,
                            mm_pen, n_pen: int, prm: SpliceParams,
-                           max_gap: int = None):
-    """Plain torch twin of kernel 4 (splice.py:952 line by line)."""
+                           max_gap: int = None, snv1_w=None, snv2_w=None):
+    """Plain torch twin of kernel 4 (splice.py:952 line by line).
+    snv1_w / snv2_w: the SNV-plane windows of the same diagonals on a
+    graph index (known SNVs are forgiven in the gap joins)."""
     i32 = torch.int32
     dev = ch.device
     N, C, W = ch.shape
@@ -102,6 +108,11 @@ def self_indel_sweep_plain(ch, reads, quals, lens, starts, valid, minsc,
         chs = ch[:, :, M + delta:M + delta + L]
         mm = vp & (rd < 4) & (chs < 4) & (rd != chs)
         raw = torch.cat([zero3, torch.cumsum(mm.to(i32), 2).to(i32)], 2)
+        if snv1_w is not None:
+            v1 = snv1_w[:, :, M + delta:M + delta + L]
+            v2 = snv2_w[:, :, M + delta:M + delta + L]
+            mm = mm & ~(((v1 != 0) & (rd == ((chs + v1) & 3)))
+                        | ((v2 != 0) & (rd == ((chs + v2) & 3))))
         pen = (torch.where(mm, mmq, 0) + isn_pen
                + torch.where(vp & (chs > 3), 100000, 0))
         return (torch.cat([zero3, torch.cumsum(pen, 2).to(i32)], 2), raw)
@@ -182,11 +193,13 @@ def self_indel_sweep_plain(ch, reads, quals, lens, starts, valid, minsc,
 
 
 def self_indel_sweep(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
-                     n_pen: int, prm: SpliceParams, max_gap: int = None):
+                     n_pen: int, prm: SpliceParams, max_gap: int = None,
+                     snv1_w=None, snv2_w=None):
     """Kernel 4 on CUDA tensors, self_indel_sweep_plain on CPU tensors."""
     if not ch.is_cuda:
         return self_indel_sweep_plain(ch, reads, quals, lens, starts, valid,
-                                      minsc, mm_pen, n_pen, prm, max_gap)
+                                      minsc, mm_pen, n_pen, prm, max_gap,
+                                      snv1_w, snv2_w)
     i32 = torch.int32
     N, C, W = ch.shape
     L = reads.shape[1]
@@ -198,6 +211,10 @@ def self_indel_sweep(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
                        ("mm_pen", mm_pen, (64,))):
         kernels.check_cuda(nm, t, i32, shp)
     kernels.check_cuda("valid", valid, torch.bool, (N, C))
+    use_snv = snv1_w is not None
+    if use_snv:
+        kernels.check_cuda("snv1_w", snv1_w, i32, (N, C, W))
+        kernels.check_cuda("snv2_w", snv2_w, i32, (N, C, W))
     if L > 1024:
         raise ValueError("indel_sweep: read length above 1024")
     dev = ch.device
@@ -207,7 +224,9 @@ def self_indel_sweep(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
         starts.data_ptr(), valid.data_ptr(), minsc.data_ptr(),
         mm_pen.data_ptr(), N * C, C, L, W, G, n_pen, prm.min_anchor,
         prm.rd_gap_open, prm.rd_gap_ext, prm.rf_gap_open, prm.rf_gap_ext,
-        res.data_ptr(), stream=kernels.stream_of(ch))
+        res.data_ptr(), (snv1_w if use_snv else ch).data_ptr(),
+        (snv2_w if use_snv else ch).data_ptr(), int(use_snv),
+        stream=kernels.stream_of(ch))
     zi = torch.zeros((N, C), dtype=i32, device=dev)
     zf = torch.zeros((N, C), dtype=torch.float32, device=dev)
     out = {}
@@ -217,4 +236,175 @@ def self_indel_sweep(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
         out[pfx + "spldir"] = zi
         out[pfx + "splscore"] = zf
     out["src"] = torch.arange(C, device=dev, dtype=i32)[None, :].expand(N, C)
+    return out
+
+
+MAX_INS = 16     # longest known insertion handled by the injection kernel
+
+
+def _searchsorted_left(tab, v):
+    """jnp.searchsorted(tab, v) (side='left') for a sorted 1-D tab."""
+    return torch.searchsorted(tab, v.contiguous(), right=False).to(
+        torch.int32)
+
+
+def inject_indels_plain(ref_words, n_text: int, reads, quals, lens, starts,
+                        valid, ch, snv1_w, snv2_w, margin: int, ip, ilen,
+                        ins_chars, rkey, r_ilen, r_row, mm_pen, n_pen: int,
+                        minsc, snv_delta1, snv_delta2, slots: int = 2):
+    """Plain torch twin of kernel 7: splice.py:838 inject_indels, line by
+    line, after building the source diagonals' SNV-forgiving penalty
+    prefixes P_snv [N, C, L+1] / tot_snv [N, C] from their windows, as
+    pipeline.py:1143-1145 does from the pen_planes."""
+    from . import extend as extend_ops
+    i32 = torch.int32
+    dev = reads.device
+    N, C = starts.shape
+    L = reads.shape[1]
+    E = ip.shape[0]
+    planes = extend_ops.pen_planes(
+        n_text, reads, quals, lens, torch.where(valid, starts, -1), mm_pen,
+        n_pen, ch, margin, snv1_w, snv2_w)
+    zero3 = torch.zeros((N, C, 1), dtype=i32, device=dev)
+    P_snv = torch.cat([zero3, torch.cumsum(planes.pen, 2).to(i32)], 2)
+    tot_snv = compact_ops.take_last(P_snv, lens[:, None].expand(N, C))
+    lens2 = lens[:, None]
+    srcC = torch.arange(C, device=dev, dtype=i32)[None, :].expand(N, C)
+
+    xs_, d2_, ok_, src_, ev_, ln_ = [], [], [], [], [], []
+    # left-keyed: src diagonal is the LEFT side; x = ip - d
+    lo = _searchsorted_left(ip, starts + 1)
+    for t in range(slots):
+        idx = torch.clamp(lo + t, max=E - 1).to(torch.int64)
+        okd = ((lo + t < E) & valid & (ip[idx] >= starts + 1)
+               & (ip[idx] <= starts + lens2 - 1))
+        xs_.append(torch.where(okd, ip[idx] - starts, 1))
+        d2_.append(starts + ilen[idx])
+        ok_.append(okd)
+        ev_.append(idx.to(i32))
+        ln_.append(ilen[idx])
+        src_.append(srcC)
+    # right-keyed: src diagonal is the RIGHT side; x = (ip + ilen) - d
+    lo2 = _searchsorted_left(rkey, starts + 1)
+    for t in range(slots):
+        idx = torch.clamp(lo2 + t, max=E - 1).to(torch.int64)
+        okd = ((lo2 + t < E) & valid & (rkey[idx] >= starts + 1)
+               & (rkey[idx] <= starts + lens2 - 1))
+        xs_.append(torch.where(okd, rkey[idx] - starts, 1))
+        d2_.append(starts - r_ilen[idx])   # = d1, the LEFT diagonal
+        ok_.append(okd)
+        ev_.append(r_row[idx])
+        ln_.append(r_ilen[idx])
+        src_.append(srcC)
+    J1 = C * slots
+    x_all = torch.cat(xs_, dim=1).to(i32)
+    fresh = torch.cat(d2_, dim=1).to(i32)
+    ok_all = torch.cat(ok_, dim=1)
+    event = torch.cat(ev_, dim=1).to(i32)
+    elen = torch.cat(ln_, dim=1).to(i32)      # +del / -ins
+    src = torch.cat(src_, dim=1)
+    J = x_all.shape[1]
+    is_left = torch.arange(J, device=dev)[None, :] < J1
+    I = torch.clamp(-elen, min=0)
+
+    # prefix scalars of the fresh-diagonal planes over LIVE columns only
+    # (left side uses the prefix at x, right side at x + inslen)
+    xr = torch.clamp(x_all + I, max=L)
+    tot_f, _, ppfx = extend_ops.live_pen_prefix_plain(
+        ref_words, n_text, reads, quals, lens, mm_pen, n_pen,
+        fresh, ok_all, [x_all, xr],
+        snv_delta1=snv_delta1, snv_delta2=snv_delta2)
+    (pf_x, _), (pf_xr, _) = ppfx
+    src64 = src.to(torch.int64)
+    P_src = P_snv.gather(1, src64[:, :, None].expand(N, J, P_snv.shape[2]))
+    ps_x = P_src.gather(2, x_all[:, :, None].to(torch.int64))[:, :, 0]
+    ps_xr = P_src.gather(2, xr[:, :, None].to(torch.int64))[:, :, 0]
+    tot_src = tot_snv.gather(1, src64)
+    src_start = starts.gather(1, src64)
+    # left-keyed: left = src prefix at x, right = fresh suffix from x+I
+    score_l = -(ps_x + (tot_f - pf_xr))
+    # right-keyed: left = fresh prefix at x, right = src suffix from x+I
+    score_r = -(pf_x + (tot_src - ps_xr))
+    score = torch.where(is_left, score_l, score_r)
+    d1 = torch.where(is_left, src_start, fresh)
+    d2 = torch.where(is_left, fresh, src_start)
+
+    # insertions: the skipped read bases must equal the variant allele
+    ins_ok = torch.ones((N, J), dtype=torch.bool, device=dev)
+    if E > 0:
+        col = torch.arange(MAX_INS, device=dev, dtype=i32)[None, None, :]
+        rpos = x_all[:, :, None] + col                   # [N, J, MAX_INS]
+        rb = reads[:, None, :].expand(N, J, L).gather(
+            2, torch.clamp(rpos, max=L - 1).to(torch.int64))
+        ev_chars = ins_chars[torch.clamp(event, min=0).to(torch.int64)]
+        need = col < I[:, :, None]
+        ins_ok = torch.where(need, rb == ev_chars, True).all(dim=2)
+        ins_ok = ins_ok | (elen > 0)
+
+    ok_all = ok_all & (x_all >= 1) & (x_all + I <= lens2 - 1) & ins_ok
+    ok_all = ok_all & (score >= minsc[:, None])
+    score = torch.where(ok_all, score, -_BIG).to(i32)
+    return dict(score=score, d1=d1.to(i32), d2=d2.to(i32), x=x_all,
+                kind=torch.where(ok_all,
+                                 torch.where(elen > 0, KIND_DEL, KIND_INS),
+                                 KIND_NONE).to(i32),
+                spldir=torch.zeros_like(score),
+                splscore=torch.zeros(score.shape, dtype=torch.float32,
+                                     device=dev),
+                event=torch.where(ok_all, event, -1).to(i32),
+                src=src.to(i32))
+
+
+def inject_indels(ref_words, n_text: int, reads, quals, lens, starts, valid,
+                  ch, snv1_w, snv2_w, margin: int, ip, ilen, ins_chars, rkey,
+                  r_ilen, r_row, mm_pen, n_pen: int, minsc, snv_delta1,
+                  snv_delta2, slots: int = 2):
+    """Kernel 7 on CUDA tensors, inject_indels_plain on CPU tensors.
+    starts/valid: the core candidates [N, C]; ch, snv1_w, snv2_w: their
+    windows (diag_chars with margin); ip .. r_row: the padded indel event
+    tables (index/format.py:graph_to_device)."""
+    if not reads.is_cuda:
+        return inject_indels_plain(
+            ref_words, n_text, reads, quals, lens, starts, valid, ch, snv1_w,
+            snv2_w, margin, ip, ilen, ins_chars, rkey, r_ilen, r_row, mm_pen,
+            n_pen, minsc, snv_delta1, snv_delta2, slots)
+    i32 = torch.int32
+    N, L = reads.shape
+    C = starts.shape[1]
+    W = ch.shape[2]
+    E = ip.shape[0]
+    for nm, t, shp in (("ref_words", ref_words, None),
+                       ("snv_delta1", snv_delta1, None),
+                       ("snv_delta2", snv_delta2, None),
+                       ("reads", reads, (N, L)), ("quals", quals, (N, L)),
+                       ("lens", lens, (N,)), ("starts", starts, (N, C)),
+                       ("ch", ch, (N, C, W)), ("snv1_w", snv1_w, (N, C, W)),
+                       ("snv2_w", snv2_w, (N, C, W)), ("ip", ip, (E,)),
+                       ("ilen", ilen, (E,)),
+                       ("ins_chars", ins_chars, (E, MAX_INS)),
+                       ("rkey", rkey, (E,)), ("r_ilen", r_ilen, (E,)),
+                       ("r_row", r_row, (E,)), ("mm_pen", mm_pen, (64,)),
+                       ("minsc", minsc, (N,))):
+        kernels.check_cuda(nm, t, i32, shp)
+    kernels.check_cuda("valid", valid, torch.bool, (N, C))
+    if snv_delta1.shape != snv_delta2.shape or W < L + 2 * margin:
+        raise ValueError("inject_indels: SNV planes differ in size or the "
+                         "windows are narrower than L + 2*margin")
+    J = 2 * slots * C
+    res = torch.empty((7, N, J), dtype=i32, device=reads.device)
+    kernels.KERNELS["inject_indels"].launch(
+        ref_words.data_ptr(), snv_delta1.data_ptr(), snv_delta2.data_ptr(),
+        reads.data_ptr(), quals.data_ptr(), lens.data_ptr(),
+        starts.data_ptr(), valid.data_ptr(), ch.data_ptr(),
+        snv1_w.data_ptr(), snv2_w.data_ptr(), ip.data_ptr(), ilen.data_ptr(),
+        ins_chars.data_ptr(), rkey.data_ptr(), r_ilen.data_ptr(),
+        r_row.data_ptr(), mm_pen.data_ptr(), minsc.data_ptr(), n_text,
+        ref_words.shape[0], snv_delta1.shape[0], N, C, L, W, margin, E,
+        slots, n_pen, *(res[i].data_ptr() for i in range(7)),
+        stream=kernels.stream_of(reads))
+    out = dict(zip(("score", "d1", "d2", "x", "kind", "event", "src"),
+                   res.unbind(0)))
+    out["spldir"] = torch.zeros((N, J), dtype=i32, device=reads.device)
+    out["splscore"] = torch.zeros((N, J), dtype=torch.float32,
+                                  device=reads.device)
     return out

@@ -1,11 +1,13 @@
-"""The four hand-written CUDA kernels against their plain torch twins on
+"""The seven hand-written CUDA kernels against their plain torch twins on
 the card, and the whole device step on the card against the step on the
-CPU.  Needs a CUDA device; skips without one.  On a machine without JAX
-run it as
+CPU, on a linear and on a graph index (lite and full pass).  Needs a CUDA
+device; skips without one.  On a machine without JAX run it as
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
 (tests/conftest.py imports jax).  Integer results: exact equality."""
+
+import os
 
 import numpy as np
 import pytest
@@ -13,6 +15,7 @@ import torch
 
 from hisat2_tpu.align.scoring import Scoring
 from hisat2_tpu.index.builder import build_fm_index
+from hisat2_tpu.index.variants import attach_variants
 
 pytestmark = pytest.mark.gpu
 MOTIF_AT = [20000 * k for k in range(1, 6)]
@@ -140,4 +143,201 @@ def test_step_on_card_matches_cpu(card):
         bp = cp.step(*cp.upload(reads, quals, lens, minsc), False, full)
         _eq(bk, bp, f"packed step (full_out={full})")
         assert cu._out_specs == cp._out_specs
+    # every kernel of the linear path (injection runs on graph indexes)
+    assert all(v > 0 for k, v in kernels.counts().items()
+               if k != "inject_indels")
+
+
+def _cmp(a, b, what):
+    if a is None or b is None:
+        assert a is None and b is None, what
+        return
+    assert a.dtype == b.dtype and a.shape == b.shape, what
+    _eq(a, b, what)
+
+
+def _flat(x):
+    if hasattr(x, "_fields"):
+        return {f: getattr(x, f) for f in x._fields}
+    if isinstance(x, dict):
+        return x
+    return {"out": x}
+
+
+def _replay(cap, names):
+    """Each captured kernel call through the kernel and its plain twin."""
+    from hisat2_tpu_torch.ops import kernel_twins
+    twins = kernel_twins()
+    assert sorted(cap) == sorted(names)
+    for name in names:
+        kern, plain = twins[name]
+        ko, po = _flat(kern(**cap[name])), _flat(plain(**cap[name]))
+        torch.cuda.synchronize()
+        assert sorted(ko) == sorted(po), name
+        for f in ko:
+            _cmp(ko[f], po[f], f"{name}.{f}")
+
+
+@pytest.fixture(scope="module")
+def gcard(card, tmp_path_factory):
+    """A 200 kbp graph index (SNVs, deletions, insertions at catalog
+    density x 20) and 1024 reads, a third carrying a catalog allele."""
+    rng = np.random.default_rng(21)
+    g = rng.integers(0, 4, 200_000).astype(np.uint8)
+    g[150_000:150_400] = g[20_000:20_400]
+    pos = np.sort(rng.choice(np.arange(500, len(g) - 500), 1600,
+                             replace=False))
+    lines, cat = [], []
+    for k, p in enumerate(pos):
+        p = int(p)
+        t = k % 4
+        if t < 2:
+            alt = (int(g[p]) + int(rng.integers(1, 4))) % 4
+            lines.append(f"v{k} single c {p} {'ACGT'[alt]}")
+            cat.append(("S", p, alt))
+        elif t == 2:
+            ln = int(rng.integers(1, 6))
+            lines.append(f"v{k} deletion c {p} {ln}")
+            cat.append(("D", p, ln))
+        else:
+            ins = rng.integers(0, 4, int(rng.integers(1, 6)))
+            lines.append(f"v{k} insertion c {p} "
+                         + "".join("ACGT"[c] for c in ins))
+            cat.append(("I", p, ins.astype(np.uint8)))
+    snp = os.path.join(str(tmp_path_factory.mktemp("gc")), "v.snp")
+    with open(snp, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    idx = build_fm_index([("c", g)])
+    attach_variants(idx, snp_file=snp)
+    L, B = 100, 1024
+    reads = np.zeros((B, L), np.int32)
+    for i in range(B):
+        s = int(rng.integers(0, len(g) - L - 10))
+        r = g[s:s + L].copy()
+        if i % 3 == 0:
+            kind, p, v = cat[int(rng.integers(0, len(cat)))]
+            s = max(0, min(p - int(rng.integers(10, L - 10)),
+                           len(g) - L - 10))
+            if kind == "S":
+                r = g[s:s + L].copy()
+                r[p - s] = v
+            elif kind == "D":
+                r = np.concatenate([g[s:p], g[p + v:s + L + v]])[:L]
+            else:
+                r = np.concatenate([g[s:p], v, g[p:s + L]])[:L]
+        if i % 4 == 1:
+            r[rng.integers(0, L, 2)] = rng.integers(0, 4, 2)
+        if i % 2:
+            r = (3 - r)[::-1]
+        reads[i] = r
+    quals = rng.integers(5, 41, (B, L)).astype(np.int32)
+    lens = np.full(B, L, np.int32)
+    lens[::9] = L - rng.integers(1, 20, len(lens[::9]))
+    for i in range(0, B, 9):
+        reads[i, lens[i]:] = 4
+    return idx, reads, quals, lens
+
+
+@pytest.mark.parametrize("lite", [True, False])
+def test_graph_kernels_match_plain_on_card(gcard, lite):
+    """Every kernel of the graph step (lite: no sweep, no injection) on
+    its real intermediates, SNV branches included."""
+    from hisat2_tpu_torch.align.pipeline import TorchAligner
+    idx, reads, quals, lens = gcard
+    top = TorchAligner(idx, device="cuda", variants=idx._variants,
+                       lane_meta=True)
+    al = top._fast if lite else top
+    cap = {}
+    al.step(*al.upload(reads, quals, lens, al._minsc(lens)), False,
+            capture=cap)
+    names = ["fm_search2", "compact_cands", "ref_window",
+             "extend_ungapped", "pack_slots"]
+    if not lite:
+        names += ["inject_indels", "indel_sweep"]
+    assert cap["extend_ungapped"]["snv1_win"] is not None
+    _replay(cap, names)
+
+
+def test_graph_step_on_card_matches_cpu(gcard):
+    from hisat2_tpu_torch import kernels
+    from hisat2_tpu_torch.align.pipeline import TorchAligner
+    idx, reads, quals, lens = gcard
+    cu = TorchAligner(idx, device="cuda", variants=idx._variants,
+                      lane_meta=True)
+    cp = TorchAligner(idx, device="cpu", variants=idx._variants,
+                      lane_meta=True)
+    minsc = cu._minsc(lens)
+    kernels.reset_counts()
+    for tier in ("_fast", None):
+        a = getattr(cu, tier) if tier else cu
+        b = getattr(cp, tier) if tier else cp
+        for full in (False, True):
+            bk = a.step(*a.upload(reads, quals, lens, minsc), False, full)
+            bp = b.step(*b.upload(reads, quals, lens, minsc), False, full)
+            _eq(bk, bp, f"packed step {tier} full_out={full}")
+            assert a._out_specs == b._out_specs
+            assert a._spill_meta == b._spill_meta
     assert all(v > 0 for v in kernels.counts().values())
+
+
+@pytest.mark.parametrize("N,K,Mdev,spill,dense", [
+    (3000, 23, 12, True, 0.3), (3000, 23, 12, True, 0.05),
+    (2048, 6, 6, True, 0.5), (1000, 47, 22, False, 0.3),
+    (513, 11, 11, False, 0.4)])
+def test_pack_slots_random_on_card(card, N, K, Mdev, spill, dense):
+    """K9 on random schemas: ties, both layouts, a spill that overflows
+    its S = N rows (dense 0.3) and one that does not, lane counts over
+    the scan block's 1024."""
+    from hisat2_tpu_torch.ops import compact
+    rng = np.random.default_rng(N + K)
+    uni = rng.integers(-40, 1, (17, N, K)).astype(np.int32)
+    valid = rng.random((N, K)) < dense
+    uni[15] = valid
+    uni[0] = np.where(valid, rng.integers(-12, 1, (N, K)), -(2 ** 30))
+    for f in (4, 5, 6, 8, 9):            # kind spldir known post selfgap
+        uni[f] = rng.integers(0, 2 if f != 4 else 4, (N, K))
+    uni[5] = 0
+    uni[16] = np.where(valid, rng.integers(-1, 50, (N, K)), -1)
+    u = torch.from_numpy(uni).cuda()
+    ko = compact.pack_slots(u, Mdev, spill)
+    po = compact.pack_slots_plain(u, Mdev, spill)
+    torch.cuda.synchronize()
+    assert sorted(ko) == sorted(po)
+    for k in ko:
+        _cmp(ko[k], po[k].contiguous(), k)
+    if spill and dense == 0.3:
+        assert int(ko["sp_src"][-1]) == -2
+
+
+@pytest.mark.parametrize("lane_meta,lite_cap", [(True, 0), (False, 8)])
+def test_compact_cands_random_on_card(card, lane_meta, lite_cap):
+    """K3+K4 on random hits over the card fixture's SA: duplicates,
+    short and long hits, wide hits, stopped lanes, N not a multiple of
+    the warps per block."""
+    from hisat2_tpu_torch.index.format import to_device
+    from hisat2_tpu_torch.ops import compact
+    g, idx = card
+    dev = to_device(idx, "cuda")
+    rng = np.random.default_rng(5 + lite_cap)
+    N, H = 1999, 6
+    rows = idx.meta.rows
+    top = rng.integers(0, rows - 30, (N, H)).astype(np.int32)
+    top[:, 1] = top[:, 0]                       # duplicate hits
+    w = rng.choice([0, 1, 1, 2, 3, 5, 9, 12, 25], (N, H))
+    bot = (top + w).astype(np.int32)
+    lo = rng.integers(0, 60, (N, H)).astype(np.int32)
+    hi = (lo + rng.integers(5, 40, (N, H))).astype(np.int32)
+    nh = rng.integers(0, H + 1, N).astype(np.int32)
+    ab = rng.integers(0, 9, (N, H)).astype(np.int32)
+    post = rng.random((N, H)) < 0.3
+    stopped = rng.random(N) < 0.3
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa
+    kw = dict(sa=dev.sa, top=t(top), bot=t(bot), lo=t(lo), hi=t(hi),
+              nh=t(nh), abefore=t(ab), post=t(post), stopped=t(stopped),
+              P=10, C=11, CC=6, min_k=9, maxsize=10, short_rows=5,
+              lite_cap=lite_cap, lane_meta=lane_meta)
+    ko = compact.compact_cands(**kw)
+    po = compact.compact_candidates_plain(**kw)
+    torch.cuda.synchronize()
+    for f in ko._fields:
+        _cmp(getattr(ko, f), getattr(po, f), f)

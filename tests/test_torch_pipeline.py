@@ -239,7 +239,9 @@ def test_dna_replay_never_reaches_probscore(aligners, monkeypatch):
     (["-1", "a.fa", "-2", "b.fa", "--no-spliced-alignment"], "item 4"),
     (["-U", "a.fa"], "item 5"),
     (["-U", "a.fa", "--no-spliced-alignment", "--n-hosts", "2"], "item 7"),
-    (["-U", "a.fa", "--no-spliced-alignment", "VAR"], "item 3"),
+    # paired reads stay refused on a graph index too
+    (["-1", "a.fa", "-2", "b.fa", "--no-spliced-alignment", "VAR"],
+     "item 4"),
 ])
 def test_cli_refuses_unported_modes(tmp_path, capsys, extra, why):
     from hisat2_tpu_torch.cli.align import main
