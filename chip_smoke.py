@@ -8,9 +8,14 @@ config-2 genome size (a seeded 40 Mbp genome, as bench.py config 2), and
 checks them:
 
   1 card    nvidia-smi name and power limit, torch's device name
-  2 build   the seven CUDA kernels from hisat2_tpu_torch/csrc (one nvcc
+  2 build   the eight CUDA kernels from hisat2_tpu_torch/csrc (one nvcc
             per source, in parallel)
-  3 index   build (cached under the temp dir) and upload the index
+  3 index   build (cached under the temp dir) and upload the index; the
+            genome carries 16 distinct 120 bp units, each 24 times at
+            18 kbp spacing, so that mates inside them need mate rescue in
+            phase 9 (tests/test_rescue.py's shape, 15 copies, is enough
+            at k = 5; at the graph default k = 10 the search reports up
+            to 20 placements, and a mate with 15 copies aligns alone)
   4 kernels linear path: each kernel on the real intermediates of one
             4096-read batch, against its plain torch twin on the card:
             exact equality, median times of both
@@ -35,6 +40,25 @@ checks them:
             position (>= 99%), known-indel alignments (> 0), routed share,
             launch counts (all seven > 0); and the CLI on the committed
             graph corpus (tests/data/gdna_*) against its oracle
+  9 paired  paired-end DNA at the shape of bench.py config 3 (paired
+            100 bp mates, --fr, against the graph index, k = 10), 4096
+            pairs per batch, one fused batch of 8192 mates: K12
+            (rescue_window) on the phase's real rescue jobs against its
+            plain twin, with the whole rescue_candidates call, and timed
+            beside the library yardstick (a grouped bf16 conv1d plus
+            topk); the fused lite and full step against the CPU step;
+            4 batches through align/driver.py's _dispatch_pair_batch /
+            advance / _align_pair_batch with SAM to memory: pairs/s,
+            host ms per stage, concordant share (>= 0.95 among pairs
+            without a repeat or random mate), SNV-only mates at their
+            true position (>= 0.99), rescue jobs and rescued mates (> 0),
+            launch counts (all eight > 0); and the paired CLI on the
+            committed corpus (tests/data/pe_*) against its oracles, on
+            the linear and the graph index
+
+Each kernel's bound (the kernels line's bound_ms) is the larger of the
+bytes it must move over 3.35 TB/s and its operations over the peak rate
+of their type (`work` below states the count for each kernel).
 
 Any failed check raises and exits non-zero.  Without a CUDA device, or
 outside the repository, it exits non-zero and prints no result.  The line
@@ -61,6 +85,13 @@ B, L, N_BATCHES, DEPTH = 4096, 100, 16, 8
 # and launch every kernel
 G_BATCHES = 4
 GENOME = 40_000_000
+# phase 9: 16 distinct 120 bp units, each 24 times at 18 kbp spacing
+REP_UNITS, REP_COPIES, REP_SPACING, REP_BASE = 16, 24, 18_000, 2_000_000
+P_BATCHES = 4
+# the card's peaks (H100 SXM data sheet): HBM bytes/s, bf16 tensor-core
+# flop/s, and the CUDA-core rate (its fp32 figure) used for the integer
+# work of the kernels
+HBM, BF16, CUDA_CORE = 3.35e12, 989e12, 67e12
 # HISAT2's GRCh38 graph: 11 M SNVs, 728 K deletions, 555 K insertions over
 # 3.1 Gbp (SURVEY.md), scaled to the genome
 N_SNV = round(11_000_000 * GENOME / 3.1e9)
@@ -180,6 +211,149 @@ def simulate_graph(np, rng, g, cat, B, L):
     return codes, quals, np.full(B, L, np.int32), start, snv_only, rc
 
 
+def plant_repeats(np, g):
+    """Overwrite 16 distinct 120 bp units into g, each 24 times at 18 kbp
+    spacing, inside the one chromosome; returns the copies' starts
+    [unit][copy]."""
+    rng = np.random.default_rng(31)
+    spots = []
+    for u in range(REP_UNITS):
+        unit = rng.integers(0, 4, 120).astype(np.uint8)
+        base = REP_BASE + u * (REP_COPIES + 1) * REP_SPACING
+        spots.append([base + REP_SPACING * c for c in range(REP_COPIES)])
+        for at in spots[-1]:
+            g[at:at + 120] = unit
+    return spots
+
+
+def simulate_pairs(np, rng, g, cat, spots, B, L):
+    """B read pairs, --fr, fragments of 200-500 bp.  The left mate
+    carries phase 8's allele mix (40% one catalog SNV only, 25% one
+    catalog indel, 20% 1-3 sequencing mismatches, 15% a reference copy);
+    5% of pairs have their left mate inside a planted repeat copy, 2% a
+    right mate of random sequence; half the pairs come from the reverse
+    strand (mate 1 is then the right mate).  Returns mate codes and quals
+    (uint8 [B, L]), each mate's true leftmost position, which mates carry
+    one catalog SNV only, and which pairs have no repeat or random mate."""
+    kind, pos, alt, ln, ins = cat
+    n = len(g)
+    r = rng.random(B)
+    rep = r < 0.05
+    rnd = (r >= 0.05) & (r < 0.07)
+    plain = ~rep & ~rnd
+    r2 = rng.random(B)
+    snv_only = plain & (r2 < 0.4)
+    has_indel = plain & (r2 >= 0.4) & (r2 < 0.65)
+    errs = plain & (r2 >= 0.65) & (r2 < 0.85)
+    snvs = np.flatnonzero(kind == 0)
+    indels = np.flatnonzero(kind > 0)
+    vid = np.where(snv_only, rng.choice(snvs, B), rng.choice(indels, B))
+    off = rng.integers(12, L - 12, B)
+    F = rng.integers(200, 501, B)
+    s = np.where(snv_only | has_indel, pos[vid] - off,
+                 rng.integers(0, n - 700, B))
+    u = rng.integers(0, REP_UNITS, B)
+    c = rng.integers(0, REP_COPIES, B)
+    s = np.where(rep, np.asarray(spots)[u, c] + 10, s)
+    s = np.clip(s, 0, n - 700)
+    left = g[s[:, None] + np.arange(L)].astype(np.uint8)
+    rows = np.flatnonzero(snv_only)
+    left[rows, pos[vid[rows]] - s[rows]] = alt[vid[rows]]
+    for i in np.flatnonzero(has_indel):
+        v = vid[i]
+        a, p, k = int(s[i]), int(pos[v]), int(ln[v])
+        if kind[v] == 1:
+            left[i] = g[np.r_[a:p, p + k:a + L + k]]
+        else:
+            left[i] = np.concatenate([g[a:p], ins[v, :k], g[p:a + L]])[:L]
+    rs = s + F - L
+    right = (3 - g[rs[:, None] + np.arange(L)])[:, ::-1].astype(np.uint8)
+    right[rnd] = rng.integers(0, 4, (int(rnd.sum()), L))
+    for m in (left, right):
+        for k in range(3):
+            sel = errs & (rng.random(B) < 0.7 if k else True)
+            rr = np.flatnonzero(sel)
+            p = rng.integers(0, L, len(rr))
+            m[rr, p] = (m[rr, p] + rng.integers(1, 4, len(rr))) % 4
+    fw = rng.random(B) < 0.5
+    m1 = np.where(fw[:, None], left, right)
+    m2 = np.where(fw[:, None], right, left)
+    q1, q2 = (rng.integers(20, 41, (B, L)).astype(np.uint8) for _ in (0, 1))
+    pos1, pos2 = np.where(fw, s, rs), np.where(fw, rs, s)
+    snv1, snv2 = snv_only & fw, snv_only & ~fw
+    return m1, m2, q1, q2, pos1, pos2, snv1, snv2, plain
+
+
+def nbytes(torch, *ts):
+    return sum(t.numel() * t.element_size() for t in ts if torch.is_tensor(t))
+
+
+def work(torch, name, kw, out):
+    """(bytes, operations, peak rate, what bounds it) of one kernel call
+    on these inputs.  Bytes: the dense inputs read once, the outputs
+    written once, and of a large table only what these inputs touch.
+    Operations: the kernel's per-element work at the CUDA-core rate,
+    except K12, whose JAX original is a one-hot product (2 * 4 * W * L
+    flops per job) at the bf16 tensor-core rate."""
+    ob = nbytes(torch, *flat_outputs(out))
+    dense = nbytes(torch, *(v for k, v in kw.items() if k not in (
+        "blocked", "sa", "ref_words", "snv_delta1", "snv_delta2", "ip",
+        "ilen", "ins_chars", "rkey", "r_ilen", "r_row")))
+    rate = CUDA_CORE
+    if name == "fm_search2":
+        chars = int(kw["lens"].sum())
+        extra, ops = chars * 176, chars * 40     # a 44-word row per char
+    elif name == "compact_cands":
+        rows = (kw["bot"] - kw["top"]).clamp(0, kw["P"])
+        N, H = kw["top"].shape
+        extra, ops = int(rows.sum()) * 4, N * (H * kw["P"]) ** 2
+    elif name == "ref_window":
+        extra, ops = ob // 16, ob                # a packed word per 16 chars
+    elif name == "extend_ungapped":
+        B, C = kw["cand_start"].shape
+        extra, ops = 0, B * C * kw["reads"].shape[1] * 30
+    elif name == "indel_sweep":
+        N, C, _ = kw["ch"].shape
+        extra = 0
+        ops = N * C * kw["reads"].shape[1] * kw["max_gap"] * 4 * 8
+    elif name == "pack_slots":
+        _, N, K = kw["uni"].shape
+        extra, ops = 0, N * K * K * 2
+    elif name == "inject_indels":
+        N, C = kw["starts"].shape
+        extra = 0
+        ops = N * C * 2 * kw["slots"] * kw["reads"].shape[1] * 10
+    elif name == "rescue_window":
+        R, L = kw["reads"].shape
+        extra = R * ((kw["W"] + L - 1 + 15) // 16) * 4   # 2-bit windows
+        ops, rate = 2 * 4 * kw["W"] * L * R, BF16
+    else:
+        raise KeyError(name)
+    by = dense + extra + ob
+    t_b, t_o = by / HBM * 1e3, ops / rate * 1e3
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def rescue_library_ms(torch, kw):
+    """The library yardstick of K12: one grouped bf16 conv1d of the
+    one-hot window against the one-hot mates, then torch.topk (the JAX
+    original's computation; the port never calls it)."""
+    from hisat2_tpu_torch.ops import rank
+    R, L = kw["reads"].shape
+    W = kw["W"]
+    refc = rank.ref_chars_block(kw["ref_words"], kw["n_text"],
+                                kw["win_start"], W + L - 1)
+    ar = torch.arange(4, device=refc.device)[None, :, None]
+    x = (refc[:, None, :] == ar).to(torch.bfloat16).reshape(1, R * 4, -1)
+    w = (kw["reads"][:, None, :] == ar).to(torch.bfloat16)
+
+    def lib(x, w):
+        m = torch.nn.functional.conv1d(x, w, groups=R)[0]
+        return torch.topk(m.float(), 8, dim=1)
+
+    return median_ms(torch, lib, {"x": x, "w": w})
+
+
 def median_ms(torch, fn, kw, reps=10):
     for _ in range(2):
         fn(**kw)
@@ -246,6 +420,7 @@ def main() -> int:
     from hisat2_tpu_torch.ops import kernel_twins, splice
 
     twins = kernel_twins()
+    bounds = {}
     phase_s = {}
     t_phase = time.perf_counter()
 
@@ -277,8 +452,10 @@ def main() -> int:
     t0 = time.perf_counter()
     rng = np.random.default_rng(7)
     g = rng.integers(0, 4, GENOME).astype(np.uint8)
+    spots = plant_repeats(np, g)
     cache = os.path.join(tempfile.gettempdir(),
-                         "hisat2_tpu_torch_config2_40M_seed7")
+                         f"hisat2_tpu_torch_config2_{GENOME}_seed7_rep"
+                         f"{REP_UNITS}x{REP_COPIES}")
     if os.path.exists(cache + ".npz"):
         index = FMIndex.load(cache)
         how = "loaded from cache"
@@ -390,7 +567,7 @@ def main() -> int:
     check(share_true >= 0.99, "unmodified reads placed true < 99%")
     for name in linear:
         check(launches[name] > 0, f"{name} never launched on the main path")
-        rows[name]["launches_linear"] = launches[name]
+    path_launches = {"linear": launches}
     phase_done("slice")
 
     # 7 CLI on the mm3 corpus
@@ -456,6 +633,10 @@ def main() -> int:
               "graph extension without SNV windows")
         for name in want:
             err, ms, pms = compare(torch, name, *twins[name], cap[name])
+            if tier == "full" or name not in bounds:
+                # the bound at the shapes `ms` is taken at (the full pass)
+                bounds[name] = work(torch, name, cap[name],
+                                    twins[name][0](**cap[name]))
             row = rows.setdefault(name, {
                 "name": name, "route": "cuda",
                 "source": kernels.KERNELS[name].source,
@@ -545,10 +726,10 @@ def main() -> int:
     check(share_true >= 0.99, "SNV-only reads placed true < 99%")
     check(n_known > 0, "no alignment with a known-indel event")
     for name in kernels.KERNELS:
-        check(launches[name] > 0, f"{name} never launched on the graph path")
-        rows[name]["launches"] = launches[name]
-        if name not in linear:
-            rows[name]["launches_linear"] = 0
+        if name != "rescue_window":     # paired batches only (phase 9)
+            check(launches[name] > 0,
+                  f"{name} never launched on the graph path")
+    path_launches["graph"] = launches
     phase_done("graph slice")
 
     tmp = tempfile.mkdtemp(prefix="h2torch_gcli_")
@@ -576,9 +757,260 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_done("graph cli")
 
-    for r in rows.values():
-        r["ms"] = r.get("full_ms", r.get("linear_ms"))
-        r["plain_ms"] = r.get("full_plain_ms", r.get("linear_plain_ms"))
+    # 9 paired DNA at config-3 shape: the graph index with k = 10, as
+    # run_align sets it (bench.py:223-233, 318-330)
+    del gal
+    torch.cuda.empty_cache()
+    from hisat2_tpu_torch.align.paired import PairPolicy
+    from hisat2_tpu_torch.io.fasta import ReadBatch
+    from hisat2_tpu_torch.ops import extend, rescue
+    pal = TorchAligner(index, device="cuda", variants=db, k=10,
+                       lane_meta=True)
+    prng = np.random.default_rng(77)
+    pb = []
+    for bi in range(P_BATCHES + 1):
+        m1, m2, q1, q2, pos1, pos2, snv1, snv2, plain = simulate_pairs(
+            np, prng, g, cat, spots, B, L)
+        nm = [f"q{bi}_{i}" for i in range(B)]
+        pb.append((ReadBatch(nm, list(m1), list(q1)),
+                   ReadBatch(list(nm), list(m2), list(q2)),
+                   pos1, pos2, snv1, snv2, plain))
+    policy = PairPolicy()
+    jobs = {"n": 0, "rescued": 0, "ms": 0.0}
+    orig_rescue = pal.rescue_mates
+
+    def rescue_rec(*a):
+        t = time.perf_counter()
+        out = orig_rescue(*a)
+        jobs["ms"] += 1e3 * (time.perf_counter() - t)
+        jobs["n"] += len(a[0])
+        jobs["rescued"] += sum(1 for x in out if x)
+        return out
+
+    pal.rescue_mates = rescue_rec
+
+    class TimedWriter:
+        """The SAM writer, with the time spent in write_pair (render)."""
+
+        def __init__(self, w):
+            self.w, self.ms = w, 0.0
+
+        def write_pair(self, *a, **k):
+            t = time.perf_counter()
+            self.w.write_pair(*a, **k)
+            self.ms += 1e3 * (time.perf_counter() - t)
+
+    def pair_writer(sink):
+        return TimedWriter(driver.SamWriter(
+            sink, list(index.meta.ref_names), index.meta.ref_lens,
+            no_head=True, annotator=pal.annotate_snps))
+
+    ref_fn = lambda pos, span: pal.ref_codes[pos:pos + span]  # noqa: E731
+    # one batch through _align_pair_batch: warm-up, and the real rescue
+    # jobs, the keyword arguments of its first rescue_candidates call
+    b1, b2 = pb[0][:2]
+    rd0 = np.arange(B, dtype=np.int64)
+    cap = {}
+    orig_cands = rescue.rescue_candidates
+
+    def cands_rec(**kw):
+        if not cap:
+            cap.update(kw)
+        return orig_cands(**kw)
+
+    rescue.rescue_candidates = cands_rec
+    try:
+        driver._align_pair_batch(pal, pair_writer(io.StringIO()), policy,
+                                 pal.scoring, 10, b1, b2, ref_fn, rd0)
+    finally:
+        rescue.rescue_candidates = orig_cands
+    check(cap, "no rescue job in the warm-up batch")
+    kw = {k: cap[k] for k in ("ref_words", "n_text", "reads", "win_start",
+                              "W")}
+    err, ms, pms = compare(torch, "rescue_window", *twins["rescue_window"],
+                           kw)
+    ks, ke = rescue.rescue_candidates(**cap)
+    ps = rescue.rescue_window_plain(**kw)
+    L9 = cap["reads"].shape[1]
+    wins = [splice.diag_chars_plain(w_, cap["n_text"], ps, L9, 0)
+            if w_ is not None else None
+            for w_ in (cap["ref_words"], cap["snv_delta1"],
+                       cap["snv_delta2"])]
+    pe = extend.extend_grouped_plain(
+        cap["n_text"], cap["reads"], cap["quals"], cap["lens"], ps,
+        cap["mm_pen"], cap["clip_pen"], cap["n_pen"], wins[0], 0,
+        allow_softclip=cap["allow_softclip"], snv1_win=wins[1],
+        snv2_win=wins[2])
+    torch.cuda.synchronize()
+    check(torch.equal(ks, ps), "rescue_candidates starts")
+    for f in ke._fields:
+        check(torch.equal(getattr(ke, f), getattr(pe, f)),
+              f"rescue_candidates {f}")
+    lib = rescue_library_ms(torch, kw)
+    bounds["rescue_window"] = work(torch, "rescue_window", kw,
+                                   twins["rescue_window"][0](**kw))
+    k12 = kernels.KERNELS["rescue_window"]
+    rows["rescue_window"] = {
+        "name": "rescue_window", "route": "cuda", "source": k12.source,
+        "replaces": k12.replaces, "max_abs_err": err, "paired_ms": ms,
+        "paired_plain_ms": pms, "library_ms": lib}
+    print(f"[paired kernels] rescue_window on {tuple(kw['reads'].shape)} "
+          f"real rescue jobs (W {kw['W']}): equal to plain (tolerance: "
+          f"exact), and the whole rescue_candidates call with SNV planes; "
+          f"kernel {ms:.4f} ms, plain {pms:.4f} ms, library (bf16 conv1d "
+          f"+ topk) {lib:.4f} ms; bound {bounds['rescue_window'][0]:.4f} "
+          f"ms by {bounds['rescue_window'][1]} (median of 10)")
+
+    # the fused lite and full step against the CPU step, on one batch
+    pcpu = TorchAligner(index, device="cpu", variants=db, k=10,
+                        lane_meta=True)
+    codes = np.concatenate([b1.codes, b2.codes])
+    quals = np.concatenate([b1.quals, b2.quals])
+    lens = np.concatenate([b1.lens, b2.lens])
+    minsc = pal._minsc(lens)
+    for tier in ("_fast", None):
+        a = getattr(pal, tier) if tier else pal
+        c = getattr(pcpu, tier) if tier else pcpu
+        t0 = time.perf_counter()
+        bk = a.step(*a.upload(codes, quals, lens, minsc), True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bp = c.step(*c.upload(codes, quals, lens, minsc), True)
+        w = bk.shape[1]
+        nm = "lite" if tier else "full"
+        check(torch.equal(bk.cpu(), bp), f"paired {nm} packed step")
+        check(a._out_specs[w] == c._out_specs[w], f"paired {nm} _out_specs")
+        print(f"[paired step] fused {nm} step, {2 * len(codes)} lanes: "
+              f"packed [{bk.shape[0]}, {w}] equal to the CPU plain step; "
+              f"card {1e3 * (t1 - t0):.1f} ms (host clock), CPU "
+              f"{time.perf_counter() - t1:.1f} s")
+    del pcpu
+
+    # the main path: run_align's paired loop (align/driver.py), 3 deep
+    pst = {"pairs": 0, "normal": 0, "conc": 0, "snv": 0, "snv_true": 0,
+           "collect_ms": 0.0, "batch_ms": 0.0, "render_ms": 0.0}
+    orig_collect = pal.collect
+
+    def collect_timed(h, paired=False):
+        t = time.perf_counter()
+        out = orig_collect(h, paired=paired)
+        pst["collect_ms"] += 1e3 * (time.perf_counter() - t)
+        return out
+
+    pal.collect = collect_timed
+    jobs.update(n=0, rescued=0, ms=0.0)
+
+    def finish(item):
+        b1_, b2_, rd_, h_, meta = item
+        pos1, pos2, snv1, snv2, plain = meta
+        sink = io.StringIO()
+        wr = pair_writer(sink)
+        t = time.perf_counter()
+        driver._align_pair_batch(pal, wr, policy, pal.scoring, 10, b1_, b2_,
+                                 ref_fn, rd_, handle=h_)
+        pst["batch_ms"] += 1e3 * (time.perf_counter() - t)
+        pst["render_ms"] += wr.ms
+        prim = {}
+        for line in sink.getvalue().splitlines():
+            f = line.split("\t", 4)
+            flag = int(f[1])
+            if flag & 256:
+                continue
+            prim[(int(f[0].rsplit("_", 1)[1]), 1 if flag & 64 else 2)] = (
+                flag, int(f[3]) - 1)
+        conc = np.array([bool(prim[(i, 1)][0] & 2) for i in range(B)])
+        pst["pairs"] += B
+        pst["normal"] += int(plain.sum())
+        pst["conc"] += int((conc & plain).sum())
+        for m, (pos, sv) in ((1, (pos1, snv1)), (2, (pos2, snv2))):
+            for i in np.flatnonzero(sv):
+                fl, p = prim[(int(i), m)]
+                pst["snv"] += 1
+                pst["snv_true"] += int(not fl & 4 and p == pos[i])
+
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    pend = deque()
+    for bi, (b1_, b2_, *meta) in enumerate(pb[1:]):
+        rd_ = bi * B + np.arange(B, dtype=np.int64)
+        pend.append((b1_, b2_, rd_,
+                     driver._dispatch_pair_batch(pal, b1_, b2_, rd_), meta))
+        if len(pend) >= 2:
+            p1, p2, pr, (ph, plens), pm = pend[-2]
+            pend[-2] = (p1, p2, pr, (pal.advance(ph, paired=True), plens),
+                        pm)
+        if len(pend) >= 3:
+            finish(pend.popleft())
+    while pend:
+        finish(pend.popleft())
+    t_slice = time.perf_counter() - t0
+    launches = kernels.counts()
+    pal.collect, pal.rescue_mates = orig_collect, orig_rescue
+    nb = len(pb) - 1
+    conc_share = pst["conc"] / pst["normal"]
+    snv_true = pst["snv_true"] / pst["snv"]
+    pairing = (pst["batch_ms"] - pst["collect_ms"] - jobs["ms"]
+               - pst["render_ms"]) / nb
+    print(f"[paired slice] {pst['pairs']} pairs ({2 * pst['pairs']} mates) "
+          f"in {t_slice:.2f} s: {pst['pairs'] / t_slice:.1f} pairs/s on "
+          f"{card}; concordant share {conc_share:.4f} of "
+          f"{pst['normal']} pairs without a repeat or random mate; SNV-only "
+          f"mates at their true position {snv_true:.4f} "
+          f"({pst['snv_true']}/{pst['snv']}); rescue jobs {jobs['n']}, "
+          f"rescued mates {jobs['rescued']}; launches {launches}")
+    print(f"[paired slice] host ms per batch: collect (device wait + host "
+          f"phases) {pst['collect_ms'] / nb:.1f}, pairing (give-up replay, "
+          f"best_pairs, finalize, MAPQ) {pairing:.1f}, rescue "
+          f"{jobs['ms'] / nb:.1f}, render {pst['render_ms'] / nb:.1f}; "
+          f"whole _align_pair_batch {pst['batch_ms'] / nb:.1f}")
+    check(conc_share >= 0.95, "concordant share < 0.95")
+    check(snv_true >= 0.99, "SNV-only mates placed true < 99%")
+    check(jobs["n"] > 0 and jobs["rescued"] > 0, "no rescue job or no "
+          "rescued mate on the paired path")
+    for name in kernels.KERNELS:
+        check(launches[name] > 0, f"{name} never launched on the paired "
+              f"path")
+    path_launches["paired"] = launches
+    del pal
+    torch.cuda.empty_cache()
+
+    # the paired CLI on the committed corpus, linear and graph index
+    tmp = tempfile.mkdtemp(prefix="h2torch_pcli_")
+    data = os.path.join(REPO, "tests/data")
+    try:
+        with gzip.open(os.path.join(data, "pe_genome.fa.gz"), "rb") as f, \
+                open(os.path.join(tmp, "g.fa"), "wb") as o:
+            o.write(f.read())
+        run_cli(["build", "g.fa", "idx"], tmp, env, 300)
+        run_cli(["build", "--snp", os.path.join(data, "pe.snp"), "g.fa",
+                 "idxs"], tmp, env, 300)
+        for idx_name, oracle in (("idx", "pe_ref"), ("idxs", "pe_ref_snp")):
+            t0 = time.perf_counter()
+            run_cli(["align", "--no-spliced-alignment", "-f", "-x",
+                     idx_name, "-1", os.path.join(data, "pe_reads_1.fa"),
+                     "-2", os.path.join(data, "pe_reads_2.fa"), "-S",
+                     "out.sam", "--device", "cuda"], tmp, env, 600)
+            with open(os.path.join(tmp, "out.sam")) as f:
+                got = [x for x in f if not x.startswith("@")]
+            with gzip.open(os.path.join(data, oracle + ".sam.gz"),
+                           "rt") as f:
+                want = f.readlines()
+            check(got == want, f"paired CLI SAM body differs from {oracle}")
+            print(f"[paired cli] align -1 -2 --device cuda on {idx_name}: "
+                  f"{len(got)} SAM records equal to {oracle} "
+                  f"({time.perf_counter() - t0:.1f} s incl. start-up)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_done("paired")
+
+    for name, r in rows.items():
+        r["launches"] = path_launches["paired"][name]
+        r["launches_linear"] = path_launches["linear"][name]
+        r["launches_graph"] = path_launches["graph"][name]
+        r["ms"] = r.get("full_ms", r.get("paired_ms"))
+        r["plain_ms"] = r.get("full_plain_ms", r.get("paired_plain_ms"))
+        r["bound_ms"], r["bound_by"] = bounds[name]
+        r.setdefault("library_ms", None)
     print(f"[done] phase seconds {json.dumps(phase_s)}")
     print(json.dumps({"kernels": [rows[n] for n in kernels.KERNELS]}))
     print(json.dumps({"ok": True, "device": {

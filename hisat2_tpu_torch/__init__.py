@@ -2,25 +2,34 @@
 
 The JAX package `hisat2_tpu` stays the reference: every module here has a
 counterpart there and is held bit for bit against it on the same inputs.
-This package imports torch and never jax.  It reuses only the numpy host
-modules of hisat2_tpu that never reach JAX (index format/builder, read and
-SAM I/O, scoring, MAPQ, RNG, the host hybrid replay); the numpy host phase
-that lives beside JAX code in hisat2_tpu/align/pipeline.py is carried into
+This package imports torch and never jax, and nothing of hisat2_tpu: the
+numpy host modules it needs (index format and builder, variant catalog,
+.ht2 conversion, read and SAM I/O, scoring, MAPQ, RNG, the host hybrid
+replay, pairing and the paired give-up replay, the C++ helpers in native/)
+are copies at the same relative paths, and the numpy host phase that lives
+beside JAX code in hisat2_tpu/align/pipeline.py is carried into
 align/host.py.
 
 Layout (mirrors hisat2_tpu):
-  utils/    uint32 emulation on int64 tensors (intops)
-  index/    TorchFMIndex: the device-resident index (to_device)
-  ops/      rank/LF, FM search, SA resolve, compaction, extension, sweeps;
-            each hand kernel has a plain torch twin in the same module
+  utils/    uint32 emulation on int64 tensors (intops), 2-bit packing,
+            tracing
+  index/    the FM index, its builder and variant catalog, and
+            TorchFMIndex: the device-resident index (to_device)
+  io/       FASTA/FASTQ/tabbed readers, the SAM writer, --un/--al sinks
+  native/   SA-IS and the SAM line formatter in C++, built with g++ into
+            hisat2_tpu_torch/build/ on first use
+  ops/      rank/LF, FM search, SA resolve, compaction, extension, sweeps,
+            mate-rescue windows; each hand kernel has a plain torch twin
+            in the same module
   kernels/  builds csrc/*.cu with nvcc for sm_90a and binds them (ctypes)
   csrc/     the CUDA C++ kernels
-  align/    TorchAligner (device step + host phase), driver, replay glue
+  align/    TorchAligner (device step + host phase + mate rescue), driver,
+            pairing, host replays
   cli/      `python -m hisat2_tpu_torch align|build`
 
-Scope: unpaired DNA reads against a linear index with a full suffix array
-(ROADMAP.md Queue 1 item 2).  Other modes raise NotImplementedError naming
-their ROADMAP item.
+Scope: unpaired and paired DNA reads against linear and graph indexes with
+a full suffix array (ROADMAP.md Queue 1 items 2-4).  Other modes raise or
+are refused naming their ROADMAP item.
 """
 
 __version__ = "0.1.0"

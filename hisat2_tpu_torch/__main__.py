@@ -1,8 +1,8 @@
 """Command dispatcher: python -m hisat2_tpu_torch {align,build} ...
 
 `align` runs the torch aligner (the default when the first argument is an
-option); `build` is the JAX package's index builder, which is numpy-only
-(hisat2_tpu.cli.build).
+option); `build` is the index builder (cli/build.py, the port's copy of
+the JAX package's numpy builder).
 """
 
 import sys
@@ -16,7 +16,7 @@ def main():
     if cmd == "align":
         from .cli.align import main as m
     elif cmd == "build":
-        from hisat2_tpu.cli.build import main as m
+        from .cli.build import main as m
     else:
         print(f"unknown command {cmd!r}: expected align|build "
               "(other hisat2_tpu commands are not ported)", file=sys.stderr)

@@ -24,10 +24,9 @@ from typing import Optional
 
 import numpy as np
 
-from hisat2_tpu.align import mapq as mapq_mod
-from hisat2_tpu.utils.trace import section_timer
-
 from ..ops.splice import KIND_DEL, KIND_INS, KIND_SPL
+from ..utils.trace import section_timer
+from . import mapq as mapq_mod
 
 
 class SpillOverflow(Exception):

@@ -1,6 +1,6 @@
 """The batched aligner on torch (counterpart of
-hisat2_tpu/align/pipeline.py TPUAligner: unpaired DNA against linear and
-graph indexes).
+hisat2_tpu/align/pipeline.py TPUAligner: unpaired and paired DNA against
+linear and graph indexes, with mate rescue).
 
 Device half: `_align_device` is the DNA branch of TPUAligner._align_device
 (:725-1446) and `_pack_out` the output packing of _align_device_packed
@@ -29,27 +29,34 @@ align/host.py, and the two-tier routing of a graph index (lite pass, then
 the full pass on the routed reads) below, from pipeline.py:1651-1943.  On a
 CPU device everything runs the plain versions synchronously (that is what
 the CPU tests compare with the JAX package).
+
+Paired reads go through the same step as one fused batch of both mates
+(align/driver.py), with `collect(paired=True)`.  `rescue_mates` is the
+device part of mate rescue: kernel 8 (ops/rescue.py:rescue_window, K12)
+picks each rescue job's 8 best window diagonals, kernels 2 and 3 rescore
+them, and the record loop of pipeline.py:1520-1565 runs on the host.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import sys
 from typing import Optional
 
 import numpy as np
 import torch
 
-from hisat2_tpu.align.scoring import Scoring
-from hisat2_tpu.index.format import FMIndex, ShardedFMIndex
-from hisat2_tpu.utils import bitops
-
-from ..index.format import graph_to_device, score_tables, to_device
+from ..index.format import (FMIndex, ShardedFMIndex, graph_to_device,
+                            score_tables, to_device)
 from ..ops import compact as compact_ops
 from ..ops import extend as extend_ops
+from ..ops import rescue as rescue_ops
 from ..ops import search as search_ops
 from ..ops import splice as splice_ops
+from ..utils import bitops
 from ..utils.intops import wrap_i32
-from .host import BatchResult, HostPhase, SpillOverflow
+from .host import Alignment, BatchResult, HostPhase, SpillOverflow
+from .scoring import Scoring
 
 _I32 = torch.int32
 _DT_NAME = {torch.int32: "int32", torch.bool: "bool",
@@ -66,7 +73,7 @@ class TorchAligner(HostPhase):
                  anchor_stop: bool = True, device="cuda",
                  variants=None, spliced: bool = False, lite: bool = False,
                  _dev=None, _ref_codes=None, _graph_bundle=None):
-        if isinstance(index, ShardedFMIndex):
+        if isinstance(index, ShardedFMIndex) or hasattr(index, "shards"):
             raise NotImplementedError(
                 "sharded genome-scale indexes: ROADMAP.md Queue 1 item 6")
         if spliced:
@@ -128,7 +135,7 @@ class TorchAligner(HostPhase):
             (self.graph, self.has_indels, self.graph_dev,
              self.row_db) = _graph_bundle
         elif variants is not None and variants.n_snps:
-            from hisat2_tpu.index.graph import build_graph_arrays
+            from ..index.graph import build_graph_arrays
             self.graph = build_graph_arrays(index, variants)
             self.has_indels = bool(len(self.graph.indel_pos))
             self.graph_dev, self.row_db = graph_to_device(
@@ -505,10 +512,9 @@ class TorchAligner(HostPhase):
     def collect(self, handle, paired: bool = False) -> BatchResult:
         """Finish a dispatched batch: fetch and run the host phase; a
         two-pass handle runs its remaining stages (pipeline.py:1709-1722;
-        the splice-site fixed point of the spliced aligner is not here)."""
-        if paired:
-            raise NotImplementedError(
-                "paired-end alignment: ROADMAP.md Queue 1 item 4")
+        the splice-site fixed point of the spliced aligner is not here).
+        paired: the batch is a fused pair batch (mate 1 reads, then mate 2
+        reads), whose host phase skips the unpaired interleave replay."""
         if handle[0] == "2pass":
             return self._finish_two_pass(
                 self._advance_two_pass(handle, paired), paired)
@@ -517,7 +523,7 @@ class TorchAligner(HostPhase):
         packed, codes, quals, lens, rdids, minsc, _ = handle
         return self._host_phase(
             self._merge_or_respill(packed, codes, quals, lens, rdids),
-            codes, quals, lens, minsc)
+            codes, quals, lens, minsc, paired=paired)
 
     # -- two tiers (pipeline.py:1736-1943, DNA mode: no splice-site DB) --
     def _dispatch_full(self, codes, quals, lens, rdids=None):
@@ -675,6 +681,110 @@ class TorchAligner(HostPhase):
                     lanes[k] = v1
         return BatchResult(n_reads=B, lanes=lanes, orient_ranks=orient,
                            raw=raw)
+
+    # ------------------------------------------------------------------
+    def rescue_mates(self, codes, quals, lens, anchors, rc_flags,
+                     maxins: int):
+        """Anchored mate rescue (alignMate equivalent; pipeline.py:
+        1449-1565): align each mate in the 57,344 bp local-index window
+        holding its partner's position.  codes/quals [R, L] in the
+        ORIGINAL read orientation; rc_flags marks mates whose expected
+        strand is reverse-complement.  Returns list[list[Alignment]] with
+        read_idx = job index.  The device work is ops/rescue.py:
+        rescue_candidates on chunks of at most 128 jobs, padded to a power
+        of two as in the JAX package."""
+        R, L = codes.shape
+        if R == 0:
+            return []
+        WIN_IVAL, WIN_LEN = 56320, 57344
+        CHUNK = 128
+        Rp = min(CHUNK, 1 << (max(R - 1, 1)).bit_length())
+        # orient reads to the expected strand on host
+        oc = codes.astype(np.int32).copy()
+        oq = quals.astype(np.int32).copy()
+        for i in np.flatnonzero(rc_flags):
+            Lr = int(lens[i])
+            seq = oc[i, :Lr]
+            oc[i, :Lr] = np.where(seq < 4, 3 - seq, 4)[::-1]
+            oq[i, :Lr] = oq[i, :Lr][::-1]
+        ws_all = (np.asarray(anchors, np.int64) // WIN_IVAL) * WIN_IVAL
+        snv = self.graph is not None
+        fields = ("score", "clip_l", "clip_r", "n_mm", "n_n", "ok")
+        starts_l, parts = [], {f: [] for f in fields}
+        for c0 in range(0, R, Rp):
+            c1 = min(c0 + Rp, R)
+            ocp = np.full((Rp, L), 4, np.int32)
+            oqp = np.zeros((Rp, L), np.int32)
+            olp = np.ones(Rp, np.int32)
+            owp = np.zeros(Rp, np.int32)
+            ocp[:c1 - c0] = oc[c0:c1]
+            oqp[:c1 - c0] = oq[c0:c1]
+            olp[:c1 - c0] = lens[c0:c1]
+            owp[:c1 - c0] = ws_all[c0:c1]
+            rd, qd, ld, wd = (torch.from_numpy(a).to(self.device)
+                              for a in (ocp, oqp, olp, owp))
+            kw = dict(ref_words=self.dev.ref_words, n_text=self.meta.n,
+                      reads=rd, quals=qd, lens=ld, win_start=wd, W=WIN_LEN,
+                      mm_pen=self.params["mm_pen"],
+                      clip_pen=self.params["clip_pen"],
+                      n_pen=self.scoring.n_pen,
+                      allow_softclip=not self.scoring.no_softclip,
+                      snv_delta1=self.graph_dev["snv1"] if snv else None,
+                      snv_delta2=self.graph_dev["snv2"] if snv else None)
+            starts_d, ext = rescue_ops.rescue_candidates(**kw)
+            m = c1 - c0
+            starts_l.append(starts_d.cpu().numpy()[:m])
+            for f in fields:
+                parts[f].append(getattr(ext, f).cpu().numpy()[:m])
+        starts = np.concatenate(starts_l)
+        sc, clip_l, clip_r, n_mm, n_n, okm = (np.concatenate(parts[f])
+                                              for f in fields)
+        out = []
+        nfr = len(self.frag_ref)
+        for i in range(R):
+            Lr = int(lens[i])
+            minsc = self.scoring.min_score(Lr)
+            recs = []
+            seen = set()
+            order = np.argsort(-sc[i], kind="stable")
+            for t in order:
+                if not okm[i, t] or sc[i, t] < minsc:
+                    continue
+                s = int(starts[i, t])
+                if s in seen:
+                    continue
+                seen.add(s)
+                astart = s + int(clip_l[i, t])
+                span = Lr - int(clip_l[i, t]) - int(clip_r[i, t])
+                f = min(max(int(np.searchsorted(
+                    self.frag_joined, astart, "right")) - 1, 0), nfr - 1)
+                if not (astart >= self.frag_joined[f]
+                        and astart + span <= self.frag_joined[f + 1]):
+                    continue
+                recs.append(Alignment(
+                    read_idx=i, rc=bool(rc_flags[i]),
+                    ref_id=int(self.frag_ref[f]),
+                    ref_pos=int(self.frag_off[f] + astart
+                                - self.frag_joined[f]),
+                    joined_pos=s, clip_l=int(clip_l[i, t]),
+                    clip_r=int(clip_r[i, t]), aln_span=span,
+                    score=int(sc[i, t]), n_mm=int(n_mm[i, t]),
+                    n_n=int(n_n[i, t]), mapq=0, nh=1, secondary=False))
+            if len(recs) >= 2:
+                # other in-window placements surface as ZS (secbest)
+                recs[0] = dataclasses.replace(recs[0], zs=recs[1].score)
+                for t2 in range(1, len(recs)):
+                    recs[t2] = dataclasses.replace(recs[t2],
+                                                   zs=recs[0].score)
+            # alignMate resolves a local segment only when nelt <= 5
+            # (hi_aligner.h:4760): a mate matching the window more than
+            # 5 times equally well is never rescued
+            if recs:
+                nbest = sum(1 for a in recs if a.score == recs[0].score)
+                if nbest > 5:
+                    recs = []
+            out.append(recs)
+        return out
 
     # ------------------------------------------------------------------
     def annotate_snps(self, a, rd_aligned):

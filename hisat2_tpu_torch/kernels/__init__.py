@@ -10,8 +10,8 @@ a non-zero code raises here.  Nothing is built or loaded at import time.
 
 Each kernel is a `Kernel` object in KERNELS with a launch counter that
 counts successful launches and nothing else; the ops-level wrappers
-(ops/search.py, ops/compact.py, ops/splice.py, ops/extend.py) are its only
-callers.
+(ops/search.py, ops/compact.py, ops/splice.py, ops/extend.py,
+ops/rescue.py) are its only callers.
 """
 
 from __future__ import annotations
@@ -93,6 +93,11 @@ KERNELS = {k.name: k for k in (
            "hisat2_tpu_torch/csrc/inject_indels.cu",
            "hisat2_tpu/ops/splice.py:838 inject_indels (+ ops/extend.py:124 "
            "live_pen_prefix)"),
+    Kernel("rescue_window", "h2_rescue_window",
+           [_P, _I, _LL, _P, _P, _I, _I, _I, _P] + [_P],
+           "hisat2_tpu_torch/csrc/rescue_window.cu",
+           "hisat2_tpu/ops/rescue.py:25 rescue_candidates (the one-hot "
+           "cross-correlation and top_k, :39-59)"),
 )}
 
 _lib = None

@@ -6,7 +6,7 @@ def kernel_twins() -> dict:
     kernels.KERNELS.  The wrapper launches the kernel on CUDA tensors; the
     twin takes the same keyword arguments, so a caller can replay a
     captured call (TorchAligner.step(capture=...)) through both."""
-    from . import compact, extend, search, splice
+    from . import compact, extend, rescue, search, splice
     return {
         "fm_search2": (search.partial_search2, search.partial_search2_plain),
         "ref_window": (splice.diag_chars, splice.diag_chars_plain),
@@ -18,4 +18,5 @@ def kernel_twins() -> dict:
                           compact.compact_candidates_plain),
         "pack_slots": (compact.pack_slots, compact.pack_slots_plain),
         "inject_indels": (splice.inject_indels, splice.inject_indels_plain),
+        "rescue_window": (rescue.rescue_window, rescue.rescue_window_plain),
     }

@@ -1,0 +1,90 @@
+"""Mate rescue: the anchored window search for the unaligned mate of a pair
+(counterpart of hisat2_tpu/ops/rescue.py: rescue_candidates :25).
+
+Each rescue job matches its mate against every diagonal of a window of W
+diagonals and keeps the 8 best (`rescue_window`), then rescores those 8
+exactly with the reference windows (ops/splice.py:diag_chars, kernel 2)
+and the ungapped extension (ops/extend.py:extend_grouped, kernel 3), with
+the SNV planes on a graph index.
+
+`rescue_window` launches kernel 8 (csrc/rescue_window.cu) on CUDA tensors
+and runs `rescue_window_plain` on CPU tensors.  The plain version keeps
+the two behaviours of the JAX one-hot convolution and lax.top_k that the
+ranking depends on: each match count is rounded to bfloat16 (exact up to
+256, so only mates longer than 256 bp see it), and ties go to the lower
+diagonal.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+from . import extend as extend_ops
+from . import rank as rk
+from . import splice as splice_ops
+
+TOP = 8     # must exceed the reference's nelt cap of 5 (hi_aligner.h:4760)
+
+
+def rescue_window_plain(ref_words, n_text: int, reads, win_start, W: int):
+    """The TOP best diagonals of each job's window (rescue.py:39-59):
+    int32 [R, TOP] joined starts, best first.  reads: int32 [R, L] in the
+    expected orientation (code 4 matches nothing); win_start: int32 [R]."""
+    R, L = reads.shape
+    refc = rk.ref_chars_block(ref_words, n_text, win_start, W + L - 1)
+    cnt = torch.zeros((R, W), dtype=torch.int32, device=reads.device)
+    for t in range(L):
+        rt = reads[:, t:t + 1]
+        cnt += ((refc[:, t:t + W] == rt) & (rt < 4)).to(torch.int32)
+    # the bf16 convolution output, then lax.top_k's order: count
+    # descending, ties to the lower diagonal (unique keys)
+    rounded = cnt.to(torch.float32).to(torch.bfloat16).to(torch.int64)
+    d = torch.arange(W, device=reads.device, dtype=torch.int64)
+    key = rounded * (1 << 32) + (W - 1 - d)[None, :]
+    didx = torch.topk(key, TOP, dim=1).indices
+    return (win_start[:, None].to(torch.int64) + didx).to(torch.int32)
+
+
+def rescue_window(ref_words, n_text: int, reads, win_start, W: int):
+    """Kernel 8 on CUDA tensors, rescue_window_plain on CPU tensors."""
+    if not reads.is_cuda:
+        return rescue_window_plain(ref_words, n_text, reads, win_start, W)
+    i32 = torch.int32
+    R, L = reads.shape
+    kernels.check_cuda("ref_words", ref_words, i32)
+    kernels.check_cuda("reads", reads, i32, (R, L))
+    kernels.check_cuda("win_start", win_start, i32, (R,))
+    if L > 1024 or W < TOP:
+        raise ValueError(f"rescue_window: reads at most 1024 bp and the "
+                         f"window at least {TOP} wide")
+    out = torch.empty((R, TOP), dtype=i32, device=reads.device)
+    kernels.KERNELS["rescue_window"].launch(
+        ref_words.data_ptr(), ref_words.shape[0], n_text, reads.data_ptr(),
+        win_start.data_ptr(), R, L, W, out.data_ptr(),
+        stream=kernels.stream_of(reads))
+    return out
+
+
+def rescue_candidates(ref_words, n_text: int, reads, quals, lens,
+                      win_start, W: int, mm_pen, clip_pen, n_pen: int,
+                      allow_softclip: bool = True, snv_delta1=None,
+                      snv_delta2=None):
+    """reads/quals: int32 [R, L], mate codes already in the expected
+    orientation; lens: int32 [R]; win_start: int32 [R], the joined start
+    of each job's window of W diagonals.  Returns (starts [R, TOP],
+    ExtendResult) for the best-matching diagonals, as rescue.py:25 does.
+    The windows of the rescoring have no margin (the extension reads
+    columns 0..L-1 of them)."""
+    L = reads.shape[1]
+    starts = rescue_window(ref_words, n_text, reads, win_start, W)
+    ch = splice_ops.diag_chars(ref_words, n_text, starts, L, 0)
+    s1 = s2 = None
+    if snv_delta1 is not None:
+        s1 = splice_ops.diag_chars(snv_delta1, n_text, starts, L, 0)
+        s2 = splice_ops.diag_chars(snv_delta2, n_text, starts, L, 0)
+    ext = extend_ops.extend_grouped(
+        n_text, reads, quals, lens, starts, mm_pen, clip_pen, n_pen, ch, 0,
+        allow_softclip=allow_softclip, uniform_len=False, minsc=None,
+        snv1_win=s1, snv2_win=s2)
+    return starts, ext

@@ -13,17 +13,51 @@ runs `inject_indels_plain`.  The plain versions are line-by-line ports of
 the JAX code.  The splice machinery (pair_sweep, select_pairs,
 second_sweep, inject_known) belongs to the spliced slice (ROADMAP.md
 Queue 2 K13-K18).
+
+The splice-site PWM priors, `junction_prob_tables` and `probscore_host`
+are numpy, copied from splice.py:42-107 for the host hybrid replay
+(align/hybrid.py HybridAligner.probscore).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .. import kernels
 from . import compact as compact_ops
 from . import rank as rk
+
+
+# --- splice-site PWM priors -------------------------------------------------
+# Published position-weight matrices used by the reference's probscore
+# (splice_site.cpp:31-50; donor: Yeo & Burge 2004, acceptor: Solovyev,
+# "Bioinformatics - From Genomes to Drugs" Vol I Ch 3).  Background base
+# probabilities {A,C,G,T} = {.27,.23,.23,.27} (splice_site.h:66).
+DONOR_LEN = 9            # 3 exonic + 6 intronic   (splice_site.h:49-51)
+ACC_LEN = 15             # 14 intronic + 1 exonic  (splice_site.h:59-61)
+ACC_LEN1 = ACC_LEN // 2  # table split halves      (splice_site.h:62-63)
+ACC_LEN2 = ACC_LEN - ACC_LEN1
+
+_DONOR_PROB = np.array([
+    [0.340, 0.604, 0.092, 0.001, 0.001, 0.526, 0.713, 0.071, 0.160],
+    [0.363, 0.129, 0.033, 0.001, 0.001, 0.028, 0.076, 0.055, 0.165],
+    [0.183, 0.125, 0.803, 1.000, 0.001, 0.419, 0.118, 0.814, 0.209],
+    [0.114, 0.142, 0.073, 0.001, 1.000, 0.025, 0.093, 0.059, 0.462],
+], np.float64)
+_ACC_PROB = np.array([
+    [0.090, 0.084, 0.075, 0.068, 0.076, 0.080, 0.097, 0.092, 0.076, 0.078,
+     0.237, 0.042, 1.000, 0.001, 0.239],
+    [0.310, 0.310, 0.307, 0.293, 0.326, 0.330, 0.373, 0.385, 0.410, 0.352,
+     0.309, 0.708, 0.001, 0.001, 0.138],
+    [0.125, 0.115, 0.106, 0.104, 0.110, 0.113, 0.113, 0.085, 0.066, 0.064,
+     0.212, 0.003, 0.001, 1.000, 0.520],
+    [0.463, 0.440, 0.470, 0.494, 0.471, 0.463, 0.408, 0.429, 0.445, 0.504,
+     0.240, 0.246, 0.001, 0.001, 0.104],
+], np.float64)
+_BACKGROUND = np.array([0.27, 0.23, 0.23, 0.27], np.float64)
 
 SPL_UNKNOWN, SPL_FW, SPL_RC, SPL_SEMI_FW, SPL_SEMI_RC = 0, 1, 2, 3, 4
 KIND_NONE, KIND_SPL, KIND_DEL, KIND_INS = 0, 1, 2, 3
@@ -48,6 +82,39 @@ class SpliceParams(NamedTuple):
     rf_gap_ext: int = 3
     max_gap: int = 10
     allow_spliced: bool = True
+
+
+def junction_prob_tables():
+    """Precompute the reference's summed PWM tables (init_junction_prob,
+    splice_site.cpp:52-105): donor_sum[4^9], acc1[4^7], acc2[4^8], float32.
+    probscore(d, a1, a2) = 1 / (1 + donor_sum[d]*acc1[a1]*acc2[a2])."""
+    dlog = np.log(_DONOR_PROB / _BACKGROUND[:, None])     # [4, 9]
+    alog = np.log(_ACC_PROB / _BACKGROUND[:, None])       # [4, 15]
+
+    def summed(logp, ncols, col0):
+        n = 1 << (2 * ncols)
+        idx = np.arange(n, dtype=np.int64)
+        s = np.zeros(n, np.float64)
+        for j in range(ncols):
+            base = (idx >> (2 * j)) & 3
+            s += logp[base, col0 + ncols - j - 1]
+        return np.exp(-s).astype(np.float32)
+
+    donor_sum = summed(dlog, DONOR_LEN, 0)
+    acc1 = summed(alog, ACC_LEN1, 0)
+    acc2 = summed(alog, ACC_LEN2, ACC_LEN1)
+    return donor_sum, acc1, acc2
+
+
+def probscore_host(donor9: int, acc15: int, tables=None) -> float:
+    """Host-side probscore for tests (splice_site.cpp:788-850, non-NEW
+    model): sigmoid of the summed PWM log-odds."""
+    if tables is None:
+        tables = junction_prob_tables()
+    d, a1t, a2t = tables
+    a1 = acc15 >> (2 * ACC_LEN2)
+    a2 = acc15 & ((1 << (2 * ACC_LEN2)) - 1)
+    return float(1.0 / (1.0 + d[donor9] * a1t[a1] * a2t[a2]))
 
 
 def diag_chars_plain(ref_words, n_text: int, starts, L: int, margin: int):

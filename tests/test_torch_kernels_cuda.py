@@ -1,7 +1,8 @@
-"""The seven hand-written CUDA kernels against their plain torch twins on
+"""The eight hand-written CUDA kernels against their plain torch twins on
 the card, and the whole device step on the card against the step on the
-CPU, on a linear and on a graph index (lite and full pass).  Needs a CUDA
-device; skips without one.  On a machine without JAX run it as
+CPU, on a linear and on a graph index (lite and full pass); the mate-rescue
+window kernel (K12) on long mates, tied windows and windows past the text.
+Needs a CUDA device; skips without one.  On a machine without JAX run it as
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
@@ -13,9 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from hisat2_tpu.align.scoring import Scoring
-from hisat2_tpu.index.builder import build_fm_index
-from hisat2_tpu.index.variants import attach_variants
+from hisat2_tpu_torch.align.scoring import Scoring
+from hisat2_tpu_torch.index import attach_variants, build_fm_index
 
 pytestmark = pytest.mark.gpu
 MOTIF_AT = [20000 * k for k in range(1, 6)]
@@ -143,9 +143,10 @@ def test_step_on_card_matches_cpu(card):
         bp = cp.step(*cp.upload(reads, quals, lens, minsc), False, full)
         _eq(bk, bp, f"packed step (full_out={full})")
         assert cu._out_specs == cp._out_specs
-    # every kernel of the linear path (injection runs on graph indexes)
+    # every kernel of the linear step (injection runs on graph indexes,
+    # the rescue window on paired batches)
     assert all(v > 0 for k, v in kernels.counts().items()
-               if k != "inject_indels")
+               if k not in ("inject_indels", "rescue_window"))
 
 
 def _cmp(a, b, what):
@@ -277,7 +278,8 @@ def test_graph_step_on_card_matches_cpu(gcard):
             _eq(bk, bp, f"packed step {tier} full_out={full}")
             assert a._out_specs == b._out_specs
             assert a._spill_meta == b._spill_meta
-    assert all(v > 0 for v in kernels.counts().values())
+    assert all(v > 0 for k, v in kernels.counts().items()
+               if k != "rescue_window")
 
 
 @pytest.mark.parametrize("N,K,Mdev,spill,dense", [
@@ -341,3 +343,74 @@ def test_compact_cands_random_on_card(card, lane_meta, lite_cap):
     torch.cuda.synchronize()
     for f in ko._fields:
         _cmp(getattr(ko, f), getattr(po, f), f)
+
+
+@pytest.mark.parametrize("L", [100, 150, 300])
+def test_rescue_window_matches_plain_on_card(card, L):
+    """K12 against its plain twin: windows inside the text, at its start
+    (negative start) and past its end, the 15-copy tie window of
+    tests/test_rescue.py, mates with Ns and shorter lengths; at L = 300
+    near-copies of the mate make counts that bfloat16 rounds into ties
+    (299 reads as 300).  Then the whole rescue_candidates call."""
+    from hisat2_tpu_torch.index.format import score_tables, to_device
+    from hisat2_tpu_torch.ops import rescue
+    rng = np.random.default_rng(L)
+    n = 300_000
+    g = rng.integers(0, 4, n).astype(np.uint8)
+    unit = rng.integers(0, 4, 120).astype(np.uint8)
+    spots = [20000 + 18000 * i for i in range(15)]
+    for s in spots:
+        g[s:s + 120] = unit
+    # copies of one L-bp unit with 1, 0, 2 and 3 mismatches: at L = 300
+    # the first two count 299 and 300, which bfloat16 ties
+    long_unit = rng.integers(0, 4, L).astype(np.uint8)
+    for c, at in zip((1, 0, 2, 3), (240_000, 240_000 + 3 * L,
+                                    240_000 + 9 * L, 240_000 + 20 * L)):
+        g[at:at + L] = long_unit
+        g[at + np.arange(c) * 7 + 3] ^= 1
+    idx = build_fm_index([("c", g)])
+    dev = to_device(idx, "cuda")
+    tabs = score_tables(Scoring(), "cuda")
+    W = 57344
+    R = 37
+    reads = np.full((R, L), 4, np.int32)
+    lens = np.full(R, L, np.int32)
+    ws = np.zeros(R, np.int64)
+    for i in range(R):
+        s = int(rng.integers(0, n - L))
+        reads[i] = g[s:s + L]
+        ws[i] = (s - int(rng.integers(0, W - L))) // 56320 * 56320
+    reads[0, :min(L, 100)] = g[spots[0] + 10:spots[0] + 10
+                               + min(L, 100)]      # tie window
+    ws[0] = 0
+    reads[1] = long_unit
+    ws[1] = 240_000 // 56320 * 56320
+    ws[2], ws[3] = -56320, n - 1000                 # start / past the end
+    reads[2] = g[:L]
+    reads[3] = g[n - L:]
+    reads[4:8, ::13] = 4                            # Ns
+    lens[8:12] = L - rng.integers(1, 30, 4)
+    for i in range(8, 12):
+        reads[i, lens[i]:] = 4
+    t = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, np.int32)).cuda()
+    rd, wst = t(reads), t(ws)
+    k = rescue.rescue_window(dev.ref_words, idx.meta.n, rd, wst, W)
+    p = rescue.rescue_window_plain(dev.ref_words, idx.meta.n, rd, wst, W)
+    torch.cuda.synchronize()
+    _eq(k, p, "rescue_window")
+    if L == 300:
+        assert k[1, :2].tolist() == [240_000, 240_000 + 3 * L]
+    quals = rng.integers(5, 41, (R, L)).astype(np.int32)
+    kw = dict(ref_words=dev.ref_words, n_text=idx.meta.n, reads=rd,
+              quals=t(quals), lens=t(lens), win_start=wst, W=W,
+              mm_pen=tabs["mm_pen"], clip_pen=tabs["clip_pen"], n_pen=1)
+    ks, ke = rescue.rescue_candidates(**kw)
+    _eq(ks, p, "starts")
+    from hisat2_tpu_torch.ops import extend, splice
+    ch = splice.diag_chars_plain(dev.ref_words, idx.meta.n, p, L, 0)
+    pe = extend.extend_grouped_plain(idx.meta.n, rd, kw["quals"],
+                                     kw["lens"], p, tabs["mm_pen"],
+                                     tabs["clip_pen"], 1, ch, 0)
+    for f in ke._fields:
+        _eq(getattr(ke, f), getattr(pe, f), f)

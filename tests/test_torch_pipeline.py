@@ -9,8 +9,10 @@ phase and CLI against hisat2_tpu on the CPU.
 - align_batch's raw columns equal TPUAligner.align_batch's;
 - `python -m hisat2_tpu_torch align --device cpu` writes the committed
   oracle SAM bodies byte for byte in the four reporting modes of
-  tests/test_reporting_modes.py, in a process where jax cannot import;
-- the port never imports jax, and refuses the modes it does not run.
+  tests/test_reporting_modes.py, in a process where neither jax nor
+  hisat2_tpu can import;
+- the port never imports jax or hisat2_tpu, runs paired reads on linear
+  and graph indexes, and refuses the modes it does not run.
 """
 
 import gzip
@@ -31,12 +33,13 @@ from hisat2_tpu_torch.align.pipeline import TorchAligner
 DATA = os.path.join(os.path.dirname(__file__), "data")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# makes `import jax` fail, as on a machine without JAX
+# makes `import jax` fail, as on a machine without JAX, and `import
+# hisat2_tpu` too: the port keeps its own copies of what it needs
 NO_JAX = """
 import sys
 class _NoJax:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in ("jax", "jaxlib", "hisat2_tpu"):
             raise ModuleNotFoundError(f"No module named {name!r}")
         return None
 sys.meta_path.insert(0, _NoJax())
@@ -148,7 +151,8 @@ def _run_port(args, cwd):
             "try:\n"
             "    runpy.run_module('hisat2_tpu_torch', run_name='__main__')\n"
             "finally:\n"
-            "    assert 'jax' not in sys.modules\n")
+            "    assert 'jax' not in sys.modules\n"
+            "    assert 'hisat2_tpu' not in sys.modules\n")
     r = subprocess.run([sys.executable, "-c", code] + args, cwd=cwd,
                        env=env, capture_output=True, text=True, timeout=600)
     return r
@@ -184,13 +188,14 @@ def test_cli_matches_oracle(mm3_idx, name, extra):
 
 
 def test_port_never_imports_jax():
-    """Import the port, run one CPU batch with the replay glue and load
-    the CLI's import path, in a process where jax cannot import."""
+    """Import the port, run one CPU batch with the hybrid replay and load
+    the CLI's import path, in a process where neither jax nor hisat2_tpu
+    can import."""
     code = NO_JAX + """
 import numpy as np
-from hisat2_tpu.index.builder import build_fm_index
+from hisat2_tpu_torch.index import build_fm_index
 from hisat2_tpu_torch.align.pipeline import TorchAligner
-from hisat2_tpu_torch.align import replay_glue
+from hisat2_tpu_torch.align import hybrid
 import hisat2_tpu_torch.__main__, hisat2_tpu_torch.cli.align
 import hisat2_tpu_torch.align.driver
 from hisat2_tpu_torch import kernels
@@ -203,11 +208,11 @@ codes[1, 50:] = 0
 q = np.full(codes.shape, 30, np.uint8)
 lens = np.full(3, 60, np.int32)
 res = al.align_batch(codes, q, lens)
-replay_glue.substitute_batch(al, res, codes, q, lens, np.arange(3))
+hybrid.substitute_batch(al, res, codes, q, lens, np.arange(3))
 hisat2_tpu_torch.cli.align.build_parser().parse_args(["-x", "i", "-U", "r"])
 assert res.n_aligned == 3
 assert sum(kernels.counts().values()) == 0
-assert "jax" not in sys.modules and "hisat2_tpu.ops" not in sys.modules
+assert "jax" not in sys.modules and "hisat2_tpu" not in sys.modules
 print("NO_JAX_OK")
 """
     r = subprocess.run([sys.executable, "-c", code],
@@ -217,10 +222,10 @@ print("NO_JAX_OK")
 
 
 def test_dna_replay_never_reaches_probscore(aligners, monkeypatch):
-    """HybridAligner.probscore imports hisat2_tpu.ops (jax); the DNA-mode
-    replay must never call it, even when every read is replayed."""
-    from hisat2_tpu.align import hybrid
-    from hisat2_tpu_torch.align import replay_glue
+    """The port's HybridAligner.probscore (the PWM model of spliced
+    replays) is never reached by the DNA-mode replay, even when every
+    read is replayed."""
+    from hisat2_tpu_torch.align import hybrid
 
     def boom(*a, **k):
         raise AssertionError("probscore reached in DNA mode")
@@ -230,22 +235,51 @@ def test_dna_replay_never_reaches_probscore(aligners, monkeypatch):
     ta = al[True][1]
     codes, quals, lens = _batch(seq, 24, 80, 3, False)
     res = ta.align_batch(codes, quals, lens)
-    over = replay_glue.substitute_batch(ta, res, codes, quals, lens,
-                                        np.arange(24), exact=True)
+    over = hybrid.substitute_batch(ta, res, codes, quals, lens,
+                                   np.arange(24), exact=True)
     assert over
 
 
 @pytest.mark.parametrize("extra,why", [
-    (["-1", "a.fa", "-2", "b.fa", "--no-spliced-alignment"], "item 4"),
+    # paired reads run, on a linear and on a graph index (why None)
+    (["-1", "M1", "-2", "M2", "--no-spliced-alignment"], None),
     (["-U", "a.fa"], "item 5"),
     (["-U", "a.fa", "--no-spliced-alignment", "--n-hosts", "2"], "item 7"),
-    # paired reads stay refused on a graph index too
-    (["-1", "a.fa", "-2", "b.fa", "--no-spliced-alignment", "VAR"],
-     "item 4"),
+    (["-1", "M1", "-2", "M2", "--no-spliced-alignment", "VAR"], None),
 ])
 def test_cli_refuses_unported_modes(tmp_path, capsys, extra, why):
     from hisat2_tpu_torch.cli.align import main
+    from hisat2_tpu_torch.index import attach_variants
     base = str(tmp_path / "idx")
+    if why is None:
+        rng = np.random.default_rng(4)
+        g = rng.integers(0, 4, 30000).astype(np.uint8)
+        idx = build_fm_index([("c", g)])
+        if "VAR" in extra:
+            snp = tmp_path / "v.snp"
+            snp.write_text("".join(f"v{p}\tsingle\tc\t{p}\t"
+                                   f"{'ACGT'[(int(g[p]) + 1) % 4]}\n"
+                                   for p in range(500, 29500, 700)))
+            attach_variants(idx, snp_file=str(snp))
+            idx._variants.save(base)
+        idx.save(base)
+        starts = rng.integers(0, 29000, 12)
+        rc = lambda s: "".join("TGCA"[c] for c in s[::-1])  # noqa: E731
+        for m, off in (("M1", 0), ("M2", 300)):
+            (tmp_path / m).write_text("".join(
+                f">p{i}\n" + ("".join("ACGT"[c] for c in g[s:s + 80])
+                              if m == "M1" else rc(g[s + 220:s + 300]))
+                + "\n" for i, s in enumerate(starts)))
+        extra = [str(tmp_path / x) if x in ("M1", "M2") else x
+                 for x in extra if x != "VAR"]
+        out = str(tmp_path / "pe.sam")
+        assert main(["-x", base, "--device", "cpu", "-f", "-S", out,
+                     "--quiet"] + extra) == 0
+        with open(out) as f:
+            flags = [int(x.split("\t")[1]) for x in f
+                     if not x.startswith("@")]
+        assert len(flags) == 24 and all(f & 2 for f in flags)
+        return
     if "VAR" in extra:
         extra = [x for x in extra if x != "VAR"]
         open(base + ".var.npz", "wb").close()
