@@ -8,8 +8,8 @@ config-2 genome size (a seeded 40 Mbp genome, as bench.py config 2), and
 checks them:
 
   1 card    nvidia-smi name and power limit, torch's device name
-  2 build   the eight CUDA kernels from hisat2_tpu_torch/csrc (one nvcc
-            per source, in parallel)
+  2 build   the CUDA kernels from hisat2_tpu_torch/csrc (one nvcc per
+            source, in parallel)
   3 index   build (cached under the temp dir) and upload the index; the
             genome carries 16 distinct 120 bp units, each 24 times at
             18 kbp spacing, so that mates inside them need mate rescue in
@@ -55,6 +55,22 @@ checks them:
             launch counts (all eight > 0); and the paired CLI on the
             committed corpus (tests/data/pe_*) against its oracles, on
             the linear and the graph index
+ 10 spliced spliced RNA, the CLI's default mode, on the same linear index:
+            400 GT-AG introns the genome already has (half 80-400 bp,
+            half log-uniform 400 bp-50 kbp), 40 GC-AG / AT-AC and 40
+            non-canonical ones, and 40 pairs around a 20-40 bp exon;
+            8 batches of 4096 reads (a third across one junction, one in
+            twelve across two, the rest phase 4's mix) through
+            dispatch/advance/collect with the temp-site fixed point:
+            reads/s, host ms per stage, routed share, sites, K18 merges,
+            canonical single-junction reads with both anchors >= 20 bp at
+            their true position with an N of the planted length (>= 95%),
+            unmodified reads at their true position (>= 99%), launch
+            counts (K13-K18 > 0); then K13+K14, K15, K16 (lite and full),
+            K17 on a whole 4096-read full step (8192 lanes) and K18 on the
+            slice's first merge against their plain twins, the lite and
+            full step against the CPU step, and the CLI on the nss round
+            trip and mj3x against their oracles
 
 Each kernel's bound (the kernels line's bound_ms) is the larger of the
 bytes it must move over 3.35 TB/s and its operations over the peak rate
@@ -97,6 +113,18 @@ HBM, BF16, CUDA_CORE = 3.35e12, 989e12, 67e12
 N_SNV = round(11_000_000 * GENOME / 3.1e9)
 N_DEL = round(728_000 * GENOME / 3.1e9)
 N_INS = round(555_000 * GENOME / 3.1e9)
+
+
+# the kernels of the DNA paths (phases 4-9) and of the spliced path
+DNA_KERNELS = ("fm_search2", "ref_window", "extend_ungapped", "indel_sweep",
+               "compact_cands", "pack_slots", "inject_indels",
+               "rescue_window")
+SPLICED_KERNELS = ("search_lanes_live", "pair_sweep", "second_sweep",
+                   "inject_known", "merge_sites")
+# phase 10: 8 batches; introns (canonical short / long, semi-canonical,
+# non-canonical) and two-junction pairs
+S_BATCHES = 8
+N_CAN, N_SEMI, N_NONCAN, N_PAIRS = 400, 40, 40, 40
 
 
 def check(cond, msg):
@@ -327,6 +355,31 @@ def work(torch, name, kw, out):
         R, L = kw["reads"].shape
         extra = R * ((kw["W"] + L - 1 + 15) // 16) * 4   # 2-bit windows
         ops, rate = 2 * 4 * kw["W"] * L * R, BF16
+    elif name == "search_lanes_live":
+        live = kw["cut"] >= kw["min_hit_len"]
+        chars = int(kw["cut"][live].sum())
+        extra, ops = chars * 176, chars * 40
+    elif name == "pair_sweep":
+        # planes (48 PWM factors + prefixes per column), then ~25 integer
+        # ops per (pair, x)
+        N, C, W = kw["ch"].shape
+        Lr = kw["reads"].shape[1]
+        extra = 0
+        ops = N * C * (Lr + 1) * 60 + N * C * C * (Lr + 2) * 25
+    elif name == "second_sweep":
+        N, C, W = kw["ch"].shape
+        Lr = kw["reads"].shape[1]
+        extra = 0
+        ops = N * C * (Lr + 1) * (60 + 2 * 30)
+    elif name == "inject_known":
+        N, C, W = kw["ch"].shape
+        Lr = kw["reads"].shape[1]
+        J = out["score"].shape[1]
+        live = int(((out["x"] != 1) | (out["kind"] != 0)).sum())
+        extra = N * J * 2 * 12 * 4               # the site-table probes
+        ops = N * J * 40 + live * 2 * Lr * 12
+    elif name == "merge_sites":
+        extra, ops = 0, kw["kd"].shape[0] * 6 * 10
     else:
         raise KeyError(name)
     by = dense + extra + ob
@@ -370,10 +423,14 @@ def median_ms(torch, fn, kw, reps=10):
 
 
 def flat_outputs(x):
+    """A kernel's outputs as a flat list of tensors (named tuples, dicts
+    by sorted key, tuples; nested)."""
     if hasattr(x, "_fields"):
         return [getattr(x, f) for f in x._fields]
     if isinstance(x, dict):
-        return [x[k] for k in sorted(x)]
+        return [v for k in sorted(x) for v in flat_outputs(x[k])]
+    if isinstance(x, (tuple, list)):
+        return [v for e in x for v in flat_outputs(e)]
     return [x]
 
 
@@ -401,6 +458,375 @@ def run_cli(args, cwd, env, timeout):
                        cwd=cwd, env=env, capture_output=True, text=True,
                        timeout=timeout)
     check(r.returncode == 0, f"CLI {args[0]} failed: {r.stderr[-2000:]}")
+
+
+def pick_introns(np, rng, g):
+    """The phase-10 introns on dinucleotides the genome already has
+    (nothing is planted, so the index stays phase 3's): donors in 8-38
+    Mbp, one per 55 kbp slot, clear of phase 9's repeat block.  Returns
+    (introns [(donor d, acceptor e, class)], pairs [((d1, e1), (d2, e2))]):
+    the intron is g[d:e], classes 0 GT-AG, 1 GC-AG / AT-AC, 2 none."""
+    dn = (g[:-1].astype(np.int16) * 4 + g[1:]).astype(np.int8)
+    GT, GC, AT, AG, AC = 11, 9, 3, 2, 1
+    pos = {k: np.flatnonzero(dn == k) for k in (GT, GC, AT, AG, AC)}
+
+    def first(k, at):
+        i = int(np.searchsorted(pos[k], at))
+        return int(pos[k][i])
+
+    def donor_acc(dk, ak, d0, ln):
+        d = first(dk, d0)
+        e = first(ak, d + ln - 2) + 2
+        return d, e
+
+    slots = iter(8_000_000 + 55_000 * np.arange(540))
+    introns = []
+    for k in range(N_CAN):
+        ln = (int(rng.integers(80, 400)) if k % 2 == 0 else
+              int(np.exp(rng.uniform(np.log(400), np.log(50_000)))))
+        introns.append(donor_acc(GT, AG, next(slots), ln) + (0,))
+    for k in range(N_SEMI):
+        dk, ak = (GC, AG) if k % 2 == 0 else (AT, AC)
+        introns.append(donor_acc(dk, ak, next(slots),
+                                 int(rng.integers(80, 3000))) + (1,))
+    classified = {(GT, AG), (GC, AG), (AT, AC), (3 * 4 + 1, AC),
+                  (3 * 4 + 1, GC), (GT, AT)}
+    for k in range(N_NONCAN):
+        d = int(next(slots))
+        while True:
+            e = d + int(rng.integers(80, 3000))
+            if (int(dn[d]), int(dn[e - 2])) not in classified:
+                break
+            d += 1
+        introns.append((d, e, 2))
+    pairs = []
+    for k in range(N_PAIRS):
+        d1, e1 = donor_acc(GT, AG, next(slots), int(rng.integers(80, 400)))
+        while True:
+            d2 = first(GT, e1 + 20)
+            if d2 <= e1 + 40:
+                break
+            d1, e1 = donor_acc(GT, AG, e1 + 500, int(rng.integers(80, 400)))
+        e2 = first(AG, d2 + int(rng.integers(80, 400)) - 2) + 2
+        pairs.append(((d1, e1), (d2, e2)))
+    return introns, pairs
+
+
+def simulate_spliced(np, rng, g, introns, pairs, B, L):
+    """Phase 4's read mix (simulate), with a third of the reads across one
+    phase-10 intron (split uniform in [8, 92], no other edit) and one in
+    twelve across a pair (left exon 10-35 bp).  Returns simulate's arrays
+    and per read: its junction class (-1 none, 0-2 one, 3 two), the
+    intron length and the first exon's length."""
+    codes, quals, lens, start, clean, rc = simulate(np, rng, g, B, L)
+    jcls = np.full(B, -1, np.int8)
+    jlen = np.zeros(B, np.int64)
+    xsplit = np.zeros(B, np.int64)
+    for i in range(B):
+        if i % 3 and i % 12 != 1:
+            continue
+        if i % 3 == 0:
+            d, e, c = introns[int(rng.integers(0, len(introns)))]
+            x = int(rng.integers(8, 93))
+            r = np.concatenate([g[d - x:d], g[e:e + L - x]])
+            jcls[i], jlen[i] = c, e - d
+        else:
+            (d1, e1), (d2, e2) = pairs[int(rng.integers(0, len(pairs)))]
+            x = int(rng.integers(10, 36))
+            r = np.concatenate([g[d1 - x:d1], g[e1:d2], g[e2:e2 + L]])[:L]
+            jcls[i], jlen[i] = 3, e1 - d1
+            d = d1
+        start[i] = d - x
+        xsplit[i] = x
+        clean[i] = False
+        lens[i] = L
+        if rc[i]:
+            r = np.where(r < 4, 3 - r, 4)[::-1]
+        codes[i] = r
+        quals[i] = rng.integers(20, 41, L)
+    return codes, quals, lens, start, clean, rc, jcls, jlen, xsplit
+
+
+def spliced_phase(torch, np, g, index, kernels, twins, driver,
+                  read_alignments, TorchAligner, rows, bounds, path_launches,
+                  card, env):
+    """Phase 10 (see the module docstring)."""
+    from hisat2_tpu_torch.ops import splice
+    t0 = time.perf_counter()
+    srng = np.random.default_rng(1010)
+    introns, pairs = pick_introns(np, srng, g)
+    sb = [simulate_spliced(np, srng, g, introns, pairs, B, L)
+          for _ in range(S_BATCHES + 1)]
+    sal = TorchAligner(index, device="cuda", spliced=True, lane_meta=True)
+    print(f"[spliced] {len(introns)} introns ({N_CAN} GT-AG, {N_SEMI} "
+          f"GC-AG / AT-AC, {N_NONCAN} non-canonical), {len(pairs)} pairs "
+          f"around a 20-40 bp exon; set-up {time.perf_counter() - t0:.1f} s")
+
+    # stage clocks on the instance (the aligner's own entry points run)
+    st = {"lite": 0.0, "route": 0.0, "full": 0.0, "render": 0.0,
+          "routed": 0, "subs": 0}
+
+    def timed(obj, name, key):
+        fn = getattr(obj, name)
+
+        def f(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                st[key] += time.perf_counter() - t
+        setattr(obj, name, f)
+        return fn
+
+    o_lite = timed(sal._fast, "collect", "lite")
+    o_route = timed(sal, "_route_two_pass", "route")
+    o_sub = sal._dispatch_sub
+
+    def sub_rec(codes_, quals_, lens_, rdids_, sub):
+        st["routed"] += int(sub.size)
+        st["subs"] += 1
+        return o_sub(codes_, quals_, lens_, rdids_, sub)
+
+    sal._dispatch_sub = sub_rec
+    o_fin = sal._finish_two_pass
+
+    def fin_rec(stage2, paired):
+        t = time.perf_counter()
+        try:
+            return o_fin(stage2, paired)
+        finally:
+            st["full"] += time.perf_counter() - t
+
+    sal._finish_two_pass = fin_rec
+    names = [f"s{i}" for i in range(B)]
+    acc = {"reads": 0, "can": 0, "can_true": 0, "clean": 0, "clean_true": 0,
+           "two": 0, "two_true": 0}
+
+    def emit(handle, batch):
+        codes_, quals_, lens_, start_, clean_, rc_, jcls, jlen, xs = batch
+        res = sal.collect(handle)
+        t = time.perf_counter()
+        sink = io.StringIO()
+        w = driver.SamWriter(sink, index.meta.ref_names, index.meta.ref_lens,
+                             no_head=True)
+        w.write_batch_raw(names, codes_, quals_, lens_, res.raw,
+                          sal.ref_codes,
+                          finalize=lambda i: read_alignments(res.raw, i))
+        st["render"] += time.perf_counter() - t
+        cols = res.raw["cols"]
+        rd = np.asarray(cols[0])
+        first = np.unique(rd, return_index=True)[1]
+        r0 = rd[first]
+        ok = np.zeros(B, bool)
+        jk = np.zeros(B, np.int64)
+        jl = np.zeros(B, np.int64)
+        ok[r0] = ((np.asarray(cols[3])[first] == start_[r0])
+                  & (np.asarray(cols[1])[first] == rc_[r0]))
+        jk[r0] = np.asarray(cols[16])[first]
+        jl[r0] = np.asarray(cols[18])[first]
+        can = (jcls == 0) & (xs >= 20) & (L - xs >= 20)
+        acc["reads"] += B
+        acc["can"] += int(can.sum())
+        acc["can_true"] += int((can & ok & (jk == 1) & (jl == jlen)).sum())
+        acc["clean"] += int(clean_.sum())
+        acc["clean_true"] += int((clean_ & ok).sum())
+        two = jcls == 3
+        acc["two"] += int(two.sum())
+        acc["two_true"] += int((two & ok & (jk == 1)).sum())
+
+    kernels.reset_counts()
+    n_merge0 = sal.splice_db.n_merges
+    sal.splice_db.capture = {}
+    t0 = time.perf_counter()
+    pend = deque()
+    for bi, b in enumerate(sb[1:]):
+        rdids = bi * B + np.arange(B, dtype=np.int64)
+        pend.append((sal.dispatch(*b[:3], rdids), b))
+        if len(pend) >= 2:
+            pend[-2] = (sal.advance(pend[-2][0]), pend[-2][1])
+        if len(pend) >= DEPTH:
+            emit(*pend.popleft())
+    while pend:
+        emit(*pend.popleft())
+    t_slice = time.perf_counter() - t0
+    launches = kernels.counts()
+    sal._fast.collect, sal._route_two_pass = o_lite, o_route
+    sal._dispatch_sub, sal._finish_two_pass = o_sub, o_fin
+    nb = S_BATCHES
+    merges = sal.splice_db.n_merges - n_merge0
+    can_share = acc["can_true"] / acc["can"]
+    clean_share = acc["clean_true"] / acc["clean"]
+    lite_ms = 1e3 * st["lite"] / nb
+    full_ms = 1e3 * (st["full"] - sal.fixed_point_s) / nb
+    print(f"[spliced slice] {acc['reads']} reads in {t_slice:.2f} s: "
+          f"{acc['reads'] / t_slice:.1f} reads/s on {card}; canonical "
+          f"single-junction reads (anchors >= 20) at their true position "
+          f"with the planted N {can_share:.4f} ({acc['can_true']}/"
+          f"{acc['can']}); two-junction reads at their true start with a "
+          f"junction {acc['two_true']}/{acc['two']}; unmodified reads at "
+          f"their true position {clean_share:.4f} ({acc['clean_true']}/"
+          f"{acc['clean']}); routed share {st['routed'] / acc['reads']:.4f}"
+          f" in {st['subs']} pass-2 buckets; sites {sal.splice_db.n_sites};"
+          f" K18 merges {merges} ({merges / nb:.2f} per batch); fixed-point "
+          f"re-runs {sal.fixed_point_runs}; launches {launches}")
+    print(f"[spliced slice] host ms per batch: lite collect {lite_ms:.1f}, "
+          f"routing {1e3 * st['route'] / nb:.1f}, full collect (pass 2, "
+          f"without re-runs) {full_ms:.1f}, fixed-point re-runs "
+          f"{1e3 * sal.fixed_point_s / nb:.1f}, render "
+          f"{1e3 * st['render'] / nb:.1f}")
+    check(can_share >= 0.95, "canonical junction reads placed true < 95%")
+    check(clean_share >= 0.99, "unmodified reads placed true < 99%")
+    for name in SPLICED_KERNELS:
+        check(launches[name] > 0, f"{name} never launched on the spliced "
+              f"path")
+    path_launches["spliced"] = launches
+    merge_kw = sal.splice_db.capture.get("merge_sites")
+    check(merge_kw is not None, "no incremental site merge in the slice")
+
+    # kernels vs plain on a whole 4096-read batch (8192 lanes), with the
+    # slice's site tables (every site visible to these read ids)
+    codes, quals, lens = sb[0][:3]
+    minsc = sal._minsc(lens)
+    uniform = bool(np.all(lens == L))
+    rdids = 10 ** 7 + np.arange(B, dtype=np.int64)
+    caps = {}
+    for tier, a in (("lite", sal._fast), ("full", sal)):
+        rd_t, ss = a._step_site_args(rdids)
+        cap = {}
+        a.step(*a.upload(codes, quals, lens, minsc), uniform, capture=cap,
+               rdids=rd_t, ss=ss)
+        caps[tier] = cap
+    check("search_lanes_live" in caps["full"]
+          and caps["full"]["search_lanes_live"]["reads"].shape[0] > 2048,
+          "the full step's re-search is not in lane-list mode")
+    todo = [("full", "search_lanes_live"), ("full", "pair_sweep"),
+            ("full", "second_sweep"), ("lite", "inject_known"),
+            ("full", "inject_known"), ("full", "compact_cands"),
+            ("full", "pack_slots"), ("lite", "pack_slots")]
+    for tier, name in todo:
+        kw = caps[tier][name]
+        err, ms, pms = compare(torch, name, *twins[name], kw)
+        row = rows.setdefault(name, {
+            "name": name, "route": "cuda",
+            "source": kernels.KERNELS[name].source,
+            "replaces": kernels.KERNELS[name].replaces, "max_abs_err": 0.0})
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        if name in SPLICED_KERNELS:
+            row[f"{tier}_ms"], row[f"{tier}_plain_ms"] = ms, pms
+            if tier == "full" or name not in bounds:
+                bounds[name] = work(torch, name, kw, twins[name][0](**kw))
+        else:
+            row[f"spliced_{tier}_ms"] = ms
+            row[f"spliced_{tier}_plain_ms"] = pms
+        print(f"[spliced kernels] {tier} {name}: equal to plain (tolerance: "
+              f"exact); kernel {ms:.4f} ms, plain {pms:.4f} ms (median of "
+              f"10)")
+    # K14's yardstick: torch.topk over the [N, C^2] pair scores
+    ps = caps["full"]["pair_sweep"]
+    res, _, _ = splice.pair_sweep(**ps)
+    flat = res["score"].reshape(res["score"].shape[0], -1).contiguous()
+    rows["pair_sweep"]["select_topk_ms"] = median_ms(
+        torch, lambda x: torch.topk(x, 4, dim=1), {"x": flat})
+    # K18 on the slice's first merge, with its yardstick: the two stable
+    # torch.sort passes per table set and the cumsum of the lob update
+    err, ms, pms = compare(torch, "merge_sites", *twins["merge_sites"],
+                           merge_kw)
+    bounds["merge_sites"] = work(torch, "merge_sites", merge_kw,
+                                 twins["merge_sites"][0](**merge_kw))
+    from hisat2_tpu_torch.ops import sites as sites_ops
+    rows["merge_sites"] = {
+        "name": "merge_sites", "route": "cuda",
+        "source": kernels.KERNELS["merge_sites"].source,
+        "replaces": kernels.KERNELS["merge_sites"].replaces,
+        "max_abs_err": err, "full_ms": ms, "full_plain_ms": pms,
+        "library_ms": median_ms(torch, sites_ops.merge_sorted_tabs_plain,
+                                merge_kw)}
+    print(f"[spliced kernels] merge_sites on the slice's first merge "
+          f"(capacity {merge_kw['kd'].shape[0]}): equal to plain; kernel "
+          f"{ms:.4f} ms, plain {pms:.4f} ms, library (two stable sorts + "
+          f"cumsum) {rows['merge_sites']['library_ms']:.4f} ms")
+    for name in SPLICED_KERNELS:
+        rows[name].setdefault("library_ms", None)
+
+    # the lite and full step on the card against the CPU step
+    cpu = TorchAligner(index, device="cpu", spliced=True, lane_meta=True)
+    cdb = cpu.splice_db
+    for k in ("sites", "_col_jl", "_col_jr", "_col_rdid"):
+        setattr(cdb, k, getattr(sal.splice_db, k))
+    for tier in ("_fast", None):
+        a = getattr(sal, tier) if tier else sal
+        c = getattr(cpu, tier) if tier else cpu
+        rd_a, ss_a = a._step_site_args(rdids)
+        rd_c, ss_c = c._step_site_args(rdids)
+        t0 = time.perf_counter()
+        bk = a.step(*a.upload(codes, quals, lens, minsc), uniform,
+                    rdids=rd_a, ss=ss_a)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bp = c.step(*c.upload(codes, quals, lens, minsc), uniform,
+                    rdids=rd_c, ss=ss_c)
+        w = bk.shape[1]
+        nm = "lite" if tier else "full"
+        check(torch.equal(bk.cpu(), bp), f"spliced {nm} packed step")
+        check(a._out_specs[w] == c._out_specs[w]
+              and a._spill_meta[w] == c._spill_meta[w],
+              f"spliced {nm} _out_specs")
+        print(f"[spliced step] {nm} step, {2 * B} lanes: packed "
+              f"[{bk.shape[0]}, {w}] equal to the CPU plain step; card "
+              f"{1e3 * (t1 - t0):.1f} ms (host clock), CPU "
+              f"{time.perf_counter() - t1:.1f} s")
+    del cpu, sal
+    torch.cuda.empty_cache()
+
+    # the CLI (spliced, the default) on the nss round trip and mj3x
+    data = os.path.join(REPO, "tests/data")
+    tmp = tempfile.mkdtemp(prefix="h2torch_scli_")
+    try:
+        for tag in ("nss", "mj3x"):
+            with gzip.open(os.path.join(data, f"{tag}_genome.fa.gz"),
+                           "rb") as f, \
+                    open(os.path.join(tmp, f"{tag}.fa"), "wb") as o:
+                o.write(f.read())
+            run_cli(["build", f"{tag}.fa", tag], tmp, env, 300)
+
+        def body(path, opener=open):
+            with opener(path, "rt") as f:
+                return [x for x in f if not x.startswith("@")]
+
+        t0 = time.perf_counter()
+        run_cli(["align", "-f", "-x", "nss", "-U",
+                 os.path.join(data, "nss_reads.fa"),
+                 "--novel-splicesite-outfile", "novel.ss", "-S", "p1.sam",
+                 "--device", "cuda"], tmp, env, 600)
+        with open(os.path.join(tmp, "novel.ss")) as f, \
+                open(os.path.join(data, "nss_ref_novel.ss")) as f2:
+            check(f.read() == f2.read(), "novel.ss differs from the oracle")
+        check(body(os.path.join(tmp, "p1.sam")) == body(
+            os.path.join(data, "nss_ref_p1.sam.gz"), gzip.open),
+            "nss p1 SAM body differs from nss_ref_p1")
+        run_cli(["align", "-f", "-x", "nss", "-U",
+                 os.path.join(data, "nss_reads.fa"),
+                 "--novel-splicesite-infile",
+                 os.path.join(data, "nss_ref_novel.ss"), "-S", "p2.sam",
+                 "--device", "cuda"], tmp, env, 600)
+        check(body(os.path.join(tmp, "p2.sam")) == body(
+            os.path.join(data, "nss_ref_p2.sam.gz"), gzip.open),
+            "nss p2 SAM body differs from nss_ref_p2")
+        run_cli(["align", "-f", "-x", "mj3x", "-U",
+                 os.path.join(data, "mj3x_reads.fa"), "-S", "mj3.sam",
+                 "--device", "cuda"], tmp, env, 600)
+        got = {x.split("\t")[0]: x for x in body(os.path.join(tmp,
+                                                              "mj3.sam"))}
+        want = {x.split("\t")[0]: x for x in body(
+            os.path.join(data, "mj3x_ref.sam.gz"), gzip.open)}
+        check(all(got.get(k) == v for k, v in want.items()
+                  if k != "mj3_a25"), "mj3x SAM differs from mj3x_ref")
+        print(f"[spliced cli] align --device cuda (spliced): nss p1 + "
+              f"novel.ss, nss p2 with --novel-splicesite-infile and mj3x "
+              f"({len(want)} reads) equal to their oracles "
+              f"({time.perf_counter() - t0:.1f} s incl. start-up)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
@@ -725,7 +1151,7 @@ def main() -> int:
           f"launches {launches}")
     check(share_true >= 0.99, "SNV-only reads placed true < 99%")
     check(n_known > 0, "no alignment with a known-indel event")
-    for name in kernels.KERNELS:
+    for name in DNA_KERNELS:
         if name != "rescue_window":     # paired batches only (phase 9)
             check(launches[name] > 0,
                   f"{name} never launched on the graph path")
@@ -967,7 +1393,7 @@ def main() -> int:
     check(snv_true >= 0.99, "SNV-only mates placed true < 99%")
     check(jobs["n"] > 0 and jobs["rescued"] > 0, "no rescue job or no "
           "rescued mate on the paired path")
-    for name in kernels.KERNELS:
+    for name in DNA_KERNELS:
         check(launches[name] > 0, f"{name} never launched on the paired "
               f"path")
     path_launches["paired"] = launches
@@ -1003,10 +1429,16 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_done("paired")
 
+    spliced_phase(torch, np, g, index, kernels, twins, driver,
+                  read_alignments, TorchAligner, rows, bounds, path_launches,
+                  card, env)
+    phase_done("spliced")
+
     for name, r in rows.items():
-        r["launches"] = path_launches["paired"][name]
-        r["launches_linear"] = path_launches["linear"][name]
-        r["launches_graph"] = path_launches["graph"][name]
+        path = "spliced" if name in SPLICED_KERNELS else "paired"
+        r["launches"] = path_launches[path][name]
+        for p2 in ("linear", "graph", "paired", "spliced"):
+            r[f"launches_{p2}"] = path_launches[p2][name]
         r["ms"] = r.get("full_ms", r.get("paired_ms"))
         r["plain_ms"] = r.get("full_plain_ms", r.get("paired_plain_ms"))
         r["bound_ms"], r["bound_by"] = bounds[name]

@@ -6,8 +6,11 @@ _dispatch_pair_batch and _align_pair_batch (:512-771), verbatim.
 The JAX driver imports hisat2_tpu.align.pipeline (and with it jax) at
 module scope, so the port keeps this copy.  Linear and graph (.var.npz,
 two-tier) indexes run, unpaired (-U, --12) and paired (-1/-2, paired
---12/--tab5/--tab6); modes the port does not run yet are refused with the
-ROADMAP item that will bring them: spliced alignment and multi-host runs.
+--12/--tab5/--tab6), DNA (--no-spliced-alignment) and, on a linear index
+and unpaired, spliced RNA (the default) with its splice-site files.  Modes
+the port does not run yet are refused with the ROADMAP item that will
+bring them: spliced paired runs, spliced runs on a graph or --ss index,
+and multi-host runs.
 """
 
 from __future__ import annotations
@@ -68,9 +71,9 @@ def make_scoring(args) -> Scoring:
 
 def _refusal(args):
     """The reason this port cannot run `args` yet, or None."""
-    if not args.no_spliced_alignment:
-        return ("spliced alignment is not ported yet (ROADMAP.md Queue 1 "
-                "item 5); pass --no-spliced-alignment")
+    if not args.no_spliced_alignment and args.m1 and args.m2:
+        return ("spliced alignment of paired reads (ROADMAP.md Queue 1 "
+                "item 11); pass --no-spliced-alignment")
     if (getattr(args, "n_hosts", 1) or 1) > 1:
         return "multi-host runs (--n-hosts > 1): ROADMAP.md Queue 1 item 7"
     return None
@@ -120,14 +123,27 @@ def run_align(args) -> int:
         # -k default: 5 on linear, 10 on graph indexes (hisat2.cpp:3701)
         args.khits = 10 if (variants is not None
                             and variants.n_snps) else 5
-    aligner = TorchAligner(index, scoring, k=args.khits,
-                           no_fw=args.nofw, no_rc=args.norc,
-                           variants=variants, lane_meta=True,
-                           max_seeds=getattr(args, "max_seeds", 0),
-                           all_hits=getattr(args, "all_hits", False),
-                           anchor_stop=not getattr(args, "no_anchorstop",
-                                                   False),
-                           device=args.device)
+    try:
+        aligner = TorchAligner(
+            index, scoring, k=args.khits, no_fw=args.nofw, no_rc=args.norc,
+            variants=variants, spliced=not args.no_spliced_alignment,
+            lane_meta=True, max_seeds=getattr(args, "max_seeds", 0),
+            all_hits=getattr(args, "all_hits", False),
+            tmo=getattr(args, "tmo", False),
+            require_xs=getattr(args, "dta_cufflinks", False),
+            anchor_stop=not getattr(args, "no_anchorstop", False),
+            device=args.device)
+    except NotImplementedError as e:
+        print(f"error: hisat2_tpu_torch does not run {e}", file=sys.stderr)
+        return 1
+    if aligner.splice_db is not None:
+        if args.known_splicesite_infile:
+            aligner.splice_db.add_from_file(args.known_splicesite_infile)
+        if args.novel_splicesite_infile:
+            aligner.splice_db.add_from_file(args.novel_splicesite_infile)
+        # --no-temp-splicesite is accepted for compatibility: with a single
+        # worker the reference's mindist is 0 either way (hisat2.cpp:3559),
+        # so temp-site usage is identical
     out = open(args.sam, "w") if args.sam else sys.stdout
     disp_names = list(index.meta.ref_names)
     if getattr(args, "remove_chrname", False):
@@ -265,6 +281,11 @@ def run_align(args) -> int:
             yield from zip(it1, it2)
 
     paired_mode = (args.m1 and args.m2) or (tab12 and tab_paired)
+    if paired_mode and aligner.spliced:
+        print("error: hisat2_tpu_torch does not run spliced alignment of "
+              "paired reads (ROADMAP.md Queue 1 item 11); pass "
+              "--no-spliced-alignment", file=sys.stderr)
+        return 1
     secondary = getattr(args, "secondary", False)
     k_rep = 10 ** 9 if getattr(args, "all_hits", False) else args.khits
 
@@ -381,6 +402,8 @@ def run_align(args) -> int:
     for s in (sink_un, sink_al, sink_un_conc, sink_al_conc):
         if s is not None:
             s.close()
+    if aligner.splice_db is not None and args.novel_splicesite_outfile:
+        aligner.splice_db.write_novel(args.novel_splicesite_outfile)
     if met is not None:
         met.close(writer, n_bases)
     summ = writer.summary(new=getattr(args, "new_summary", False))

@@ -1,34 +1,47 @@
 """The batched aligner on torch (counterpart of
 hisat2_tpu/align/pipeline.py TPUAligner: unpaired and paired DNA against
-linear and graph indexes, with mate rescue).
+linear and graph indexes, with mate rescue; unpaired spliced RNA against
+a linear index).
 
-Device half: `_align_device` is the DNA branch of TPUAligner._align_device
-(:725-1446) and `_pack_out` the output packing of _align_device_packed
-(:536-600).  The chain per batch of B reads (2B lanes, fw + rc), every
-step a hand kernel on the card:
+Device half: `_align_device` is TPUAligner._align_device (:725-1446) and
+`_pack_out` the output packing of _align_device_packed (:536-600).  The
+chain per batch of B reads (2B lanes, fw + rc), every step a hand kernel
+on the card:
 
   partial_search2          kernel 1  (ops/search.py)
-  resolve + compaction     kernel 5  (ops/compact.py:compact_cands, K3+K4)
+  prefix re-search         K17, kernel 1's lane-list mode (spliced only,
+                                     ops/search.py:search_lanes_live)
+  resolve + compaction     kernel 5  (ops/compact.py:compact_cands, K3+K4;
+                                     spliced: re-search rows, proximity)
   diag_chars               kernel 2  (ops/splice.py), reference windows and,
                                      on a graph index, the SNV-plane windows
   extend_grouped           kernel 3  (ops/extend.py), core and extra slots
+  pair_sweep               K13+K14   (ops/splice.py), spliced full pass
+  inject_known             K16       (ops/splice.py), a spliced aligner and
+                                     its lite twin
   inject_indels            kernel 7  (ops/splice.py, K10+K11), full pass on
                                      an index with known ALT indels
-  self_indel_sweep         kernel 4  (ops/splice.py), strict and wide rows
+  self_indel_sweep         kernel 4  (ops/splice.py), strict rows (+ wide
+                                     rows in DNA mode)
   top-Mdev, flags, spill   kernel 6  (ops/compact.py:pack_slots, K9)
+  second_sweep             K15       (ops/splice.py), twice, spliced full
+                                     pass
 
 The per-block concatenation into the unified slot schema and the int32/16/8
-packing (`_pack_out`) are torch glue.  On a graph index the lite tier
-(pipeline.py:307-313) skips the sweep, the injection and the extra slots
-and sets h_sat.
+packing (`_pack_out`) are torch glue.  The lite tier (pipeline.py:307-313)
+skips the sweeps and the extra slots and sets h_sat.
 
 Host half: dispatch() enqueues the step on the current stream and starts
 the device-to-host copy of the packed buffer into pinned memory, recording
 a CUDA event that _fetch_out waits on; the numpy host phase is carried in
-align/host.py, and the two-tier routing of a graph index (lite pass, then
-the full pass on the routed reads) below, from pipeline.py:1651-1943.  On a
-CPU device everything runs the plain versions synchronously (that is what
-the CPU tests compare with the JAX package).
+align/host.py, and the two-tier routing (lite pass, then the full pass on
+the routed reads; for a spliced aligner also by the splice-site boundaries
+added since the lite dispatch) below, from pipeline.py:1651-1943.  A
+spliced aligner's collect() then runs the temp-site fixed point (the
+batch re-runs while its alignments add sites; align/splice_db.py, whose
+incremental table merge is K18).  On a CPU device everything runs the
+plain versions synchronously (that is what the CPU tests compare with the
+JAX package).
 
 Paired reads go through the same step as one fused batch of both mates
 (align/driver.py), with `collect(paired=True)`.  `rescue_mates` is the
@@ -41,6 +54,7 @@ from __future__ import annotations
 
 import dataclasses
 import sys
+import time
 from typing import Optional
 
 import numpy as np
@@ -72,13 +86,17 @@ class TorchAligner(HostPhase):
                  max_seeds: int = 0, all_hits: bool = False,
                  anchor_stop: bool = True, device="cuda",
                  variants=None, spliced: bool = False, lite: bool = False,
+                 inject_ss: bool = False, splice_db=None, tmo: bool = False,
+                 require_xs: bool = False,
                  _dev=None, _ref_codes=None, _graph_bundle=None):
         if isinstance(index, ShardedFMIndex) or hasattr(index, "shards"):
             raise NotImplementedError(
                 "sharded genome-scale indexes: ROADMAP.md Queue 1 item 6")
-        if spliced:
+        if (spliced or inject_ss) and variants is not None and (
+                variants.n_snps or len(variants.ss_ref)):
             raise NotImplementedError(
-                "spliced alignment: ROADMAP.md Queue 1 item 5")
+                "spliced alignment on a graph or --ss index: ROADMAP.md "
+                "Queue 1 item 12")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but torch finds no "
@@ -86,6 +104,13 @@ class TorchAligner(HostPhase):
         self.meta = index.meta
         self.scoring = scoring or Scoring()
         self.lite = lite
+        # spliced mode (pipeline.py:248-255): the lite twin of a spliced
+        # aligner injects known/temp sites; --tmo reports known junctions
+        # only, --dta-cufflinks needs an XS strand on spliced alignments
+        self.inject_ss = inject_ss
+        self.use_ss = spliced or inject_ss
+        self.tmo = tmo
+        self.require_xs = require_xs
         self.anchor_stop = anchor_stop
         self.k = k
         self.all_hits = all_hits
@@ -96,25 +121,33 @@ class TorchAligner(HostPhase):
         self.msize = min(max(self.k, self.max_seeds), 64)
         self.max_hits = 4              # TPUAligner's defaults
         self.ss_slots = 2
+        self.max_pairs = 4
         n = index.meta.n
         self.min_k = 0
         while n > 0:
             n >>= 2
             self.min_k += 1
-        # DNA mode (pipeline.py:298-313)
-        self.min_hit_len = 16
-        self.core_cands = max(k + 1, 6)
-        self.max_cands = max(self.core_cands, self.msize + 1)
-        self.short_rows = 5
-        if lite:
-            self.lite_cap = 8
-            self.msize = min(self.msize, self.lite_cap)
-            self.max_cands = self.core_cands
-        self.cand_per_hit = 4
+        if spliced:
+            # short boundary anchors feed the junction pair sweep, +8
+            # candidate slots, 16 short rows (pipeline.py:280-297)
+            self.min_hit_len = 7
+            self.core_cands = max(k + 1, 6) + 8
+            self.max_cands = max(self.core_cands, self.msize + 1)
+            self.short_rows = 16
+        else:
+            # DNA mode (pipeline.py:298-313)
+            self.min_hit_len = 16
+            self.core_cands = max(k + 1, 6)
+            self.max_cands = max(self.core_cands, self.msize + 1)
+            self.short_rows = 5
+            if lite:
+                self.lite_cap = 8
+                self.msize = min(self.msize, self.lite_cap)
+                self.max_cands = self.core_cands
+        self.cand_per_hit = 6 if spliced else 4      # (:317)
         self.no_fw = no_fw
         self.no_rc = no_rc
-        self.spliced = False
-        self.splice_db = None
+        self.spliced = spliced
         self.lane_meta = lane_meta
         self.shards = [index]          # the replay glue reads shards[0]
         self.ref_codes = (_ref_codes if _ref_codes is not None
@@ -156,7 +189,18 @@ class TorchAligner(HostPhase):
             min_anchor=sc.min_anchor, min_anchor_noncan=sc.min_anchor_noncan,
             rd_gap_open=sc.rd_gap_open, rd_gap_ext=sc.rd_gap_ext,
             rf_gap_open=sc.rf_gap_open, rf_gap_ext=sc.rf_gap_ext,
-            allow_spliced=False)
+            allow_spliced=spliced)
+        # the splice-site DB (pipeline.py:440-452): the lite twin shares
+        # its parent's, so pass-1 injection sees the same table
+        if spliced:
+            from .splice_db import SpliceSiteDB
+            self.splice_db = (splice_db if splice_db is not None
+                              else SpliceSiteDB(index, device=self.device))
+        else:
+            self.splice_db = splice_db if inject_ss else None
+        self._lenpen = (splice_ops.lenpen_device(self.splice_params,
+                                                 self.device)
+                        if spliced else None)
         # packed-buffer layouts, keyed by width (spill and full_out coexist)
         self._out_specs = {}
         self._spill_meta = {}
@@ -164,7 +208,18 @@ class TorchAligner(HostPhase):
         # near-perfect reads, the full machinery runs only on the routed
         # subset (pipeline.py:481-494)
         self._fast = None
-        if (not lite and not all_hits and variants is not None
+        if spliced:
+            # the spliced aligner's lite twin with known-site injection
+            # (pipeline.py:470-480)
+            self._fast = TorchAligner(
+                index, scoring=self.scoring, k=k, no_fw=no_fw, no_rc=no_rc,
+                variants=variants, lane_meta=lane_meta, max_seeds=max_seeds,
+                all_hits=all_hits, anchor_stop=anchor_stop,
+                device=self.device, lite=not all_hits,
+                inject_ss=not all_hits, splice_db=self.splice_db, tmo=tmo,
+                require_xs=require_xs, _dev=self.dev,
+                _ref_codes=self.ref_codes, _graph_bundle=self._graph_bundle)
+        elif (not lite and not all_hits and variants is not None
                 and variants.n_snps):
             self._fast = TorchAligner(
                 index, scoring=self.scoring, k=k, no_fw=no_fw, no_rc=no_rc,
@@ -184,10 +239,13 @@ class TorchAligner(HostPhase):
 
     # ------------------------------------------------------------------
     def _align_device(self, reads, quals, lens, minsc, uniform: bool,
-                      full_out: bool, capture: dict = None):
+                      full_out: bool, capture: dict = None, rdids=None,
+                      ss=None):
         """Device computation for one batch: [B, L] -> output dict
-        (pipeline.py:725-1375, DNA branch).  Lanes 0..B-1 forward,
-        B..2B-1 reverse complement.  Returns (out, spill_meta).
+        (pipeline.py:725-1446).  Lanes 0..B-1 forward, B..2B-1 reverse
+        complement.  rdids [B] int32 and ss (SpliceSiteDB.device_tables)
+        feed the site injection of a spliced aligner and its lite twin.
+        Returns (out, spill_meta).
 
         capture: when a dict, receives the keyword arguments of the first
         call of each hand-kernel wrapper (chip_smoke.py replays them
@@ -227,6 +285,44 @@ class TorchAligner(HostPhase):
                     min_hit_len=self.min_hit_len, min_k=self.min_k,
                     uniform=uniform, anchor_stop=self.anchor_stop)
 
+        research = {}
+        if self.spliced:
+            # prefix re-search (:810-883): cut = lo of the second-to-last
+            # hit, tightened to the clean suffix run of the first
+            # align-capable width-1 anchor's diagonal (rc0 through K5)
+            nh = hits.nh
+            cut = compact_ops.take_cols(
+                hits.lo, torch.clamp(nh - 2, min=0)[:, None])[:, 0]
+            cut = torch.where(nh >= 2, cut, 0)
+            wh = hits.bot - hits.top
+            anchor_ok = (wh == 1) & ((hits.hi - hits.lo) > self.min_k + 2)
+            first_a = anchor_ok.to(torch.uint8).argmax(1)[:, None]
+            have_a = anchor_ok.any(1)
+            top_a = torch.where(have_a, compact_ops.take_cols(
+                hits.top, first_a)[:, 0], 0)
+            top_a = torch.clamp(top_a, max=d.sa.shape[0] - 1)
+            d0 = (d.sa[top_a.to(torch.int64)]
+                  - compact_ops.take_cols(hits.lo, first_a)[:, 0])
+            rc0 = call("ref_window", splice_ops.diag_chars,
+                       ref_words=d.ref_words, n_text=meta.n,
+                       starts=d0[:, None].to(_I32).contiguous(), L=L,
+                       margin=0)[:, 0, :]
+            colL = torch.arange(L, device=dv, dtype=_I32)[None, :]
+            mm0 = (colL < al[:, None]) & ((ar != torch.clamp(rc0, max=3))
+                                          | (ar > 3) | (rc0 > 3))
+            last0 = (L - 1) - mm0.flip(1).to(torch.uint8).argmax(1)
+            cut_ext = torch.where(have_a & mm0.any(1), last0 + 1, 2 ** 30)
+            cut = torch.minimum(cut, cut_ext).to(_I32).contiguous()
+            hits2 = call("search_lanes_live", search_ops.search_lanes_live,
+                         blocked=d.blocked, fchr=d.fchr,
+                         ftab2_top=d.ftab2_top, zrow=meta.zrow,
+                         zrow2=meta.zrow2, rows=meta.rows, reads=ar, cut=cut,
+                         max_hits=2, min_hit_len=self.min_hit_len,
+                         min_k=self.min_k)
+            research = dict(top2=hits2.top, bot2=hits2.bot, lo2=hits2.lo,
+                            nh2=hits2.nh, P2=32,
+                            max_intron=self.scoring.max_intron_len)
+
         # hit gates, full-SA resolve, dedup + compaction (:772-998)
         C = self.max_cands
         cands = call("compact_cands", compact_ops.compact_cands,
@@ -238,7 +334,7 @@ class TorchAligner(HostPhase):
                      maxsize=max(self.k, self.max_seeds),
                      short_rows=self.short_rows,
                      lite_cap=self.lite_cap if self.lite else 0,
-                     lane_meta=self.lane_meta)
+                     lane_meta=self.lane_meta, **research)
         cstart, cvalid, cvalid_long, cab, cpost = cands[:5]
         xstart, xvalid, xab, xpost = cands[5:9]
 
@@ -292,6 +388,40 @@ class TorchAligner(HostPhase):
 
         zc = torch.zeros((N, cstart.shape[1]), dtype=_I32, device=dv)
         blocks = []
+        if sp.allow_spliced:
+            # the junction pair sweep and its top pairs (:1080-1099)
+            res, sel, bsel = call(
+                "pair_sweep", splice_ops.pair_sweep, ch=ch, reads=ar,
+                quals=aq, lens=al, starts=cstart, valid=cvalid.contiguous(),
+                minsc=am, mm_pen=self.params["mm_pen"],
+                n_pen=self.scoring.n_pen, n_text=meta.n, prm=sp,
+                lenpen=self._lenpen, max_gap=g_budget, margin=margin,
+                top=self.max_pairs)
+            zt = torch.zeros_like(sel["score"])
+            blocks.append(dict(
+                sel, ab=torch.maximum(compact_ops.take_cols(cab, sel["i"]),
+                                      compact_ops.take_cols(cab, sel["j"])),
+                post=(compact_ops.take_cols(cpost, sel["i"])
+                      & compact_ops.take_cols(cpost, sel["j"])),
+                known=zt, selfgap=zt))
+        rd2 = None
+        if self.use_ss:
+            # known/temp splice-site injection (:1109-1140)
+            rd2 = torch.cat([rdids, rdids]).to(_I32).contiguous()
+            inj = call("inject_known", splice_ops.inject_known,
+                       ref_words=d.ref_words, n_text=meta.n, reads=ar,
+                       quals=aq, lens=al, rdids=rd2, starts=cstart,
+                       valid=cvalid.contiguous(), ch=ch, margin=margin,
+                       tabs=ss, mm_pen=self.params["mm_pen"],
+                       n_pen=self.scoring.n_pen, minsc=am,
+                       slots=self.ss_slots, src_clip_l=ext.clip_l,
+                       src_clip_r=ext.clip_r,
+                       clip_pen=self.params["clip_pen"])
+            src_i = inj.pop("src")
+            zi = torch.zeros_like(src_i)
+            blocks.append(dict(inj, ab=compact_ops.take_cols(cab, src_i),
+                               post=compact_ops.take_cols(cpost, src_i),
+                               known=zi + 1, selfgap=zi))
         if self.has_indels and not self.lite:
             # known ALT indel injection (:1141-1160)
             injd = call("inject_indels", splice_ops.inject_indels,
@@ -324,6 +454,8 @@ class TorchAligner(HostPhase):
             blocks.append(dict({k2: selfw[k2] for k2 in
                                 ("score", "d1", "d2", "x", "kind", "spldir")},
                                ab=sab, post=spost, known=zc, selfgap=zc + 1))
+        if not self.lite and not sp.allow_spliced:
+            # wide rows (:1181-1209): DNA mode only
             other_d = selfw["w_d1"] + selfw["w_d2"] - cstart
             eqm = (other_d[:, :, None]
                    == torch.where(cvalid, cstart, -1)[:, None, :])
@@ -373,9 +505,64 @@ class TorchAligner(HostPhase):
         Ktot = uni.shape[2]
         Mdev = min(Ktot, max(10, self.msize + 2))
         use_spill = (not full_out) and Mdev > 2
+        wide_d2 = bool(sp.allow_spliced or self.use_ss)
         out.update(call("pack_slots", compact_ops.pack_slots, uni=uni,
-                        Mdev=Mdev, use_spill=use_spill))
-        return out, ((Mdev, False) if use_spill else None)
+                        Mdev=Mdev, use_spill=use_spill, spliced=wide_d2))
+        if self.spliced:
+            out.update(self._second_junctions(
+                call, res, bsel, ch, ar, aq, al, am, cstart, cvalid, margin,
+                ss, rd2))
+        return out, ((Mdev, wide_d2) if use_spill else None)
+
+    def _second_junctions(self, call, res, bsel, ch, ar, aq, al, am, cstart,
+                          cvalid, margin, ss, rd2):
+        """The second-junction composites off the top-2 raw base pairs
+        (pipeline.py:1376-1445): K15 once per base pair, then the
+        3-junction composite of its ungated sides."""
+        N, Cc = cstart.shape
+        out = {}
+        for t, (pfx2, pfx3) in enumerate((("q2_", "q3_"), ("r2_", "r3_"))):
+            bflat = bsel[:, t].to(torch.int64)
+            b_i = (bflat // Cc).to(_I32)
+            b_j = (bflat % Cc).to(_I32)
+
+            def gpair(a):
+                return a.reshape(N, Cc * Cc).gather(1, bflat[:, None])[:, 0]
+
+            b_score = gpair(res["raw"])
+            b_x = gpair(res["x"])
+            b_kind = gpair(res["kind"])
+            b_ok = (b_score > -(2 ** 29)) & (b_kind != splice_ops.KIND_NONE)
+            q2 = call("second_sweep", splice_ops.second_sweep, ch=ch,
+                      reads=ar, quals=aq, lens=al, starts=cstart,
+                      valid=cvalid.contiguous(), minsc=am,
+                      mm_pen=self.params["mm_pen"], n_pen=self.scoring.n_pen,
+                      n_text=self.meta.n, prm=self.splice_params,
+                      lenpen=self._lenpen, margin=margin,
+                      b_i=b_i.contiguous(), b_j=b_j.contiguous(),
+                      b_x=b_x.contiguous(), b_score=b_score.contiguous(),
+                      b_valid=b_ok.contiguous(), ss=ss, rdids=rd2)
+            lu, ru = q2["left"], q2["right"]
+            q3_sc = wrap_i32(lu["uscore"].to(torch.int64) + ru["uscore"]
+                             - b_score)
+            q3_ok = ((lu["uscore"] > -(2 ** 29)) & (ru["uscore"] > -(2 ** 29))
+                     & b_ok & (q3_sc >= am))
+            q3_sc = torch.where(q3_ok, q3_sc, -(2 ** 30)).to(_I32)
+            st = lambda k: torch.stack([ru[k], lu[k]], 1).to(_I32)  # noqa
+            out.update({
+                pfx2 + "score": st("score"), pfx2 + "d": st("d"),
+                pfx2 + "x": st("x"), pfx2 + "dir": st("dir"),
+                pfx2 + "bd1": cstart.gather(1, b_i[:, None].long())[:, 0],
+                pfx2 + "bd2": cstart.gather(1, b_j[:, None].long())[:, 0],
+                pfx2 + "bx": b_x, pfx2 + "bkind": b_kind,
+                pfx2 + "bdir": gpair(res["spldir"]),
+                pfx2 + "bknown": torch.zeros_like(b_x),
+                pfx3 + "score": q3_sc,
+                pfx3 + "ld": lu["ud"], pfx3 + "lx": lu["ux"],
+                pfx3 + "ldir": lu["udir"],
+                pfx3 + "rd": ru["ud"], pfx3 + "rx": ru["ux"],
+                pfx3 + "rdir": ru["udir"]})
+        return out
 
     @staticmethod
     def _pack_out(out: dict, L: int):
@@ -383,11 +570,18 @@ class TorchAligner(HostPhase):
         columns, then int16 pairs, then int8 quads.  Returns (buf,
         specs).  This interleaving of columns with shifts and masks is
         torch glue (a few elementwise launches), not a ported kernel."""
-        I32 = {"u_d1", "u_d2", "u_event", "h_rounds", "sp_src", "sp_w",
-               "sp_ev"}
-        I8 = {"u_flags", "u_dd", "u_ab", "h_alignable", "h_stop", "h_sat"}
+        I32 = {"u_d1", "u_d2", "u_event", "h_rounds",
+               "q2_d", "q2_bd1", "q2_bd2", "sp_src", "sp_w", "sp_ev",
+               "q3_ld", "q3_rd", "r2_d", "r2_bd1", "r2_bd2",
+               "r3_ld", "r3_rd"}
+        I8 = {"u_flags", "u_dd", "u_ab", "h_alignable", "h_stop", "h_sat",
+              "q2_bkind", "q2_bdir", "q2_dir", "q2_bknown",
+              "q3_ldir", "q3_rdir", "r2_bkind", "r2_bdir", "r2_dir",
+              "r2_bknown", "r3_ldir", "r3_rdir"}
         if L <= 127:
-            I8 |= {"u_n_mm", "u_n_n", "u_clip_l", "u_clip_r", "u_x"}
+            I8 |= {"u_n_mm", "u_n_n", "u_clip_l", "u_clip_r", "u_x",
+                   "q2_x", "q2_bx", "q3_lx", "q3_rx",
+                   "r2_x", "r2_bx", "r3_lx", "r3_rx"}
         cols, specs, half, quart = [], [], [], []
         for k in sorted(out):
             v = out[k]
@@ -424,12 +618,15 @@ class TorchAligner(HostPhase):
         return torch.cat(cols, dim=1).contiguous(), specs
 
     def step(self, reads, quals, lens, minsc, uniform: bool,
-             full_out: bool = False, capture: dict = None):
+             full_out: bool = False, capture: dict = None, rdids=None,
+             ss=None):
         """The whole device step on device tensors (int32 [B, L] reads
-        and quals, int32 [B] lens and minsc): the packed buffer, with its
-        layout recorded in _out_specs / _spill_meta under its width."""
+        and quals, int32 [B] lens, minsc and rdids; ss the site tables of
+        a spliced aligner): the packed buffer, with its layout recorded in
+        _out_specs / _spill_meta under its width."""
         out, spill_meta = self._align_device(reads, quals, lens, minsc,
-                                             uniform, full_out, capture)
+                                             uniform, full_out, capture,
+                                             rdids, ss)
         buf, specs = self._pack_out(out, reads.shape[1])
         self._out_specs[buf.shape[1]] = specs
         self._spill_meta[buf.shape[1]] = spill_meta
@@ -448,10 +645,21 @@ class TorchAligner(HostPhase):
         return np.array([self.scoring.min_score(int(x)) for x in lens],
                         np.int64)
 
+    def _step_site_args(self, rdids):
+        """(rdids tensor, site tables) for the step of a site-injecting
+        aligner (pipeline.py:1684-1686), else (None, None)."""
+        if not self.use_ss:
+            return None, None
+        rd = torch.from_numpy(np.asarray(rdids, np.int64).astype(np.int32))
+        return rd.to(self.device), self.splice_db.device_tables()
+
     def _dispatch_packed(self, codes, quals, lens, minsc, uniform,
-                         full_out=False):
+                         full_out=False, rdids=None):
+        if rdids is None:
+            rdids = np.arange(codes.shape[0], dtype=np.int64)
+        rd, ss = self._step_site_args(rdids)
         buf = self.step(*self.upload(codes, quals, lens, minsc), uniform,
-                        full_out)
+                        full_out, rdids=rd, ss=ss)
         if buf.is_cuda:
             # enqueue the D2H copy now, behind the step on the same
             # stream; _fetch_out waits on the event (the counterpart of
@@ -495,8 +703,10 @@ class TorchAligner(HostPhase):
             rdids = np.arange(codes.shape[0], dtype=np.int64)
         minsc = self._minsc(lens)
         uniform = bool(np.all(np.asarray(lens) == codes.shape[1]))
-        packed = self._dispatch_packed(codes, quals, lens, minsc, uniform)
-        return (packed, codes, quals, lens, rdids, minsc, 0)
+        ver = self.splice_db.n_sites if self.splice_db is not None else 0
+        packed = self._dispatch_packed(codes, quals, lens, minsc, uniform,
+                                       rdids=rdids)
+        return (packed, codes, quals, lens, rdids, minsc, ver)
 
     def _merge_or_respill(self, packed, codes, quals, lens, rdids):
         """_merge, re-dispatching with the full_out layout when the spill
@@ -507,12 +717,14 @@ class TorchAligner(HostPhase):
             uniform = bool(np.all(np.asarray(lens) == codes.shape[1]))
             return self._merge(self._dispatch_packed(
                 codes, quals, lens, self._minsc(lens), uniform,
-                full_out=True))
+                full_out=True, rdids=rdids))
 
     def collect(self, handle, paired: bool = False) -> BatchResult:
         """Finish a dispatched batch: fetch and run the host phase; a
-        two-pass handle runs its remaining stages (pipeline.py:1709-1722;
-        the splice-site fixed point of the spliced aligner is not here).
+        two-pass handle runs its remaining stages (pipeline.py:1709-1734).
+        A spliced aligner then iterates the temp splice-site fixed point:
+        while the batch's alignments add sites, the batch re-runs through
+        the full pass with the grown table (readid-gated on the device).
         paired: the batch is a fused pair batch (mate 1 reads, then mate 2
         reads), whose host phase skips the unpaired interleave replay."""
         if handle[0] == "2pass":
@@ -520,12 +732,33 @@ class TorchAligner(HostPhase):
                 self._advance_two_pass(handle, paired), paired)
         if handle[0] == "2pass2":
             return self._finish_two_pass(handle, paired)
-        packed, codes, quals, lens, rdids, minsc, _ = handle
-        return self._host_phase(
+        packed, codes, quals, lens, rdids, minsc, ver = handle
+        res = self._host_phase(
             self._merge_or_respill(packed, codes, quals, lens, rdids),
             codes, quals, lens, minsc, paired=paired)
+        if not self.spliced or self.splice_db is None:
+            return res
+        for _ in range(4):
+            if self.tmo:
+                break           # --tmo: no temp splice sites
+            added = self.splice_db.collect_from_alignments(
+                res.alignments, rdids, lens, codes, self.ref_codes)
+            if not added and self.splice_db.n_sites == ver:
+                break
+            ver = self.splice_db.n_sites
+            t0 = time.perf_counter()
+            h = self._dispatch_full(codes, quals, lens, rdids)
+            res = self._host_phase(self._merge(h[0]), codes, quals, lens,
+                                   minsc, paired=paired)
+            self.fixed_point_runs += 1
+            self.fixed_point_s += time.perf_counter() - t0
+        return res
 
-    # -- two tiers (pipeline.py:1736-1943, DNA mode: no splice-site DB) --
+    # the temp-site re-runs of the full pass: count and host seconds
+    fixed_point_runs = 0
+    fixed_point_s = 0.0
+
+    # -- two tiers (pipeline.py:1736-1943) --
     def _dispatch_full(self, codes, quals, lens, rdids=None):
         """The full device pass on exactly these arrays (:1736-1742)."""
         saved, self._fast = self._fast, None
@@ -545,9 +778,10 @@ class TorchAligner(HostPhase):
 
     def _route_two_pass(self, st) -> np.ndarray:
         """Read indices whose pass-1 answer is not final (:1761-1807):
-        unaligned, imperfect and clipped, slot-saturated, or overlapping
-        a known ALT indel."""
-        (has, best, bdirty, r_rd, r_lo, r_hi, sat, processed) = st
+        unaligned, imperfect and clipped, slot-saturated, overlapping a
+        known ALT indel, or covering a splice-site boundary added since
+        the pass-1 dispatch."""
+        (has, best, bdirty, r_rd, r_lo, r_hi, sat, ver1, processed) = st
         sp = self.splice_params
         gapmin = min(sp.rd_gap_open + sp.rd_gap_ext,
                      sp.rf_gap_open + sp.rf_gap_ext)
@@ -561,6 +795,13 @@ class TorchAligner(HostPhase):
             near = (np.searchsorted(bnd, r_hi + 1)
                     - np.searchsorted(bnd, r_lo - 1)) > 0
             needs[r_rd[near]] = True
+        if self.splice_db is not None and r_rd is not None:
+            since = ver1 if getattr(self._fast, "inject_ss", False) else 0
+            bnd = self.splice_db.joined_boundaries(since=since)
+            if bnd.size:
+                near = (np.searchsorted(bnd, r_hi + 1)
+                        - np.searchsorted(bnd, r_lo - 1)) > 0
+                needs[r_rd[near]] = True
         needs &= ~processed
         return np.flatnonzero(needs)
 
@@ -587,6 +828,7 @@ class TorchAligner(HostPhase):
     def _advance_two_pass(self, handle, paired: bool):
         """Collect pass 1, route, dispatch pass 2 (:1830-1870)."""
         _, h1, codes, quals, lens, rdids = handle
+        ver1 = h1[6] if isinstance(h1, tuple) and len(h1) >= 7 else 0
         res1 = self._fast.collect(h1, paired=paired)
         B = res1.n_reads
         if rdids is None:
@@ -616,22 +858,37 @@ class TorchAligner(HostPhase):
             cap = self._fast.lite_cap
             sat = (v[:B] > cap) | (v[B:2 * B] > cap)
         processed = np.zeros(B, bool)
-        st = (has, best, bdirty, r_rd, r_lo, r_hi, sat, processed)
+        st = (has, best, bdirty, r_rd, r_lo, r_hi, sat, ver1, processed)
         sub = self._route_two_pass(st)
         h2 = None
+        ver0 = self.splice_db.n_sites if self.splice_db else 0
         if sub.size:
             processed[sub] = True
             h2 = self._dispatch_sub(codes, quals, lens, rdids, sub)
-        return ("2pass2", res1, h2, sub)
+        return ("2pass2", res1, h2, sub, st, ver0, codes, quals, lens,
+                rdids)
 
     def _finish_two_pass(self, stage2, paired: bool) -> BatchResult:
-        """Collect pass 2 and merge it into pass 1 (:1872-1891; without a
-        splice-site DB the routing set cannot grow, so one round)."""
-        _, merged, h2, sub = stage2
-        if h2 is None:
-            return merged
-        res2 = self.collect(h2, paired=paired)
-        return self._merge_two_pass(merged, res2, sub, merged.n_reads)
+        """Collect pass 2 and merge it into pass 1 (:1872-1891): with a
+        splice-site DB that grew, re-route and re-run the new subset (at
+        most three rounds)."""
+        _, merged, h2, sub, st, ver0, codes, quals, lens, rdids = stage2
+        B = merged.n_reads
+        processed = st[-1]
+        for _ in range(3):
+            if h2 is None:
+                break
+            res2 = self.collect(h2, paired=paired)
+            merged = self._merge_two_pass(merged, res2, sub, B)
+            if self.splice_db is None or self.splice_db.n_sites == ver0:
+                break   # no new sites -> the needs-set cannot grow
+            ver0 = self.splice_db.n_sites
+            sub = self._route_two_pass(st)
+            h2 = None
+            if sub.size:
+                processed[sub] = True
+                h2 = self._dispatch_sub(codes, quals, lens, rdids, sub)
+        return merged
 
     def _merge_two_pass(self, res1, res2, sub, B):
         """Replace subset reads' rows/metadata in res1 with res2's

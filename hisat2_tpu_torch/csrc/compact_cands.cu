@@ -22,6 +22,13 @@
 // masks because the TPU had no fast gather; here every lookup is a direct
 // index and the O(J^2) comparisons are spread over the warp's 32 lanes.
 //
+// Spliced mode (pipeline.py:846-933): the prefix re-search's H2 hits add
+// P2 sweep-only rows each (J = H*P + H2*P2 slots); a short slot survives
+// only within max_intron of one of the lane's 8 lowest align-capable
+// starts (int32 distances wrap, as JAX's), and short slots rank by that
+// distance (ties by slot index, the stable rank of JAX), the re-search
+// rows inheriting the lane's last hit's provenance.
+//
 // Bound: per lane ~J reads of the SA (scattered, one 4 B load each) and
 // O(J^2 / 32) shared-memory compares per thread; at J = 60 it is a few
 // hundred instructions per thread, latency-bound on the SA gathers.
@@ -41,7 +48,12 @@ struct CompactArgs {
   const int* abefore;
   const uint8_t* post;
   const uint8_t* stopped;
+  const int* top2;  // [N, H2] the spliced prefix re-search (H2 = 0: none)
+  const int* bot2;
+  const int* lo2;
+  const int* nh2;
   int N, H, P, C, CC, min_k, maxsize, short_rows, lite_cap, lane_meta;
+  int H2, P2, max_intron;
   int* cstart;   // [N, CC]
   uint8_t* cvalid;
   uint8_t* cvalid_long;
@@ -57,7 +69,13 @@ struct CompactArgs {
 };
 
 __host__ __device__ inline int cc_warp_ints(int J, int C, int H) {
-  return 3 * J + 3 * C + 2 * H;
+  return 4 * J + 3 * C + 2 * H + 8;
+}
+
+// |a - b| in wrapping int32, |INT_MIN| = INT_MIN as jnp.abs
+__device__ __forceinline__ int cc_wrap_absdiff(int a, int b) {
+  const int d = (int)((unsigned)a - (unsigned)b);
+  return d < 0 ? (int)(0u - (unsigned)d) : d;
 }
 
 __global__ void compact_cands_kernel(CompactArgs A, int warps) {
@@ -66,7 +84,9 @@ __global__ void compact_cands_kernel(CompactArgs A, int warps) {
   const int wid = threadIdx.x >> 5;
   const int n = blockIdx.x * warps + wid;
   if (n >= A.N) return;  // uniform per warp
-  const int H = A.H, P = A.P, C = A.C, J = H * P;
+  const int H = A.H, P = A.P, C = A.C, J1 = H * P;
+  const int J = J1 + A.H2 * A.P2;
+  const bool spliced = A.H2 > 0;
   int* sIdent = smem + (size_t)wid * cc_warp_ints(J, C, H);
   int* sStart = sIdent + J;
   int* sFlag = sStart + J;     // bit0 live, bit1 align-capable, bit2 kept
@@ -75,6 +95,8 @@ __global__ void compact_cands_kernel(CompactArgs A, int warps) {
   int* sCFlag = sCStart + C;   // [C] bit0 taken, bit1 short
   int* sAb = sCFlag + C;       // [H]
   int* sPost = sAb + H;        // [H]
+  int* sSkey = sPost + H;      // [J] compaction key
+  int* sLsort = sSkey + J;     // [8] lowest align-capable starts
   const int nh = A.nh[n];
   const bool stopped = A.stopped[n] != 0;
   const bool lite = A.lite_cap > 0;
@@ -103,6 +125,22 @@ __global__ void compact_cands_kernel(CompactArgs A, int warps) {
   }
   // --- resolve rows top..top+P-1 and form the slot keys ---
   for (int j = lane; j < J; j += 32) {
+    if (j >= J1) {  // a re-search row: sweep-only
+      const int j2 = j - J1, h2 = j2 / A.P2, jj = j2 - h2 * A.P2;
+      const size_t o2 = (size_t)n * A.H2 + h2;
+      const int t = A.top2[o2];
+      const int w2 = (int)((unsigned)A.bot2[o2] - (unsigned)t);
+      const bool cv = h2 < A.nh2[n] && w2 <= A.P2 && jj < w2;
+      int st = 0;
+      if (cv)
+        st = (int)((unsigned)__ldg(A.sa + ((long long)t + jj)) -
+                   (unsigned)A.lo2[o2]);
+      sIdent[j] = cv ? (int)((unsigned)st + (unsigned)CC_SHORTBIT)
+                     : CC_SENT;
+      sStart[j] = st;
+      sFlag[j] = cv ? 1 : 0;
+      continue;
+    }
     const int h = j / P, jj = j - h * P;
     const int t = top[h];
     const int w = (int)((unsigned)bot[h] - (unsigned)t);
@@ -121,6 +159,43 @@ __global__ void compact_cands_kernel(CompactArgs A, int warps) {
     sFlag[j] = (cv ? 1 : 0) | (align ? 2 : 0);
   }
   for (int m = lane; m < C; m += 32) sSlot[m] = -1;
+  for (int k = lane; k < 8; k += 32) sLsort[k] = CC_SENT;
+  __syncwarp();
+  if (spliced) {
+    // the 8 lowest align-capable starts, duplicates kept (sort + [:8])
+    for (int j = lane; j < J; j += 32) {
+      if ((sFlag[j] & 3) != 3) continue;
+      const int v = sStart[j];
+      int r = 0;
+      for (int k = 0; k < J; ++k)
+        if ((sFlag[k] & 3) == 3) {
+          const int u = sStart[k];
+          r += (u < v || (u == v && k < j)) ? 1 : 0;
+        }
+      if (r < 8) sLsort[r] = v;
+    }
+    __syncwarp();
+    // proximity filter and the distance key
+    for (int j = lane; j < J; j += 32) {
+      const int st = sStart[j];
+      int ad = INT_MAX;
+      for (int k = 0; k < 8; ++k) ad = min(ad, cc_wrap_absdiff(st, sLsort[k]));
+      int f = sFlag[j];
+      const bool align = (f & 2) != 0;
+      if ((f & 1) && !align && !(ad <= A.max_intron)) f &= ~1;
+      sFlag[j] = f;
+      const bool cv = f & 1;
+      sIdent[j] = cv ? (int)((unsigned)st +
+                             (align ? 0u : (unsigned)CC_SHORTBIT))
+                     : CC_SENT;
+      sSkey[j] = !cv ? CC_SENT
+               : align ? st
+               : (int)((unsigned)CC_SHORTBIT +
+                       (unsigned)min(ad, CC_SHORTBIT - 1));
+    }
+  } else {
+    for (int j = lane; j < J; j += 32) sSkey[j] = sIdent[j];
+  }
   __syncwarp();
   // --- first occurrence of each identity ---
   for (int j = lane; j < J; j += 32) {
@@ -134,9 +209,13 @@ __global__ void compact_cands_kernel(CompactArgs A, int warps) {
   int nlong = 0;
   for (int j = lane; j < J; j += 32) {
     if (!(sFlag[j] & 4)) continue;
-    const int id = sIdent[j];
+    const int key = sSkey[j];
     int r = 0;
-    for (int k = 0; k < J; ++k) r += ((sFlag[k] & 4) && sIdent[k] < id) ? 1 : 0;
+    for (int k = 0; k < J; ++k)
+      if (sFlag[k] & 4) {
+        const int u = sSkey[k];
+        r += (u < key || (u == key && k < j)) ? 1 : 0;
+      }
     if (r < C) sSlot[r] = j;
     if (sFlag[j] & 2) ++nlong;
   }
@@ -161,7 +240,7 @@ __global__ void compact_cands_kernel(CompactArgs A, int warps) {
     for (int j = 0; j < J; ++j) {
       const int f = sFlag[j];
       if (!(f & 1) || sStart[j] != cs) continue;
-      const int h = j / P;
+      const int h = j < J1 ? j / P : max(nh - 1, 0);
       ab = min(ab, sAb[h]);
       allpost = allpost && sPost[h] != 0;
       anyalign = anyalign || (f & 2);
@@ -199,8 +278,10 @@ __global__ void compact_cands_kernel(CompactArgs A, int warps) {
 H2_EXPORT int h2_compact_cands(
     const void* sa, const void* top, const void* bot, const void* lo,
     const void* hi, const void* nh, const void* abefore, const void* post,
-    const void* stopped, int N, int H, int P, int C, int CC, int min_k,
-    int maxsize, int short_rows, int lite_cap, int lane_meta, void* cstart,
+    const void* stopped, const void* top2, const void* bot2,
+    const void* lo2, const void* nh2, int N, int H, int P, int C, int CC,
+    int min_k, int maxsize, int short_rows, int lite_cap, int lane_meta,
+    int H2, int P2, int max_intron, void* cstart,
     void* cvalid, void* cvalid_long, void* cab, void* cpost, void* xstart,
     void* xvalid, void* xab, void* xpost, void* h_minw, void* h_alignable,
     void* h_sat, void* stream) {
@@ -209,13 +290,16 @@ H2_EXPORT int h2_compact_cands(
   CompactArgs A{(const int*)sa, (const int*)top, (const int*)bot,
                 (const int*)lo, (const int*)hi, (const int*)nh,
                 (const int*)abefore, (const uint8_t*)post,
-                (const uint8_t*)stopped, N, H, P, C, CC, min_k, maxsize,
-                short_rows, lite_cap, lane_meta, (int*)cstart,
+                (const uint8_t*)stopped, (const int*)top2, (const int*)bot2,
+                (const int*)lo2, (const int*)nh2, N, H, P, C, CC, min_k,
+                maxsize, short_rows, lite_cap, lane_meta, H2, P2,
+                max_intron, (int*)cstart,
                 (uint8_t*)cvalid, (uint8_t*)cvalid_long, (int*)cab,
                 (uint8_t*)cpost, (int*)xstart, (uint8_t*)xvalid, (int*)xab,
                 (uint8_t*)xpost, (int*)h_minw, (uint8_t*)h_alignable,
                 (int*)h_sat};
-  const size_t per_warp = (size_t)cc_warp_ints(H * P, C, H) * sizeof(int);
+  const size_t per_warp =
+      (size_t)cc_warp_ints(H * P + H2 * P2, C, H) * sizeof(int);
   int warps = 4;
   while (warps > 1 && warps * per_warp > 48 * 1024) warps >>= 1;
   const size_t smem = warps * per_warp;

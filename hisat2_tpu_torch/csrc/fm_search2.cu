@@ -13,6 +13,11 @@
 // event is folded into the PartialHits fields on the spot: hit slots,
 // `abefore`, the uniq/post flags and the byte-packed round log.
 //
+// Lane-list mode (K17, hisat2_tpu/ops/search.py:267 search_lanes_live):
+// given `lanes`, thread t searches lane lanes[t] only (the spliced prefix
+// re-search lists the lanes whose cut can still yield a hit) and writes
+// that lane's row; the caller has zeroed every other row.
+//
 // Bound: each step is a dependent random gather of two rows (latency, not
 // bandwidth); at N = 8192 lanes one thread per lane is less than one wave
 // of the card's 132 SMs.  Hiding that latency (several lanes per warp in
@@ -163,12 +168,13 @@ __device__ __forceinline__ bool fm_phase(FmState& s, FmAcc& acc,
 __global__ void fm_search2_kernel(
     const uint32_t* __restrict__ blocked, const int* __restrict__ fchr,
     const int* __restrict__ ftab2, const int* __restrict__ reads,
-    const int* __restrict__ lens, int N, int L, int zrow, int zrow2,
-    FmParams p, int RW, FmOut o, int* __restrict__ rounds,
-    int* __restrict__ nrounds, int* __restrict__ nh,
-    uint8_t* __restrict__ stopped_out) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= N) return;
+    const int* __restrict__ lens, const int* __restrict__ lanes,
+    int use_lanes, int N, int L, int zrow, int zrow2, FmParams p, int RW,
+    FmOut o, int* __restrict__ rounds, int* __restrict__ nrounds,
+    int* __restrict__ nh, uint8_t* __restrict__ stopped_out) {
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  if (tid >= N) return;
+  const int lane = use_lanes ? lanes[tid] : tid;
   const int len = lens[lane];
   const int* rd = reads + (size_t)lane * L;
   uint32_t rw[FM_MAX_RW];
@@ -231,7 +237,8 @@ __global__ void fm_search2_kernel(
 
 H2_EXPORT int h2_fm_search2(
     const void* blocked, const void* fchr, const void* ftab2,
-    const void* reads, const void* lens, int N, int L, int zrow, int zrow2,
+    const void* reads, const void* lens, const void* lanes, int use_lanes,
+    int N, int L, int zrow, int zrow2,
     int rows, int a_stop_len, int a_cancel_len, int min_hit_len, int H,
     void* top, void* bot, void* lo, void* hi, void* ab, void* uniq,
     void* post, void* rounds, void* nrounds, void* nh, void* stopped,
@@ -246,7 +253,8 @@ H2_EXPORT int h2_fm_search2(
   if (blocks > 0)
     fm_search2_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)blocked, (const int*)fchr, (const int*)ftab2,
-        (const int*)reads, (const int*)lens, N, L, zrow, zrow2, p, RW, o,
+        (const int*)reads, (const int*)lens, (const int*)lanes, use_lanes,
+        N, L, zrow, zrow2, p, RW, o,
         (int*)rounds, (int*)nrounds, (int*)nh, (uint8_t*)stopped);
   return (int)cudaGetLastError();
 }

@@ -20,7 +20,10 @@
 //     flat lane-major scatter of the valid spill slots into S rows, the
 //     padding rows (source -1, words of flat slot 0, as the JAX gather at
 //     max(src, 0) gives them), and the overflow mark -2 on the last row.
-// No sort and no cumsum run on the card.
+// No sort and no cumsum run on the card.  Spliced mode (a spliced or
+// site-injecting pass, pipeline.py:1313-1318, :1351-1355): the dense d2
+// itself instead of the delta, and 5 spill words (x alone in word 3, d2
+// in word 4).
 //
 // Bound: per lane K keys and O(K^2 / 32) compares per thread, then
 // Mdev * F scattered 4 B loads; the spill block is a scan over N ints and
@@ -34,12 +37,14 @@ enum {
 #define PK_NFIELD_OUT 11  // score d1 x ab n_mm n_n clip_l clip_r flags dd event
 #define PK_SPILL_THREADS 1024
 
+#define PK_WORDS 6  // 4 or 5 packed words, then the event row
+
 struct PackArgs {
   const int* uni;  // [F, N, K]
-  int N, K, Mdev, do_select, spill, has_event;
+  int N, K, Mdev, do_select, spill, has_event, spliced;
   int* dense;      // [PK_NFIELD_OUT, N, Wd]: Wd = spill ? 2 : Mdev
   int* alt;        // [N]
-  int* words;      // [N * (Mdev - 2), 5] (spill)
+  int* words;      // [N * (Mdev - 2), PK_WORDS] (spill)
   int* cnt;        // [N] (spill)
 };
 
@@ -112,14 +117,15 @@ __global__ void pack_select_kernel(PackArgs A, int warps) {
     const int dd = (int)((unsigned)fld(F_D2, j) - (unsigned)d1);
     const int vals[PK_NFIELD_OUT] = {
         fld(F_SCORE, j), d1, fld(F_X, j), fld(F_AB, j), fld(F_NMM, j),
-        fld(F_NN, j), fld(F_CLIPL, j), fld(F_CLIPR, j), flags, dd,
+        fld(F_NN, j), fld(F_CLIPL, j), fld(F_CLIPR, j), flags,
+        A.spliced ? fld(F_D2, j) : dd,
         A.has_event ? fld(F_EVENT, j) : 0};
     if (!A.spill || m < 2) {
       for (int f = 0; f < PK_NFIELD_OUT; ++f)
         A.dense[f * NW + (size_t)n * Wd + m] = vals[f];
     } else {
       const int sc16 = pk_clamp(vals[0], -32768, 32767);
-      int* w = A.words + ((size_t)n * Msp + (m - 2)) * 5;
+      int* w = A.words + ((size_t)n * Msp + (m - 2)) * PK_WORDS;
       w[0] = d1;
       w[1] = (int)(((unsigned)sc16 & 0xFFFFu) |
                    (((unsigned)flags & 0x7Fu) << 16) |
@@ -128,9 +134,11 @@ __global__ void pack_select_kernel(PackArgs A, int warps) {
                    (((unsigned)pk_clamp(vals[7], 0, 255) & 0xFFu) << 8) |
                    (((unsigned)pk_clamp(vals[4], 0, 255) & 0xFFu) << 16) |
                    ((unsigned)pk_clamp(vals[5], 0, 127) << 24));
-      w[3] = (int)(((unsigned)pk_clamp(vals[2], 0, 255) & 0xFFu) |
-                   (((unsigned)dd & 0xFFu) << 8));
-      w[4] = vals[10];
+      w[3] = A.spliced ? (int)((unsigned)pk_clamp(vals[2], 0, 255) & 0xFFu)
+                       : (int)(((unsigned)pk_clamp(vals[2], 0, 255) & 0xFFu) |
+                               (((unsigned)dd & 0xFFu) << 8));
+      w[4] = fld(F_D2, j);
+      w[5] = vals[10];
       nvalid += flags & 1;
     }
   }
@@ -144,7 +152,7 @@ __global__ void pack_select_kernel(PackArgs A, int warps) {
 __global__ void pack_spill_kernel(const int* __restrict__ words,
                                   const int* __restrict__ cnt, int* offs,
                                   int N, int Msp, int S, int has_event,
-                                  int* src, int* sp_w, int* sp_ev) {
+                                  int nwd, int* src, int* sp_w, int* sp_ev) {
   __shared__ int sWarp[PK_SPILL_THREADS / 32];
   __shared__ int sCarry;
   const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
@@ -174,37 +182,37 @@ __global__ void pack_spill_kernel(const int* __restrict__ words,
     int r = offs[n];
     for (int m = 0; m < Msp && r < S; ++m) {
       const size_t f = (size_t)n * Msp + m;
-      const int* w = words + f * 5;
+      const int* w = words + f * PK_WORDS;
       if (!((w[1] >> 16) & 1)) continue;
       src[r] = (int)f;
-      for (int k = 0; k < 4; ++k) sp_w[(size_t)r * 4 + k] = w[k];
-      if (has_event) sp_ev[r] = w[4];
+      for (int k = 0; k < nwd; ++k) sp_w[(size_t)r * nwd + k] = w[k];
+      if (has_event) sp_ev[r] = w[5];
       ++r;
     }
   }
   for (int r = total + t; r < S; r += blockDim.x) {
     src[r] = -1;
-    for (int k = 0; k < 4; ++k) sp_w[(size_t)r * 4 + k] = words[k];
-    if (has_event) sp_ev[r] = words[4];
+    for (int k = 0; k < nwd; ++k) sp_w[(size_t)r * nwd + k] = words[k];
+    if (has_event) sp_ev[r] = words[5];
   }
   __syncthreads();
   if (t == 0 && total > S) {
     src[S - 1] = -2;
-    for (int k = 0; k < 4; ++k) sp_w[(size_t)(S - 1) * 4 + k] = words[k];
-    if (has_event) sp_ev[S - 1] = words[4];
+    for (int k = 0; k < nwd; ++k) sp_w[(size_t)(S - 1) * nwd + k] = words[k];
+    if (has_event) sp_ev[S - 1] = words[5];
   }
 }
 
 H2_EXPORT int h2_pack_slots(const void* uni, int N, int K, int Mdev,
                             int do_select, int spill, int has_event,
-                            void* dense, void* alt, void* words, void* cnt,
+                            int spliced, void* dense, void* alt, void* words, void* cnt,
                             void* offs, void* src, void* sp_w, void* sp_ev,
                             void* stream) {
   if (K < 1 || Mdev < 1 || Mdev > K || (spill && Mdev <= 2) ||
       (!do_select && Mdev != K))
     return (int)cudaErrorInvalidValue;
   PackArgs A{(const int*)uni, N, K, Mdev, do_select, spill, has_event,
-             (int*)dense, (int*)alt, (int*)words, (int*)cnt};
+             spliced, (int*)dense, (int*)alt, (int*)words, (int*)cnt};
   const size_t per_warp = (size_t)(K + Mdev) * sizeof(int);
   int warps = 4;
   while (warps > 1 && warps * per_warp > 48 * 1024) warps >>= 1;
@@ -223,6 +231,6 @@ H2_EXPORT int h2_pack_slots(const void* uni, int N, int K, int Mdev,
   if (e != cudaSuccess || !spill) return (int)e;
   pack_spill_kernel<<<1, PK_SPILL_THREADS, 0, st>>>(
       (const int*)words, (const int*)cnt, (int*)offs, N, Mdev - 2, N,
-      has_event, (int*)src, (int*)sp_w, (int*)sp_ev);
+      has_event, spliced ? 5 : 4, (int*)src, (int*)sp_w, (int*)sp_ev);
   return (int)cudaGetLastError();
 }

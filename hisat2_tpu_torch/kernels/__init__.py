@@ -11,7 +11,9 @@ a non-zero code raises here.  Nothing is built or loaded at import time.
 Each kernel is a `Kernel` object in KERNELS with a launch counter that
 counts successful launches and nothing else; the ops-level wrappers
 (ops/search.py, ops/compact.py, ops/splice.py, ops/extend.py,
-ops/rescue.py) are its only callers.
+ops/rescue.py, ops/sites.py) are its only callers.  Two kernels may share
+a C symbol (kernel 1 and its lane-list mode, K17): each counts its own
+launches.
 """
 
 from __future__ import annotations
@@ -58,10 +60,15 @@ class Kernel:
 
 KERNELS = {k.name: k for k in (
     Kernel("fm_search2", "h2_fm_search2",
-           [_P] * 5 + [_I] * 9 + [_P] * 11 + [_P],
+           [_P] * 6 + [_I] * 10 + [_P] * 11 + [_P],
            "hisat2_tpu_torch/csrc/fm_search2.cu",
            "hisat2_tpu/ops/search.py:409 partial_search2 (+ :326 "
            "_finish_events)"),
+    Kernel("search_lanes_live", "h2_fm_search2",
+           [_P] * 6 + [_I] * 10 + [_P] * 11 + [_P],
+           "hisat2_tpu_torch/csrc/fm_search2.cu",
+           "hisat2_tpu/ops/search.py:267 search_lanes_live (kernel 1's "
+           "lane-list mode)"),
     Kernel("ref_window", "h2_ref_window",
            [_P, _I, _LL, _P, _LL, _I, _I, _P, _P],
            "hisat2_tpu_torch/csrc/ref_window.cu",
@@ -78,13 +85,13 @@ KERNELS = {k.name: k for k in (
            "hisat2_tpu_torch/csrc/indel_sweep.cu",
            "hisat2_tpu/ops/splice.py:952 self_indel_sweep"),
     Kernel("compact_cands", "h2_compact_cands",
-           [_P] * 9 + [_I] * 10 + [_P] * 12 + [_P],
+           [_P] * 13 + [_I] * 13 + [_P] * 12 + [_P],
            "hisat2_tpu_torch/csrc/compact_cands.cu",
            "hisat2_tpu/ops/resolve.py:174-186 resolve_consecutive (full "
            "SA) + align/pipeline.py:772-998 compaction (ops/compact.py:"
            "22-62)"),
     Kernel("pack_slots", "h2_pack_slots",
-           [_P] + [_I] * 6 + [_P] * 8 + [_P],
+           [_P] + [_I] * 7 + [_P] * 8 + [_P],
            "hisat2_tpu_torch/csrc/pack_slots.cu",
            "hisat2_tpu/align/pipeline.py:1211-1375 slot merge, top-Mdev, "
            "flags, spill layout"),
@@ -98,6 +105,26 @@ KERNELS = {k.name: k for k in (
            "hisat2_tpu_torch/csrc/rescue_window.cu",
            "hisat2_tpu/ops/rescue.py:25 rescue_candidates (the one-hot "
            "cross-correlation and top_k, :39-59)"),
+    Kernel("pair_sweep", "h2_pair_sweep",
+           [_P] * 10 + [_LL] + [_I] * 22 + [_P] * 3 + [_P],
+           "hisat2_tpu_torch/csrc/pair_sweep.cu",
+           "hisat2_tpu/ops/splice.py:300 pair_sweep (+ :1318 select_pairs, "
+           "align/pipeline.py:1389-1396 base pairs)"),
+    Kernel("second_sweep", "h2_second_sweep",
+           [_P] * 24 + [_I] * 4 + [_LL] + [_I] * 15 + [_P] + [_P],
+           "hisat2_tpu_torch/csrc/second_sweep.cu",
+           "hisat2_tpu/ops/splice.py:1107 second_sweep (+ :192 "
+           "table_searchsorted)"),
+    Kernel("inject_known", "h2_inject_known",
+           [_P] * 21 + [_I] * 3 + [_LL] + [_I] * 8 + [_P] + [_P],
+           "hisat2_tpu_torch/csrc/inject_known.cu",
+           "hisat2_tpu/ops/splice.py:629 inject_known (+ :192 "
+           "table_searchsorted, ops/extend.py:124 live_pen_prefix)"),
+    Kernel("merge_sites", "h2_merge_sites",
+           [_P] * 14 + [_I] * 3 + [_P] * 3 + [_P],
+           "hisat2_tpu_torch/csrc/merge_sites.cu",
+           "hisat2_tpu/align/splice_db.py:40 _merge_sorted_tabs (+ :72 "
+           "lob_add)"),
 )}
 
 _lib = None

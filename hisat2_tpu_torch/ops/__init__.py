@@ -6,7 +6,7 @@ def kernel_twins() -> dict:
     kernels.KERNELS.  The wrapper launches the kernel on CUDA tensors; the
     twin takes the same keyword arguments, so a caller can replay a
     captured call (TorchAligner.step(capture=...)) through both."""
-    from . import compact, extend, rescue, search, splice
+    from . import compact, extend, rescue, search, sites, splice
     return {
         "fm_search2": (search.partial_search2, search.partial_search2_plain),
         "ref_window": (splice.diag_chars, splice.diag_chars_plain),
@@ -19,4 +19,11 @@ def kernel_twins() -> dict:
         "pack_slots": (compact.pack_slots, compact.pack_slots_plain),
         "inject_indels": (splice.inject_indels, splice.inject_indels_plain),
         "rescue_window": (rescue.rescue_window, rescue.rescue_window_plain),
+        "search_lanes_live": (search.search_lanes_live,
+                              search.search_lanes_live_ref),
+        "pair_sweep": (splice.pair_sweep, splice.pair_sweep_ref),
+        "second_sweep": (splice.second_sweep, splice.second_sweep_ref),
+        "inject_known": (splice.inject_known, splice.inject_known_ref),
+        "merge_sites": (sites.merge_sorted_tabs,
+                        sites.merge_sorted_tabs_plain),
     }

@@ -91,11 +91,17 @@ def compact_candidates_plain(sa, top, bot, lo, hi, nh, abefore, post,
                              stopped, P: int, C: int, CC: int, min_k: int,
                              maxsize: int, short_rows: int,
                              lite_cap: int = 0,
-                             lane_meta: bool = False) -> Cands:
-    """Plain torch twin of kernel 5: the DNA-mode hit gates, the full-SA
-    resolve and the dedup + compaction of pipeline.py:772-998, line by
-    line.  hits: [N, H] (nh, stopped: [N]); lite_cap > 0 selects the lite
-    tier's caps (pipeline.py:781-798) and its h_sat."""
+                             lane_meta: bool = False, top2=None, bot2=None,
+                             lo2=None, nh2=None, P2: int = 0,
+                             max_intron: int = 0) -> Cands:
+    """Plain torch twin of kernel 5: the hit gates, the full-SA resolve
+    and the dedup + compaction of pipeline.py:772-998, line by line.
+    hits: [N, H] (nh, stopped: [N]); lite_cap > 0 selects the lite tier's
+    caps (pipeline.py:781-798) and its h_sat.  Spliced mode, when the
+    prefix re-search's hits top2/bot2/lo2 [N, H2] and nh2 [N] are given:
+    their P2 rows per hit join as sweep-only slots (:846-883), short slots
+    must lie within max_intron of one of the lane's 8 lowest align-capable
+    starts (:905-916) and rank by that distance (:923-933)."""
     N, H = top.shape
     dv = top.device
     ar_ = torch.arange
@@ -122,6 +128,29 @@ def compact_candidates_plain(sa, top, bot, lo, hi, nh, abefore, post,
     w_flat = w[:, :, None].expand(N, H, P).reshape(N, H * P)
     align_slot = ((hlen_flat > min_k + 2)
                   & ((w_flat == 1) | ~stopped[:, None]))
+    spliced = top2 is not None
+    HP2 = 0
+    if spliced:
+        H2 = top2.shape[1]
+        w2 = bot2 - top2
+        hv2 = ar_(H2, device=dv)[None, :] < nh2[:, None]
+        hv2 = hv2 & (w2 <= P2)
+        j2 = ar_(P2, device=dv)
+        cval2 = hv2[:, :, None] & (j2[None, None, :] < w2[:, :, None])
+        offs2 = resolve_consecutive(sa, 0, torch.where(hv2, top2, 0), P2)
+        starts2 = (offs2 - lo2[:, :, None]).reshape(N, H2 * P2)
+        HP2 = H2 * P2
+        starts = torch.cat([starts, starts2.to(starts.dtype)], 1)
+        cv = torch.cat([cv, cval2.reshape(N, HP2)], 1)
+        align_slot = torch.cat([align_slot, torch.zeros(
+            (N, HP2), dtype=torch.bool, device=dv)], 1)
+        # local-search proximity (:910-916), int32 wrapping as in JAX
+        lkey = torch.where(cv & align_slot, starts, SENT).to(_I32)
+        lsort = torch.sort(lkey, dim=1).values[:, :8]
+        dd = wrap_i32(starts[:, :, None].to(torch.int64)
+                      - lsort[:, None, :].to(torch.int64))
+        adist = torch.where(dd == -2 ** 31, dd, dd.abs()).min(2).values
+        cv = cv & (align_slot | (adist <= max_intron))
     is_short = ~align_slot
     ident = torch.where(cv, starts + torch.where(is_short, SHORTBIT, 0),
                         SENT).to(_I32)
@@ -131,9 +160,16 @@ def compact_candidates_plain(sa, top, bot, lo, hi, nh, abefore, post,
     tril = torch.ones((Jk, Jk), dtype=torch.bool,
                       device=dv).tril(-1)[None]                  # k < j
     kept = (ident != SENT) & ~torch.any((kk == kj) & tril, dim=2)
-    # DNA mode: the compaction key is the identity itself (the spliced
-    # branch ranks short slots by distance instead, pipeline.py:923)
-    sj, sk = kj, kk
+    if spliced:
+        # short slots rank by distance to the nearest align-capable
+        # diagonal (:923-933)
+        skey = torch.where(cv, torch.where(
+            is_short, SHORTBIT + torch.clamp(adist, max=SHORTBIT - 1),
+            starts), SENT).to(_I32)
+        sj, sk = skey[:, :, None], skey[:, None, :]
+    else:
+        # DNA mode: the compaction key is the identity itself
+        sj, sk = kj, kk
     krank = torch.where(
         kept,
         (((sk < sj) | ((sk == sj) & tril)) & kept[:, None, :]
@@ -150,6 +186,13 @@ def compact_candidates_plain(sa, top, bot, lo, hi, nh, abefore, post,
     cvalid = cvalid & ~dup_short
     ab_flat = abefore[:, :, None].expand(N, H, P).reshape(N, H * P)
     post_flat = post[:, :, None].expand(N, H, P).reshape(N, H * P)
+    if HP2:
+        # the re-search rows inherit the lane's last hit's provenance
+        ilast = torch.clamp(nh - 1, min=0)[:, None]
+        ab_flat = torch.cat([ab_flat, take_cols(abefore, ilast).expand(
+            N, HP2)], 1)
+        post_flat = torch.cat([post_flat, take_cols(post, ilast).expand(
+            N, HP2)], 1)
     same = (cstart[:, :, None] == starts[:, None, :]) & cv[:, None, :]
     cab = torch.where(same, ab_flat[:, None, :], BIG).min(dim=2).values
     cpost = ~torch.any(same & ~post_flat[:, None, :], dim=2)
@@ -177,14 +220,17 @@ def compact_candidates_plain(sa, top, bot, lo, hi, nh, abefore, post,
 def compact_cands(sa, top, bot, lo, hi, nh, abefore, post, stopped,
                   P: int, C: int, CC: int, min_k: int, maxsize: int,
                   short_rows: int, lite_cap: int = 0,
-                  lane_meta: bool = False) -> Cands:
+                  lane_meta: bool = False, top2=None, bot2=None, lo2=None,
+                  nh2=None, P2: int = 0, max_intron: int = 0) -> Cands:
     """Kernel 5 on CUDA tensors, compact_candidates_plain on CPU tensors.
-    sa: the device full SA (int32, padded to a multiple of 8)."""
+    sa: the device full SA (int32, padded to a multiple of 8); top2 ..
+    nh2: the spliced prefix re-search's hits (spliced mode)."""
     if not top.is_cuda:
         return compact_candidates_plain(sa, top, bot, lo, hi, nh, abefore,
                                         post, stopped, P, C, CC, min_k,
                                         maxsize, short_rows, lite_cap,
-                                        lane_meta)
+                                        lane_meta, top2, bot2, lo2, nh2, P2,
+                                        max_intron)
     N, H = top.shape
     for nm, t, shp in (("sa", sa, None), ("top", top, (N, H)),
                        ("bot", bot, (N, H)), ("lo", lo, (N, H)),
@@ -195,6 +241,13 @@ def compact_cands(sa, top, bot, lo, hi, nh, abefore, post, stopped,
     kernels.check_cuda("stopped", stopped, torch.bool, (N,))
     if not 0 <= CC <= C:
         raise ValueError("compact_cands: need 0 <= CC <= C")
+    spliced = top2 is not None
+    H2 = 0
+    if spliced:
+        H2 = top2.shape[1]
+        for nm, t, shp in (("top2", top2, (N, H2)), ("bot2", bot2, (N, H2)),
+                           ("lo2", lo2, (N, H2)), ("nh2", nh2, (N,))):
+            kernels.check_cuda(nm, t, _I32, shp)
     dev = top.device
     X = C - CC
 
@@ -211,8 +264,11 @@ def compact_cands(sa, top, bot, lo, hi, nh, abefore, post, stopped,
     kernels.KERNELS["compact_cands"].launch(
         sa.data_ptr(), top.data_ptr(), bot.data_ptr(), lo.data_ptr(),
         hi.data_ptr(), nh.data_ptr(), abefore.data_ptr(), post.data_ptr(),
-        stopped.data_ptr(), N, H, P, C, CC, min_k, min(maxsize, 2 ** 31 - 1),
-        short_rows, lite_cap, int(lane_meta), *ptr,
+        stopped.data_ptr(),
+        *((top2.data_ptr(), bot2.data_ptr(), lo2.data_ptr(), nh2.data_ptr())
+          if spliced else (top.data_ptr(),) * 4),
+        N, H, P, C, CC, min_k, min(maxsize, 2 ** 31 - 1),
+        short_rows, lite_cap, int(lane_meta), H2, P2, max_intron, *ptr,
         stream=kernels.stream_of(top))
     return out
 
@@ -228,10 +284,13 @@ _DENSE_OUT = ("score", "d1", "x", "ab", "n_mm", "n_n", "clip_l", "clip_r",
               "flags", "dd", "event")
 
 
-def pack_slots_plain(uni, Mdev: int, use_spill: bool) -> dict:
-    """Plain torch twin of kernel 6 (pipeline.py:1278-1371, DNA mode):
-    uni int32 [F, N, K] in SLOT_FIELDS order -> the u_* outputs (and the
-    sp_* spill rows)."""
+def pack_slots_plain(uni, Mdev: int, use_spill: bool,
+                     spliced: bool = False) -> dict:
+    """Plain torch twin of kernel 6 (pipeline.py:1278-1371): uni int32
+    [F, N, K] in SLOT_FIELDS order -> the u_* outputs (and the sp_*
+    spill rows).  DNA mode ships d2 - d1 as a byte; spliced mode (a
+    spliced or site-injecting pass, :1313-1318, :1351-1355) keeps the
+    full d2 and spills 5 words."""
     F, N, Ktot = uni.shape
     dv = uni.device
     uni = dict(zip(SLOT_FIELDS[:F], uni.unbind(0)))
@@ -248,8 +307,9 @@ def pack_slots_plain(uni, Mdev: int, use_spill: bool) -> dict:
                     | (cs << 4))
     for k2 in ("valid", "post", "selfgap", "known", "kind", "spldir"):
         del uni[k2]
-    uni["dd"] = uni["d2"] - uni["d1"]
-    del uni["d2"]
+    if not spliced:
+        uni["dd"] = uni["d2"] - uni["d1"]
+        del uni["d2"]
     out = {}
     if use_spill:
         # SPILL layout (:1319-1369): slots 0-1 dense, the remaining
@@ -282,10 +342,14 @@ def pack_slots_plain(uni, Mdev: int, use_spill: bool) -> dict:
               | ((tk(uni["clip_r"]).clamp(0, 255) & 0xFF) << 8)
               | ((tk(uni["n_mm"]).clamp(0, 255) & 0xFF) << 16)
               | (tk(uni["n_n"]).clamp(0, 127) << 24))
-        w3 = ((tk(uni["x"]).clamp(0, 255) & 0xFF)
-              | ((tk(uni["dd"]) & 0xFF) << 8))
+        if spliced:
+            words = [w0, w1, w2, tk(uni["x"]).clamp(0, 255) & 0xFF,
+                     tk(uni["d2"])]
+        else:
+            words = [w0, w1, w2, ((tk(uni["x"]).clamp(0, 255) & 0xFF)
+                                  | ((tk(uni["dd"]) & 0xFF) << 8))]
         out["sp_src"] = src
-        out["sp_w"] = wrap_i32(torch.stack([w0, w1, w2, w3], dim=1))
+        out["sp_w"] = wrap_i32(torch.stack(words, dim=1))
         if "event" in uni:
             out["sp_ev"] = tk(uni["event"]).to(_I32)
         for k2 in list(uni):
@@ -296,12 +360,13 @@ def pack_slots_plain(uni, Mdev: int, use_spill: bool) -> dict:
     return out
 
 
-def pack_slots(uni, Mdev: int, use_spill: bool) -> dict:
+def pack_slots(uni, Mdev: int, use_spill: bool,
+               spliced: bool = False) -> dict:
     """Kernel 6 on CUDA tensors, pack_slots_plain on CPU tensors.  uni:
     int32 [F, N, K], the unified slot schema in SLOT_FIELDS order (F = 16,
     or 17 with the event row)."""
     if not uni.is_cuda:
-        return pack_slots_plain(uni, Mdev, use_spill)
+        return pack_slots_plain(uni, Mdev, use_spill, spliced)
     F, N, K = uni.shape
     kernels.check_cuda("uni", uni, _I32)
     if F not in (16, 17):
@@ -314,21 +379,23 @@ def pack_slots(uni, Mdev: int, use_spill: bool) -> dict:
     alt = torch.empty((N, 1), dtype=_I32, device=dev)
     z = torch.empty(0, dtype=_I32, device=dev)
     Msp = Mdev - 2
-    words = (torch.empty((N * Msp, 5), dtype=_I32, device=dev)
+    words = (torch.empty((N * Msp, 6), dtype=_I32, device=dev)
              if use_spill else z)
     cnt = torch.empty(N, dtype=_I32, device=dev) if use_spill else z
     offs = torch.empty(N, dtype=_I32, device=dev) if use_spill else z
     src = torch.empty(N, dtype=_I32, device=dev) if use_spill else z
-    sp_w = torch.empty((N, 4), dtype=_I32, device=dev) if use_spill else z
+    nw = 5 if spliced else 4
+    sp_w = torch.empty((N, nw), dtype=_I32, device=dev) if use_spill else z
     sp_ev = (torch.empty(N, dtype=_I32, device=dev)
              if use_spill and has_event else z)
     kernels.KERNELS["pack_slots"].launch(
         uni.data_ptr(), N, K, Mdev, int(do_select), int(use_spill),
-        int(has_event), dense.data_ptr(), alt.data_ptr(), words.data_ptr(),
+        int(has_event), int(spliced), dense.data_ptr(), alt.data_ptr(),
+        words.data_ptr(),
         cnt.data_ptr(), offs.data_ptr(), src.data_ptr(), sp_w.data_ptr(),
         sp_ev.data_ptr(), stream=kernels.stream_of(uni))
-    out = {"u_" + k: dense[i] for i, k in enumerate(_DENSE_OUT)
-           if k != "event" or has_event}
+    out = {("u_d2" if k == "dd" and spliced else "u_" + k): dense[i]
+           for i, k in enumerate(_DENSE_OUT) if k != "event" or has_event}
     out["u_alt"] = alt
     if use_spill:
         out["sp_src"] = src

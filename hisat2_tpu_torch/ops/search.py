@@ -211,12 +211,17 @@ def partial_search2(blocked, fchr, ftab2_top, zrow: int, zrow2: int,
                     rows: int, reads, lens, max_hits: int = 8,
                     min_hit_len: int = 16, min_k: int = 16,
                     uniform: bool = False,
-                    anchor_stop: bool = True) -> PartialHits:
+                    anchor_stop: bool = True, lanes=None) -> PartialHits:
     """Kernel 1 on CUDA tensors, the plain version on CPU tensors.
 
     `uniform` only promises lens == L (the kernel reads read[len-1-t]
-    either way, which is what the uniform path reads then)."""
+    either way, which is what the uniform path reads then).  lanes: an
+    int32 list of lane ids (kernel 1's lane-list mode, K17): only those
+    lanes are searched and every other lane's row is zeros."""
     if not reads.is_cuda:
+        if lanes is not None:
+            raise ValueError("the lane-list mode is a kernel mode; the "
+                             "plain twin is search_lanes_live_plain")
         return partial_search2_plain(
             blocked, fchr, ftab2_top, zrow, zrow2, rows, reads, lens,
             max_hits, min_hit_len, min_k, uniform, anchor_stop)
@@ -240,9 +245,19 @@ def partial_search2(blocked, fchr, ftab2_top, zrow: int, zrow2: int,
     out = PartialHits(z(B, RW), z(B), z(B, H), z(B, H), z(B, H), z(B, H),
                       z(B), z(B, H), zb(B, H), zb(B, H), zb(B))
     a_stop_len = min_k + 12 if anchor_stop else 2 ** 30
-    kernels.KERNELS["fm_search2"].launch(
+    K = B
+    name = "fm_search2"
+    if lanes is not None:
+        kernels.check_cuda("lanes", lanes, i32)
+        K = lanes.shape[0]
+        name = "search_lanes_live"
+        if K == 0:              # no live lane: every row stays zero
+            return out
+    kernels.KERNELS[name].launch(
         blocked.data_ptr(), fchr.data_ptr(), ftab2_top.data_ptr(),
-        reads.data_ptr(), lens.data_ptr(), B, L, zrow, zrow2, rows,
+        reads.data_ptr(), lens.data_ptr(),
+        lanes.data_ptr() if lanes is not None else reads.data_ptr(),
+        int(lanes is not None), K, L, zrow, zrow2, rows,
         a_stop_len, min_k + 8, min_hit_len, H,
         out.top.data_ptr(), out.bot.data_ptr(), out.lo.data_ptr(),
         out.hi.data_ptr(), out.abefore.data_ptr(), out.uniq.data_ptr(),
@@ -250,3 +265,85 @@ def partial_search2(blocked, fchr, ftab2_top, zrow: int, zrow2: int,
         out.nh.data_ptr(), out.stopped.data_ptr(),
         stream=kernels.stream_of(reads))
     return out
+
+
+def search_lanes_live_plain(search_fn, reads, lens, min_hit_len: int,
+                            chunk: int = 2048) -> PartialHits:
+    """Plain twin of K17 (search.py:267 search_lanes_live, line by line):
+    run search_fn over only the lanes with lens >= min_hit_len, compacted
+    (stable) and searched `chunk` at a time; dead lanes are zeros.  With
+    at most `chunk` lanes the dense search runs, as in JAX.  search_fn:
+    (reads [K, L], lens [K]) -> PartialHits."""
+    B, L = reads.shape
+    if B <= chunk:
+        return search_fn(reads, lens)
+    dev = reads.device
+    lv = lens >= min_hit_len
+    lvi = lv.to(torch.int64)
+    pos = torch.cumsum(lvi, 0) - lvi
+    total = int(pos[-1] + lvi[-1])
+    src = torch.sort(1 - lvi, stable=True).indices
+    nch = (B + chunk - 1) // chunk
+    Bp = nch * chunk
+    srcp = torch.zeros(Bp, dtype=torch.int64, device=dev)
+    srcp[:B] = src
+    bufs = None
+    k = 0
+    while k * chunk < total:
+        ids = srcp[k * chunk:(k + 1) * chunk]
+        ph = search_fn(reads[ids], lens.to(torch.int32)[ids])
+        if bufs is None:
+            bufs = [torch.zeros((Bp,) + tuple(v.shape[1:]), dtype=v.dtype,
+                                device=dev) for v in ph]
+        for b, v in zip(bufs, ph):
+            b[k * chunk:(k + 1) * chunk] = v
+        k += 1
+    if bufs is None:            # no live lane: the shapes of one chunk
+        ph = search_fn(reads[srcp[:chunk]], lens.to(torch.int32)[
+            srcp[:chunk]])
+        bufs = [torch.zeros((Bp,) + tuple(v.shape[1:]), dtype=v.dtype,
+                            device=dev) for v in ph]
+    posc = torch.clamp(pos, max=Bp - 1)
+    outs = []
+    for b in bufs:
+        v = b[posc]
+        m = lv.reshape((B,) + (1,) * (v.dim() - 1))
+        outs.append(torch.where(m, v, torch.zeros((), dtype=b.dtype,
+                                                  device=dev)))
+    return PartialHits(*outs)
+
+
+def search_lanes_live_ref(blocked, fchr, ftab2_top, zrow: int, zrow2: int,
+                          rows: int, reads, cut, max_hits: int,
+                          min_hit_len: int, min_k: int,
+                          chunk: int = 2048) -> PartialHits:
+    """K17 in plain torch with the wrapper's arguments:
+    search_lanes_live_plain over partial_search2_plain."""
+    def fn(rr, ll):
+        return partial_search2_plain(blocked, fchr, ftab2_top, zrow, zrow2,
+                                     rows, rr, ll, max_hits, min_hit_len,
+                                     min_k)
+    return search_lanes_live_plain(fn, reads, cut, min_hit_len, chunk)
+
+
+def search_lanes_live(blocked, fchr, ftab2_top, zrow: int, zrow2: int,
+                      rows: int, reads, cut, max_hits: int,
+                      min_hit_len: int, min_k: int,
+                      chunk: int = 2048) -> PartialHits:
+    """The spliced prefix re-search (pipeline.py:846-860): kernel 1 over
+    reads [N, L] with per-lane lengths `cut`.  On CUDA tensors with more
+    than `chunk` lanes it is K17, kernel 1's lane-list mode over the live
+    lanes (cut >= min_hit_len, a stable compaction); with fewer, the
+    dense kernel 1, as JAX runs it.  On CPU tensors it is
+    search_lanes_live_plain over partial_search2_plain."""
+    if not reads.is_cuda:
+        return search_lanes_live_ref(blocked, fchr, ftab2_top, zrow, zrow2,
+                                     rows, reads, cut, max_hits, min_hit_len,
+                                     min_k, chunk)
+    if reads.shape[0] <= chunk:
+        return partial_search2(blocked, fchr, ftab2_top, zrow, zrow2, rows,
+                               reads, cut, max_hits, min_hit_len, min_k)
+    lanes = torch.nonzero(cut >= min_hit_len)[:, 0].to(torch.int32)
+    return partial_search2(blocked, fchr, ftab2_top, zrow, zrow2, rows,
+                           reads, cut, max_hits, min_hit_len, min_k,
+                           lanes=lanes.contiguous())

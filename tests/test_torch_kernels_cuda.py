@@ -1,7 +1,9 @@
-"""The eight hand-written CUDA kernels against their plain torch twins on
-the card, and the whole device step on the card against the step on the
-CPU, on a linear and on a graph index (lite and full pass); the mate-rescue
-window kernel (K12) on long mates, tied windows and windows past the text.
+"""The hand-written CUDA kernels against their plain torch twins on the
+card, and the whole device step on the card against the step on the CPU,
+on a linear and on a graph index (lite and full pass); the mate-rescue
+window kernel (K12) on long mates, tied windows and windows past the text;
+the spliced kernels (K13-K17 on both spliced steps' intermediates, K18 on
+a 4096-row table set) and both spliced steps against the CPU.
 Needs a CUDA device; skips without one.  On a machine without JAX run it as
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
@@ -19,6 +21,9 @@ from hisat2_tpu_torch.index import attach_variants, build_fm_index
 
 pytestmark = pytest.mark.gpu
 MOTIF_AT = [20000 * k for k in range(1, 6)]
+# the kernels only a spliced run launches
+SPLICED = ("search_lanes_live", "pair_sweep", "second_sweep",
+           "inject_known", "merge_sites")
 
 
 @pytest.fixture(scope="module")
@@ -143,10 +148,11 @@ def test_step_on_card_matches_cpu(card):
         bp = cp.step(*cp.upload(reads, quals, lens, minsc), False, full)
         _eq(bk, bp, f"packed step (full_out={full})")
         assert cu._out_specs == cp._out_specs
-    # every kernel of the linear step (injection runs on graph indexes,
-    # the rescue window on paired batches)
+    # every kernel of the linear DNA step (injection runs on graph
+    # indexes, the rescue window on paired batches, the splice kernels on
+    # spliced runs)
     assert all(v > 0 for k, v in kernels.counts().items()
-               if k not in ("inject_indels", "rescue_window"))
+               if k not in ("inject_indels", "rescue_window") + SPLICED)
 
 
 def _cmp(a, b, what):
@@ -279,7 +285,7 @@ def test_graph_step_on_card_matches_cpu(gcard):
             assert a._out_specs == b._out_specs
             assert a._spill_meta == b._spill_meta
     assert all(v > 0 for k, v in kernels.counts().items()
-               if k != "rescue_window")
+               if k not in ("rescue_window",) + SPLICED)
 
 
 @pytest.mark.parametrize("N,K,Mdev,spill,dense", [
@@ -414,3 +420,146 @@ def test_rescue_window_matches_plain_on_card(card, L):
                                      tabs["clip_pen"], 1, ch, 0)
     for f in ke._fields:
         _eq(getattr(ke, f), getattr(pe, f), f)
+
+
+# --- the spliced kernels (K13-K18) -------------------------------------------
+
+def _flat_list(x):
+    if hasattr(x, "_fields"):
+        return [getattr(x, f) for f in x._fields]
+    if isinstance(x, dict):
+        return [v for k in sorted(x) for v in _flat_list(x[k])]
+    if isinstance(x, (tuple, list)):
+        return [v for e in x for v in _flat_list(e)]
+    return [x]
+
+
+@pytest.fixture(scope="module")
+def scard(card):
+    """A spliced aligner on a genome with GT-AG introns, its site DB
+    filled by one aligned batch, and a second batch of junction reads."""
+    from hisat2_tpu_torch.align.pipeline import TorchAligner
+    rng = np.random.default_rng(13)
+    g = rng.integers(0, 4, 300_000).astype(np.uint8)
+    introns = [(20000 + 7000 * k, int(ln)) for k, ln in
+               enumerate(rng.choice([90, 400, 3000, 12000], 30))]
+    for s, ln in introns:
+        g[s], g[s + 1], g[s + ln - 2], g[s + ln - 1] = 2, 3, 0, 2
+    idx = build_fm_index([("c", g)])
+    al = TorchAligner(idx, spliced=True, lane_meta=True, device="cuda")
+
+    def batch(B, L=100):
+        codes = np.zeros((B, L), np.uint8)
+        for i in range(B):
+            s, ln = introns[int(rng.integers(0, len(introns)))]
+            x = int(rng.integers(8, L - 8))
+            if i % 3 == 2:
+                p = int(rng.integers(1000, 290000))
+                r = g[p:p + L]
+            else:
+                r = np.concatenate([g[s - x:s], g[s + ln:s + ln + L - x]])
+            if i % 2:
+                r = np.where(r < 4, 3 - r, 4)[::-1]
+            codes[i] = r[:L]
+        return codes, rng.integers(10, 41, (B, L)).astype(np.uint8), \
+            np.full(B, L, np.int32)
+
+    al.align_batch(*batch(256))
+    return al, idx, batch(1100), batch
+
+
+def test_spliced_kernels_match_plain_on_card(scard):
+    """K13+K14, K15, K16 (lite and full), K17 (1100 reads: 2200 lanes, the
+    lane-list mode) and the spliced modes of kernels 5 and 6 on the real
+    intermediates of both spliced steps."""
+    from hisat2_tpu_torch.ops import kernel_twins
+    twins = kernel_twins()
+    al, _, (codes, quals, lens), _ = scard
+    rdids = 10 ** 6 + np.arange(len(lens), dtype=np.int64)
+    for a in (al._fast, al):
+        rd, ss = a._step_site_args(rdids)
+        cap = {}
+        a.step(*a.upload(codes, quals, lens, a._minsc(lens)), True,
+               capture=cap, rdids=rd, ss=ss)
+        want = {"inject_known", "compact_cands", "pack_slots"}
+        if not a.lite:
+            want |= {"pair_sweep", "second_sweep", "search_lanes_live"}
+        assert want <= set(cap)
+        for name in sorted(want):
+            kern, plain = twins[name]
+            ko = _flat_list(kern(**cap[name]))
+            po = _flat_list(plain(**cap[name]))
+            assert len(ko) == len(po)
+            for x, y in zip(ko, po):
+                _cmp(x, y, name)
+
+
+def test_spliced_step_on_card_matches_cpu(scard):
+    from hisat2_tpu_torch.align.pipeline import TorchAligner
+    al, idx, (codes, quals, lens), batch = scard
+    cpu = TorchAligner(idx, spliced=True, lane_meta=True, device="cpu")
+    for k in ("sites", "_col_jl", "_col_jr", "_col_rdid"):
+        setattr(cpu.splice_db, k, getattr(al.splice_db, k))
+    # and 300 bp reads (longer planes; the pair sweep's shared memory)
+    long_ = batch(64, 300)
+    for a, c, (codes, quals, lens) in (
+            (al._fast, cpu._fast, (codes, quals, lens)),
+            (al, cpu, (codes, quals, lens)), (al, cpu, long_)):
+        rdids = np.arange(len(lens), dtype=np.int64) + 100
+        rd, ss = a._step_site_args(rdids)
+        rdc, ssc = c._step_site_args(rdids)
+        minsc = a._minsc(lens)
+        bk = a.step(*a.upload(codes, quals, lens, minsc), True, rdids=rd,
+                    ss=ss)
+        bp = c.step(*c.upload(codes, quals, lens, minsc), True, rdids=rdc,
+                    ss=ssc)
+        _eq(bk, bp, "spliced packed step")
+
+
+@pytest.mark.parametrize("lob", [False, True])
+def test_merge_sites_matches_plain_on_card(card, lob):
+    """K18 on a 4096-row table set: ties between old and new keys, 300 of
+    512 new rows real, with and without the bucket index."""
+    from hisat2_tpu_torch.ops import sites
+    rng = np.random.default_rng(lob)
+    SENT = 2 ** 31 - 2
+    cap, nn, m = 4096, 3000, 300
+    kd = np.sort(rng.integers(0, 10 ** 7, nn)).astype(np.int32)
+    kd[5:9] = kd[5]
+    ka = (kd + rng.integers(30, 5000, nn)).astype(np.int32)
+    o = np.lexsort((ka, kd))
+    kd, ka = kd[o], ka[o]
+    rd = rng.integers(-1, 100, nn).astype(np.int32)
+    o2 = np.lexsort((kd, ka))
+
+    def pad(a, f):
+        b = np.full(cap, f, np.int32)
+        b[:len(a)] = a
+        return torch.from_numpy(b).cuda()
+
+    nkd = np.full(512, SENT, np.int32)
+    nka, nrd = nkd.copy(), np.full(512, -1, np.int32)
+    nkd[:m] = rng.integers(0, 10 ** 7, m)
+    nkd[:3] = kd[5]
+    nka[:m] = nkd[:m] + 100
+    nka[:3] = ka[5]
+    nrd[:m] = 7
+    T = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    kw = dict(kd=pad(kd, SENT), ka=pad(ka, SENT), rd=pad(rd, -1),
+              ka_s=pad(ka[o2], SENT), kd_s=pad(kd[o2], SENT),
+              rd_a=pad(rd[o2], -1), nkd=T(nkd), nka=T(nka), nrd=T(nrd))
+    if lob:
+        shift, NB = 5, 1 << 19
+        edges = np.arange(NB + 1, dtype=np.int64) << shift
+        bkd, bka, w = (np.zeros(512, np.int32) for _ in range(3))
+        bkd[:m] = np.clip(nkd[:m] >> shift, 0, NB - 1)
+        bka[:m] = np.clip(nka[:m] >> shift, 0, NB - 1)
+        w[:m] = 1
+        kw.update(lob_kd=T(np.searchsorted(kd, edges).astype(np.int32)),
+                  lob_ka=T(np.searchsorted(ka[o2], edges).astype(np.int32)),
+                  bins_kd=T(bkd), bins_ka=T(bka), wts=T(w))
+    got = sites.merge_sorted_tabs(**kw)
+    want = sites.merge_sorted_tabs_plain(**kw)
+    assert len(got) == len(want)
+    for x, y in zip(got, want):
+        _eq(x, y, "merge_sites")

@@ -243,7 +243,9 @@ def test_dna_replay_never_reaches_probscore(aligners, monkeypatch):
 @pytest.mark.parametrize("extra,why", [
     # paired reads run, on a linear and on a graph index (why None)
     (["-1", "M1", "-2", "M2", "--no-spliced-alignment"], None),
-    (["-U", "a.fa"], "item 5"),
+    # spliced runs: unpaired ones run (tests/test_torch_spliced_cli.py);
+    # spliced paired reads are refused
+    (["-1", "M1", "-2", "M2"], "item 11"),
     (["-U", "a.fa", "--no-spliced-alignment", "--n-hosts", "2"], "item 7"),
     (["-1", "M1", "-2", "M2", "--no-spliced-alignment", "VAR"], None),
 ])
