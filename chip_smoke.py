@@ -71,6 +71,33 @@ checks them:
             slice's first merge against their plain twins, the lite and
             full step against the CPU step, and the CLI on the nss round
             trip and mj3x against their oracles
+ 11 genome  genome scale, the shape of config 6 (BENCH_EXTRA.md:84-112)
+            cut to two seeded 140 Mbp chromosomes: build_fm_index with a
+            150 Mbp shard limit gives a ShardedFMIndex of two shards, each
+            sampled at off_rate 4 (the builder's own choice at >= 2^27
+            bp; cached under the temp dir); (a) every kernel a step of
+            this path launches, against its plain twin on the arguments
+            that step gave it (one 4096-read batch): the linear step of
+            shard 0, the spliced lite and full and the graph lite and full
+            steps of shard 1 (fm_search2 on the 49-column rows, K19+K20
+            on the real rows and live masks, kernel 5 on the walk's
+            offsets, the rest on shard-local tables); (b) the linear step of
+            both shards and the spliced lite and full step of shard 1
+            against the CPU steps (1024-read batches); (c) 8 batches of
+            phase 4's mix over both chromosomes through dispatch/collect,
+            8 deep, SAM to memory: reads/s, host ms per stage, unmodified
+            reads at their true chromosome and position (>= 99%), reads on
+            the second shard (>= 30%), launches (resolve_walk and
+            compact_cands > 0); (d) a catalog at phase 8's density over
+            280 Mbp attached shard by shard, 2 batches through
+            dispatch/advance/collect: SNV-only reads true (>= 99%),
+            known-indel alignments on each shard (> 0); (e) 4 batches of
+            phase 10's mix with introns on both chromosomes and the
+            temp-site fixed point: canonical single-junction reads true
+            with the planted N (>= 95%), unmodified reads (>= 99%); (f)
+            `align --device cuda --no-spliced-alignment` on the saved
+            index: both chromosomes in the header at their lengths, >= 99%
+            of 4096 unmodified reads at their true position
 
 Each kernel's bound (the kernels line's bound_ms) is the larger of the
 bytes it must move over 3.35 TB/s and its operations over the peak rate
@@ -121,10 +148,20 @@ DNA_KERNELS = ("fm_search2", "ref_window", "extend_ungapped", "indel_sweep",
                "rescue_window")
 SPLICED_KERNELS = ("search_lanes_live", "pair_sweep", "second_sweep",
                    "inject_known", "merge_sites")
+# the kernels only a sampled-SA (genome-scale) index runs (phase 11)
+GENOME_KERNELS = ("resolve_walk",)
 # phase 10: 8 batches; introns (canonical short / long, semi-canonical,
 # non-canonical) and two-junction pairs
 S_BATCHES = 8
 N_CAN, N_SEMI, N_NONCAN, N_PAIRS = 400, 40, 40, 40
+# phase 11: the shape of config 6 (BENCH_EXTRA.md:84-112) at chromosome
+# scale: two 140 Mbp chromosomes, one shard each (150 Mbp shard limit), each
+# sampled at the builder's off_rate 4; the graph catalog at the phase-8
+# density over 280 Mbp
+GS_CHR, GS_SHARD_BP = 140_000_000, 150_000_000
+GS_BATCHES, GS_G_BATCHES, GS_S_BATCHES, GS_CMP_B = 8, 2, 4, 1024
+GS_COUNTS = tuple(round(x * 2 * GS_CHR / 3.1e9)
+                  for x in (11_000_000, 728_000, 555_000))
 
 
 def check(cond, msg):
@@ -172,29 +209,35 @@ def simulate(np, rng, g, B, L):
     return codes, quals, lens, start, clean, rc
 
 
-def make_catalog(np, rng, g, path):
+def make_catalog(np, rng, g, path, counts=(N_SNV, N_DEL, N_INS),
+                 chroms=None):
     """A seeded variant catalog over g at GRCh38-graph density, written as
-    a hisat2 .snp file.  Indels are 1-16 bp, mostly 1-3.  Returns the
-    catalog as arrays (kind 0 SNV / 1 deletion / 2 insertion, pos, alt
-    or length, inserted chars)."""
+    a hisat2 .snp file.  Indels are 1-16 bp, mostly 1-3.  chroms: the
+    chromosomes [(name, joined start)] of a genome of several (default:
+    one, "c2").  Returns the catalog as arrays (kind 0 SNV / 1 deletion /
+    2 insertion, joined pos, alt or length, inserted chars)."""
     n = len(g)
-    nv = N_SNV + N_DEL + N_INS
-    pos = np.sort(rng.choice(np.arange(200, n - 200), nv, replace=False))
-    kind = rng.permutation(np.repeat([0, 1, 2], [N_SNV, N_DEL, N_INS]))
+    nv = sum(counts)
+    chroms = chroms or [("c2", 0)]
+    pos = np.sort(rng.choice(n - 400, nv, replace=False) + 200)
+    kind = rng.permutation(np.repeat([0, 1, 2], counts))
     ln = np.where(rng.random(nv) < 0.85, rng.integers(1, 4, nv),
                   rng.integers(4, 17, nv))
     alt = (g[pos].astype(np.int64) + rng.integers(1, 4, nv)) % 4
     ins = rng.integers(0, 4, (nv, 16)).astype(np.uint8)
     acgt = np.array(list("ACGT"))
+    cstart = np.array([c[1] for c in chroms])
+    ci = np.searchsorted(cstart, pos, "right") - 1
     with open(path, "w") as f:
         for i in range(nv):
             k = int(kind[i])
+            c, p = chroms[ci[i]][0], pos[i] - cstart[ci[i]]
             if k == 0:
-                f.write(f"v{i}\tsingle\tc2\t{pos[i]}\t{acgt[alt[i]]}\n")
+                f.write(f"v{i}\tsingle\t{c}\t{p}\t{acgt[alt[i]]}\n")
             elif k == 1:
-                f.write(f"v{i}\tdeletion\tc2\t{pos[i]}\t{ln[i]}\n")
+                f.write(f"v{i}\tdeletion\t{c}\t{p}\t{ln[i]}\n")
             else:
-                f.write(f"v{i}\tinsertion\tc2\t{pos[i]}\t"
+                f.write(f"v{i}\tinsertion\t{c}\t{p}\t"
                         f"{''.join(acgt[ins[i, :ln[i]]])}\n")
     return kind, pos, alt, ln, ins
 
@@ -325,7 +368,8 @@ def work(torch, name, kw, out):
     flops per job) at the bf16 tensor-core rate."""
     ob = nbytes(torch, *flat_outputs(out))
     dense = nbytes(torch, *(v for k, v in kw.items() if k not in (
-        "blocked", "sa", "ref_words", "snv_delta1", "snv_delta2", "ip",
+        "blocked", "sa", "sa_marked", "ref_words", "snv_delta1",
+        "snv_delta2", "ip",
         "ilen", "ins_chars", "rkey", "r_ilen", "r_row")))
     rate = CUDA_CORE
     if name == "fm_search2":
@@ -380,11 +424,55 @@ def work(torch, name, kw, out):
         ops = N * J * 40 + live * 2 * Lr * 12
     elif name == "merge_sites":
         extra, ops = 0, kw["kd"].shape[0] * 6 * 10
+    elif name == "resolve_walk":
+        # Each distinct live row (rows that repeat walk the same path) is
+        # walked to its mark, and each fetch counted by the 32 B sectors
+        # it needs (walk_sectors); then one sa_marked entry per marked
+        # row; ~60 integer ops a fetch.  Dense: the mask of every row and
+        # the row index of live rows
+        live = kw["live"] if kw["live"] is not None else torch.ones_like(
+            kw["row"], dtype=torch.bool)
+        dense = kw["row"].numel() * (kw["live"] is not None) \
+            + int(live.sum()) * 4
+        sectors, fetches, marked = walk_sectors(
+            torch, kw, torch.unique(kw["row"][live]))
+        extra = sectors * 32 + marked * 4
+        ops = fetches * 60
     else:
         raise KeyError(name)
     by = dense + extra + ob
     t_b, t_o = by / HBM * 1e3, ops / rate * 1e3
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def walk_sectors(torch, kw, row):
+    """resolve_walk's LF walk of the SA rows `row`, step by step: the 32 B
+    sectors its fetches need, the fetches, and the rows that found a mark.
+    A step past an unmarked row needs bytes [0, 48) (occ, BWT words) and
+    [176, 196) (mark words, checkpoint) of its 196 B block row, the marked
+    row's fetch only [176, 196); each counted at the row's real offset in
+    its first sector, 196 * blk mod 32."""
+    from hisat2_tpu_torch.ops.rank import rank_from_rows
+    from hisat2_tpu_torch.utils.intops import as_u32
+    bl, fc = kw["blocked"], kw["fchr"].long()
+    r = row.long()
+    sectors = fetches = marked = 0
+    for _ in range((1 << kw["off_rate"]) + 1):
+        blk = (r >> 7).clamp(max=bl.shape[0] - 1)
+        a = blk * 196 % 32
+        brow = as_u32(bl[blk])
+        mw = brow[:, 44:48].gather(1, ((r >> 5) & 3)[:, None])[:, 0]
+        hit = ((mw >> (r & 31)) & 1) != 0
+        head = (a + 47) // 32 - a // 32 + 1
+        tail = (a + 195) // 32 - (a + 176) // 32 + 1
+        sectors += int(tail.sum() + head[~hit].sum())
+        fetches += r.numel()
+        marked += int(hit.sum())
+        r, brow = r[~hit], brow[~hit]
+        w = brow[:, 4:12].gather(1, ((r >> 4) & 7)[:, None])[:, 0]
+        c = (w >> (2 * (r & 15))) & 3
+        r = fc[c] + rank_from_rows(brow, r, c, kw["zrow"])
+    return sectors, fetches, marked
 
 
 def rescue_library_ms(torch, kw):
@@ -460,10 +548,11 @@ def run_cli(args, cwd, env, timeout):
     check(r.returncode == 0, f"CLI {args[0]} failed: {r.stderr[-2000:]}")
 
 
-def pick_introns(np, rng, g):
+def pick_introns(np, rng, g, first_slot=8_000_000):
     """The phase-10 introns on dinucleotides the genome already has
     (nothing is planted, so the index stays phase 3's): donors in 8-38
-    Mbp, one per 55 kbp slot, clear of phase 9's repeat block.  Returns
+    Mbp (from first_slot), one per 55 kbp slot, clear of phase 9's repeat
+    block.  Returns
     (introns [(donor d, acceptor e, class)], pairs [((d1, e1), (d2, e2))]):
     the intron is g[d:e], classes 0 GT-AG, 1 GC-AG / AT-AC, 2 none."""
     dn = (g[:-1].astype(np.int16) * 4 + g[1:]).astype(np.int8)
@@ -479,7 +568,7 @@ def pick_introns(np, rng, g):
         e = first(ak, d + ln - 2) + 2
         return d, e
 
-    slots = iter(8_000_000 + 55_000 * np.arange(540))
+    slots = iter(first_slot + 55_000 * np.arange(540))
     introns = []
     for k in range(N_CAN):
         ln = (int(rng.integers(80, 400)) if k % 2 == 0 else
@@ -827,6 +916,385 @@ def spliced_phase(torch, np, g, index, kernels, twins, driver,
               f"({time.perf_counter() - t0:.1f} s incl. start-up)")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def true_place(np, res, start, rc, n_reads):
+    """Per read: its first record's (ref_id, ref_pos) and strand equal the
+    truth (start a joined position over the two GS_CHR chromosomes), its
+    ref_id, and whether it aligned."""
+    cols = res.raw["cols"]
+    rd = np.asarray(cols[0])
+    first = np.unique(rd, return_index=True)[1]
+    r0 = rd[first]
+    ok = np.zeros(n_reads, bool)
+    ref = np.full(n_reads, -1, np.int64)
+    ref[r0] = np.asarray(cols[2])[first]
+    ok[r0] = ((ref[r0] == start[r0] // GS_CHR)
+              & (np.asarray(cols[3])[first] == start[r0] % GS_CHR)
+              & (np.asarray(cols[1])[first] == rc[r0]))
+    return ok, ref, first, r0
+
+
+def genome_phase(torch, np, kernels, twins, driver, read_alignments,
+                 TorchAligner, rows, bounds, path_launches, card, env):
+    """Phase 11 (see the module docstring): genome scale on the card."""
+    from hisat2_tpu_torch.index import (FMIndex, ShardedFMIndex,
+                                        attach_variants, build_fm_index)
+    t_ph = time.perf_counter()
+    C = GS_CHR
+    t0 = time.perf_counter()
+    g = np.random.default_rng(1111).integers(0, 4, 2 * C).astype(np.uint8)
+    names = ("g1", "g2")
+    cache = os.path.join(tempfile.gettempdir(),
+                         f"hisat2_tpu_torch_genome_2x{C}_seed1111")
+    if os.path.exists(cache + ".npz"):
+        index = FMIndex.load(cache)
+        how = "loaded from cache"
+    else:
+        index = build_fm_index([(names[0], g[:C]), (names[1], g[C:])],
+                               shard_bp=GS_SHARD_BP)
+        index.save(cache)
+        how = "built"
+    t_build = time.perf_counter() - t0
+    check(isinstance(index, ShardedFMIndex) and len(index.shards) == 2,
+          "the 280 Mbp genome is not a two-shard index")
+    check(all(sh.meta.off_rate == 4 for sh in index.shards),
+          "a shard is not sampled at off_rate 4")
+    al = TorchAligner(index, device="cuda")
+    torch.cuda.synchronize()
+    nb_dev = [d.nbytes() for d in al.devs]
+    print(f"[genome] 2 x {C} bp, shards at {al.shard_bases}, off_rate "
+          f"{[sh.meta.off_rate for sh in index.shards]}: index {how} in "
+          f"{t_build:.1f} s; device bytes per shard {nb_dev} (fused block "
+          f"rows {[d.blocked.numel() * 4 for d in al.devs]})")
+
+    def straddle(start, span=L + 8):
+        return (start < C) & (start + span > C)
+
+    srng = np.random.default_rng(1112)
+    batches = [simulate(np, srng, g, B, L) for _ in range(GS_BATCHES + 1)]
+    for b in batches:
+        b[4][straddle(b[3])] = False           # clean: not across g1|g2
+
+    # (a) every kernel of the path against its plain twin on the arguments
+    # one step gives it: the linear step of shard 0, the spliced lite and
+    # full steps of shard 1 (the graph steps follow in (d)).  The 49-column
+    # block rows, the walk's offsets and the shard-local tables are this
+    # path's own modes
+    def replay(cap_, tag):
+        for key, kw_ in cap_.items():
+            name = key.split("/")[0]
+            err, ms, pms = compare(torch, name, *twins[name], kw_)
+            k = kernels.KERNELS[name]
+            row = rows.setdefault(name, {
+                "name": name, "route": "cuda", "source": k.source,
+                "replaces": k.replaces, "max_abs_err": 0.0})
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            f = tag + key[len(name):].replace("/", "_")
+            row[f + "_ms"], row[f + "_plain_ms"] = ms, pms
+            print(f"[genome kernels] {tag} {key}: equal to plain "
+                  f"(tolerance: exact); kernel {ms:.4f} ms, plain "
+                  f"{pms:.4f} ms (median of 10)")
+
+    codes, quals, lens, start, clean, rc = batches[0]
+    minsc = al._minsc(lens)
+    uniform = bool(np.all(lens == L))
+    up = al.upload(codes, quals, lens, minsc)
+    cap = {}
+    al.step(*up, uniform, capture=cap)
+    want = ["fm_search2", "resolve_walk", "compact_cands", "ref_window",
+            "extend_ungapped", "indel_sweep", "pack_slots"]
+    check(sorted(cap) == sorted(want), f"genome step captured {sorted(cap)}")
+    check(cap["compact_cands"]["offs"] is not None
+          and cap["fm_search2"]["blocked"].shape[1] == 49,
+          "the sampled step did not search the 49-column rows and resolve "
+          "through the walk")
+    replay(cap, "genome")
+    kw = cap["resolve_walk"]
+    out = twins["resolve_walk"][0](**kw)
+    bounds["resolve_walk"] = work(torch, "resolve_walk", kw, out)
+    nlive = int(kw["live"].sum())
+    steps = (out[kw["live"]].long() & 15).double().mean().item()
+    print(f"[genome kernels] resolve_walk on {kw['row'].shape[0]} rows, "
+          f"{nlive} live, {steps:.2f} steps per live row; bound "
+          f"{bounds['resolve_walk'][0]:.4f} ms ({bounds['resolve_walk'][1]})")
+    # K19 alone: the same rows without the live mask (every row walks)
+    kwd = dict(kw, live=None)
+    err, ms, pms = compare(torch, "resolve_walk", *twins["resolve_walk"], kwd)
+    r = rows["resolve_walk"]
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    r["dense_ms"], r["dense_plain_ms"] = ms, pms
+    r["dense_bound_ms"] = work(torch, "resolve_walk", kwd,
+                               twins["resolve_walk"][0](**kwd))[0]
+    print(f"[genome kernels] resolve_walk without the live mask (K19 "
+          f"alone, all {kw['row'].shape[0]} rows): equal to plain; kernel "
+          f"{ms:.4f} ms, plain {pms:.4f} ms; bound "
+          f"{r['dense_bound_ms']:.4f} ms")
+
+    introns, pairs = [], []
+    irng = np.random.default_rng(1113)
+    for first in (C // 20, C + C // 20):
+        i_, p_ = pick_introns(np, irng, g, first)
+        introns += i_
+        pairs += p_
+    sb = [simulate_spliced(np, irng, g, introns, pairs, B, L)
+          for _ in range(GS_S_BATCHES + 1)]
+    for b in sb:
+        b[4][straddle(b[3])] = False
+    sal = TorchAligner(index, device="cuda", spliced=True)
+    sc = sb[0]
+    for tier in ("lite", "full"):
+        a = sal._fast if tier == "lite" else sal
+        scap = {}
+        rd_t, ss = a._step_site_args(np.arange(B), 1)
+        a.step(*a.upload(sc[0], sc[1], sc[2], a._minsc(sc[2])),
+               bool(np.all(sc[2] == L)), capture=scap, rdids=rd_t, ss=ss,
+               shard=1)
+        check("resolve_walk" in scap and (tier == "lite" or
+                                          "resolve_walk/research" in scap),
+              f"the spliced {tier} step did not walk")
+        replay(scap, f"genome_spliced_{tier}")
+
+    # (b) whole steps on the card against the CPU (a 1024-read batch)
+    t0 = time.perf_counter()
+    cpu = TorchAligner(index, device="cpu")
+    cb = [a[:GS_CMP_B] for a in batches[0][:3]]
+    cm = al._minsc(cb[2])
+    cu_ = bool(np.all(cb[2] == L))
+    for sh in (0, 1):
+        bk = al.step(*al.upload(*cb, cm), cu_, shard=sh)
+        bp = cpu.step(*cpu.upload(*cb, cm), cu_, shard=sh)
+        check(torch.equal(bk.cpu(), bp), f"linear step of shard {sh}")
+    del cpu
+    scpu = TorchAligner(index, device="cpu", spliced=True)
+    sc3 = [a[:GS_CMP_B] for a in sc[:3]]
+    sm = sal._minsc(sc3[2])
+    rdc = np.arange(GS_CMP_B)
+    for tier in ("_fast", None):
+        a = getattr(sal, tier) if tier else sal
+        c = getattr(scpu, tier) if tier else scpu
+        rd_a, ss_a = a._step_site_args(rdc, 1)
+        rd_c, ss_c = c._step_site_args(rdc, 1)
+        bk = a.step(*a.upload(*sc3, sm), False, rdids=rd_a, ss=ss_a, shard=1)
+        bp = c.step(*c.upload(*sc3, sm), False, rdids=rd_c, ss=ss_c, shard=1)
+        check(torch.equal(bk.cpu(), bp),
+              f"spliced {'lite' if tier else 'full'} step of shard 1")
+    del scpu
+    print(f"[genome step] {GS_CMP_B}-read batches: the linear step of both "
+          f"shards and the spliced lite and full step of shard 1 equal to "
+          f"the CPU plain steps ({time.perf_counter() - t0:.1f} s)")
+
+    # (c) the linear slice
+    rnames = [f"r{i}" for i in range(B)]
+    st = {"reads": 0, "clean": 0, "true": 0, "second": 0, "aligned": 0,
+          "collect": 0.0, "render": 0.0}
+
+    def emit(aligner, handle, batch, annotate=None):
+        codes_, quals_, lens_, start_, sel_, rc_ = batch[:6]
+        t = time.perf_counter()
+        res = aligner.collect(handle)
+        t1 = time.perf_counter()
+        sink = io.StringIO()
+        w = driver.SamWriter(sink, index.meta.ref_names, index.meta.ref_lens,
+                             no_head=True, annotator=annotate)
+        w.write_batch_raw(rnames, codes_, quals_, lens_, res.raw,
+                          aligner.ref_codes,
+                          finalize=lambda i: read_alignments(res.raw, i))
+        st["collect"] += t1 - t
+        st["render"] += time.perf_counter() - t1
+        ok, ref, _, r0 = true_place(np, res, start_, rc_, len(rnames))
+        st["reads"] += len(rnames)
+        st["aligned"] += len(r0)
+        st["second"] += int((ref == 1).sum())
+        st["clean"] += int(sel_.sum())
+        st["true"] += int((ok & sel_).sum())
+        return res
+
+    al.align_batch(*batches[0][:3])            # warm-up
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    pend = deque()
+    for b in batches[1:]:
+        pend.append((al.dispatch(*b[:3]), b))
+        if len(pend) >= DEPTH:
+            emit(al, *pend.popleft())
+    while pend:
+        emit(al, *pend.popleft())
+    t_slice = time.perf_counter() - t0
+    launches = kernels.counts()
+    share_true = st["true"] / st["clean"]
+    second = st["second"] / st["aligned"]
+    nb = GS_BATCHES
+    print(f"[genome slice] {st['reads']} reads in {t_slice:.2f} s: "
+          f"{st['reads'] / t_slice:.1f} reads/s on {card}; aligned "
+          f"{st['aligned'] / st['reads']:.4f}; on the second shard "
+          f"{second:.4f}; unmodified reads at their true position "
+          f"{share_true:.4f} ({st['true']}/{st['clean']}); host ms per "
+          f"batch: collect (wait, merge, host phase) "
+          f"{1e3 * st['collect'] / nb:.1f}, render "
+          f"{1e3 * st['render'] / nb:.1f}; launches {launches}")
+    check(share_true >= 0.99, "genome: unmodified reads placed true < 99%")
+    check(second >= 0.30, "genome: reads placed on the second shard < 30%")
+    for name in ("resolve_walk", "compact_cands"):
+        check(launches[name] > 0, f"{name} never launched on the genome "
+              f"path")
+    path_launches["genome"] = launches
+    del al
+    torch.cuda.empty_cache()
+
+    # (d) graph two-tier with a catalog at the phase-8 density
+    t0 = time.perf_counter()
+    snp = cache + ".snp"
+    cat = make_catalog(np, np.random.default_rng(1114), g, snp, GS_COUNTS,
+                       [(names[0], 0), (names[1], C)])
+    attach_variants(index, snp_file=snp)
+    gal = TorchAligner(index, device="cuda", variants=index._variants)
+    torch.cuda.synchronize()
+    t_cat = time.perf_counter() - t0
+    print(f"[genome graph] catalog {GS_COUNTS[0]} SNVs, {GS_COUNTS[1]} "
+          f"deletions, {GS_COUNTS[2]} insertions over both chromosomes: "
+          f"written, attached and uploaded shard by shard in {t_cat:.1f} s "
+          f"(indel tables E = "
+          f"{[d['ind_ip'].shape[0] for d in gal.shard_graph_dev]})")
+    grng = np.random.default_rng(1115)
+    gb = [simulate_graph(np, grng, g, cat, B, L)
+          for _ in range(GS_G_BATCHES)]
+    for b in gb:
+        b[4][straddle(b[3])] = False
+    # (a) continued: the graph lite and full steps of shard 1
+    for tier in ("lite", "full"):
+        a = gal._fast if tier == "lite" else gal
+        gcap = {}
+        a.step(*a.upload(*gb[0][:3], a._minsc(gb[0][2])), True,
+               capture=gcap, shard=1)
+        check(gcap["extend_ungapped"]["snv1_win"] is not None
+              and (tier == "lite" or "inject_indels" in gcap),
+              f"the genome graph {tier} step ran without its graph tables")
+        replay(gcap, f"genome_graph_{tier}")
+    st.update(reads=0, clean=0, true=0, second=0, aligned=0, collect=0.0,
+              render=0.0)
+    known = [0, 0]
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    hs = [(gal.dispatch(*b[:3]), b) for b in gb]
+    hs = [(gal.advance(h), b) for h, b in hs]
+    for h, b in hs:
+        res = emit(gal, h, b, gal.annotate_snps)
+        cols = res.raw["cols"]
+        ev = np.asarray(cols[22]) >= 0
+        for sh in (0, 1):
+            known[sh] += int((ev & (np.asarray(cols[2]) == sh)).sum())
+    t_g = time.perf_counter() - t0
+    glaunch = kernels.counts()
+    snv_true = st["true"] / st["clean"]
+    print(f"[genome graph] {st['reads']} reads in {t_g:.2f} s: "
+          f"{st['reads'] / t_g:.1f} reads/s; SNV-only reads at their true "
+          f"position {snv_true:.4f} ({st['true']}/{st['clean']}); "
+          f"known-indel alignments per shard {known}; host ms per batch: "
+          f"collect (pass 2 wait, merge, host phase; pass 1 ran in "
+          f"advance) {1e3 * st['collect'] / GS_G_BATCHES:.1f}, render (Zs) "
+          f"{1e3 * st['render'] / GS_G_BATCHES:.1f}; launches {glaunch}")
+    check(snv_true >= 0.99, "genome graph: SNV-only reads placed true < 99%")
+    check(min(known) > 0, "genome graph: no known-indel alignment on a "
+          "shard")
+    check(glaunch["resolve_walk"] > 0 and glaunch["inject_indels"] > 0,
+          "genome graph: the walk or the indel injection never launched")
+    path_launches["genome_graph"] = glaunch
+    del gal
+    index._variants = None
+    torch.cuda.empty_cache()
+
+    # (e) spliced, with the temp-site fixed point
+    acc = {"can": 0, "can_true": 0, "clean": 0, "clean_true": 0,
+           "collect": 0.0}
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    pend = deque()
+    for bi, b in enumerate(sb[1:]):
+        rdids = bi * B + np.arange(B, dtype=np.int64)
+        pend.append((sal.dispatch(*b[:3], rdids), b))
+        if len(pend) >= 2:
+            pend[-2] = (sal.advance(pend[-2][0]), pend[-2][1])
+    while pend:
+        h, b = pend.popleft()
+        t = time.perf_counter()
+        res = sal.collect(h)
+        acc["collect"] += time.perf_counter() - t
+        start_, clean_, rc_, jcls, jlen, xs = b[3], b[4], b[5], b[6], b[7], \
+            b[8]
+        ok, _, first, r0 = true_place(np, res, start_, rc_, B)
+        jk = np.zeros(B, np.int64)
+        jl = np.zeros(B, np.int64)
+        jk[r0] = np.asarray(res.raw["cols"][16])[first]
+        jl[r0] = np.asarray(res.raw["cols"][18])[first]
+        can = (jcls == 0) & (xs >= 20) & (L - xs >= 20)
+        acc["can"] += int(can.sum())
+        acc["can_true"] += int((can & ok & (jk == 1) & (jl == jlen)).sum())
+        acc["clean"] += int(clean_.sum())
+        acc["clean_true"] += int((clean_ & ok).sum())
+    t_s = time.perf_counter() - t0
+    slaunch = kernels.counts()
+    can_share = acc["can_true"] / acc["can"]
+    clean_share = acc["clean_true"] / acc["clean"]
+    print(f"[genome spliced] {GS_S_BATCHES * B} reads in {t_s:.2f} s: "
+          f"{GS_S_BATCHES * B / t_s:.1f} reads/s (no render); {len(introns)} "
+          f"introns and {len(pairs)} pairs on both chromosomes; canonical "
+          f"single-junction reads at their true position with the planted "
+          f"N {can_share:.4f} ({acc['can_true']}/{acc['can']}); unmodified "
+          f"reads {clean_share:.4f} ({acc['clean_true']}/{acc['clean']}); "
+          f"sites {sal.splice_db.n_sites}; fixed-point re-runs "
+          f"{sal.fixed_point_runs}; host ms per batch: collect (pass 2, "
+          f"merge, host phases, re-runs) "
+          f"{1e3 * acc['collect'] / GS_S_BATCHES:.1f}; launches {slaunch}")
+    check(can_share >= 0.95, "genome spliced: canonical junction reads "
+          "placed true < 95%")
+    check(clean_share >= 0.99, "genome spliced: unmodified reads placed "
+          "true < 99%")
+    check(slaunch["resolve_walk"] > 0 and slaunch["pair_sweep"] > 0,
+          "genome spliced: the walk or the pair sweep never launched")
+    path_launches["genome_spliced"] = slaunch
+    del sal
+    torch.cuda.empty_cache()
+
+    # (f) the CLI on the saved two-shard index
+    tmp = tempfile.mkdtemp(prefix="h2torch_gcli_")
+    try:
+        codes, _, lens, start, _, rc = simulate(
+            np, np.random.default_rng(1116), g, B, L)
+        keep = ~straddle(start)
+        with open(os.path.join(tmp, "r.fa"), "w") as f:
+            for i in np.flatnonzero(keep):
+                seq = g[start[i]:start[i] + L]
+                f.write(f">t{i}\n{''.join('ACGT'[c] for c in seq)}\n")
+        t0 = time.perf_counter()
+        run_cli(["align", "--no-spliced-alignment", "-f", "-x", cache, "-U",
+                 "r.fa", "-S", "out.sam", "--device", "cuda"], tmp, env, 600)
+        t_cli = time.perf_counter() - t0
+        with open(os.path.join(tmp, "out.sam")) as f:
+            lines = f.readlines()
+        sq = [x.split() for x in lines if x.startswith("@SQ")]
+        check(sq == [["@SQ", f"SN:{n}", f"LN:{C}"] for n in names],
+              f"genome CLI header {sq}")
+        seen, good = set(), 0
+        for x in lines:
+            if x.startswith("@"):
+                continue
+            p = x.split("\t")
+            i = int(p[0][1:])
+            if i in seen:
+                continue
+            seen.add(i)
+            good += (p[2] == names[start[i] // C]
+                     and int(p[3]) - 1 == start[i] % C)
+        n_reads = int(keep.sum())
+        print(f"[genome cli] align --device cuda --no-spliced-alignment on "
+              f"the saved two-shard index: header lists {sq}; {good}/"
+              f"{n_reads} unmodified reads at their true position "
+              f"({t_cli:.1f} s incl. start-up and index load)")
+        check(good >= 0.99 * n_reads, "genome CLI: reads placed true < 99%")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[genome] phase 11 took {time.perf_counter() - t_ph:.1f} s")
 
 
 def main() -> int:
@@ -1434,13 +1902,20 @@ def main() -> int:
                   card, env)
     phase_done("spliced")
 
+    genome_phase(torch, np, kernels, twins, driver, read_alignments,
+                 TorchAligner, rows, bounds, path_launches, card, env)
+    phase_done("genome")
+
     for name, r in rows.items():
-        path = "spliced" if name in SPLICED_KERNELS else "paired"
+        path = ("genome" if name in GENOME_KERNELS else "spliced"
+                if name in SPLICED_KERNELS else "paired")
         r["launches"] = path_launches[path][name]
-        for p2 in ("linear", "graph", "paired", "spliced"):
+        for p2 in ("linear", "graph", "paired", "spliced", "genome",
+                   "genome_graph", "genome_spliced"):
             r[f"launches_{p2}"] = path_launches[p2][name]
-        r["ms"] = r.get("full_ms", r.get("paired_ms"))
-        r["plain_ms"] = r.get("full_plain_ms", r.get("paired_plain_ms"))
+        r["ms"] = r.get("full_ms", r.get("paired_ms", r.get("genome_ms")))
+        r["plain_ms"] = r.get("full_plain_ms", r.get(
+            "paired_plain_ms", r.get("genome_plain_ms")))
         r["bound_ms"], r["bound_by"] = bounds[name]
         r.setdefault("library_ms", None)
     print(f"[done] phase seconds {json.dumps(phase_s)}")

@@ -27,9 +27,11 @@ Layout (mirrors hisat2_tpu):
             pairing, host replays
   cli/      `python -m hisat2_tpu_torch align|build`
 
-Scope: unpaired and paired DNA reads against linear and graph indexes with
-a full suffix array (ROADMAP.md Queue 1 items 2-4).  Other modes raise or
-are refused naming their ROADMAP item.
+Scope: unpaired and paired DNA reads against linear and graph indexes,
+unpaired spliced RNA reads against a linear index, with a full or a
+sampled suffix array, and unpaired runs against sharded genome-scale
+indexes (ROADMAP.md Queue 1 items 2-6).  Other modes raise or are refused
+naming their ROADMAP item.
 """
 
 __version__ = "0.1.0"

@@ -7,10 +7,11 @@ The JAX driver imports hisat2_tpu.align.pipeline (and with it jax) at
 module scope, so the port keeps this copy.  Linear and graph (.var.npz,
 two-tier) indexes run, unpaired (-U, --12) and paired (-1/-2, paired
 --12/--tab5/--tab6), DNA (--no-spliced-alignment) and, on a linear index
-and unpaired, spliced RNA (the default) with its splice-site files.  Modes
-the port does not run yet are refused with the ROADMAP item that will
-bring them: spliced paired runs, spliced runs on a graph or --ss index,
-and multi-host runs.
+and unpaired, spliced RNA (the default) with its splice-site files, on
+full-SA, sampled-SA and sharded (genome-scale) indexes.  Modes the port
+does not run yet are refused with the ROADMAP item that will bring them:
+spliced paired runs, spliced runs on a graph or --ss index, paired runs on
+more than one shard, and multi-host runs.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from . import hybrid as hybrid_mod
 from . import mapq as mapq_mod
 from . import rng as rng_mod
 from .paired import PairPolicy, best_pairs
-from .pipeline import TorchAligner
+from .pipeline import PAIRED_SHARDS, TorchAligner
 from .scoring import Scoring, SimpleFunc
 
 
@@ -285,6 +286,10 @@ def run_align(args) -> int:
         print("error: hisat2_tpu_torch does not run spliced alignment of "
               "paired reads (ROADMAP.md Queue 1 item 11); pass "
               "--no-spliced-alignment", file=sys.stderr)
+        return 1
+    if paired_mode and len(aligner.shards) > 1:
+        print(f"error: hisat2_tpu_torch does not run {PAIRED_SHARDS}",
+              file=sys.stderr)
         return 1
     secondary = getattr(args, "secondary", False)
     k_rep = 10 ** 9 if getattr(args, "all_hits", False) else args.khits

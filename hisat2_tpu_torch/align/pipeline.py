@@ -1,7 +1,7 @@
 """The batched aligner on torch (counterpart of
 hisat2_tpu/align/pipeline.py TPUAligner: unpaired and paired DNA against
 linear and graph indexes, with mate rescue; unpaired spliced RNA against
-a linear index).
+a linear index; full-SA, sampled-SA and sharded genome-scale indexes).
 
 Device half: `_align_device` is TPUAligner._align_device (:725-1446) and
 `_pack_out` the output packing of _align_device_packed (:536-600).  The
@@ -11,8 +11,12 @@ on the card:
   partial_search2          kernel 1  (ops/search.py)
   prefix re-search         K17, kernel 1's lane-list mode (spliced only,
                                      ops/search.py:search_lanes_live)
+  resolve walk             K19+K20   (ops/resolve.py:resolve_rows_sparse),
+                                     sampled-SA index only: the live rows
+                                     of the hits (and of the re-search)
   resolve + compaction     kernel 5  (ops/compact.py:compact_cands, K3+K4;
-                                     spliced: re-search rows, proximity)
+                                     spliced: re-search rows, proximity;
+                                     sampled SA: the walk's offsets)
   diag_chars               kernel 2  (ops/splice.py), reference windows and,
                                      on a graph index, the SNV-plane windows
   extend_grouped           kernel 3  (ops/extend.py), core and extra slots
@@ -30,6 +34,12 @@ on the card:
 The per-block concatenation into the unified slot schema and the int32/16/8
 packing (`_pack_out`) are torch glue.  The lite tier (pipeline.py:307-313)
 skips the sweeps and the extra slots and sets h_sat.
+
+Genome scale (pipeline.py:324-416, :1679-1689, :1941-2000): a
+ShardedFMIndex runs one step per shard on the same batch, each against its
+shard's device index, graph tables and window of the site tables, with
+shard-local positions; `_merge_shards` rebases them into int64 global
+joined coordinates and merges the shards' candidates on the host.
 
 Host half: dispatch() enqueues the step on the current stream and starts
 the device-to-host copy of the packed buffer into pinned memory, recording
@@ -60,11 +70,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..index.format import (FMIndex, ShardedFMIndex, graph_to_device,
-                            score_tables, to_device)
+from ..index.format import (FMIndex, graph_to_device, score_tables,
+                            to_device)
 from ..ops import compact as compact_ops
 from ..ops import extend as extend_ops
 from ..ops import rescue as rescue_ops
+from ..ops import resolve as resolve_ops
 from ..ops import search as search_ops
 from ..ops import splice as splice_ops
 from ..utils import bitops
@@ -73,6 +84,8 @@ from .host import Alignment, BatchResult, HostPhase, SpillOverflow
 from .scoring import Scoring
 
 _I32 = torch.int32
+PAIRED_SHARDS = ("paired reads on an index of more than one shard "
+                 "(ROADMAP.md Queue 1 item 13)")
 _DT_NAME = {torch.int32: "int32", torch.bool: "bool",
             torch.float32: "float32"}
 
@@ -88,10 +101,7 @@ class TorchAligner(HostPhase):
                  variants=None, spliced: bool = False, lite: bool = False,
                  inject_ss: bool = False, splice_db=None, tmo: bool = False,
                  require_xs: bool = False,
-                 _dev=None, _ref_codes=None, _graph_bundle=None):
-        if isinstance(index, ShardedFMIndex) or hasattr(index, "shards"):
-            raise NotImplementedError(
-                "sharded genome-scale indexes: ROADMAP.md Queue 1 item 6")
+                 _devs=None, _ref_codes=None, _graph_bundle=None):
         if (spliced or inject_ss) and variants is not None and (
                 variants.n_snps or len(variants.ss_ref)):
             raise NotImplementedError(
@@ -149,35 +159,66 @@ class TorchAligner(HostPhase):
         self.no_rc = no_rc
         self.spliced = spliced
         self.lane_meta = lane_meta
-        self.shards = [index]          # the replay glue reads shards[0]
-        self.ref_codes = (_ref_codes if _ref_codes is not None
-                          else bitops.unpack_2bit(np.asarray(index.ref_words),
-                                                  index.meta.n))
-        # a two-tier twin shares its parent's device index and tables
-        self.dev = _dev if _dev is not None else to_device(index,
-                                                           self.device)
+        # genome scale (pipeline.py:324-350): a ShardedFMIndex runs one
+        # device pass per sub-index, merged on the host into global joined
+        # coordinates (shard_bases[s] + local); the replay glue reads
+        # shards[0]
+        if hasattr(index, "shards"):          # a ShardedFMIndex
+            self.shards = list(index.shards)
+            self.shard_bases = [int(b) for b in index.shard_bases]
+            self.ref_codes = (_ref_codes if _ref_codes is not None
+                              else index.global_ref_codes())
+            if lane_meta and len(self.shards) > 1:
+                # the paired give-up replay models ONE interleaved search;
+                # per-shard round logs do not merge faithfully
+                self.lane_meta = False
+        else:
+            self.shards = [index]
+            self.shard_bases = [0]
+            self.ref_codes = (_ref_codes if _ref_codes is not None
+                              else bitops.unpack_2bit(
+                                  np.asarray(index.ref_words), index.meta.n))
+        # a two-tier twin shares its parent's device bundles and tables
+        self.devs = (_devs if _devs is not None else
+                     [to_device(sh, self.device) for sh in self.shards])
+        self.dev = self.devs[0]
         self.frag_joined = np.asarray(index.frag_joined)
         self.frag_ref = np.asarray(index.frag_ref)
         self.frag_off = np.asarray(index.frag_off)
         self.params = score_tables(self.scoring, self.device)
-        # variant (ALT) database, one shard (pipeline.py:363-411)
+        # variant (ALT) database (pipeline.py:363-411): per-shard device
+        # tables with the shard's variants in local coordinates, and a
+        # host-only global view (Zs, routing) on a sharded index;
+        # shard_row_db maps a shard's indel-table rows to VariantDB rows
         self.variants = variants
         self.has_indels = False
-        self.row_db = None             # indel-table row -> VariantDB row
+        nsh = len(self.shards)
         if _graph_bundle is not None:
-            (self.graph, self.has_indels, self.graph_dev,
-             self.row_db) = _graph_bundle
+            (self.graph, self.has_indels, self.shard_graph_dev,
+             self.shard_row_db) = _graph_bundle
         elif variants is not None and variants.n_snps:
-            from ..index.graph import build_graph_arrays
-            self.graph = build_graph_arrays(index, variants)
-            self.has_indels = bool(len(self.graph.indel_pos))
-            self.graph_dev, self.row_db = graph_to_device(
-                self.graph, self.has_indels, self.device)
+            from ..index.graph import build_graph_arrays, shard_graph_arrays
+            if nsh == 1:
+                shard_graphs = [build_graph_arrays(index, variants)]
+                self.graph = shard_graphs[0]
+            else:
+                self.graph = build_graph_arrays(
+                    index, variants, ref_codes=self.ref_codes,
+                    with_planes=False)
+                shard_graphs = [
+                    shard_graph_arrays(sh, variants, b)
+                    for sh, b in zip(self.shards, self.shard_bases)]
+            self.has_indels = any(len(g.indel_pos) for g in shard_graphs)
+            self.shard_graph_dev, self.shard_row_db = (list(t) for t in zip(
+                *(graph_to_device(g, self.has_indels, self.device)
+                  for g in shard_graphs)))
         else:
             self.graph = None
-            self.graph_dev = {}
-        self._graph_bundle = (self.graph, self.has_indels, self.graph_dev,
-                              self.row_db)
+            self.shard_graph_dev = [{} for _ in range(nsh)]
+            self.shard_row_db = [None] * nsh
+        self.graph_dev = self.shard_graph_dev[0]   # rescue_mates (1 shard)
+        self._graph_bundle = (self.graph, self.has_indels,
+                              self.shard_graph_dev, self.shard_row_db)
         sc = self.scoring
         self.splice_params = splice_ops.SpliceParams(
             min_intron=sc.min_intron_len, max_intron=sc.max_intron_len,
@@ -217,7 +258,7 @@ class TorchAligner(HostPhase):
                 all_hits=all_hits, anchor_stop=anchor_stop,
                 device=self.device, lite=not all_hits,
                 inject_ss=not all_hits, splice_db=self.splice_db, tmo=tmo,
-                require_xs=require_xs, _dev=self.dev,
+                require_xs=require_xs, _devs=self.devs,
                 _ref_codes=self.ref_codes, _graph_bundle=self._graph_bundle)
         elif (not lite and not all_hits and variants is not None
                 and variants.n_snps):
@@ -225,7 +266,7 @@ class TorchAligner(HostPhase):
                 index, scoring=self.scoring, k=k, no_fw=no_fw, no_rc=no_rc,
                 variants=variants, lane_meta=lane_meta, max_seeds=max_seeds,
                 anchor_stop=anchor_stop, device=self.device, lite=True,
-                _dev=self.dev, _ref_codes=self.ref_codes,
+                _devs=self.devs, _ref_codes=self.ref_codes,
                 _graph_bundle=self._graph_bundle)
         # host-side routing table: reads overlapping a known ALT indel go
         # to the full pass (pipeline.py:495-505)
@@ -238,25 +279,38 @@ class TorchAligner(HostPhase):
                 np.concatenate([ip - 1, ip + il + 1]))
 
     # ------------------------------------------------------------------
-    def _align_device(self, reads, quals, lens, minsc, uniform: bool,
+    def _align_device(self, d, gd, reads, quals, lens, minsc, uniform: bool,
                       full_out: bool, capture: dict = None, rdids=None,
                       ss=None):
-        """Device computation for one batch: [B, L] -> output dict
-        (pipeline.py:725-1446).  Lanes 0..B-1 forward, B..2B-1 reverse
-        complement.  rdids [B] int32 and ss (SpliceSiteDB.device_tables)
-        feed the site injection of a spliced aligner and its lite twin.
-        Returns (out, spill_meta).
+        """Device computation for one batch against one shard: [B, L] ->
+        output dict (pipeline.py:725-1446).  d: the shard's TorchFMIndex,
+        gd: its graph tables; positions are shard-local.  Lanes 0..B-1
+        forward, B..2B-1 reverse complement.  rdids [B] int32 and ss
+        (SpliceSiteDB.device_tables of the shard's window) feed the site
+        injection of a spliced aligner and its lite twin.  Returns (out,
+        spill_meta).
 
         capture: when a dict, receives the keyword arguments of the first
-        call of each hand-kernel wrapper (chip_smoke.py replays them
+        call of each hand-kernel wrapper under its name, or under `key`
+        where one wrapper has two roles (chip_smoke.py replays them
         through the kernel and its plain twin)."""
-        def call(name, fn, **kw):
-            if capture is not None and name not in capture:
-                capture[name] = kw
+        def call(name, fn, key=None, **kw):
+            key = key or name
+            if capture is not None and key not in capture:
+                capture[key] = kw
             return fn(**kw)
 
-        d = self.dev
         meta = d.meta
+        sampled = meta.off_rate > 0
+
+        def walk(top, live, key=None):
+            # sampled SA: the LF walk over the live rows of top..top+P-1
+            # (resolve_consecutive's sampled branch, resolve.py:187-195)
+            return call("resolve_walk", resolve_ops.resolve_rows_sparse,
+                        key=key, **resolve_ops.walk_args(
+                            d.sa, meta.off_rate, top, live.shape[-1], live,
+                            d.blocked, d.fchr, meta.zrow)).reshape(
+                                live.shape)
         dv = reads.device
         B, L = reads.shape
         if uniform:
@@ -285,6 +339,17 @@ class TorchAligner(HostPhase):
                     min_hit_len=self.min_hit_len, min_k=self.min_k,
                     uniform=uniform, anchor_stop=self.anchor_stop)
 
+        # the hit gates and the resolve of their rows (:772-801); a full
+        # SA resolves inside kernel 5, a sampled one through the walk
+        Pc = max(self.cand_per_hit, self.short_rows, self.msize)
+        maxsize = max(self.k, self.max_seeds)
+        offs = None
+        if sampled:
+            hv, cval = compact_ops.resolve_live(
+                hits.top, hits.bot, hits.lo, hits.hi, hits.nh, Pc,
+                self.min_k, maxsize, self.short_rows,
+                self.lite_cap if self.lite else 0)
+            offs = walk(torch.where(hv, hits.top, 0), cval)
         research = {}
         if self.spliced:
             # prefix re-search (:810-883): cut = lo of the second-to-last
@@ -298,11 +363,16 @@ class TorchAligner(HostPhase):
             anchor_ok = (wh == 1) & ((hits.hi - hits.lo) > self.min_k + 2)
             first_a = anchor_ok.to(torch.uint8).argmax(1)[:, None]
             have_a = anchor_ok.any(1)
-            top_a = torch.where(have_a, compact_ops.take_cols(
-                hits.top, first_a)[:, 0], 0)
-            top_a = torch.clamp(top_a, max=d.sa.shape[0] - 1)
-            d0 = (d.sa[top_a.to(torch.int64)]
-                  - compact_ops.take_cols(hits.lo, first_a)[:, 0])
+            if sampled:
+                # the anchor's first resolved row (:827-836; 0 on a dead
+                # slot, as the walk returns it)
+                off_a = compact_ops.take_cols(offs[:, :, 0], first_a)[:, 0]
+            else:
+                top_a = torch.where(have_a, compact_ops.take_cols(
+                    hits.top, first_a)[:, 0], 0)
+                top_a = torch.clamp(top_a, max=d.sa.shape[0] - 1)
+                off_a = d.sa[top_a.to(torch.int64)]
+            d0 = off_a - compact_ops.take_cols(hits.lo, first_a)[:, 0]
             rc0 = call("ref_window", splice_ops.diag_chars,
                        ref_words=d.ref_words, n_text=meta.n,
                        starts=d0[:, None].to(_I32).contiguous(), L=L,
@@ -319,22 +389,27 @@ class TorchAligner(HostPhase):
                          zrow2=meta.zrow2, rows=meta.rows, reads=ar, cut=cut,
                          max_hits=2, min_hit_len=self.min_hit_len,
                          min_k=self.min_k)
+            # a sampled SA keeps the narrow row cap: each row costs a walk
+            P2 = 32 if not sampled else self.short_rows       # (:870)
             research = dict(top2=hits2.top, bot2=hits2.bot, lo2=hits2.lo,
-                            nh2=hits2.nh, P2=32,
+                            nh2=hits2.nh, P2=P2,
                             max_intron=self.scoring.max_intron_len)
+            if sampled:
+                hv2, cval2 = compact_ops.research_live(
+                    hits2.top, hits2.bot, hits2.nh, P2)
+                research["offs2"] = walk(torch.where(hv2, hits2.top, 0),
+                                         cval2, key="resolve_walk/research")
 
-        # hit gates, full-SA resolve, dedup + compaction (:772-998)
+        # hit gates, resolve, dedup + compaction (:772-998)
         C = self.max_cands
         cands = call("compact_cands", compact_ops.compact_cands,
                      sa=d.sa, top=hits.top, bot=hits.bot, lo=hits.lo,
                      hi=hits.hi, nh=hits.nh, abefore=hits.abefore,
-                     post=hits.post, stopped=hits.stopped,
-                     P=max(self.cand_per_hit, self.short_rows, self.msize),
+                     post=hits.post, stopped=hits.stopped, P=Pc,
                      C=C, CC=min(self.core_cands, C), min_k=self.min_k,
-                     maxsize=max(self.k, self.max_seeds),
-                     short_rows=self.short_rows,
+                     maxsize=maxsize, short_rows=self.short_rows,
                      lite_cap=self.lite_cap if self.lite else 0,
-                     lane_meta=self.lane_meta, **research)
+                     lane_meta=self.lane_meta, offs=offs, **research)
         cstart, cvalid, cvalid_long, cab, cpost = cands[:5]
         xstart, xvalid, xab, xpost = cands[5:9]
 
@@ -344,7 +419,6 @@ class TorchAligner(HostPhase):
                        // max(min(sp.rd_gap_ext, sp.rf_gap_ext), 1))
         g_budget = min(g_budget, sp.min_intron - 1)
         margin = max(16, g_budget)
-        gd = self.graph_dev
         mstart = torch.where(cvalid, cstart, -1).to(_I32).contiguous()
         ch = call("ref_window", splice_ops.diag_chars,
                   ref_words=d.ref_words, n_text=meta.n, starts=mstart, L=L,
@@ -511,11 +585,11 @@ class TorchAligner(HostPhase):
         if self.spliced:
             out.update(self._second_junctions(
                 call, res, bsel, ch, ar, aq, al, am, cstart, cvalid, margin,
-                ss, rd2))
+                ss, rd2, meta.n))
         return out, ((Mdev, wide_d2) if use_spill else None)
 
     def _second_junctions(self, call, res, bsel, ch, ar, aq, al, am, cstart,
-                          cvalid, margin, ss, rd2):
+                          cvalid, margin, ss, rd2, n_text):
         """The second-junction composites off the top-2 raw base pairs
         (pipeline.py:1376-1445): K15 once per base pair, then the
         3-junction composite of its ungated sides."""
@@ -537,7 +611,7 @@ class TorchAligner(HostPhase):
                       reads=ar, quals=aq, lens=al, starts=cstart,
                       valid=cvalid.contiguous(), minsc=am,
                       mm_pen=self.params["mm_pen"], n_pen=self.scoring.n_pen,
-                      n_text=self.meta.n, prm=self.splice_params,
+                      n_text=n_text, prm=self.splice_params,
                       lenpen=self._lenpen, margin=margin,
                       b_i=b_i.contiguous(), b_j=b_j.contiguous(),
                       b_x=b_x.contiguous(), b_score=b_score.contiguous(),
@@ -619,14 +693,15 @@ class TorchAligner(HostPhase):
 
     def step(self, reads, quals, lens, minsc, uniform: bool,
              full_out: bool = False, capture: dict = None, rdids=None,
-             ss=None):
-        """The whole device step on device tensors (int32 [B, L] reads
-        and quals, int32 [B] lens, minsc and rdids; ss the site tables of
-        a spliced aligner): the packed buffer, with its layout recorded in
-        _out_specs / _spill_meta under its width."""
-        out, spill_meta = self._align_device(reads, quals, lens, minsc,
-                                             uniform, full_out, capture,
-                                             rdids, ss)
+             ss=None, shard: int = 0):
+        """The whole device step of one shard on device tensors (int32
+        [B, L] reads and quals, int32 [B] lens, minsc and rdids; ss the
+        shard's site tables for a spliced aligner): the packed buffer,
+        with its layout recorded in _out_specs / _spill_meta under its
+        width."""
+        out, spill_meta = self._align_device(
+            self.devs[shard], self.shard_graph_dev[shard], reads, quals,
+            lens, minsc, uniform, full_out, capture, rdids, ss)
         buf, specs = self._pack_out(out, reads.shape[1])
         self._out_specs[buf.shape[1]] = specs
         self._spill_meta[buf.shape[1]] = spill_meta
@@ -645,31 +720,40 @@ class TorchAligner(HostPhase):
         return np.array([self.scoring.min_score(int(x)) for x in lens],
                         np.int64)
 
-    def _step_site_args(self, rdids):
-        """(rdids tensor, site tables) for the step of a site-injecting
-        aligner (pipeline.py:1684-1686), else (None, None)."""
+    def _step_site_args(self, rdids, shard: int = 0):
+        """(rdids tensor, the shard's window of the site tables) for the
+        step of a site-injecting aligner (pipeline.py:1684-1686), else
+        (None, None)."""
         if not self.use_ss:
             return None, None
         rd = torch.from_numpy(np.asarray(rdids, np.int64).astype(np.int32))
-        return rd.to(self.device), self.splice_db.device_tables()
+        return rd.to(self.device), self.splice_db.device_tables(
+            self.shard_bases[shard], self.devs[shard].meta.n)
 
     def _dispatch_packed(self, codes, quals, lens, minsc, uniform,
                          full_out=False, rdids=None):
+        """One step per shard (pipeline.py:1679-1689): a list of packed
+        handles, each with its D2H copy already enqueued."""
         if rdids is None:
             rdids = np.arange(codes.shape[0], dtype=np.int64)
-        rd, ss = self._step_site_args(rdids)
-        buf = self.step(*self.upload(codes, quals, lens, minsc), uniform,
-                        full_out, rdids=rd, ss=ss)
-        if buf.is_cuda:
-            # enqueue the D2H copy now, behind the step on the same
-            # stream; _fetch_out waits on the event (the counterpart of
-            # JAX's copy_to_host_async, pipeline.py:1672-1676)
-            host = torch.empty(buf.shape, dtype=_I32, pin_memory=True)
-            host.copy_(buf, non_blocking=True)
-            ev = torch.cuda.Event()
-            ev.record(torch.cuda.current_stream(buf.device))
-            return host, ev
-        return buf, None
+        up = self.upload(codes, quals, lens, minsc)
+        packed = []
+        for i in range(len(self.devs)):
+            rd, ss = self._step_site_args(rdids, i)
+            buf = self.step(*up, uniform, full_out, rdids=rd, ss=ss,
+                            shard=i)
+            if buf.is_cuda:
+                # enqueue the D2H copy now, behind the step on the same
+                # stream; _fetch_out waits on the event (the counterpart
+                # of JAX's copy_to_host_async, pipeline.py:1672-1676)
+                host = torch.empty(buf.shape, dtype=_I32, pin_memory=True)
+                host.copy_(buf, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(buf.device))
+                packed.append((host, ev))
+            else:
+                packed.append((buf, None))
+        return packed
 
     def _fetch_out(self, packed) -> dict:
         host, ev = packed
@@ -677,19 +761,62 @@ class TorchAligner(HostPhase):
             ev.synchronize()
         return HostPhase._fetch_out(self, host.numpy())
 
-    def _merge(self, packed) -> dict:
-        """_fetch_out, with the indel-event table rows mapped to VariantDB
-        rows (the single-shard branch of _merge_shards,
-        pipeline.py:1949-1958)."""
-        out0 = self._fetch_out(packed)
-        rdb = self.row_db
-        if rdb is not None and "u_event" in out0:
-            v = out0["u_event"]
-            ev = v >= 0
-            v = v.copy()
-            v[ev] = rdb[v[ev]]
-            out0["u_event"] = v
-        return out0
+    # position-valued output keys (rebased by shard_base at merge)
+    _POS_KEYS = ("u_d1", "u_d2", "q2_d", "q2_bd1", "q2_bd2")
+
+    def _merge_shards(self, packed_list) -> dict:
+        """Fetch the per-shard outputs and merge them into one candidate
+        dict in GLOBAL joined coordinates (pipeline.py:1944-2000): the
+        position keys rebased to int64, indel-table rows mapped through
+        each shard's row_db, the per-lane q2_* set of the shard with the
+        best composite, the h_* reductions, and the candidate rows
+        concatenated.  One shard at base 0 only maps its u_event rows."""
+        outs = [self._fetch_out(pk) for pk in packed_list]
+        if len(outs) == 1 and self.shard_bases[0] == 0:
+            out0 = outs[0]
+            rdb = self.shard_row_db[0]
+            if rdb is not None and "u_event" in out0:
+                v = out0["u_event"]
+                ev = v >= 0
+                v = v.copy()
+                v[ev] = rdb[v[ev]]
+                out0["u_event"] = v
+            return out0
+        merged = {}
+        best_q2 = None
+        if "q2_score" in outs[0]:
+            best_q2 = np.argmax(np.stack(
+                [o["q2_score"].max(axis=1) for o in outs]), axis=0)
+        for k in outs[0]:
+            vs = []
+            for si, (o, base) in enumerate(zip(outs, self.shard_bases)):
+                v = o[k]
+                if k in self._POS_KEYS:
+                    v = v.astype(np.int64) + base
+                elif k == "u_event":
+                    rdb = self.shard_row_db[si]
+                    if rdb is not None:
+                        ev = v >= 0
+                        v = v.copy()
+                        v[ev] = rdb[v[ev]]
+                vs.append(v)
+            if k.startswith("q2_"):
+                stk = np.stack(vs)                      # [S, 2B, ...]
+                idx = best_q2.reshape((1, -1) + (1,) * (stk.ndim - 2))
+                merged[k] = np.take_along_axis(stk, idx, axis=0)[0]
+            elif k == "h_minw":
+                merged[k] = np.minimum.reduce(vs)
+            elif k in ("h_alignable", "h_stop"):
+                merged[k] = np.logical_or.reduce(vs)
+            elif k in ("h_rn", "h_sat"):
+                merged[k] = np.add.reduce(vs)
+            elif k == "h_rounds":
+                merged[k] = vs[0]
+            elif vs[0].ndim >= 2:
+                merged[k] = np.concatenate(vs, axis=1)
+            else:
+                merged[k] = vs[0]
+        return merged
 
     def dispatch(self, codes: np.ndarray, quals: np.ndarray,
                  lens: np.ndarray, rdids: np.ndarray = None):
@@ -709,13 +836,13 @@ class TorchAligner(HostPhase):
         return (packed, codes, quals, lens, rdids, minsc, ver)
 
     def _merge_or_respill(self, packed, codes, quals, lens, rdids):
-        """_merge, re-dispatching with the full_out layout when the spill
-        layout overflowed its S = 2B rows (pipeline.py:1691-1707)."""
+        """_merge_shards, re-dispatching with the full_out layout when the
+        spill layout overflowed its S = 2B rows (pipeline.py:1691-1707)."""
         try:
-            return self._merge(packed)
+            return self._merge_shards(packed)
         except SpillOverflow:
             uniform = bool(np.all(np.asarray(lens) == codes.shape[1]))
-            return self._merge(self._dispatch_packed(
+            return self._merge_shards(self._dispatch_packed(
                 codes, quals, lens, self._minsc(lens), uniform,
                 full_out=True, rdids=rdids))
 
@@ -727,6 +854,8 @@ class TorchAligner(HostPhase):
         the full pass with the grown table (readid-gated on the device).
         paired: the batch is a fused pair batch (mate 1 reads, then mate 2
         reads), whose host phase skips the unpaired interleave replay."""
+        if paired and len(self.shards) > 1:
+            raise NotImplementedError(PAIRED_SHARDS)
         if handle[0] == "2pass":
             return self._finish_two_pass(
                 self._advance_two_pass(handle, paired), paired)
@@ -748,8 +877,8 @@ class TorchAligner(HostPhase):
             ver = self.splice_db.n_sites
             t0 = time.perf_counter()
             h = self._dispatch_full(codes, quals, lens, rdids)
-            res = self._host_phase(self._merge(h[0]), codes, quals, lens,
-                                   minsc, paired=paired)
+            res = self._host_phase(self._merge_shards(h[0]), codes, quals,
+                                   lens, minsc, paired=paired)
             self.fixed_point_runs += 1
             self.fixed_point_s += time.perf_counter() - t0
         return res

@@ -22,6 +22,10 @@
 // masks because the TPU had no fast gather; here every lookup is a direct
 // index and the O(J^2) comparisons are spread over the warp's 32 lanes.
 //
+// Sampled SA (off_rate > 0): the rows' offsets come resolved by the walk
+// (csrc/resolve_walk.cu, K19+K20) as offs [N, H, P] and offs2 [N, H2, P2],
+// read in place of the SA for the same live slots.
+//
 // Spliced mode (pipeline.py:846-933): the prefix re-search's H2 hits add
 // P2 sweep-only rows each (J = H*P + H2*P2 slots); a short slot survives
 // only within max_intron of one of the lane's 8 lowest align-capable
@@ -52,6 +56,8 @@ struct CompactArgs {
   const int* bot2;
   const int* lo2;
   const int* nh2;
+  const int* offs;   // [N, H, P] resolved rows of a sampled SA, or null
+  const int* offs2;  // [N, H2, P2] the re-search's (spliced), or null
   int N, H, P, C, CC, min_k, maxsize, short_rows, lite_cap, lane_meta;
   int H2, P2, max_intron;
   int* cstart;   // [N, CC]
@@ -133,7 +139,9 @@ __global__ void compact_cands_kernel(CompactArgs A, int warps) {
       const bool cv = h2 < A.nh2[n] && w2 <= A.P2 && jj < w2;
       int st = 0;
       if (cv)
-        st = (int)((unsigned)__ldg(A.sa + ((long long)t + jj)) -
+        st = (int)((unsigned)(A.offs2 != nullptr
+                                  ? A.offs2[o2 * A.P2 + jj]
+                                  : __ldg(A.sa + ((long long)t + jj))) -
                    (unsigned)A.lo2[o2]);
       sIdent[j] = cv ? (int)((unsigned)st + (unsigned)CC_SHORTBIT)
                      : CC_SENT;
@@ -151,7 +159,10 @@ __global__ void compact_cands_kernel(CompactArgs A, int warps) {
     const bool align = islong && (w == 1 || !stopped);
     int st = 0, ident = CC_SENT;
     if (cv) {
-      st = (int)((unsigned)__ldg(A.sa + ((long long)t + jj)) - (unsigned)lo[h]);
+      const int off = A.offs != nullptr
+                          ? A.offs[((size_t)n * H + h) * P + jj]
+                          : __ldg(A.sa + ((long long)t + jj));
+      st = (int)((unsigned)off - (unsigned)lo[h]);
       ident = (int)((unsigned)st + (align ? 0u : (unsigned)CC_SHORTBIT));
     }
     sIdent[j] = ident;
@@ -279,7 +290,8 @@ H2_EXPORT int h2_compact_cands(
     const void* sa, const void* top, const void* bot, const void* lo,
     const void* hi, const void* nh, const void* abefore, const void* post,
     const void* stopped, const void* top2, const void* bot2,
-    const void* lo2, const void* nh2, int N, int H, int P, int C, int CC,
+    const void* lo2, const void* nh2, const void* offs, const void* offs2,
+    int N, int H, int P, int C, int CC,
     int min_k, int maxsize, int short_rows, int lite_cap, int lane_meta,
     int H2, int P2, int max_intron, void* cstart,
     void* cvalid, void* cvalid_long, void* cab, void* cpost, void* xstart,
@@ -291,7 +303,8 @@ H2_EXPORT int h2_compact_cands(
                 (const int*)lo, (const int*)hi, (const int*)nh,
                 (const int*)abefore, (const uint8_t*)post,
                 (const uint8_t*)stopped, (const int*)top2, (const int*)bot2,
-                (const int*)lo2, (const int*)nh2, N, H, P, C, CC, min_k,
+                (const int*)lo2, (const int*)nh2, (const int*)offs,
+                (const int*)offs2, N, H, P, C, CC, min_k,
                 maxsize, short_rows, lite_cap, lane_meta, H2, P2,
                 max_intron, (int*)cstart,
                 (uint8_t*)cvalid, (uint8_t*)cvalid_long, (int*)cab,

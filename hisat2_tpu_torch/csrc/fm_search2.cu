@@ -6,7 +6,8 @@
 // _finish_events (:326).  Plain twin: hisat2_tpu_torch/ops/search.py.
 //
 // One thread per lane walks its read right to left, two chars per step.
-// Each step loads the two 44-word (176 B) fused rows of top and bot once
+// Each step loads the two fused rows of top and bot once (44 words, 176 B;
+// 49 on a sampled-SA index, whose 5 mark columns this kernel skips)
 // and derives both the 1-char LF (phase 1) and the 2-char bigram LF
 // (phase 2) from them, exactly as the JAX scan does.  Instead of
 // materialising the [N, L] event stream and reducing it afterwards, every
@@ -27,7 +28,6 @@
 #define FM_MAX_L 512
 #define FM_MAX_R (FM_MAX_L / 2 + 2)
 #define FM_MAX_RW ((FM_MAX_R + 3) / 4)
-#define FM_ROW 44
 
 __device__ __forceinline__ int fm_rank1(const uint32_t* __restrict__ row,
                                         int i, int c, int zrow) {
@@ -169,7 +169,8 @@ __global__ void fm_search2_kernel(
     const uint32_t* __restrict__ blocked, const int* __restrict__ fchr,
     const int* __restrict__ ftab2, const int* __restrict__ reads,
     const int* __restrict__ lens, const int* __restrict__ lanes,
-    int use_lanes, int N, int L, int zrow, int zrow2, FmParams p, int RW,
+    int use_lanes, int N, int L, int zrow, int zrow2, int row_w, FmParams p,
+    int RW,
     FmOut o, int* __restrict__ rounds, int* __restrict__ nrounds,
     int* __restrict__ nh, uint8_t* __restrict__ stopped_out) {
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
@@ -189,8 +190,8 @@ __global__ void fm_search2_kernel(
     const int c1 = rd[pos1];
     const int c2 = pos2 >= 0 ? rd[pos2] : 4;
     const int top0 = s.top, bot0 = s.bot;
-    const uint32_t* rt = blocked + (size_t)(top0 >> 7) * FM_ROW;
-    const uint32_t* rbp = blocked + (size_t)(bot0 >> 7) * FM_ROW;
+    const uint32_t* rt = blocked + (size_t)(top0 >> 7) * row_w;
+    const uint32_t* rbp = blocked + (size_t)(bot0 >> 7) * row_w;
     const int cc1 = min(c1, 3);
     const int lf1 = fchr[cc1];
     const int t1 = lf1 + fm_rank1(rt, top0, cc1, zrow);
@@ -240,10 +241,11 @@ H2_EXPORT int h2_fm_search2(
     const void* reads, const void* lens, const void* lanes, int use_lanes,
     int N, int L, int zrow, int zrow2,
     int rows, int a_stop_len, int a_cancel_len, int min_hit_len, int H,
-    void* top, void* bot, void* lo, void* hi, void* ab, void* uniq,
+    int row_w, void* top, void* bot, void* lo, void* hi, void* ab, void* uniq,
     void* post, void* rounds, void* nrounds, void* nh, void* stopped,
     void* stream) {
-  if (L > FM_MAX_L || L < 1) return (int)cudaErrorInvalidValue;
+  if (L > FM_MAX_L || L < 1 || (row_w != 44 && row_w != 49))
+    return (int)cudaErrorInvalidValue;
   FmParams p{rows, a_stop_len, a_cancel_len, min_hit_len, H, L / 2 + 2};
   const int RW = (p.R + 3) / 4;
   FmOut o{(int*)top, (int*)bot, (int*)lo, (int*)hi, (int*)ab,
@@ -254,7 +256,7 @@ H2_EXPORT int h2_fm_search2(
     fm_search2_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)blocked, (const int*)fchr, (const int*)ftab2,
         (const int*)reads, (const int*)lens, (const int*)lanes, use_lanes,
-        N, L, zrow, zrow2, p, RW, o,
+        N, L, zrow, zrow2, row_w, p, RW, o,
         (int*)rounds, (int*)nrounds, (int*)nh, (uint8_t*)stopped);
   return (int)cudaGetLastError();
 }

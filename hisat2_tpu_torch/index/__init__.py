@@ -3,5 +3,5 @@
 (format.to_device)."""
 
 from .builder import build_fm_index  # noqa: F401
-from .format import FMIndex  # noqa: F401
+from .format import FMIndex, ShardedFMIndex  # noqa: F401
 from .variants import VariantDB, attach_variants  # noqa: F401

@@ -10,12 +10,12 @@ described there.
 
 `to_device` builds the same fused blocked table with `fuse_blocked` and
 keeps the same padding: ref_words to a multiple of 128 words, the full
-suffix array to a multiple of 8 entries.  Packed uint32 tables travel as
+suffix array to a multiple of 8 entries (a sampled one unpadded, with the
+mark planes fused into the block rows).  Packed uint32 tables travel as
 int32 bit patterns (see utils/intops.py).  Only what the device step reads
-is uploaded: the blocked table, fchr, ftab2_top, the full suffix array and
-ref_words (sampled-SA indexes, and so the mark planes, are not ported
-yet).  The host keeps ftab_top/ftab_bot (align/hostfm.py) and the
-fragment tables.
+is uploaded: the blocked table, fchr, ftab2_top, the suffix array (full or
+sampled) and ref_words, one shard at a time.  The host keeps
+ftab_top/ftab_bot (align/hostfm.py) and the fragment tables.
 
 `graph_to_device` uploads a graph index's variant tables (the graph-DNA
 part of pipeline.py:378-402, for one shard): the two 2-bit SNV planes,
@@ -216,38 +216,43 @@ class ShardedFMIndex:
 @dataclasses.dataclass
 class TorchFMIndex:
     meta: FMMeta
-    blocked: torch.Tensor     # int32 [nblocks + 1, 44] u32 bits
+    blocked: torch.Tensor     # int32 [nblocks + 1, 44 (49 sampled)] u32 bits
     fchr: torch.Tensor        # int32 [5]
     ftab2_top: torch.Tensor   # int32 [16]
-    sa: torch.Tensor          # int32 [rows padded to a multiple of 8]
+    sa: torch.Tensor          # int32: the full SA [rows padded to a
+                              # multiple of 8], or sa_marked (sampled)
     ref_words: torch.Tensor   # int32 [multiple of 128] u32 bits
     device: torch.device
 
     def nbytes(self) -> int:
+        """Device bytes of the uploaded index."""
         return sum(t.numel() * t.element_size() for t in (
             self.blocked, self.fchr, self.ftab2_top, self.sa,
             self.ref_words))
 
 
 def to_device(index: FMIndex, device) -> TorchFMIndex:
-    """Upload a numpy FMIndex to `device` (a torch device or its name)."""
-    if isinstance(index, ShardedFMIndex) or hasattr(index, "shards"):
-        raise NotImplementedError(
-            "sharded (genome-scale) indexes are not ported yet: "
-            "ROADMAP.md Queue 1 item 6")
-    if index.meta.off_rate > 0:
-        raise NotImplementedError(
-            "sampled-SA indexes (genomes >= 128 Mbp) are not ported yet: "
-            "ROADMAP.md Queue 1 item 6")
+    """Upload a numpy FMIndex to `device` (a torch device or its name), as
+    FMIndex.to_device (:129-170) lays it out.  A sampled-SA index
+    (off_rate > 0) fuses its mark words and mark-rank checkpoints into the
+    block rows (49 columns) and keeps sa_marked unpadded: the walk reads
+    sa_marked[min(rank, len - 1)].  A ShardedFMIndex uploads shard by
+    shard (TorchAligner keeps one bundle per shard)."""
+    if hasattr(index, "shards"):
+        raise TypeError("upload a ShardedFMIndex shard by shard: "
+                        "[to_device(sh, device) for sh in index.shards]")
     if index.ftab2_top is None or index.occ2 is None:
         raise ValueError("index has no bigram planes; rebuild it with "
                          "`python -m hisat2_tpu_torch build`")
     device = torch.device(device)
+    sampled = index.meta.off_rate > 0
     blocked = fuse_blocked(index.occ, index.bwt_words, index.occ2,
-                           index.bwt2_words)
+                           index.bwt2_words,
+                           mark_words=index.mark_words if sampled else None,
+                           mark_chk=index.mark_chk if sampled else None)
     rw = _pad128(index.ref_words)
     sa = np.asarray(index.sa_marked, np.int32)
-    if len(sa) % 8:
+    if not sampled and len(sa) % 8:
         sa = np.concatenate([sa, np.zeros(8 - len(sa) % 8, np.int32)])
 
     def i32(a):

@@ -11,9 +11,9 @@ a non-zero code raises here.  Nothing is built or loaded at import time.
 Each kernel is a `Kernel` object in KERNELS with a launch counter that
 counts successful launches and nothing else; the ops-level wrappers
 (ops/search.py, ops/compact.py, ops/splice.py, ops/extend.py,
-ops/rescue.py, ops/sites.py) are its only callers.  Two kernels may share
-a C symbol (kernel 1 and its lane-list mode, K17): each counts its own
-launches.
+ops/rescue.py, ops/sites.py, ops/resolve.py) are its only callers.  Two
+kernels may share a C symbol (kernel 1 and its lane-list mode, K17): each
+counts its own launches.
 """
 
 from __future__ import annotations
@@ -60,12 +60,12 @@ class Kernel:
 
 KERNELS = {k.name: k for k in (
     Kernel("fm_search2", "h2_fm_search2",
-           [_P] * 6 + [_I] * 10 + [_P] * 11 + [_P],
+           [_P] * 6 + [_I] * 11 + [_P] * 11 + [_P],
            "hisat2_tpu_torch/csrc/fm_search2.cu",
            "hisat2_tpu/ops/search.py:409 partial_search2 (+ :326 "
            "_finish_events)"),
     Kernel("search_lanes_live", "h2_fm_search2",
-           [_P] * 6 + [_I] * 10 + [_P] * 11 + [_P],
+           [_P] * 6 + [_I] * 11 + [_P] * 11 + [_P],
            "hisat2_tpu_torch/csrc/fm_search2.cu",
            "hisat2_tpu/ops/search.py:267 search_lanes_live (kernel 1's "
            "lane-list mode)"),
@@ -85,7 +85,7 @@ KERNELS = {k.name: k for k in (
            "hisat2_tpu_torch/csrc/indel_sweep.cu",
            "hisat2_tpu/ops/splice.py:952 self_indel_sweep"),
     Kernel("compact_cands", "h2_compact_cands",
-           [_P] * 13 + [_I] * 13 + [_P] * 12 + [_P],
+           [_P] * 15 + [_I] * 13 + [_P] * 12 + [_P],
            "hisat2_tpu_torch/csrc/compact_cands.cu",
            "hisat2_tpu/ops/resolve.py:174-186 resolve_consecutive (full "
            "SA) + align/pipeline.py:772-998 compaction (ops/compact.py:"
@@ -125,6 +125,11 @@ KERNELS = {k.name: k for k in (
            "hisat2_tpu_torch/csrc/merge_sites.cu",
            "hisat2_tpu/align/splice_db.py:40 _merge_sorted_tabs (+ :72 "
            "lob_add)"),
+    Kernel("resolve_walk", "h2_resolve_walk",
+           [_P, _LL, _P, _P, _LL, _I, _I, _P, _P, _LL, _P] + [_P],
+           "hisat2_tpu_torch/csrc/resolve_walk.cu",
+           "hisat2_tpu/ops/resolve.py:29 resolve_rows (+ :107 "
+           "resolve_rows_sparse)"),
 )}
 
 _lib = None

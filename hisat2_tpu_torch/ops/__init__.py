@@ -6,7 +6,7 @@ def kernel_twins() -> dict:
     kernels.KERNELS.  The wrapper launches the kernel on CUDA tensors; the
     twin takes the same keyword arguments, so a caller can replay a
     captured call (TorchAligner.step(capture=...)) through both."""
-    from . import compact, extend, rescue, search, sites, splice
+    from . import compact, extend, rescue, resolve, search, sites, splice
     return {
         "fm_search2": (search.partial_search2, search.partial_search2_plain),
         "ref_window": (splice.diag_chars, splice.diag_chars_plain),
@@ -26,4 +26,6 @@ def kernel_twins() -> dict:
         "inject_known": (splice.inject_known, splice.inject_known_ref),
         "merge_sites": (sites.merge_sorted_tabs,
                         sites.merge_sorted_tabs_plain),
+        "resolve_walk": (resolve.resolve_rows_sparse,
+                         resolve.resolve_rows_sparse_plain),
     }

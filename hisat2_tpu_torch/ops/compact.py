@@ -9,8 +9,10 @@ index yields 0 / False.
 
 `compact_cands` (K3 + K4: full-SA resolve, dedup and candidate compaction,
 pipeline.py:772-998) launches kernel 5 (csrc/compact_cands.cu) on CUDA
-tensors and runs `compact_candidates_plain` on CPU tensors; `pack_slots`
-(K9: top-Mdev slot selection, flags and the spill layout,
+tensors and runs `compact_candidates_plain` on CPU tensors; on a
+sampled-SA index both take the rows' offsets resolved by the walk
+(ops/resolve.py, K19+K20) on the live slots that `resolve_live` marks;
+`pack_slots` (K9: top-Mdev slot selection, flags and the spill layout,
 pipeline.py:1278-1371) launches kernel 6 (csrc/pack_slots.cu) or runs
 `pack_slots_plain`.  The plain versions are line-by-line ports of the JAX
 code.
@@ -87,13 +89,41 @@ class Cands(NamedTuple):
     h_sat: Optional[torch.Tensor]        # int32 (lite)
 
 
+def resolve_live(top, bot, lo, hi, nh, P: int, min_k: int, maxsize: int,
+                 short_rows: int, lite_cap: int = 0):
+    """(hv [N, H], cval [N, H, P]): the hits that resolve and their live
+    rows (pipeline.py:772-801), the gates of the full or the lite pass."""
+    H = top.shape[1]
+    w = bot - top
+    hv = torch.arange(H, device=top.device)[None, :] < nh[:, None]
+    islong_h = (hi - lo) > min_k + 2
+    if lite_cap:
+        maxsize = min(maxsize, lite_cap)
+        hv = hv & islong_h
+    hv = hv & torch.where(islong_h, w <= maxsize, w <= short_rows)
+    j = torch.arange(P, device=top.device)
+    return hv, hv[:, :, None] & (j[None, None, :] < w[:, :, None])
+
+
+def research_live(top2, bot2, nh2, P2: int):
+    """(hv2 [N, H2], cval2 [N, H2, P2]) of the spliced prefix re-search's
+    hits (pipeline.py:868-874)."""
+    H2 = top2.shape[1]
+    w2 = bot2 - top2
+    hv2 = ((torch.arange(H2, device=top2.device)[None, :] < nh2[:, None])
+           & (w2 <= P2))
+    j2 = torch.arange(P2, device=top2.device)
+    return hv2, hv2[:, :, None] & (j2[None, None, :] < w2[:, :, None])
+
+
 def compact_candidates_plain(sa, top, bot, lo, hi, nh, abefore, post,
                              stopped, P: int, C: int, CC: int, min_k: int,
                              maxsize: int, short_rows: int,
                              lite_cap: int = 0,
                              lane_meta: bool = False, top2=None, bot2=None,
                              lo2=None, nh2=None, P2: int = 0,
-                             max_intron: int = 0) -> Cands:
+                             max_intron: int = 0, offs=None,
+                             offs2=None) -> Cands:
     """Plain torch twin of kernel 5: the hit gates, the full-SA resolve
     and the dedup + compaction of pipeline.py:772-998, line by line.
     hits: [N, H] (nh, stopped: [N]); lite_cap > 0 selects the lite tier's
@@ -101,26 +131,25 @@ def compact_candidates_plain(sa, top, bot, lo, hi, nh, abefore, post,
     prefix re-search's hits top2/bot2/lo2 [N, H2] and nh2 [N] are given:
     their P2 rows per hit join as sweep-only slots (:846-883), short slots
     must lie within max_intron of one of the lane's 8 lowest align-capable
-    starts (:905-916) and rank by that distance (:923-933)."""
+    starts (:905-916) and rank by that distance (:923-933).  offs [N, H, P]
+    (and offs2 [N, H2, P2]): the rows' offsets resolved on a sampled-SA
+    index (0 on dead rows); without them the rows gather the full SA."""
     N, H = top.shape
     dv = top.device
     ar_ = torch.arange
     w = bot - top                                                # [N, H]
-    hv = ar_(H, device=dv)[None, :] < nh[:, None]
+    hv0 = ar_(H, device=dv)[None, :] < nh[:, None]
     islong_h = (hi - lo) > min_k + 2
     lite_wide = hv_meta = None
     if lite_cap:
-        full_max = maxsize
-        maxsize = min(maxsize, lite_cap)
-        lite_wide = torch.any(hv & islong_h & (w > maxsize)
-                              & (w <= full_max), dim=1)
-        hv_meta = hv & torch.where(islong_h, w <= full_max,
-                                   w <= short_rows)
-        hv = hv & islong_h
-    hv = hv & torch.where(islong_h, w <= maxsize, w <= short_rows)
-    j = ar_(P, device=dv)
-    cval = hv[:, :, None] & (j[None, None, :] < w[:, :, None])
-    offs = resolve_consecutive(sa, 0, torch.where(hv, top, 0), P)
+        lite_wide = torch.any(hv0 & islong_h & (w > min(maxsize, lite_cap))
+                              & (w <= maxsize), dim=1)
+        hv_meta = hv0 & torch.where(islong_h, w <= maxsize,
+                                    w <= short_rows)
+    hv, cval = resolve_live(top, bot, lo, hi, nh, P, min_k, maxsize,
+                            short_rows, lite_cap)
+    if offs is None:
+        offs = resolve_consecutive(sa, 0, torch.where(hv, top, 0), P)
     starts = (offs - lo[:, :, None]).reshape(N, H * P)
     cv = cval.reshape(N, H * P)
     hlen = (hi - lo)[:, :, None]
@@ -132,12 +161,9 @@ def compact_candidates_plain(sa, top, bot, lo, hi, nh, abefore, post,
     HP2 = 0
     if spliced:
         H2 = top2.shape[1]
-        w2 = bot2 - top2
-        hv2 = ar_(H2, device=dv)[None, :] < nh2[:, None]
-        hv2 = hv2 & (w2 <= P2)
-        j2 = ar_(P2, device=dv)
-        cval2 = hv2[:, :, None] & (j2[None, None, :] < w2[:, :, None])
-        offs2 = resolve_consecutive(sa, 0, torch.where(hv2, top2, 0), P2)
+        hv2, cval2 = research_live(top2, bot2, nh2, P2)
+        if offs2 is None:
+            offs2 = resolve_consecutive(sa, 0, torch.where(hv2, top2, 0), P2)
         starts2 = (offs2 - lo2[:, :, None]).reshape(N, H2 * P2)
         HP2 = H2 * P2
         starts = torch.cat([starts, starts2.to(starts.dtype)], 1)
@@ -221,16 +247,19 @@ def compact_cands(sa, top, bot, lo, hi, nh, abefore, post, stopped,
                   P: int, C: int, CC: int, min_k: int, maxsize: int,
                   short_rows: int, lite_cap: int = 0,
                   lane_meta: bool = False, top2=None, bot2=None, lo2=None,
-                  nh2=None, P2: int = 0, max_intron: int = 0) -> Cands:
+                  nh2=None, P2: int = 0, max_intron: int = 0, offs=None,
+                  offs2=None) -> Cands:
     """Kernel 5 on CUDA tensors, compact_candidates_plain on CPU tensors.
     sa: the device full SA (int32, padded to a multiple of 8); top2 ..
-    nh2: the spliced prefix re-search's hits (spliced mode)."""
+    nh2: the spliced prefix re-search's hits (spliced mode); offs / offs2:
+    the resolved offsets of a sampled-SA index (the kernel then reads them
+    in place of the SA)."""
     if not top.is_cuda:
         return compact_candidates_plain(sa, top, bot, lo, hi, nh, abefore,
                                         post, stopped, P, C, CC, min_k,
                                         maxsize, short_rows, lite_cap,
                                         lane_meta, top2, bot2, lo2, nh2, P2,
-                                        max_intron)
+                                        max_intron, offs, offs2)
     N, H = top.shape
     for nm, t, shp in (("sa", sa, None), ("top", top, (N, H)),
                        ("bot", bot, (N, H)), ("lo", lo, (N, H)),
@@ -248,6 +277,10 @@ def compact_cands(sa, top, bot, lo, hi, nh, abefore, post, stopped,
         for nm, t, shp in (("top2", top2, (N, H2)), ("bot2", bot2, (N, H2)),
                            ("lo2", lo2, (N, H2)), ("nh2", nh2, (N,))):
             kernels.check_cuda(nm, t, _I32, shp)
+    if offs is not None:
+        kernels.check_cuda("offs", offs, _I32, (N, H, P))
+        if spliced:
+            kernels.check_cuda("offs2", offs2, _I32, (N, H2, P2))
     dev = top.device
     X = C - CC
 
@@ -267,6 +300,8 @@ def compact_cands(sa, top, bot, lo, hi, nh, abefore, post, stopped,
         stopped.data_ptr(),
         *((top2.data_ptr(), bot2.data_ptr(), lo2.data_ptr(), nh2.data_ptr())
           if spliced else (top.data_ptr(),) * 4),
+        offs.data_ptr() if offs is not None else None,
+        offs2.data_ptr() if offs is not None and spliced else None,
         N, H, P, C, CC, min_k, min(maxsize, 2 ** 31 - 1),
         short_rows, lite_cap, int(lane_meta), H2, P2, max_intron, *ptr,
         stream=kernels.stream_of(top))

@@ -231,9 +231,9 @@ def partial_search2(blocked, fchr, ftab2_top, zrow: int, zrow2: int,
     kernels.check_cuda("reads", reads, i32)
     kernels.check_cuda("lens", lens, i32, (B,))
     kernels.check_cuda("blocked", blocked, i32)
-    if blocked.shape[1] != 44:
-        raise ValueError("fm_search2 needs the 44-column fused table of a "
-                         "full-SA index")
+    if blocked.dim() != 2 or blocked.shape[1] not in (44, 49):
+        raise ValueError("fm_search2 needs the 44-column fused table (49 "
+                         "with the mark columns of a sampled SA)")
     if L > 512:
         raise ValueError(f"fm_search2: read length {L} exceeds the "
                          f"kernel's bound of 512")
@@ -258,7 +258,7 @@ def partial_search2(blocked, fchr, ftab2_top, zrow: int, zrow2: int,
         reads.data_ptr(), lens.data_ptr(),
         lanes.data_ptr() if lanes is not None else reads.data_ptr(),
         int(lanes is not None), K, L, zrow, zrow2, rows,
-        a_stop_len, min_k + 8, min_hit_len, H,
+        a_stop_len, min_k + 8, min_hit_len, H, blocked.shape[1],
         out.top.data_ptr(), out.bot.data_ptr(), out.lo.data_ptr(),
         out.hi.data_ptr(), out.abefore.data_ptr(), out.uniq.data_ptr(),
         out.post.data_ptr(), out.rounds.data_ptr(), out.nrounds.data_ptr(),

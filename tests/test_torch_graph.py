@@ -420,7 +420,7 @@ def _pack_both(ja, ta, codes, quals, lens, full_out):
     jp = ja._dispatch_packed(rd, qd, np.arange(B), uniform, h2d,
                              full_out=full_out)[0]
     tp = ta._dispatch_packed(codes, quals, lens, minsc, uniform,
-                             full_out=full_out)
+                             full_out=full_out)[0]
     return jp, tp
 
 
@@ -441,7 +441,7 @@ def test_graph_step_matches_jax(graph, lite, full_out, var_lens):
     assert ja._out_specs[w] == ta._out_specs[w]
     assert ja._spill_meta[w] == ta._spill_meta[w]
     _eq(tp[0].numpy(), jp, "packed buffer")
-    jo, to = ja._merge_shards([jp]), ta._merge(tp)
+    jo, to = ja._merge_shards([jp]), ta._merge_shards([tp])
     assert sorted(jo) == sorted(to)
     for k in jo:
         _eq(to[k], jo[k], k)

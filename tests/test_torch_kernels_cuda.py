@@ -21,9 +21,10 @@ from hisat2_tpu_torch.index import attach_variants, build_fm_index
 
 pytestmark = pytest.mark.gpu
 MOTIF_AT = [20000 * k for k in range(1, 6)]
-# the kernels only a spliced run launches
+# the kernels only a spliced run launches, and the resolve walk (only a
+# sampled-SA index launches it; these steps run on full-SA indexes)
 SPLICED = ("search_lanes_live", "pair_sweep", "second_sweep",
-           "inject_known", "merge_sites")
+           "inject_known", "merge_sites", "resolve_walk")
 
 
 @pytest.fixture(scope="module")
@@ -563,3 +564,69 @@ def test_merge_sites_matches_plain_on_card(card, lob):
     assert len(got) == len(want)
     for x, y in zip(got, want):
         _eq(x, y, "merge_sites")
+
+
+@pytest.fixture(scope="module")
+def walk_card():
+    """A 300 kbp genome indexed at off_rate 1-5, uploaded to the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from hisat2_tpu_torch.index.format import to_device
+    g = np.random.default_rng(11).integers(0, 4, 300_000).astype(np.uint8)
+    out = {}
+    for orate in range(1, 6):
+        idx = build_fm_index([("c", g)], off_rate=orate)
+        out[orate] = (idx, to_device(idx, "cuda"))
+    return g, out
+
+
+@pytest.mark.parametrize("off_rate", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("density", [0.0, 0.2, 1.0, None])
+def test_resolve_walk_matches_plain_on_card(walk_card, off_rate, density):
+    """K19+K20 on random rows, live densities 0, 20% and 100% and without
+    a mask (K19 alone), against the plain twin on the same card tensors."""
+    from hisat2_tpu_torch import kernels
+    from hisat2_tpu_torch.ops import resolve
+    _, idxs = walk_card
+    idx, d = idxs[off_rate]
+    rng = np.random.default_rng(off_rate * 7 + int((density or 0.5) * 10))
+    M = 100_003
+    row = torch.from_numpy(rng.integers(0, idx.meta.rows, M).astype(
+        np.int32)).cuda()
+    live = (None if density is None else
+            torch.from_numpy(rng.random(M) < density).cuda())
+    args = (d.blocked, d.fchr, d.sa, idx.meta.zrow, off_rate, row, live)
+    n0 = kernels.KERNELS["resolve_walk"].launches
+    got = resolve.resolve_rows_sparse(*args)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["resolve_walk"].launches == n0 + 1
+    _eq(got, resolve.resolve_rows_sparse_plain(*args), "resolve_walk")
+
+
+def test_sampled_two_shard_steps_on_card_match_cpu(card):
+    """The whole DNA and spliced steps of both shards of a two-shard
+    index sampled at off_rate 4, on the card against the CPU; every step
+    launches the walk."""
+    from hisat2_tpu_torch import kernels
+    from hisat2_tpu_torch.align.pipeline import TorchAligner
+    g, _ = card
+    sh = build_fm_index([("a", g[:150_000]), ("b", g[150_000:])],
+                        shard_bp=160_000, off_rate=4)
+    assert len(sh.shards) == 2
+    rng = np.random.default_rng(13)
+    _, reads, lens, quals = _reads(rng, g, 512, 100)
+    for spliced in (False, True):
+        cu = TorchAligner(sh, device="cuda", spliced=spliced)
+        cp = TorchAligner(sh, device="cpu", spliced=spliced)
+        minsc = cu._minsc(lens)
+        for al in ((cu._fast, cp._fast), (cu, cp)) if spliced else \
+                ((cu, cp),):
+            ka, pa = al
+            n0 = kernels.KERNELS["resolve_walk"].launches
+            got = ka._dispatch_packed(reads, quals, lens, minsc, False)
+            want = pa._dispatch_packed(reads, quals, lens, minsc, False)
+            torch.cuda.synchronize()
+            assert kernels.KERNELS["resolve_walk"].launches > n0
+            for (hg, ev), (wg, _) in zip(got, want):
+                ev.synchronize()
+                _eq(hg, wg, f"spliced={spliced} lite={ka.lite} step")

@@ -91,7 +91,7 @@ def test_step_matches_jax(aligners, var_lens, full_out, lane_meta):
     jp = ja._dispatch_packed(rd, qd, np.arange(B), uniform, h2d,
                              full_out=full_out)[0]
     tp = ta._dispatch_packed(codes, quals, lens, minsc, uniform,
-                             full_out=full_out)
+                             full_out=full_out)[0]
     w = np.asarray(jp).shape[1]
     assert ja._out_specs[w] == ta._out_specs[w]
     assert ja._spill_meta[w] == ta._spill_meta[w]
@@ -132,7 +132,8 @@ def test_spill_overflow_matches_jax():
     lens = np.full(B, L, np.int32)
     minsc = np.array([ta.scoring.min_score(L)] * B, np.int64)
     with pytest.raises(SpillOverflow):
-        ta._fetch_out(ta._dispatch_packed(codes, quals, lens, minsc, True))
+        ta._fetch_out(ta._dispatch_packed(codes, quals, lens, minsc,
+                                          True)[0])
     rd, qd, h2d = ja._pack_h2d(codes, quals, lens, minsc)
     with pytest.raises(JSpillOverflow):
         ja._fetch_out(ja._dispatch_packed(rd, qd, np.arange(B), True,

@@ -105,10 +105,28 @@ def test_resolve_consecutive_full_sa_matches_jax(idx30):
 
 
 def test_resolve_sampled_sa_is_queued():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tresolve.resolve_consecutive(torch.zeros(16, dtype=torch.int32), 4,
-                                     torch.zeros((2, 3), dtype=torch.int32),
-                                     4)
+    """Named when the sampled-SA branch was queued (ROADMAP Queue 1 item
+    6); it is ported now, so the branch is held against JAX's: the same
+    genome at off_rate 4, rows past the end included, dense and with a
+    live mask (tests/test_torch_resolve.py covers it in depth)."""
+    rng = np.random.default_rng(21)
+    g = rng.integers(0, 4, 30000).astype(np.int8)
+    idx = build_fm_index([("c", g)], off_rate=4)
+    jdev, tdev = idx.to_device(), to_device(idx, "cpu")
+    top = np.concatenate([rng.integers(0, idx.meta.rows, 200),
+                          [0, idx.meta.rows - 1, idx.meta.rows - 3]])
+    top = top.astype(np.int32).reshape(-1, 1)
+    live = rng.random((top.shape[0], 1, 10)) < 0.5
+    for lv in (None, live):
+        a = jresolve.resolve_consecutive(
+            jdev.blocked, jdev.fchr, jdev.mark_words, jdev.mark_chk,
+            jdev.sa_marked, idx.meta.zrow, 4, jnp.asarray(top), 10,
+            live=None if lv is None else jnp.asarray(lv))
+        b = tresolve.resolve_consecutive(
+            tdev.sa, 4, torch.from_numpy(top), 10,
+            live=None if lv is None else torch.from_numpy(lv),
+            blocked=tdev.blocked, fchr=tdev.fchr, zrow=idx.meta.zrow)
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
 
 
 def test_compact_helpers_match_jax():

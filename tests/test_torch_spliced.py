@@ -107,12 +107,12 @@ def test_spliced_step_matches_jax(rna, lite, full_out):
     jp = ja._dispatch_packed(rd, qd, rdids, False, h2d,
                              full_out=full_out)[0]
     tp = ta._dispatch_packed(codes, quals, lens, minsc, False,
-                             full_out=full_out, rdids=rdids)
+                             full_out=full_out, rdids=rdids)[0]
     w = np.asarray(jp).shape[1]
     assert ja._out_specs[w] == ta._out_specs[w]
     assert ja._spill_meta[w] == ta._spill_meta[w]
     _eq(tp[0].numpy(), jp, "packed buffer")
-    jo, to = ja._merge_shards([jp]), ta._merge(tp)
+    jo, to = ja._merge_shards([jp]), ta._merge_shards([tp])
     assert sorted(jo) == sorted(to)
     for k in jo:
         _eq(to[k], jo[k], k)
