@@ -78,12 +78,12 @@ checks them:
             bp; cached under the temp dir); (a) every kernel a step of
             this path launches, against its plain twin on the arguments
             that step gave it (one 4096-read batch): the linear step of
-            shard 0, the spliced lite and full and the graph lite and full
-            steps of shard 1 (fm_search2 on the 49-column rows, K19+K20
-            on the real rows and live masks, kernel 5 on the walk's
-            offsets, the rest on shard-local tables); (b) the linear step of
-            both shards and the spliced lite and full step of shard 1
-            against the CPU steps (1024-read batches); (c) 8 batches of
+            shard 0, the graph lite and full and the config-6 lite and
+            full steps of shard 1 (fm_search2 on the 49-column rows,
+            K19+K20 on the real rows and live masks, kernel 5 on the walk's
+            offsets, the rest on shard-local tables); (b) the linear step
+            of both shards against the CPU steps (1024-read batches); (c)
+            8 batches of
             phase 4's mix over both chromosomes through dispatch/collect,
             8 deep, SAM to memory: reads/s, host ms per stage, unmodified
             reads at their true chromosome and position (>= 99%), reads on
@@ -91,13 +91,33 @@ checks them:
             compact_cands > 0); (d) a catalog at phase 8's density over
             280 Mbp attached shard by shard, 2 batches through
             dispatch/advance/collect: SNV-only reads true (>= 99%),
-            known-indel alignments on each shard (> 0); (e) 4 batches of
-            phase 10's mix with introns on both chromosomes and the
-            temp-site fixed point: canonical single-junction reads true
-            with the planted N (>= 95%), unmodified reads (>= 99%); (f)
+            known-indel alignments on each shard (> 0); (e) config 6's
+            real mix in one aligner: the catalog of (d) with a junction
+            SNV for each canonical intron, half of those introns baked in
+            as --ss sites, spliced at k = 10; K13+K14, K15 and K16 (lite
+            and full, with their SNV inputs) on shard 1's own step
+            arguments, both steps against the CPU (1024 reads), then 4
+            batches of phase 10's mix on both chromosomes (a fifth of the
+            junction reads carrying their junction SNV) with the temp-site
+            fixed point: canonical single-junction reads true with the
+            planted N (>= 95%), unmodified reads (>= 99%), alignments
+            through known sites on each shard (> 0); (f)
             `align --device cuda --no-spliced-alignment` on the saved
             index: both chromosomes in the header at their lengths, >= 99%
             of 4096 unmodified reads at their true position
+ 12 multi   several devices and hosts (hisat2_tpu_torch/parallel): (a) K21,
+            the dp-sharded step, as a world-1 NCCL group on cuda:0 on one
+            4096-read batch of phase 4's index: its outputs equal to the
+            single-device step's, n_cand equal to their valid-slot count;
+            the step's and the all-reduce's median times; (b) MPMD on the
+            committed shard corpus's index (tests/data/shard_*, built at
+            --shard-bp 150000 --offrate 4): its shards on ["cuda:0",
+            "cpu"] and on ["cuda:0", "cuda:0"] give equal alignments of
+            256 reads; (c) `align --device cuda --n-hosts 2` as two
+            processes on the card (mm3, -k 10, 8-read batches): the merged
+            SAM body equal to the single-host run's and to mm3_ref_k10,
+            and the dry-run twin (python -m hisat2_tpu_torch.parallel.dryrun
+            --world 1 --device cuda) beside them
 
 Each kernel's bound (the kernels line's bound_ms) is the larger of the
 bytes it must move over 3.35 TB/s and its operations over the peak rate
@@ -636,6 +656,40 @@ def simulate_spliced(np, rng, g, introns, pairs, B, L):
     return codes, quals, lens, start, clean, rc, jcls, jlen, xsplit
 
 
+def junction_snvs(np, rng, g, introns):
+    """One catalog SNV within 10 bp of each canonical intron's junction,
+    in its upstream exon: {donor d: (joined pos, alt)}."""
+    out = {}
+    for d, e, c in introns:
+        if c == 0:
+            p = d - int(rng.integers(1, 11))
+            out[d] = (p, (int(g[p]) + int(rng.integers(1, 4))) % 4)
+    return out
+
+
+def simulate_config6(np, rng, g, introns, pairs, jsnv, B, L):
+    """simulate_spliced's mix, with a fifth of the junction reads carrying
+    their intron's junction SNV (jsnv); returns its arrays and which reads
+    carry one."""
+    b = simulate_spliced(np, rng, g, introns, pairs, B, L)
+    codes, start, rc, jcls, xs = b[0], b[3], b[5], b[6], b[8]
+    has = np.zeros(B, bool)
+    for i in np.flatnonzero((jcls >= 0) & (jcls <= 2)):
+        d = int(start[i] + xs[i])
+        if d not in jsnv or rng.random() >= 0.25:
+            continue
+        p, alt = jsnv[d]
+        off = p - int(start[i])
+        if off < 0:
+            continue
+        if rc[i]:
+            codes[i, L - 1 - off] = 3 - alt
+        else:
+            codes[i, off] = alt
+        has[i] = True
+    return b + (has,)
+
+
 def spliced_phase(torch, np, g, index, kernels, twins, driver,
                   read_alignments, TorchAligner, rows, bounds, path_launches,
                   card, env):
@@ -977,10 +1031,10 @@ def genome_phase(torch, np, kernels, twins, driver, read_alignments,
         b[4][straddle(b[3])] = False           # clean: not across g1|g2
 
     # (a) every kernel of the path against its plain twin on the arguments
-    # one step gives it: the linear step of shard 0, the spliced lite and
-    # full steps of shard 1 (the graph steps follow in (d)).  The 49-column
-    # block rows, the walk's offsets and the shard-local tables are this
-    # path's own modes
+    # one step gives it: the linear step of shard 0 here, the graph steps
+    # of shard 1 in (d) and the config-6 steps of shard 1 in (e).  The
+    # 49-column block rows, the walk's offsets and the shard-local tables
+    # are this path's own modes
     def replay(cap_, tag):
         for key, kw_ in cap_.items():
             name = key.split("/")[0]
@@ -1031,31 +1085,8 @@ def genome_phase(torch, np, kernels, twins, driver, read_alignments,
           f"{ms:.4f} ms, plain {pms:.4f} ms; bound "
           f"{r['dense_bound_ms']:.4f} ms")
 
-    introns, pairs = [], []
-    irng = np.random.default_rng(1113)
-    for first in (C // 20, C + C // 20):
-        i_, p_ = pick_introns(np, irng, g, first)
-        introns += i_
-        pairs += p_
-    sb = [simulate_spliced(np, irng, g, introns, pairs, B, L)
-          for _ in range(GS_S_BATCHES + 1)]
-    for b in sb:
-        b[4][straddle(b[3])] = False
-    sal = TorchAligner(index, device="cuda", spliced=True)
-    sc = sb[0]
-    for tier in ("lite", "full"):
-        a = sal._fast if tier == "lite" else sal
-        scap = {}
-        rd_t, ss = a._step_site_args(np.arange(B), 1)
-        a.step(*a.upload(sc[0], sc[1], sc[2], a._minsc(sc[2])),
-               bool(np.all(sc[2] == L)), capture=scap, rdids=rd_t, ss=ss,
-               shard=1)
-        check("resolve_walk" in scap and (tier == "lite" or
-                                          "resolve_walk/research" in scap),
-              f"the spliced {tier} step did not walk")
-        replay(scap, f"genome_spliced_{tier}")
-
-    # (b) whole steps on the card against the CPU (a 1024-read batch)
+    # (b) the linear step of both shards on the card against the CPU (a
+    # 1024-read batch; the config-6 steps follow in (e))
     t0 = time.perf_counter()
     cpu = TorchAligner(index, device="cpu")
     cb = [a[:GS_CMP_B] for a in batches[0][:3]]
@@ -1066,23 +1097,9 @@ def genome_phase(torch, np, kernels, twins, driver, read_alignments,
         bp = cpu.step(*cpu.upload(*cb, cm), cu_, shard=sh)
         check(torch.equal(bk.cpu(), bp), f"linear step of shard {sh}")
     del cpu
-    scpu = TorchAligner(index, device="cpu", spliced=True)
-    sc3 = [a[:GS_CMP_B] for a in sc[:3]]
-    sm = sal._minsc(sc3[2])
-    rdc = np.arange(GS_CMP_B)
-    for tier in ("_fast", None):
-        a = getattr(sal, tier) if tier else sal
-        c = getattr(scpu, tier) if tier else scpu
-        rd_a, ss_a = a._step_site_args(rdc, 1)
-        rd_c, ss_c = c._step_site_args(rdc, 1)
-        bk = a.step(*a.upload(*sc3, sm), False, rdids=rd_a, ss=ss_a, shard=1)
-        bp = c.step(*c.upload(*sc3, sm), False, rdids=rd_c, ss=ss_c, shard=1)
-        check(torch.equal(bk.cpu(), bp),
-              f"spliced {'lite' if tier else 'full'} step of shard 1")
-    del scpu
     print(f"[genome step] {GS_CMP_B}-read batches: the linear step of both "
-          f"shards and the spliced lite and full step of shard 1 equal to "
-          f"the CPU plain steps ({time.perf_counter() - t0:.1f} s)")
+          f"shards equal to the CPU plain steps "
+          f"({time.perf_counter() - t0:.1f} s)")
 
     # (c) the linear slice
     rnames = [f"r{i}" for i in range(B)]
@@ -1142,17 +1159,36 @@ def genome_phase(torch, np, kernels, twins, driver, read_alignments,
     del al
     torch.cuda.empty_cache()
 
-    # (d) graph two-tier with a catalog at the phase-8 density
+    # (d) graph two-tier with a catalog at the phase-8 density; the index
+    # also takes (e)'s config-6 additions: a junction SNV for each
+    # canonical intron and half of those introns as baked --ss sites
+    introns, pairs = [], []
+    irng = np.random.default_rng(1113)
+    for first in (C // 20, C + C // 20):
+        i_, p_ = pick_introns(np, irng, g, first)
+        introns += i_
+        pairs += p_
+    jsnv = junction_snvs(np, irng, g, introns)
     t0 = time.perf_counter()
-    snp = cache + ".snp"
+    snp, ssf = cache + ".snp", cache + ".ss"
     cat = make_catalog(np, np.random.default_rng(1114), g, snp, GS_COUNTS,
                        [(names[0], 0), (names[1], C)])
-    attach_variants(index, snp_file=snp)
+    with open(snp, "a") as f:
+        for k, (d, (p, alt)) in enumerate(sorted(jsnv.items())):
+            f.write(f"j{k}\tsingle\t{names[p // C]}\t{p % C}\t"
+                    f"{'ACGT'[alt]}\n")
+    can = [(d, e) for d, e, c in introns if c == 0]
+    known_ss = can[::2]
+    with open(ssf, "w") as f:
+        for d, e in known_ss:
+            f.write(f"{names[d // C]}\t{d % C - 1}\t{e % C}\t+\n")
+    attach_variants(index, snp_file=snp, ss_file=ssf)
     gal = TorchAligner(index, device="cuda", variants=index._variants)
     torch.cuda.synchronize()
     t_cat = time.perf_counter() - t0
     print(f"[genome graph] catalog {GS_COUNTS[0]} SNVs, {GS_COUNTS[1]} "
-          f"deletions, {GS_COUNTS[2]} insertions over both chromosomes: "
+          f"deletions, {GS_COUNTS[2]} insertions over both chromosomes, "
+          f"{len(jsnv)} junction SNVs and {len(known_ss)} --ss sites: "
           f"written, attached and uploaded shard by shard in {t_cat:.1f} s "
           f"(indel tables E = "
           f"{[d['ind_ip'].shape[0] for d in gal.shard_graph_dev]})")
@@ -1201,12 +1237,76 @@ def genome_phase(torch, np, kernels, twins, driver, read_alignments,
           "genome graph: the walk or the indel injection never launched")
     path_launches["genome_graph"] = glaunch
     del gal
-    index._variants = None
     torch.cuda.empty_cache()
 
-    # (e) spliced, with the temp-site fixed point
-    acc = {"can": 0, "can_true": 0, "clean": 0, "clean_true": 0,
-           "collect": 0.0}
+    # (e) config 6's real mix: the graph (d)'s catalog with the junction
+    # SNVs) + baked --ss sites + spliced at k = 10, in one aligner
+    t0 = time.perf_counter()
+    sal = TorchAligner(index, device="cuda", variants=index._variants,
+                       spliced=True, k=10, lane_meta=True)
+    sb = [simulate_config6(np, irng, g, introns, pairs, jsnv, B, L)
+          for _ in range(GS_S_BATCHES + 1)]
+    for b in sb:
+        b[4][straddle(b[3])] = False
+    print(f"[genome config6] spliced graph aligner (k = 10, "
+          f"{sal.splice_db.n_sites} known sites from the index) set up in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # (a) continued: the config-6 lite and full steps of shard 1
+    sc = sb[0]
+    for tier in ("lite", "full"):
+        a = sal._fast if tier == "lite" else sal
+        scap = {}
+        rd_t, ss = a._step_site_args(np.arange(B), 1)
+        a.step(*a.upload(sc[0], sc[1], sc[2], a._minsc(sc[2])),
+               bool(np.all(sc[2] == L)), capture=scap, rdids=rd_t, ss=ss,
+               shard=1)
+        check("resolve_walk" in scap
+              and scap["inject_known"]["snv_delta1"] is not None
+              and (tier == "lite" or (
+                  "resolve_walk/research" in scap
+                  and scap["pair_sweep"]["snv1_w"] is not None)),
+              f"the config-6 {tier} step ran without the walk or its SNV "
+              f"inputs")
+        replay(scap, f"genome_c6_{tier}")
+        if tier == "full":
+            kw = scap["pair_sweep"]
+            Cc = kw["starts"].shape[1]
+            smem = (Cc * (L + 1) * 42 + 96 * 4 + 16
+                    + (6 * Cc * Cc + Cc) * 4 + 64)
+            bounds["pair_sweep_c6"] = work(torch, "pair_sweep", kw,
+                                           twins["pair_sweep"][0](**kw))
+            print(f"[genome config6] K13 at k = 10: C = {Cc} core "
+                  f"diagonals, {smem} bytes of shared memory per block "
+                  f"(SNV-forgiving prefix included); kernel "
+                  f"{rows['pair_sweep']['genome_c6_full_ms']:.4f} ms on "
+                  f"{kw['starts'].shape[0]} lanes, bound "
+                  f"{bounds['pair_sweep_c6'][0]:.4f} ms "
+                  f"({bounds['pair_sweep_c6'][1]})")
+    # (b) continued: the config-6 lite and full step of shard 1 against
+    # the CPU (a 1024-read batch)
+    t0 = time.perf_counter()
+    scpu = TorchAligner(index, device="cpu", variants=index._variants,
+                        spliced=True, k=10, lane_meta=True)
+    sc3 = [a[:GS_CMP_B] for a in sc[:3]]
+    sm = sal._minsc(sc3[2])
+    rdc = np.arange(GS_CMP_B)
+    for tier in ("_fast", None):
+        a = getattr(sal, tier) if tier else sal
+        c = getattr(scpu, tier) if tier else scpu
+        rd_a, ss_a = a._step_site_args(rdc, 1)
+        rd_c, ss_c = c._step_site_args(rdc, 1)
+        bk = a.step(*a.upload(*sc3, sm), False, rdids=rd_a, ss=ss_a, shard=1)
+        bp = c.step(*c.upload(*sc3, sm), False, rdids=rd_c, ss=ss_c, shard=1)
+        check(torch.equal(bk.cpu(), bp),
+              f"config-6 {'lite' if tier else 'full'} step of shard 1")
+    del scpu
+    print(f"[genome config6] {GS_CMP_B}-read batch: the config-6 lite and "
+          f"full step of shard 1 equal to the CPU plain steps "
+          f"({time.perf_counter() - t0:.1f} s)")
+    # the slice, with the temp-site fixed point
+    acc = {"can": 0, "can_true": 0, "snv": 0, "snv_true": 0, "clean": 0,
+           "clean_true": 0, "collect": 0.0}
+    known_al = [0, 0]
     kernels.reset_counts()
     t0 = time.perf_counter()
     pend = deque()
@@ -1220,40 +1320,73 @@ def genome_phase(torch, np, kernels, twins, driver, read_alignments,
         t = time.perf_counter()
         res = sal.collect(h)
         acc["collect"] += time.perf_counter() - t
-        start_, clean_, rc_, jcls, jlen, xs = b[3], b[4], b[5], b[6], b[7], \
-            b[8]
+        start_, clean_, rc_, jcls, jlen, xs, jsnv_ = b[3:10]
         ok, _, first, r0 = true_place(np, res, start_, rc_, B)
+        cols = res.raw["cols"]
         jk = np.zeros(B, np.int64)
         jl = np.zeros(B, np.int64)
-        jk[r0] = np.asarray(res.raw["cols"][16])[first]
-        jl[r0] = np.asarray(res.raw["cols"][18])[first]
+        jk[r0] = np.asarray(cols[16])[first]
+        jl[r0] = np.asarray(cols[18])[first]
         can = (jcls == 0) & (xs >= 20) & (L - xs >= 20)
+        good = can & ok & (jk == 1) & (jl == jlen)
         acc["can"] += int(can.sum())
-        acc["can_true"] += int((can & ok & (jk == 1) & (jl == jlen)).sum())
+        acc["can_true"] += int(good.sum())
+        acc["snv"] += int((can & jsnv_).sum())
+        acc["snv_true"] += int((good & jsnv_).sum())
         acc["clean"] += int(clean_.sum())
         acc["clean_true"] += int((clean_ & ok).sum())
+        kn = (np.asarray(cols[16]) == 1) & (np.asarray(cols[21]) != 0)
+        for sh in (0, 1):
+            known_al[sh] += int((kn & (np.asarray(cols[2]) == sh)).sum())
     t_s = time.perf_counter() - t0
     slaunch = kernels.counts()
     can_share = acc["can_true"] / acc["can"]
     clean_share = acc["clean_true"] / acc["clean"]
-    print(f"[genome spliced] {GS_S_BATCHES * B} reads in {t_s:.2f} s: "
-          f"{GS_S_BATCHES * B / t_s:.1f} reads/s (no render); {len(introns)} "
-          f"introns and {len(pairs)} pairs on both chromosomes; canonical "
-          f"single-junction reads at their true position with the planted "
-          f"N {can_share:.4f} ({acc['can_true']}/{acc['can']}); unmodified "
-          f"reads {clean_share:.4f} ({acc['clean_true']}/{acc['clean']}); "
-          f"sites {sal.splice_db.n_sites}; fixed-point re-runs "
+    print(f"[genome config6] {GS_S_BATCHES * B} reads in {t_s:.2f} s: "
+          f"{GS_S_BATCHES * B / t_s:.1f} reads/s (no render); {len(introns)}"
+          f" introns ({len(known_ss)} baked as known sites) and {len(pairs)} "
+          f"pairs on both chromosomes; canonical single-junction reads at "
+          f"their true position with the planted N {can_share:.4f} "
+          f"({acc['can_true']}/{acc['can']}), of them carrying a junction "
+          f"SNV {acc['snv_true']}/{acc['snv']}; unmodified reads "
+          f"{clean_share:.4f} ({acc['clean_true']}/{acc['clean']}); "
+          f"alignments through known sites per shard {known_al}; sites "
+          f"{sal.splice_db.n_sites}; fixed-point re-runs "
           f"{sal.fixed_point_runs}; host ms per batch: collect (pass 2, "
           f"merge, host phases, re-runs) "
           f"{1e3 * acc['collect'] / GS_S_BATCHES:.1f}; launches {slaunch}")
-    check(can_share >= 0.95, "genome spliced: canonical junction reads "
-          "placed true < 95%")
-    check(clean_share >= 0.99, "genome spliced: unmodified reads placed "
-          "true < 99%")
-    check(slaunch["resolve_walk"] > 0 and slaunch["pair_sweep"] > 0,
-          "genome spliced: the walk or the pair sweep never launched")
+    check(can_share >= 0.95, "config 6: canonical junction reads placed "
+          "true < 95%")
+    check(clean_share >= 0.99, "config 6: unmodified reads placed true "
+          "< 99%")
+    check(acc["snv"] > 0, "config 6: no junction read carries an SNV")
+    check(min(known_al) > 0, "config 6: no alignment through a known site "
+          "on a shard")
+    for name in ("resolve_walk", "pair_sweep", "inject_known",
+                 "second_sweep", "inject_indels"):
+        check(slaunch[name] > 0, f"config 6: {name} never launched")
     path_launches["genome_spliced"] = slaunch
+    # the device's busy share of one more batch through the same entry
+    # points, under torch.profiler (kernel time summed over the batch's
+    # wall clock; the profiler's own overhead lengthens the wall)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    b = sb[0]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        sal.collect(sal.advance(sal.dispatch(
+            *b[:3], GS_S_BATCHES * B + np.arange(B, dtype=np.int64))))
+        wall = time.perf_counter() - t
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e6
+    print(f"[genome config6] one batch under torch.profiler: wall "
+          f"{1e3 * wall:.1f} ms, device kernel time {1e3 * busy:.1f} ms: "
+          f"busy share {busy / wall:.4f}" if busy > 0 else
+          "[genome config6] torch.profiler recorded no device time: the "
+          "busy share is not measured")
     del sal
+    index._variants = None
     torch.cuda.empty_cache()
 
     # (f) the CLI on the saved two-shard index
@@ -1295,6 +1428,175 @@ def genome_phase(torch, np, kernels, twins, driver, read_alignments,
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[genome] phase 11 took {time.perf_counter() - t_ph:.1f} s")
+
+
+def multi_phase(torch, np, index, batch, TorchAligner, build_fm_index,
+                rows, path_launches, env):
+    """Phase 12 (see the module docstring): several devices and hosts."""
+    import socket
+
+    import torch.distributed as dist
+
+    from hisat2_tpu_torch.parallel import mesh
+    t_ph = time.perf_counter()
+    # (a) K21 at world 1 on NCCL
+    al = TorchAligner(index, device="cuda")
+    codes, quals, lens = batch[:3]
+    t = [torch.from_numpy(np.ascontiguousarray(a)).cuda().to(torch.int32)
+         for a in (codes, quals, lens, al._minsc(lens),
+                   np.arange(len(lens)))]
+    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1,
+                            rank=0)
+    try:
+        bundle = mesh.replicate(al, "cuda:0")
+        step = mesh.sharded_align_step(al, None)
+        step(bundle, *t)                       # warm-up
+        torch.cuda.synchronize()
+        mesh.launches = 0
+        out, n_cand = step(bundle, *t)
+        torch.cuda.synchronize()
+        k21_launches = mesh.launches
+        plain, _ = al._align_device(al.dev, al.shard_graph_dev[0], *t[:4],
+                                    False, True, rdids=t[4])
+        check(sorted(out) == sorted(plain), "K21: output keys")
+        for k in plain:
+            check(torch.equal(out[k], plain[k]), f"K21: {k} differs from "
+                  f"the single-device step")
+        want = int((plain["u_flags"] & 1).sum())
+        check(int(n_cand) == want, "K21: n_cand != the valid-slot count")
+        glob = mesh.gather_lanes(out, None)
+        check(all(np.array_equal(glob[k], plain[k].cpu().numpy())
+                  for k in plain), "K21: gather_lanes at world 1")
+        flags = out["u_flags"]
+
+        def collective(flags):
+            n = (flags & 1).sum().to(torch.int64).reshape(1)
+            dist.all_reduce(n)
+            return n
+
+        def local(flags):
+            return (flags & 1).sum().to(torch.int64).reshape(1)
+
+        one = torch.ones(1, dtype=torch.int64, device="cuda")
+        ms = median_ms(torch, collective, {"flags": flags})
+        plain_ms = median_ms(torch, local, {"flags": flags})
+        ar_ms = median_ms(torch, lambda x: dist.all_reduce(x), {"x": one})
+        step_ms = median_ms(torch, lambda: step(bundle, *t), {})
+        single_ms = median_ms(torch, lambda: al._align_device(
+            al.dev, al.shard_graph_dev[0], *t[:4], False, True,
+            rdids=t[4]), {})
+    finally:
+        dist.destroy_process_group()
+    by = flags.numel() * flags.element_size() + 8
+    rows["sharded_align_step"] = {
+        "name": "sharded_align_step", "route": "cuda",
+        "source": "hisat2_tpu_torch/parallel/mesh.py",
+        "replaces": "hisat2_tpu/parallel/mesh.py:53 sharded_align_step "
+                    "(the psum of (u_flags & 1), :65-66)",
+        "launches": k21_launches, "max_abs_err": 0.0, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": by / HBM * 1e3,
+        "bound_by": "bytes", "library_ms": ar_ms, "step_ms": step_ms,
+        "single_step_ms": single_ms, "n_cand": want}
+    path_launches["multi"] = {"sharded_align_step": k21_launches}
+    print(f"[multi] K21 at world 1 (NCCL, cuda:0) on a {len(lens)}-read "
+          f"batch: outputs equal to the single-device step's, n_cand "
+          f"{want}; the sum + all-reduce {ms:.4f} ms (the sum alone "
+          f"{plain_ms:.4f}, the all-reduce of one int64 {ar_ms:.4f}); the "
+          f"sharded step {step_ms:.4f} ms, the single-device step "
+          f"{single_ms:.4f} ms (CUDA events, median of 10)")
+    del al
+    torch.cuda.empty_cache()
+
+    # (b) MPMD: shards on ["cuda:0", "cpu"] and on ["cuda:0", "cuda:0"]
+    t0 = time.perf_counter()
+    data = os.path.join(REPO, "tests", "data")
+    chroms, name = [], None
+    with gzip.open(os.path.join(data, "shard_genome.fa.gz"), "rt") as f:
+        for line in f:
+            if line.startswith(">"):
+                chroms.append((line[1:].strip(), []))
+            else:
+                chroms[-1][1].append(line.strip())
+    lut = np.full(256, 4, np.uint8)
+    for i, c in enumerate("ACGT"):
+        lut[ord(c)] = i
+    chroms = [(n, lut[np.frombuffer("".join(v).encode(), np.uint8)])
+              for n, v in chroms]
+    sidx = build_fm_index(chroms, shard_bp=150_000, off_rate=4)
+    check(len(sidx.shards) == 2, "the shard corpus is not two shards")
+    gj = np.concatenate([c for _, c in chroms])
+    sr = simulate(np, np.random.default_rng(1201), gj, 256, L)
+    res = []
+    for place in (["cuda:0", "cpu"], ["cuda:0", "cuda:0"]):
+        a = TorchAligner(sidx, device="cuda", shard_devices=place)
+        check([str(d.device) for d in a.devs] == place,
+              f"shards not placed on {place}")
+        res.append(a.align_batch(*sr[:3]).raw["cols"])
+    for x, y in zip(*res):
+        check(np.array_equal(np.asarray(x), np.asarray(y)),
+              "MPMD: the mixed placement differs from the all-card one")
+    n_al = len(np.unique(np.asarray(res[0][0])))
+    print(f"[multi] MPMD on the shard corpus's two-shard index (off_rate "
+          f"4): shards on [cuda:0, cpu] and on [cuda:0, cuda:0] give equal "
+          f"alignments ({n_al}/256 reads aligned; "
+          f"{time.perf_counter() - t0:.1f} s)")
+
+    # (c) two CLI hosts on the card, the single-host run and the dry-run
+    # twin at world 1, all at once
+    tmp = tempfile.mkdtemp(prefix="h2torch_multi_")
+    try:
+        with gzip.open(os.path.join(data, "mm3_genome.fa.gz"), "rb") as f, \
+                open(os.path.join(tmp, "g.fa"), "wb") as o:
+            o.write(f.read())
+        run_cli(["build", "g.fa", "idx"], tmp, env, 300)
+        base = [sys.executable, "-m", "hisat2_tpu_torch", "align",
+                "--no-spliced-alignment", "-f", "-x", "idx", "-U",
+                os.path.join(data, "mm3_reads.fa"), "-k", "10",
+                "--batch-size", "8", "--device", "cuda"]
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        t0 = time.perf_counter()
+        cmds = [base + ["-S", "single.sam"]] + [
+            base + ["--n-hosts", "2", "--host-rank", str(r), "-S",
+                    "multi.sam"] for r in (0, 1)] + [
+            [sys.executable, "-m", "hisat2_tpu_torch.parallel.dryrun",
+             "--world", "1", "--rank", "0", "--store",
+             os.path.join(tmp, f"store{port}"), "--device", "cuda"]]
+        procs = [subprocess.Popen(c, cwd=tmp, env=env, text=True,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE) for c in cmds]
+        outs = []
+        try:
+            for p in procs:
+                o, e = p.communicate(timeout=300)
+                check(p.returncode == 0, f"multi CLI {p.args[3:6]} failed: "
+                      f"{e[-2000:]}")
+                outs.append(o)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        t_cli = time.perf_counter() - t0
+
+        def body(path, opener=open):
+            with opener(path, "rt") as f:
+                return [x for x in f if not x.startswith("@")]
+
+        multi = body(os.path.join(tmp, "multi.sam"))
+        check(multi == body(os.path.join(tmp, "single.sam")),
+              "multi-host SAM body differs from the single-host run")
+        check(multi == body(os.path.join(data, "mm3_ref_k10.sam.gz"),
+                            gzip.open),
+              "multi-host SAM body differs from mm3_ref_k10")
+        check("8/8 aligned" in outs[3], "the dry-run twin at world 1")
+        print(f"[multi] align --device cuda --n-hosts 2 as two processes on "
+              f"the card: merged body of {len(multi)} records equal to the "
+              f"single-host run and mm3_ref_k10; {outs[3].strip()} "
+              f"({t_cli:.1f} s for the four processes)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[multi] phase 12 took {time.perf_counter() - t_ph:.1f} s")
 
 
 def main() -> int:
@@ -1906,7 +2208,13 @@ def main() -> int:
                  TorchAligner, rows, bounds, path_launches, card, env)
     phase_done("genome")
 
+    multi_phase(torch, np, index, batches[0], TorchAligner, build_fm_index,
+                rows, path_launches, env)
+    phase_done("multi")
+
     for name, r in rows.items():
+        if name == "sharded_align_step":
+            continue                    # K21: complete from phase 12
         path = ("genome" if name in GENOME_KERNELS else "spliced"
                 if name in SPLICED_KERNELS else "paired")
         r["launches"] = path_launches[path][name]
@@ -1919,7 +2227,8 @@ def main() -> int:
         r["bound_ms"], r["bound_by"] = bounds[name]
         r.setdefault("library_ms", None)
     print(f"[done] phase seconds {json.dumps(phase_s)}")
-    print(json.dumps({"kernels": [rows[n] for n in kernels.KERNELS]}))
+    print(json.dumps({"kernels": [rows[n] for n in kernels.KERNELS]
+                      + [rows["sharded_align_step"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -8,10 +8,12 @@ module scope, so the port keeps this copy.  Linear and graph (.var.npz,
 two-tier) indexes run, unpaired (-U, --12) and paired (-1/-2, paired
 --12/--tab5/--tab6), DNA (--no-spliced-alignment) and, on a linear index
 and unpaired, spliced RNA (the default) with its splice-site files, on
-full-SA, sampled-SA and sharded (genome-scale) indexes.  Modes the port
-does not run yet are refused with the ROADMAP item that will bring them:
-spliced paired runs, spliced runs on a graph or --ss index, paired runs on
-more than one shard, and multi-host runs.
+linear, --ss and SNP graph indexes, full-SA, sampled-SA and sharded
+(genome-scale), on one host or several (--n-hosts: block-cyclic batch
+ownership, per-host SAM shards, rank 0's ordered merge; :123-138,
+:350-372, :404-411, :436-453).  Modes the port does not run yet are
+refused with the ROADMAP item that will bring them: spliced paired runs
+and paired runs on more than one shard.
 """
 
 from __future__ import annotations
@@ -75,8 +77,6 @@ def _refusal(args):
     if not args.no_spliced_alignment and args.m1 and args.m2:
         return ("spliced alignment of paired reads (ROADMAP.md Queue 1 "
                 "item 11); pass --no-spliced-alignment")
-    if (getattr(args, "n_hosts", 1) or 1) > 1:
-        return "multi-host runs (--n-hosts > 1): ROADMAP.md Queue 1 item 7"
     return None
 
 
@@ -145,7 +145,22 @@ def run_align(args) -> int:
         # --no-temp-splicesite is accepted for compatibility: with a single
         # worker the reference's mindist is 0 either way (hisat2.cpp:3559),
         # so temp-site usage is identical
-    out = open(args.sam, "w") if args.sam else sys.stdout
+    world = getattr(args, "n_hosts", 1) or 1
+    rank = getattr(args, "host_rank", 0) or 0
+    shard = None
+    if world > 1:
+        from ..parallel import multihost
+        if getattr(args, "coordinator", None):
+            multihost.init_distributed(args.coordinator, world, rank,
+                                       args.device)
+        if not args.sam:
+            print("error: multi-host runs require -S <out.sam>",
+                  file=sys.stderr)
+            return 1
+        shard = multihost.ShardSamWriter(args.sam, rank)
+        out = shard
+    else:
+        out = open(args.sam, "w") if args.sam else sys.stdout
     disp_names = list(index.meta.ref_names)
     if getattr(args, "remove_chrname", False):
         disp_names = [n[3:] if n.startswith("chr") else n
@@ -158,7 +173,7 @@ def run_align(args) -> int:
         out = _SeedTagOut(out, seed_map)
     writer = SamWriter(out, disp_names, index.meta.ref_lens,
                        cmdline=" ".join(sys.argv[1:]),
-                       no_head=args.no_hd,
+                       no_head=args.no_hd or shard is not None,
                        no_sq=getattr(args, "no_sq", False),
                        no_unal=args.no_unal,
                        rg_id=args.rg_id, rg=args.rg,
@@ -352,6 +367,8 @@ def run_align(args) -> int:
         n_bases += int(b1.lens.sum()) + int(b2.lens.sum())
         if met is not None:
             met.maybe_report(writer, n_bases)
+        if shard is not None:
+            shard.end_batch()
 
     # 3-deep dispatch pipeline: the device runs batches i+1..i+2 while the
     # host renders batch i's SAM; the mid-queue handle is advanced so that
@@ -376,7 +393,10 @@ def run_align(args) -> int:
         for b1, b2 in paired_batches():
             rdids = rdid0 + np.arange(len(b1.names), dtype=np.int64)
             rdid0 += len(b1.names)
+            owned = (n_batches % world) == rank
             n_batches += 1
+            if not owned:
+                continue        # block-cyclic read sharding
             pend.append((b1, b2, rdids,
                          _dispatch_pair_batch(aligner, b1, b2, rdids)))
             if len(pend) >= 2:
@@ -391,7 +411,10 @@ def run_align(args) -> int:
         for b in unpaired_batches():
             rdids = rdid0 + np.arange(len(b.names), dtype=np.int64)
             rdid0 += len(b.names)
+            owned = (n_batches % world) == rank
             n_batches += 1
+            if not owned:
+                continue        # block-cyclic read sharding
             pend.append((aligner.dispatch(b.codes, b.quals, b.lens, rdids),
                          b, rdids))
             if len(pend) >= 2:
@@ -399,8 +422,12 @@ def run_align(args) -> int:
                 pend[-2] = (aligner.advance(h), bb, rr)
             if len(pend) >= 3:
                 emit(pend.popleft())
+                if shard is not None:
+                    shard.end_batch()
         while pend:
             emit(pend.popleft())
+            if shard is not None:
+                shard.end_batch()
     else:
         print("error: provide -U, -1/-2, or --12", file=sys.stderr)
         return 1
@@ -411,6 +438,24 @@ def run_align(args) -> int:
         aligner.splice_db.write_novel(args.novel_splicesite_outfile)
     if met is not None:
         met.close(writer, n_bases)
+    if shard is not None:
+        from ..parallel import multihost
+        fields = ("n_reads", "n_unal", "n_uniq", "n_multi", "n_pairs",
+                  "n_conc_uniq", "n_conc_multi", "n_disc", "n_mate_unal",
+                  "n_mate_uniq", "n_mate_multi")
+        shard.finish({k: getattr(writer, k) for k in fields})
+        if rank != 0:
+            return 0
+        import io as _io
+        hdr_sink = _io.StringIO()
+        SamWriter(hdr_sink, disp_names, index.meta.ref_lens,
+                  cmdline=" ".join(sys.argv[1:]), no_head=args.no_hd,
+                  rg_id=args.rg_id, rg=args.rg)
+        total = multihost.merge_shards(args.sam, world,
+                                       header=hdr_sink.getvalue())
+        for k, v in total.items():
+            setattr(writer, k, v)
+        multihost.cleanup_shards(args.sam, world)
     summ = writer.summary(new=getattr(args, "new_summary", False))
     if not args.quiet:
         sys.stderr.write(summ)

@@ -1,7 +1,8 @@
 """The batched aligner on torch (counterpart of
 hisat2_tpu/align/pipeline.py TPUAligner: unpaired and paired DNA against
 linear and graph indexes, with mate rescue; unpaired spliced RNA against
-a linear index; full-SA, sampled-SA and sharded genome-scale indexes).
+linear, --ss and SNP graph indexes; full-SA, sampled-SA and sharded
+genome-scale indexes, with one device per shard by shard_devices).
 
 Device half: `_align_device` is TPUAligner._align_device (:725-1446) and
 `_pack_out` the output packing of _align_device_packed (:536-600).  The
@@ -91,7 +92,11 @@ _DT_NAME = {torch.int32: "int32", torch.bool: "bool",
 
 
 class TorchAligner(HostPhase):
-    """Holds the device-resident index and runs the batch step."""
+    """Holds the device-resident index and runs the batch step.
+
+    device: the aligner's device (the batch, the site DB, the small
+    tables); shard_devices: a list of devices, shard i of a sharded index
+    living on shard_devices[i % len] (default: every shard on `device`)."""
 
     def __init__(self, index: FMIndex, scoring: Optional[Scoring] = None,
                  k: int = 5, no_fw: bool = False,
@@ -100,15 +105,16 @@ class TorchAligner(HostPhase):
                  anchor_stop: bool = True, device="cuda",
                  variants=None, spliced: bool = False, lite: bool = False,
                  inject_ss: bool = False, splice_db=None, tmo: bool = False,
-                 require_xs: bool = False,
+                 require_xs: bool = False, shard_devices=None,
                  _devs=None, _ref_codes=None, _graph_bundle=None):
-        if (spliced or inject_ss) and variants is not None and (
-                variants.n_snps or len(variants.ss_ref)):
-            raise NotImplementedError(
-                "spliced alignment on a graph or --ss index: ROADMAP.md "
-                "Queue 1 item 12")
         self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        if self.device.type == "cuda" and self.device.index is None \
+                and torch.cuda.is_available():
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        if (self.device.type == "cuda"
+                or any(torch.device(x).type == "cuda"
+                       for x in shard_devices or ())) \
+                and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but torch finds no "
                                "CUDA device")
         self.meta = index.meta
@@ -178,9 +184,20 @@ class TorchAligner(HostPhase):
             self.ref_codes = (_ref_codes if _ref_codes is not None
                               else bitops.unpack_2bit(
                                   np.asarray(index.ref_words), index.meta.n))
-        # a two-tier twin shares its parent's device bundles and tables
-        self.devs = (_devs if _devs is not None else
-                     [to_device(sh, self.device) for sh in self.shards])
+        # a two-tier twin shares its parent's device bundles and tables;
+        # shard_devices (pipeline.py:346-350) puts shard i on
+        # shard_devices[i % len], and everything its step reads goes with
+        # it (the graph tables here, the score and intron-length tables
+        # in _params_on, the site-table window in _step_site_args, the
+        # batch in _dispatch_packed)
+        nsh = len(self.shards)
+        if _devs is not None:
+            self.devs = _devs
+        else:
+            sdev = [torch.device(shard_devices[i % len(shard_devices)])
+                    if shard_devices else self.device for i in range(nsh)]
+            self.devs = [to_device(sh, d)
+                         for sh, d in zip(self.shards, sdev)]
         self.dev = self.devs[0]
         self.frag_joined = np.asarray(index.frag_joined)
         self.frag_ref = np.asarray(index.frag_ref)
@@ -192,7 +209,6 @@ class TorchAligner(HostPhase):
         # shard_row_db maps a shard's indel-table rows to VariantDB rows
         self.variants = variants
         self.has_indels = False
-        nsh = len(self.shards)
         if _graph_bundle is not None:
             (self.graph, self.has_indels, self.shard_graph_dev,
              self.shard_row_db) = _graph_bundle
@@ -210,8 +226,8 @@ class TorchAligner(HostPhase):
                     for sh, b in zip(self.shards, self.shard_bases)]
             self.has_indels = any(len(g.indel_pos) for g in shard_graphs)
             self.shard_graph_dev, self.shard_row_db = (list(t) for t in zip(
-                *(graph_to_device(g, self.has_indels, self.device)
-                  for g in shard_graphs)))
+                *(graph_to_device(g, self.has_indels, d.device)
+                  for g, d in zip(shard_graphs, self.devs))))
         else:
             self.graph = None
             self.shard_graph_dev = [{} for _ in range(nsh)]
@@ -237,11 +253,16 @@ class TorchAligner(HostPhase):
             from .splice_db import SpliceSiteDB
             self.splice_db = (splice_db if splice_db is not None
                               else SpliceSiteDB(index, device=self.device))
+            # the index's baked --ss sites (pipeline.py:444-445)
+            if variants is not None and len(variants.ss_ref):
+                self.splice_db.add_from_variants(variants)
         else:
             self.splice_db = splice_db if inject_ss else None
         self._lenpen = (splice_ops.lenpen_device(self.splice_params,
                                                  self.device)
                         if spliced else None)
+        # per-device copies of the small tables, for shards elsewhere
+        self._dev_params = {str(self.device): (self.params, self._lenpen)}
         # packed-buffer layouts, keyed by width (spill and full_out coexist)
         self._out_specs = {}
         self._spill_meta = {}
@@ -278,6 +299,17 @@ class TorchAligner(HostPhase):
             self._indel_bounds = np.unique(
                 np.concatenate([ip - 1, ip + il + 1]))
 
+    def _params_on(self, dev):
+        """(score tables, intron-length tables) on `dev`: the aligner's own
+        on its device, a copy made once for a shard placed elsewhere."""
+        key = str(dev)
+        if key not in self._dev_params:
+            self._dev_params[key] = (
+                score_tables(self.scoring, dev),
+                splice_ops.lenpen_device(self.splice_params, dev)
+                if self.spliced else None)
+        return self._dev_params[key]
+
     # ------------------------------------------------------------------
     def _align_device(self, d, gd, reads, quals, lens, minsc, uniform: bool,
                       full_out: bool, capture: dict = None, rdids=None,
@@ -302,6 +334,7 @@ class TorchAligner(HostPhase):
 
         meta = d.meta
         sampled = meta.off_rate > 0
+        params, lenpen = self._params_on(reads.device)
 
         def walk(top, live, key=None):
             # sampled SA: the LF walk over the live rows of top..top+P-1
@@ -430,8 +463,8 @@ class TorchAligner(HostPhase):
             s2w = splice_ops.diag_chars(gd["snv2"], meta.n, mstart, L, margin)
         ext = call("extend_ungapped", extend_ops.extend_grouped,
                    n_text=meta.n, reads=ar, quals=aq, lens=al,
-                   cand_start=mstart, mm_pen=self.params["mm_pen"],
-                   clip_pen=self.params["clip_pen"],
+                   cand_start=mstart, mm_pen=params["mm_pen"],
+                   clip_pen=params["clip_pen"],
                    n_pen=self.scoring.n_pen, win_chars=ch,
                    win_margin=margin,
                    allow_softclip=not self.scoring.no_softclip,
@@ -446,8 +479,8 @@ class TorchAligner(HostPhase):
                 s1x = splice_ops.diag_chars(gd["snv1"], meta.n, xs_m, L, 0)
                 s2x = splice_ops.diag_chars(gd["snv2"], meta.n, xs_m, L, 0)
             ext_x = extend_ops.extend_grouped(
-                meta.n, ar, aq, al, xs_m, self.params["mm_pen"],
-                self.params["clip_pen"], self.scoring.n_pen, ch_x, 0,
+                meta.n, ar, aq, al, xs_m, params["mm_pen"],
+                params["clip_pen"], self.scoring.n_pen, ch_x, 0,
                 allow_softclip=not self.scoring.no_softclip,
                 uniform_len=uniform, minsc=am, mm_min=self.scoring.mm_min,
                 snv1_win=s1x, snv2_win=s2x)
@@ -467,10 +500,10 @@ class TorchAligner(HostPhase):
             res, sel, bsel = call(
                 "pair_sweep", splice_ops.pair_sweep, ch=ch, reads=ar,
                 quals=aq, lens=al, starts=cstart, valid=cvalid.contiguous(),
-                minsc=am, mm_pen=self.params["mm_pen"],
+                minsc=am, mm_pen=params["mm_pen"],
                 n_pen=self.scoring.n_pen, n_text=meta.n, prm=sp,
-                lenpen=self._lenpen, max_gap=g_budget, margin=margin,
-                top=self.max_pairs)
+                lenpen=lenpen, max_gap=g_budget, margin=margin,
+                top=self.max_pairs, snv1_w=s1w, snv2_w=s2w)
             zt = torch.zeros_like(sel["score"])
             blocks.append(dict(
                 sel, ab=torch.maximum(compact_ops.take_cols(cab, sel["i"]),
@@ -486,11 +519,12 @@ class TorchAligner(HostPhase):
                        ref_words=d.ref_words, n_text=meta.n, reads=ar,
                        quals=aq, lens=al, rdids=rd2, starts=cstart,
                        valid=cvalid.contiguous(), ch=ch, margin=margin,
-                       tabs=ss, mm_pen=self.params["mm_pen"],
+                       tabs=ss, mm_pen=params["mm_pen"],
                        n_pen=self.scoring.n_pen, minsc=am,
                        slots=self.ss_slots, src_clip_l=ext.clip_l,
                        src_clip_r=ext.clip_r,
-                       clip_pen=self.params["clip_pen"])
+                       clip_pen=params["clip_pen"], snv1_w=s1w, snv2_w=s2w,
+                       snv_delta1=gd.get("snv1"), snv_delta2=gd.get("snv2"))
             src_i = inj.pop("src")
             zi = torch.zeros_like(src_i)
             blocks.append(dict(inj, ab=compact_ops.take_cols(cab, src_i),
@@ -505,7 +539,7 @@ class TorchAligner(HostPhase):
                         snv2_w=s2w, margin=margin, ip=gd["ind_ip"],
                         ilen=gd["ind_len"], ins_chars=gd["ind_chars"],
                         rkey=gd["ind_rkey"], r_ilen=gd["ind_rlen"],
-                        r_row=gd["ind_rrow"], mm_pen=self.params["mm_pen"],
+                        r_row=gd["ind_rrow"], mm_pen=params["mm_pen"],
                         n_pen=self.scoring.n_pen, minsc=am,
                         snv_delta1=gd["snv1"], snv_delta2=gd["snv2"],
                         slots=self.ss_slots)
@@ -519,7 +553,7 @@ class TorchAligner(HostPhase):
             selfw = call("indel_sweep", splice_ops.self_indel_sweep,
                          ch=ch, reads=ar, quals=aq, lens=al, starts=cstart,
                          valid=cvalid.contiguous(), minsc=am,
-                         mm_pen=self.params["mm_pen"],
+                         mm_pen=params["mm_pen"],
                          n_pen=self.scoring.n_pen, prm=sp, max_gap=g_budget,
                          snv1_w=s1w, snv2_w=s2w)
             src_i = selfw.pop("src")
@@ -594,6 +628,7 @@ class TorchAligner(HostPhase):
         (pipeline.py:1376-1445): K15 once per base pair, then the
         3-junction composite of its ungated sides."""
         N, Cc = cstart.shape
+        params, lenpen = self._params_on(ar.device)
         out = {}
         for t, (pfx2, pfx3) in enumerate((("q2_", "q3_"), ("r2_", "r3_"))):
             bflat = bsel[:, t].to(torch.int64)
@@ -610,9 +645,9 @@ class TorchAligner(HostPhase):
             q2 = call("second_sweep", splice_ops.second_sweep, ch=ch,
                       reads=ar, quals=aq, lens=al, starts=cstart,
                       valid=cvalid.contiguous(), minsc=am,
-                      mm_pen=self.params["mm_pen"], n_pen=self.scoring.n_pen,
+                      mm_pen=params["mm_pen"], n_pen=self.scoring.n_pen,
                       n_text=n_text, prm=self.splice_params,
-                      lenpen=self._lenpen, margin=margin,
+                      lenpen=lenpen, margin=margin,
                       b_i=b_i.contiguous(), b_j=b_j.contiguous(),
                       b_x=b_x.contiguous(), b_score=b_score.contiguous(),
                       b_valid=b_ok.contiguous(), ss=ss, rdids=rd2)
@@ -708,11 +743,14 @@ class TorchAligner(HostPhase):
         return buf
 
     # ------------------------------------------------------------------
-    def upload(self, codes, quals, lens, minsc):
-        """Batch arrays -> int32 device tensors."""
+    def upload(self, codes, quals, lens, minsc, device=None):
+        """Batch arrays -> int32 tensors on `device` (the aligner's by
+        default)."""
+        dev = self.device if device is None else device
+
         def up(a):
             t = torch.from_numpy(np.ascontiguousarray(a))
-            return t.to(self.device).to(_I32)
+            return t.to(dev).to(_I32)
         return (up(codes), up(quals), up(np.asarray(lens)),
                 up(np.asarray(minsc, np.int64).astype(np.int32)))
 
@@ -726,21 +764,28 @@ class TorchAligner(HostPhase):
         (None, None)."""
         if not self.use_ss:
             return None, None
+        dev = self.devs[shard].device
         rd = torch.from_numpy(np.asarray(rdids, np.int64).astype(np.int32))
-        return rd.to(self.device), self.splice_db.device_tables(
-            self.shard_bases[shard], self.devs[shard].meta.n)
+        tabs = self.splice_db.device_tables(self.shard_bases[shard],
+                                            self.devs[shard].meta.n)
+        return rd.to(dev), {k: v.to(dev) if torch.is_tensor(v) else v
+                            for k, v in tabs.items()}
 
     def _dispatch_packed(self, codes, quals, lens, minsc, uniform,
                          full_out=False, rdids=None):
-        """One step per shard (pipeline.py:1679-1689): a list of packed
+        """One step per shard (pipeline.py:1679-1689), each on its shard's
+        device (the batch uploaded once per device): a list of packed
         handles, each with its D2H copy already enqueued."""
         if rdids is None:
             rdids = np.arange(codes.shape[0], dtype=np.int64)
-        up = self.upload(codes, quals, lens, minsc)
+        ups = {}
         packed = []
-        for i in range(len(self.devs)):
+        for i, d in enumerate(self.devs):
+            key = str(d.device)
+            if key not in ups:
+                ups[key] = self.upload(codes, quals, lens, minsc, d.device)
             rd, ss = self._step_site_args(rdids, i)
-            buf = self.step(*up, uniform, full_out, rdids=rd, ss=ss,
+            buf = self.step(*ups[key], uniform, full_out, rdids=rd, ss=ss,
                             shard=i)
             if buf.is_cuda:
                 # enqueue the D2H copy now, behind the step on the same
@@ -1107,12 +1152,13 @@ class TorchAligner(HostPhase):
             oqp[:c1 - c0] = oq[c0:c1]
             olp[:c1 - c0] = lens[c0:c1]
             owp[:c1 - c0] = ws_all[c0:c1]
-            rd, qd, ld, wd = (torch.from_numpy(a).to(self.device)
+            rd, qd, ld, wd = (torch.from_numpy(a).to(self.dev.device)
                               for a in (ocp, oqp, olp, owp))
+            params = self._params_on(self.dev.device)[0]
             kw = dict(ref_words=self.dev.ref_words, n_text=self.meta.n,
                       reads=rd, quals=qd, lens=ld, win_start=wd, W=WIN_LEN,
-                      mm_pen=self.params["mm_pen"],
-                      clip_pen=self.params["clip_pen"],
+                      mm_pen=params["mm_pen"],
+                      clip_pen=params["clip_pen"],
                       n_pen=self.scoring.n_pen,
                       allow_softclip=not self.scoring.no_softclip,
                       snv_delta1=self.graph_dev["snv1"] if snv else None,

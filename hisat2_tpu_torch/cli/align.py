@@ -2,7 +2,8 @@
 --device.
 
 `_base_parser` is copied verbatim from hisat2_tpu/cli/align.py:17-268
-(build_parser); that module's `main` imports the JAX driver, so it is not
+(build_parser), but for the help of --coordinator (a torch.distributed
+address here); that module's `main` imports the JAX driver, so it is not
 copied.
 """
 
@@ -109,8 +110,9 @@ def _base_parser():
     p.add_argument("--host-rank", dest="host_rank", type=int, default=0,
                    help="this host's rank in [0, n_hosts)")
     p.add_argument("--coordinator", default=None,
-                   help="jax.distributed coordinator address:port "
-                        "(required on multi-host TPU pods)")
+                   help="torch.distributed coordinator address:port: "
+                        "the hosts join one process group (NCCL with "
+                        "--device cuda, gloo with --device cpu)")
     p.add_argument("-u", "--upto", "--qupto", dest="upto", type=int,
                    default=None, help="align at most this many reads")
     p.add_argument("-s", "--skip", dest="skip", type=int, default=0,

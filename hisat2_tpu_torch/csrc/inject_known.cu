@@ -15,7 +15,12 @@
 // the fresh diagonal's penalty / mismatch prefixes from the packed
 // reference (at x and x - 1 and in total), and the source diagonal's
 // penalty prefixes at x, x - 1 and at its inherited clip bounds from the
-// candidate's window, with the clip-cost prefix.  The penalty planes never
+// candidate's window, with the clip-cost prefix.  On a graph index both
+// sides forgive catalog SNVs (pipeline.py:1117-1120 passes the
+// SNV-forgiving planes as the source prefix; the fresh side goes through
+// live_pen_prefix with the SNV deltas, splice.py:701-711): the source
+// from its SNV-plane windows, the fresh diagonal from the packed SNV
+// planes, both with live_prefix.cuh's rule.  The penalty planes never
 // reach device memory.  Then the donor-coverage gate (always on), the
 // bounds, the anchor-purity gate (mismatches <= anchor / 4), the minsc
 // gate and the clip rule.  Positions wrap as unsigned int32, as JAX's.
@@ -42,8 +47,12 @@ struct KnownArgs {
   const int* clip_l;   // [N, C] the candidates' ungapped clips
   const int* clip_r;
   H2Sites st;
+  const int* s1w;      // [N, C, W] SNV-plane windows (graph index only)
+  const int* s2w;
+  const uint32_t* snv1;  // packed SNV planes (graph index only)
+  const uint32_t* snv2;
   long long n_text;
-  int n_ref, N, C, L, W, M, slots, n_pen;
+  int n_ref, n_snv, use_snv, N, C, L, W, M, slots, n_pen;
   int* out;            // [9, N, J]: score d1 d2 x kind spldir clip_l clip_r src
 };
 
@@ -110,7 +119,9 @@ __global__ void inject_known_kernel(KnownArgs A) {
     const int* rd = A.reads + (size_t)n * L;
     const int* qs = A.quals + (size_t)n * L;
     const int x_m1 = max(x - 1, 0);
-    const H2WordChars fw{A.ref, nullptr, nullptr, A.n_ref, 0, A.n_text,
+    const bool snv = A.use_snv != 0;
+    const H2WordChars fw{A.ref, snv ? A.snv1 : nullptr,
+                         snv ? A.snv2 : nullptr, A.n_ref, A.n_snv, A.n_text,
                          (long long)fresh};
     const H2PenScalars f = h2_live_pen_prefix(
         rd, qs, len, L, (long long)fresh, A.n_text, A.mm_pen, A.n_pen, x,
@@ -120,8 +131,12 @@ __global__ void inject_known_kernel(KnownArgs A) {
     const int cl_d = cl_src < x ? cl_src : 0;
     const int cr_a = (len - cr_src) > x ? cr_src : 0;
     const int hi_cr = len - cr_a;
-    // the source diagonal's penalty prefixes and the clip-cost prefix
-    const int* w = A.ch + ((size_t)n * C + c) * A.W + A.M;
+    // the source diagonal's (SNV-forgiving) penalty prefixes and the
+    // clip-cost prefix
+    const size_t wo = ((size_t)n * C + c) * A.W + A.M;
+    const int* w = A.ch + wo;
+    const int* v1w = snv ? A.s1w + wo : nullptr;
+    const int* v2w = snv ? A.s2w + wo : nullptr;
     int ps_x = 0, ps_xm1 = 0, ps_cl = 0, ps_cr = 0, cc_cl = 0, cc_cr = 0;
     int ps = 0, cc = 0;
     for (int col = 0; col <= L; ++col) {
@@ -141,8 +156,14 @@ __global__ void inject_known_kernel(KnownArgs A) {
       const int r = rd[col];
       const bool isn = vp && r >= 4;
       const bool mm_raw = vp && r < 4 && r != rc && !oob;
-      ps += (mm_raw ? A.mm_pen[min(qs[col], 63)] : 0) + (isn ? A.n_pen : 0) +
-            (oob ? H2_OOB_PEN : 0);
+      bool snp_ok = false;
+      if (snv && mm_raw) {
+        const int v1 = min(v1w[col], 3), v2 = min(v2w[col], 3);
+        snp_ok = (v1 != 0 && r == ((rc + v1) & 3)) ||
+                 (v2 != 0 && r == ((rc + v2) & 3));
+      }
+      ps += (mm_raw && !snp_ok ? A.mm_pen[min(qs[col], 63)] : 0) +
+            (isn ? A.n_pen : 0) + (oob ? H2_OOB_PEN : 0);
       cc += vp ? A.clip_pen[min(qs[col], 63)] : 0;
     }
     int mm_new, anchor_new, lpad;
@@ -183,8 +204,10 @@ H2_EXPORT int h2_inject_known(
     const void* clip_l, const void* clip_r, const void* kd, const void* ka,
     const void* rdid, const void* ka_s, const void* kd_s,
     const void* rdid_a, const void* kd_lob, const void* ka_lob, int shift,
-    int S, int NB, long long n_text, int n_ref, int N, int C, int L, int W,
-    int M, int slots, int n_pen, void* out, void* stream) {
+    int S, int NB, const void* s1w, const void* s2w, const void* snv1,
+    const void* snv2, long long n_text, int n_ref, int n_snv, int use_snv,
+    int N, int C, int L, int W, int M, int slots, int n_pen, void* out,
+    void* stream) {
   if (C < 1 || L < 1 || slots < 1 || S < 1 || W != L + 2 * M)
     return (int)cudaErrorInvalidValue;
   H2Sites st{(const int*)kd, (const int*)ka, (const int*)rdid,
@@ -194,8 +217,9 @@ H2_EXPORT int h2_inject_known(
               (const int*)lens, (const int*)rdids, (const int*)starts,
               (const uint8_t*)valid, (const int*)ch, (const int*)mm_pen,
               (const int*)clip_pen, (const int*)minsc, (const int*)clip_l,
-              (const int*)clip_r, st, n_text, n_ref, N, C, L, W, M, slots,
-              n_pen, (int*)out};
+              (const int*)clip_r, st, (const int*)s1w, (const int*)s2w,
+              (const uint32_t*)snv1, (const uint32_t*)snv2, n_text, n_ref,
+              n_snv, use_snv, N, C, L, W, M, slots, n_pen, (int*)out};
   const long long total = (long long)N * 2 * slots * C;
   const int threads = 128;
   const long long blocks = (total + threads - 1) / threads;

@@ -8,7 +8,10 @@
 //
 // One block per lane.  The block first builds every candidate diagonal's
 // planes in shared memory (splice_planes.cuh: prefixes, budget bases,
-// donor/acceptor codes, PWM products), then one thread per (i, j) pair
+// donor/acceptor codes, PWM products; on a graph index also the
+// SNV-forgiving prefix, from the SNV-plane windows: indel joins read it,
+// splice joins the raw one, as splice.py:304-309 and pipeline.py:
+// 1084-1089 pass pen_ind and pen_spl), then one thread per (i, j) pair
 // scans x = 0..L+1 keeping the running best by the reference's order:
 // classified direction and score (one key), then PWM probability, then
 // the tie key (x for splices, raw mismatches * (L+2) + x for indels).
@@ -45,6 +48,9 @@ struct PairArgs {
   int N, C, L, W, M, n_pen, V, gcap, LP, nlp_can, nlp_nc;
   int min_intron, max_intron, pen_can, pen_noncan, min_anchor,
       min_anchor_noncan, rd_go, rd_ge, rf_go, rf_ge, top;
+  const int* s1w;     // [N, C, W] SNV-plane windows (graph index only)
+  const int* s2w;
+  int use_snv;
   int* res;   // [6, N, C, C]: score, x, kind, spldir, splscore bits, raw
   int* sel;   // [9, N, top]: score, i, j, d1, d2, x, kind, spldir, splscore
   int* bsel;  // [N, 2]
@@ -60,7 +66,7 @@ __global__ void pair_sweep_kernel(PairArgs A) {
   const int C = A.C, L = A.L, X1 = L + 1, CC = C * C;
   SpPlanes s;
   float* pwm_s;
-  char* free_ = sp_carve(smem, C, L, true, s, &pwm_s);
+  char* free_ = sp_carve(smem, C, L, true, s, &pwm_s, A.use_snv != 0);
   int* sScore = (int*)free_;       // [CC]
   int* sRaw = sScore + CC;
   int* sX = sRaw + CC;
@@ -77,7 +83,8 @@ __global__ void pair_sweep_kernel(PairArgs A) {
   sp_build(s, pwm_s, A.ch + (size_t)n * C * A.W, A.reads + (size_t)n * L,
            A.quals + (size_t)n * L, len, A.starts + (size_t)n * C,
            A.valid + (size_t)n * C, A.n_text, A.mm_pen, A.n_pen, C, L, A.W,
-           A.M);
+           A.M, A.use_snv ? A.s1w + (size_t)n * C * A.W : nullptr,
+           A.use_snv ? A.s2w + (size_t)n * C * A.W : nullptr);
   const uint8_t* vld = A.valid + (size_t)n * C;
   for (int p = threadIdx.x; p < CC; p += blockDim.x) {
     const int i = p / C, j = p - i * C;
@@ -90,11 +97,13 @@ __global__ void pair_sweep_kernel(PairArgs A) {
     const int gap_pen = is_del ? A.rd_go + A.rd_ge * D
                       : is_ins ? A.rf_go + A.rf_ge * (-D) : 0;
     const int shift = (is_ins && I <= A.V) ? (int)I : 0;
-    const int* Pi = s.P + (size_t)i * X1;
+    const int* Pi = s.P + (size_t)i * X1;     // splice joins: raw
     const int* Pj = s.P + (size_t)j * X1;
+    const int* Fi = s.Pi + (size_t)i * X1;    // indel joins: SNV-forgiving
+    const int* Fj = s.Pi + (size_t)j * X1;
     const int* Ri = s.Pr + (size_t)i * X1;
     const int* Rj = s.Pr + (size_t)j * X1;
-    const int tot_j = Pj[L], totr_j = Rj[L];
+    const int tot_j = Pj[L], totf_j = Fj[L], totr_j = Rj[L];
     const int* bli = s.bl + (size_t)i * X1;
     const int* brj = s.br + (size_t)j * X1;
     const uint8_t* dci = s.dc + (size_t)i * X1;
@@ -110,7 +119,7 @@ __global__ void pair_sweep_kernel(PairArgs A) {
       const int xs = min(x + shift, L);
       const bool vx = x >= 1 && (long long)x + I <= len - 1 && x <= L;
       const int pl_i = Pi[xi], pl_r = Ri[xi];
-      const int score_ind = -(pl_i + (tot_j - Pj[xs])) - gap_pen;
+      const int score_ind = -(Fi[xi] + (totf_j - Fj[xs])) - gap_pen;
       const int raw4 = pl_r + (totr_j - Rj[xs]);
       int score = score_ind, hd = 0;
       float ssc = 0.0f;
@@ -274,8 +283,9 @@ H2_EXPORT int h2_pair_sweep(
     int N, int C, int L, int W, int M, int n_pen, int V, int gcap, int LP,
     int nlp_can, int nlp_nc, int min_intron, int max_intron, int pen_can,
     int pen_noncan, int min_anchor, int min_anchor_noncan, int rd_go,
-    int rd_ge, int rf_go, int rf_ge, int top, void* res, void* sel,
-    void* bsel, void* stream) {
+    int rd_ge, int rf_go, int rf_ge, int top, const void* s1w,
+    const void* s2w, int use_snv, void* res, void* sel, void* bsel,
+    void* stream) {
   if (C < 1 || C > 32 || L < 1 || L > SP_MAX_L || M < 16 ||
       W != L + 2 * M || top < 1 || top > C * C || nlp_can < 1 ||
       nlp_nc < 1)
@@ -286,9 +296,10 @@ H2_EXPORT int h2_pair_sweep(
              (const int*)lp, n_text, N, C, L, W, M, n_pen, V, gcap, LP,
              nlp_can, nlp_nc, min_intron, max_intron, pen_can, pen_noncan,
              min_anchor, min_anchor_noncan, rd_go, rd_ge, rf_go, rf_ge, top,
-             (int*)res, (int*)sel, (int*)bsel};
-  const size_t smem = sp_smem_bytes(C, L, true) + (size_t)(6 * C * C + C) * 4
-                      + 64;
+             (const int*)s1w, (const int*)s2w, use_snv, (int*)res, (int*)sel,
+             (int*)bsel};
+  const size_t smem = sp_smem_bytes(C, L, true, use_snv != 0) +
+                      (size_t)(6 * C * C + C) * 4 + 64;
   cudaError_t e = cudaFuncSetAttribute(
       pair_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

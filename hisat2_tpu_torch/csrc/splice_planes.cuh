@@ -5,8 +5,13 @@
 // (pair_sweep :317-429, second_sweep :1125-1141): from each candidate's
 // reference window (diag_chars, margin M) and the read, the penalty
 // prefix P[x] (quality mismatch + N + out-of-text, ops/extend.py:72
-// pen_planes on a linear index, so the SNV-forgiving plane equals it), the
-// raw-mismatch prefix Pm[x], the penalized-column prefix Pr[x], the
+// pen_planes' pen_raw: catalog SNVs are not forgiven), on a graph index
+// the SNV-forgiving penalty prefix Pi[x] (pen_planes' pen, from the two
+// SNV-plane windows: a mismatch whose read base is (ref + v) & 3 for a
+// nonzero delta v = min(delta, 3) of either plane costs nothing, as
+// extend.py:104-113; on a linear index Pi aliases P and takes no shared
+// memory), the raw-mismatch prefix Pm[x], the penalized-column prefix
+// Pr[x], the
 // budget-scan bases (:389-419), the donor / acceptor dinucleotide codes
 // and the four PWM products (_pwm_prod :222, t ascending, each product
 // rounded once: __fmul_rn keeps nvcc from contracting anything).  Plain
@@ -21,7 +26,8 @@
 
 struct SpPlanes {
   int X1;        // L + 1 columns per diagonal
-  int* P;        // [C][X1] penalty prefix
+  int* P;        // [C][X1] penalty prefix (SNVs not forgiven)
+  int* Pi;       // [C][X1] SNV-forgiving penalty prefix (P on a linear index)
   int* Pr;       // [C][X1] penalized-column prefix (budget planes only)
   int* Pm;       // [C][X1] raw-mismatch prefix
   int* bl;       // [C][X1] budget base, left (budget planes only)
@@ -34,15 +40,19 @@ struct SpPlanes {
   float* arc;
 };
 
-__host__ __device__ inline size_t sp_smem_bytes(int C, int L, bool budget) {
+__host__ __device__ inline size_t sp_smem_bytes(int C, int L, bool budget,
+                                                bool snv = false) {
   const size_t X1 = (size_t)L + 1;
-  return (size_t)C * X1 * ((budget ? 5 : 2) * 4 + 4 * 4 + 2) + 96 * 4 + 16;
+  return (size_t)C * X1 * (((budget ? 5 : 2) + (snv ? 1 : 0)) * 4 + 4 * 4 +
+                           2) + 96 * 4 + 16;
 }
 
 // Carve the planes out of dynamic shared memory; returns the first free
-// byte (4-aligned) and the PWM factor copy in *pwm_s.
+// byte (4-aligned) and the PWM factor copy in *pwm_s.  snv: room for the
+// SNV-forgiving prefix Pi (else Pi = P).
 __device__ inline char* sp_carve(char* base, int C, int L, bool budget,
-                                 SpPlanes& s, float** pwm_s) {
+                                 SpPlanes& s, float** pwm_s,
+                                 bool snv = false) {
   const int X1 = L + 1;
   const size_t n = (size_t)C * X1;
   s.X1 = X1;
@@ -57,6 +67,11 @@ __device__ inline char* sp_carve(char* base, int C, int L, bool budget,
   s.P = p;
   s.Pm = p + n;
   p += 2 * n;
+  s.Pi = s.P;
+  if (snv) {
+    s.Pi = p;
+    p += n;
+  }
   if (budget) {
     s.Pr = p;
     s.bl = p + n;
@@ -93,7 +108,9 @@ __device__ __forceinline__ float sp_pwm(const int* w, int off, int k,
 // Build every plane of one lane's C diagonals, cooperatively over the
 // block.  chl: the lane's windows [C][W]; starts/valid: its candidates
 // (the windows and planes are of where(valid, start, -1), as the JAX step
-// gathers them).  Ends with __syncthreads().
+// gathers them); s1l / s2l: the lane's SNV-plane windows [C][W] when
+// s.Pi has its own room (nullptr on a linear index).  Ends with
+// __syncthreads().
 __device__ inline void sp_build(const SpPlanes& s, const float* pwm_s,
                          const int* __restrict__ chl,
                          const int* __restrict__ rd,
@@ -101,7 +118,9 @@ __device__ inline void sp_build(const SpPlanes& s, const float* pwm_s,
                          const int* __restrict__ starts,
                          const uint8_t* __restrict__ valid, long long n_text,
                          const int* __restrict__ mm_pen, int n_pen, int C,
-                         int L, int W, int M) {
+                         int L, int W, int M,
+                         const int* __restrict__ s1l = nullptr,
+                         const int* __restrict__ s2l = nullptr) {
   const int X1 = L + 1;
   const float* fD = pwm_s;       // [4][9]
   const float* fA = pwm_s + 36;  // [4][15]
@@ -125,10 +144,15 @@ __device__ inline void sp_build(const SpPlanes& s, const float* pwm_s,
     int* P = s.P + (size_t)c * X1;
     int* Pm = s.Pm + (size_t)c * X1;
     int* Pr = s.Pr ? s.Pr + (size_t)c * X1 : nullptr;
-    int ps = 0, pm = 0, pr = 0;
+    const bool snv = s1l != nullptr && s.Pi != s.P;
+    int* Pf = snv ? s.Pi + (size_t)c * X1 : nullptr;
+    const int* v1w = snv ? s1l + (size_t)c * W + M : nullptr;
+    const int* v2w = snv ? s2l + (size_t)c * W + M : nullptr;
+    int ps = 0, pm = 0, pr = 0, pf = 0;
     P[0] = 0;
     Pm[0] = 0;
     if (Pr) Pr[0] = 0;
+    if (Pf) Pf[0] = 0;
     for (int col = 0; col < L; ++col) {
       const bool vp = col < len;
       const long long pos = st + col;
@@ -137,14 +161,22 @@ __device__ inline void sp_build(const SpPlanes& s, const float* pwm_s,
       const int r = rd[col];
       const bool isn = vp && r >= 4;
       const bool mm_raw = vp && r < 4 && r != rc && !oob;
-      const int pen = (mm_raw ? mm_pen[min(qs[col], 63)] : 0) +
-                      (isn ? n_pen : 0) + (oob ? H2_OOB_PEN : 0);
+      const int mmq = mm_raw ? mm_pen[min(qs[col], 63)] : 0;
+      const int base = (isn ? n_pen : 0) + (oob ? H2_OOB_PEN : 0);
+      const int pen = mmq + base;
       ps += pen;
       pm += mm_raw ? 1 : 0;
       pr += pen > 0 ? 1 : 0;
       P[col + 1] = ps;
       Pm[col + 1] = pm;
       if (Pr) Pr[col + 1] = pr;
+      if (Pf) {
+        const int v1 = min(v1w[col], 3), v2 = min(v2w[col], 3);
+        const bool snp_ok = mm_raw && ((v1 != 0 && r == ((rc + v1) & 3)) ||
+                                       (v2 != 0 && r == ((rc + v2) & 3)));
+        pf += (snp_ok ? 0 : mmq) + base;
+        Pf[col + 1] = pf;
+      }
     }
     if (!s.bl) continue;
     int* bl = s.bl + (size_t)c * X1;

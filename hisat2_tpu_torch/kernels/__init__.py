@@ -49,8 +49,14 @@ class Kernel:
         self.launches = 0
 
     def launch(self, *args, stream):
+        """Launch on `stream` (stream_of's torch.cuda.Stream) with its
+        device selected: the C entry point's runtime calls (the shared
+        memory attribute, the launch, cudaGetLastError) act on the
+        current device, so a launch for cuda:1 must not run while cuda:0
+        is current."""
         fn = getattr(load(), self.symbol)
-        err = fn(*args, stream)
+        with torch.cuda.device(stream.device):
+            err = fn(*args, stream.cuda_stream)
         if err != 0:
             raise RuntimeError(
                 f"{self.name}: CUDA launch failed with error {err} "
@@ -106,7 +112,7 @@ KERNELS = {k.name: k for k in (
            "hisat2_tpu/ops/rescue.py:25 rescue_candidates (the one-hot "
            "cross-correlation and top_k, :39-59)"),
     Kernel("pair_sweep", "h2_pair_sweep",
-           [_P] * 10 + [_LL] + [_I] * 22 + [_P] * 3 + [_P],
+           [_P] * 10 + [_LL] + [_I] * 22 + [_P, _P, _I] + [_P] * 3 + [_P],
            "hisat2_tpu_torch/csrc/pair_sweep.cu",
            "hisat2_tpu/ops/splice.py:300 pair_sweep (+ :1318 select_pairs, "
            "align/pipeline.py:1389-1396 base pairs)"),
@@ -116,7 +122,8 @@ KERNELS = {k.name: k for k in (
            "hisat2_tpu/ops/splice.py:1107 second_sweep (+ :192 "
            "table_searchsorted)"),
     Kernel("inject_known", "h2_inject_known",
-           [_P] * 21 + [_I] * 3 + [_LL] + [_I] * 8 + [_P] + [_P],
+           [_P] * 21 + [_I] * 3 + [_P] * 4 + [_LL] + [_I] * 10 + [_P]
+           + [_P],
            "hisat2_tpu_torch/csrc/inject_known.cu",
            "hisat2_tpu/ops/splice.py:629 inject_known (+ :192 "
            "table_searchsorted, ops/extend.py:124 live_pen_prefix)"),
@@ -226,9 +233,10 @@ def load():
     return _lib
 
 
-def stream_of(t) -> int:
-    """PyTorch's current CUDA stream on t's device, as a pointer value."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+def stream_of(t):
+    """PyTorch's current CUDA stream on t's device (Kernel.launch passes
+    its pointer value and selects its device)."""
+    return torch.cuda.current_stream(t.device)
 
 
 def check_cuda(name, t, dtype, shape=None):

@@ -17,10 +17,11 @@ The spliced slice (splice.py:192-626, :1107-1331):
   table_searchsorted  the sorted site-table lookup (:192); on the card a
                  device function of K15 and K16 (csrc/site_search.cuh)
 Each wrapper takes the windows, reads and quals (the kernels build the
-penalty planes themselves and never write them to device memory); its
-`*_ref` twin takes the same arguments, builds the planes with
-ops/extend.py:pen_planes and runs the `*_plain` port of the JAX function,
-line by line.  The intron-length penalty is a host-built step table
+penalty planes themselves and never write them to device memory), and on
+a graph index K13 and K16 also the SNV-plane windows (K16 the packed SNV
+planes too); its `*_ref` twin takes the same arguments, builds the planes
+with ops/extend.py:pen_planes and runs the `*_plain` port of the JAX
+function, line by line.  The intron-length penalty is a host-built step table
 (`lenpen_table`), so that no device `logf` decides a step.
 
 The PWM priors, `junction_prob_tables` and `probscore_host` are numpy,
@@ -1028,13 +1029,16 @@ def second_sweep_plain(ch, pen_spl, mm_raw, starts, valid, lens, minsc,
 
 def inject_known_plain(ref_words, n_text: int, reads, quals, lens, rdids,
                        starts, valid, P_raw, tabs, mm_pen, n_pen: int, minsc,
-                       slots: int, src_clip_l, src_clip_r, clip_pen):
-    """Plain twin of K16 (splice.py:629 inject_known, line by line, on a
-    linear index: no SNV planes, and always with the source clips, so the
-    source totals and mismatch prefixes it takes are not read).  tabs:
-    SpliceSiteDB.device_tables; P_raw: the penalty prefixes of the source
-    diagonals [N, C, L+1].  The donor-coverage gate is always on.  Returns
-    a dict of [N, 2*C*slots] arrays with `src`."""
+                       slots: int, src_clip_l, src_clip_r, clip_pen,
+                       snv_delta1=None, snv_delta2=None):
+    """Plain twin of K16 (splice.py:629 inject_known, line by line, always
+    with the source clips, so the source totals and mismatch prefixes it
+    takes are not read).  tabs: SpliceSiteDB.device_tables; P_raw: the
+    penalty prefixes of the source diagonals [N, C, L+1], SNV-forgiving on
+    a graph index as pipeline.py:1117-1120 passes them; snv_delta1/2: the
+    packed SNV planes, which forgive catalog SNVs on the fresh diagonal
+    (None on a linear index).  The donor-coverage gate is always on.
+    Returns a dict of [N, 2*C*slots] arrays with `src`."""
     from . import extend as extend_ops
     i32 = torch.int32
     dev = reads.device
@@ -1080,7 +1084,7 @@ def inject_known_plain(ref_words, n_text: int, reads, quals, lens, rdids,
     x_m1 = torch.clamp(x_all - 1, min=0)
     tot_f, tot_fm, ppfx = extend_ops.live_pen_prefix_plain(
         ref_words, n_text, reads, quals, lens, mm_pen, n_pen, fresh, ok_all,
-        [x_all, x_m1])
+        [x_all, x_m1], snv_delta1=snv_delta1, snv_delta2=snv_delta2)
     (pf_x, pfm_x), (pf_xm1, _) = ppfx
     src64 = src.to(torch.int64)
     P_src = P_raw.gather(1, src64[:, :, None].expand(N, J, P_raw.shape[2]))
@@ -1169,22 +1173,28 @@ def lenpen_device(prm: SpliceParams, device):
 
 
 def _planes(n_text, reads, quals, lens, starts, valid, mm_pen, n_pen, ch,
-            margin):
+            margin, snv1_w=None, snv2_w=None):
+    """pen_planes of the candidates' windows; on a graph index, with the
+    SNV-plane windows, `pen` forgives catalog SNVs and `pen_raw` does not
+    (pipeline.py:1017-1024)."""
     from . import extend as extend_ops
     mstart = torch.where(valid, starts, -1).to(torch.int32)
     return extend_ops.pen_planes(n_text, reads, quals, lens, mstart, mm_pen,
-                                 n_pen, ch, margin)
+                                 n_pen, ch, margin, snv1_w, snv2_w)
 
 
 def pair_sweep_ref(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
                    n_pen: int, n_text: int, prm: SpliceParams, lenpen,
-                   max_gap: int, margin: int, top: int = 4):
+                   max_gap: int, margin: int, top: int = 4, snv1_w=None,
+                   snv2_w=None):
     """K13 + K14 in plain torch, with the kernel's arguments: the penalty
-    planes from the windows (pipeline.py:1017), pair_sweep_plain,
+    planes from the windows (pipeline.py:1017), pair_sweep_plain with the
+    raw plane for splice joins and the SNV-forgiving one for indel joins
+    (pipeline.py:1084-1089; they are equal without SNV windows),
     select_pairs_plain and the raw base pairs.  lenpen: lenpen_device.
     Returns (pair result dict, selected top dict, base pairs [N, 2])."""
     pl = _planes(n_text, reads, quals, lens, starts, valid, mm_pen, n_pen,
-                 ch, margin)
+                 ch, margin, snv1_w, snv2_w)
     lp = lenpen[0]
     res = pair_sweep_plain(ch, pl.pen_raw, pl.pen, pl.mm_raw, starts, valid,
                            lens, minsc, prm, lp[0], lp[1], max_gap=max_gap)
@@ -1193,7 +1203,7 @@ def pair_sweep_ref(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
 
 
 def _check_step_inputs(name, ch, reads, quals, lens, starts, valid, minsc,
-                       mm_pen):
+                       mm_pen, snv1_w=None, snv2_w=None):
     i32 = torch.int32
     N, C, W = ch.shape
     L = reads.shape[1]
@@ -1203,13 +1213,19 @@ def _check_step_inputs(name, ch, reads, quals, lens, starts, valid, minsc,
                        ("mm_pen", mm_pen, (64,))):
         kernels.check_cuda(nm, t, i32, shp)
     kernels.check_cuda("valid", valid, torch.bool, (N, C))
+    snv = snv1_w is not None
+    if snv:
+        kernels.check_cuda("snv1_w", snv1_w, i32, (N, C, W))
+        kernels.check_cuda("snv2_w", snv2_w, i32, (N, C, W))
     M = (W - L) // 2
     if L > 512 or M < 16 or W != L + 2 * M or C > 32:
         raise ValueError(f"{name}: needs L <= 512, a margin of at least 16 "
                          "and C <= 32")
     # the lane's planes in shared memory (csrc/splice_planes.cuh:
-    # sp_smem_bytes, and the pair sweep's per-pair arrays)
-    need = C * (L + 1) * 38 + 400 + (6 * C * C + C) * 4 + 64
+    # sp_smem_bytes, with the SNV-forgiving prefix on a graph index, and
+    # the pair sweep's per-pair arrays)
+    need = (C * (L + 1) * (42 if snv else 38) + 400
+            + (6 * C * C + C) * 4 + 64)
     if need > SMEM_PER_BLOCK:
         raise ValueError(f"{name}: {C} candidates of {L} bp need {need} "
                          f"bytes of shared memory, above the "
@@ -1222,15 +1238,18 @@ def _pwm_dev(device):
 
 def pair_sweep(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
                n_pen: int, n_text: int, prm: SpliceParams, lenpen,
-               max_gap: int, margin: int, top: int = 4):
+               max_gap: int, margin: int, top: int = 4, snv1_w=None,
+               snv2_w=None):
     """K13 + K14 (csrc/pair_sweep.cu) on CUDA tensors, pair_sweep_ref on
-    CPU tensors."""
+    CPU tensors.  snv1_w / snv2_w: the SNV-plane windows of the candidates
+    on a graph index (None on a linear one)."""
     if not ch.is_cuda:
         return pair_sweep_ref(ch, reads, quals, lens, starts, valid, minsc,
                               mm_pen, n_pen, n_text, prm, lenpen, max_gap,
-                              margin, top)
+                              margin, top, snv1_w, snv2_w)
     _check_step_inputs("pair_sweep", ch, reads, quals, lens, starts, valid,
-                       minsc, mm_pen)
+                       minsc, mm_pen, snv1_w, snv2_w)
+    use_snv = snv1_w is not None
     i32 = torch.int32
     dev = ch.device
     N, C, W = ch.shape
@@ -1250,6 +1269,8 @@ def pair_sweep(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
         prm.min_intron, prm.max_intron, prm.pen_can, prm.pen_noncan,
         prm.min_anchor, prm.min_anchor_noncan, prm.rd_gap_open,
         prm.rd_gap_ext, prm.rf_gap_open, prm.rf_gap_ext, top,
+        (snv1_w if use_snv else ch).data_ptr(),
+        (snv2_w if use_snv else ch).data_ptr(), int(use_snv),
         res.data_ptr(), sel.data_ptr(), bsel.data_ptr(),
         stream=kernels.stream_of(ch))
     out = dict(zip(("score", "x", "kind", "spldir", "splscore", "raw"),
@@ -1342,30 +1363,36 @@ def second_sweep(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
 def inject_known_ref(ref_words, n_text: int, reads, quals, lens, rdids,
                      starts, valid, ch, margin: int, tabs, mm_pen,
                      n_pen: int, minsc, slots: int, src_clip_l, src_clip_r,
-                     clip_pen):
+                     clip_pen, snv1_w=None, snv2_w=None, snv_delta1=None,
+                     snv_delta2=None):
     """K16 in plain torch with the kernel's arguments: the source prefixes
-    from the windows' penalty planes (pipeline.py:1103-1120), then
-    inject_known_plain."""
+    from the windows' SNV-forgiving penalty planes (pipeline.py:1103-1120;
+    the raw plane on a linear index), then inject_known_plain."""
     pl = _planes(n_text, reads, quals, lens, starts, valid, mm_pen, n_pen,
-                 ch, margin)
+                 ch, margin, snv1_w, snv2_w)
     return inject_known_plain(ref_words, n_text, reads, quals, lens, rdids,
                               starts, valid, _prefix(pl.pen, lens)[0], tabs,
                               mm_pen, n_pen, minsc, slots, src_clip_l,
-                              src_clip_r, clip_pen)
+                              src_clip_r, clip_pen, snv_delta1, snv_delta2)
 
 
 def inject_known(ref_words, n_text: int, reads, quals, lens, rdids, starts,
                  valid, ch, margin: int, tabs, mm_pen, n_pen: int, minsc,
-                 slots: int, src_clip_l, src_clip_r, clip_pen):
+                 slots: int, src_clip_l, src_clip_r, clip_pen, snv1_w=None,
+                 snv2_w=None, snv_delta1=None, snv_delta2=None):
     """K16 (csrc/inject_known.cu) on CUDA tensors, inject_known_ref on CPU
     tensors.  starts/valid: the core candidates [N, C]; ch their windows
     (margin); tabs: SpliceSiteDB.device_tables; src_clip_l/_r: the
-    ungapped extension's clips of the candidates."""
+    ungapped extension's clips of the candidates.  On a graph index:
+    snv1_w / snv2_w the candidates' SNV-plane windows (the source side)
+    and snv_delta1/2 the packed SNV planes (the fresh side); None on a
+    linear index."""
     if not reads.is_cuda:
         return inject_known_ref(ref_words, n_text, reads, quals, lens, rdids,
                                 starts, valid, ch, margin, tabs, mm_pen,
                                 n_pen, minsc, slots, src_clip_l, src_clip_r,
-                                clip_pen)
+                                clip_pen, snv1_w, snv2_w, snv_delta1,
+                                snv_delta2)
     i32 = torch.int32
     N, C, W = ch.shape
     L = reads.shape[1]
@@ -1379,6 +1406,17 @@ def inject_known(ref_words, n_text: int, reads, quals, lens, rdids, starts,
                        ("src_clip_r", src_clip_r, (N, C))):
         kernels.check_cuda(nm, t, i32, shp)
     kernels.check_cuda("valid", valid, torch.bool, (N, C))
+    use_snv = snv1_w is not None
+    if use_snv != (snv_delta1 is not None):
+        raise ValueError("inject_known: the SNV windows and the SNV planes "
+                         "go together")
+    if use_snv:
+        for nm, t, shp in (("snv1_w", snv1_w, (N, C, W)),
+                           ("snv2_w", snv2_w, (N, C, W)),
+                           ("snv_delta1", snv_delta1, None),
+                           ("snv_delta2", snv_delta2,
+                            tuple(snv_delta1.shape))):
+            kernels.check_cuda(nm, t, i32, shp)
     if W != L + 2 * margin or L > 1024:
         raise ValueError("inject_known: windows must be L + 2*margin wide "
                          "and L <= 1024")
@@ -1389,9 +1427,14 @@ def inject_known(ref_words, n_text: int, reads, quals, lens, rdids, starts,
         lens.data_ptr(), rdids.data_ptr(), starts.data_ptr(),
         valid.data_ptr(), ch.data_ptr(), mm_pen.data_ptr(),
         clip_pen.data_ptr(), minsc.data_ptr(), src_clip_l.data_ptr(),
-        src_clip_r.data_ptr(), *_site_args(tabs), n_text,
-        ref_words.shape[0], N, C, L, W, margin, slots, n_pen,
-        res.data_ptr(), stream=kernels.stream_of(reads))
+        src_clip_r.data_ptr(), *_site_args(tabs),
+        *(t.data_ptr() for t in ((snv1_w, snv2_w, snv_delta1, snv_delta2)
+                                 if use_snv else (ch, ch, ref_words,
+                                                  ref_words))),
+        n_text, ref_words.shape[0],
+        snv_delta1.shape[0] if use_snv else 0, int(use_snv), N, C, L, W,
+        margin, slots, n_pen, res.data_ptr(),
+        stream=kernels.stream_of(reads))
     out = dict(zip(("score", "d1", "d2", "x", "kind", "spldir", "clip_l",
                     "clip_r", "src"), res.unbind(0)))
     out["splscore"] = torch.zeros((N, J), dtype=_F32, device=reads.device)

@@ -62,6 +62,8 @@ def test_port_runs_with_jax_and_hisat2_tpu_blocked(tmp_path):
     mods = sorted(m.name for m in pkgutil.walk_packages(
         hisat2_tpu_torch.__path__, "hisat2_tpu_torch."))
     assert len(mods) > 35
+    assert {f"hisat2_tpu_torch.parallel.{m}" for m in
+            ("mesh", "multihost", "dryrun")} <= set(mods)
     for name in ("mm3", "gdna", "pe"):
         with gzip.open(f"{DATA}/{name}_genome.fa.gz", "rb") as f:
             (tmp_path / f"{name}.fa").write_bytes(f.read())

@@ -3,7 +3,10 @@ card, and the whole device step on the card against the step on the CPU,
 on a linear and on a graph index (lite and full pass); the mate-rescue
 window kernel (K12) on long mates, tied windows and windows past the text;
 the spliced kernels (K13-K17 on both spliced steps' intermediates, K18 on
-a 4096-row table set) and both spliced steps against the CPU.
+a 4096-row table set) and both spliced steps against the CPU; on the gss
+SNP + splice-site index at k = 10, K13 and K16 with their SNV inputs and
+both spliced graph steps, and a two-shard index with one shard on the CPU
+(shard_devices=["cuda:0", "cpu"]) against both shards on the card.
 Needs a CUDA device; skips without one.  On a machine without JAX run it as
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
@@ -630,3 +633,138 @@ def test_sampled_two_shard_steps_on_card_match_cpu(card):
             for (hg, ev), (wg, _) in zip(got, want):
                 ev.synchronize()
                 _eq(hg, wg, f"spliced={spliced} lite={ka.lite} step")
+
+
+def _gss_index(shard_bp=None):
+    """The gss corpus's SNP + splice-site index (tests/data/make_gss.py),
+    one shard or two at off_rate 4, and its chromosomes."""
+    import gzip
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+    lut = np.full(256, 4, np.uint8)
+    for i, c in enumerate("ACGT"):
+        lut[ord(c)] = i
+    chroms = []
+    with gzip.open(os.path.join(data, "gss_genome.fa.gz"), "rt") as f:
+        for line in f:
+            if line.startswith(">"):
+                chroms.append((line[1:].strip(), []))
+            else:
+                chroms[-1][1].append(line.strip())
+    chroms = [(n, lut[np.frombuffer("".join(v).encode(), np.uint8)])
+              for n, v in chroms]
+    kw = dict(shard_bp=shard_bp, off_rate=4) if shard_bp else {}
+    idx = build_fm_index(chroms, **kw)
+    attach_variants(idx, snp_file=os.path.join(data, "gss.snp"),
+                    ss_file=os.path.join(data, "gss.ss"))
+    return idx, chroms, data
+
+
+def _gss_reads(chroms, data, L, n, seed):
+    """n junction reads of L bp over the corpus's introns (the .ss file's
+    and the novel ones between them), carrying every catalog SNV they
+    cover, half reverse-complemented."""
+    rng = np.random.default_rng(seed)
+    snv = {}
+    with open(os.path.join(data, "gss.snp")) as f:
+        for line in f:
+            p = line.split()
+            if p[1] == "single":
+                snv.setdefault(p[2], []).append((int(p[3]), "ACGT".index(
+                    p[4])))
+    # the corpus's introns: start 2500 + 4700 k, the .ss lengths
+    lens = (80, 150, 300, 600, 1200, 4000)
+    introns = [(2500 + 4700 * k, lens[k % 6]) for k in range(12)]
+    codes = np.zeros((n, L), np.uint8)
+    for i in range(n):
+        name, g = chroms[i % 2]
+        s, ln = introns[int(rng.integers(0, len(introns)))]
+        x = int(rng.integers(20, L - 20))
+        pos = np.r_[s - x:s, s + ln:s + ln + L - x]
+        r = g[pos].copy()
+        for p, alt in snv.get(name, ()):
+            hit = np.flatnonzero(pos == p)
+            r[hit] = alt
+        if i % 2:
+            r = (3 - r)[::-1]
+        codes[i] = r
+    return codes, rng.integers(10, 41, (n, L)).astype(np.uint8), \
+        np.full(n, L, np.int32)
+
+
+@pytest.fixture(scope="module")
+def gss_card(card):
+    """The spliced graph aligner at k = 10 (config 6's shape on one shard)
+    on the card and on the CPU, with 100 and 150 bp junction reads."""
+    from hisat2_tpu_torch.align.pipeline import TorchAligner
+    idx, chroms, data = _gss_index()
+    kw = dict(variants=idx._variants, spliced=True, k=10, lane_meta=True)
+    al = TorchAligner(idx, device="cuda", **kw)
+    cpu = TorchAligner(idx, device="cpu", **kw)
+    return al, cpu, {L: _gss_reads(chroms, data, L, 512, L)
+                     for L in (100, 150)}
+
+
+@pytest.mark.parametrize("L", [100, 150])
+def test_spliced_graph_kernels_match_plain_on_card(gss_card, L):
+    """K13+K14 and K16 with their SNV inputs (and every other kernel of
+    the spliced graph steps) on the real intermediates of the lite and
+    full step at k = 10 (C = 19), against their plain twins."""
+    from hisat2_tpu_torch.ops import kernel_twins
+    twins = kernel_twins()
+    al, _, batches = gss_card
+    codes, quals, lens = batches[L]
+    for a in (al._fast, al):
+        rd, ss = a._step_site_args(np.arange(len(lens)) + 7)
+        cap = {}
+        a.step(*a.upload(codes, quals, lens, a._minsc(lens)), True,
+               capture=cap, rdids=rd, ss=ss)
+        assert cap["inject_known"]["snv1_w"] is not None
+        if not a.lite:
+            assert cap["pair_sweep"]["snv1_w"] is not None
+            assert cap["pair_sweep"]["starts"].shape[1] == 19
+        for name in sorted(cap):
+            kern, plain = twins[name]
+            ko = _flat_list(kern(**cap[name]))
+            po = _flat_list(plain(**cap[name]))
+            assert len(ko) == len(po)
+            for x, y in zip(ko, po):
+                _cmp(x, y, name)
+
+
+def test_spliced_graph_step_on_card_matches_cpu(gss_card):
+    al, cpu, batches = gss_card
+    for L, (codes, quals, lens) in batches.items():
+        for a, c in ((al._fast, cpu._fast), (al, cpu)):
+            rdids = np.arange(len(lens), dtype=np.int64) + 11
+            rd, ss = a._step_site_args(rdids)
+            rdc, ssc = c._step_site_args(rdids)
+            minsc = a._minsc(lens)
+            bk = a.step(*a.upload(codes, quals, lens, minsc), True,
+                        rdids=rd, ss=ss)
+            bp = c.step(*c.upload(codes, quals, lens, minsc), True,
+                        rdids=rdc, ss=ssc)
+            _eq(bk, bp, f"spliced graph step L={L} lite={a.lite}")
+
+
+def test_mixed_shard_devices_on_card(card):
+    """shard_devices=["cuda:0", "cpu"]: shard 1 runs its plain twins on the
+    CPU where the caller placed it; the spliced graph run on the two-shard
+    gss index equals the run with both shards on cuda:0."""
+    from hisat2_tpu_torch.align.pipeline import TorchAligner
+    idx, chroms, data = _gss_index(shard_bp=61000)
+    assert len(idx.shards) == 2
+    codes, quals, lens = _gss_reads(chroms, data, 100, 256, 5)
+    res = {}
+    for place in (("cuda:0", "cpu"), ("cuda:0", "cuda:0")):
+        a = TorchAligner(idx, device="cuda", variants=idx._variants,
+                         spliced=True, k=10, shard_devices=list(place))
+        assert [str(d.device) for d in a.devs] == list(place)
+        assert a.shard_graph_dev[1]["snv1"].device.type == \
+            torch.device(place[1]).type
+        r = a.align_batch(codes, quals, lens)
+        res[place] = (r.raw["cols"], dict(a.splice_db.sites))
+    (c1, s1), (c2, s2) = res.values()
+    for x, y in zip(c1, c2):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    assert s1 == s2
+    assert len(np.unique(np.asarray(c1[0]))) >= 200

@@ -247,7 +247,10 @@ def test_dna_replay_never_reaches_probscore(aligners, monkeypatch):
     # spliced runs: unpaired ones run (tests/test_torch_spliced_cli.py);
     # spliced paired reads are refused
     (["-1", "M1", "-2", "M2"], "item 11"),
-    (["-U", "a.fa", "--no-spliced-alignment", "--n-hosts", "2"], "item 7"),
+    # multi-host runs (tests/test_torch_multihost.py runs both ranks):
+    # rank 1 of 2 aligns the batches it owns into its SAM shard
+    (["-U", "M1", "--no-spliced-alignment", "--n-hosts", "2", "--host-rank",
+      "1", "--batch-size", "4"], None),
     (["-1", "M1", "-2", "M2", "--no-spliced-alignment", "VAR"], None),
 ])
 def test_cli_refuses_unported_modes(tmp_path, capsys, extra, why):
@@ -278,6 +281,17 @@ def test_cli_refuses_unported_modes(tmp_path, capsys, extra, why):
         out = str(tmp_path / "pe.sam")
         assert main(["-x", base, "--device", "cpu", "-f", "-S", out,
                      "--quiet"] + extra) == 0
+        if "--n-hosts" in extra:
+            # rank 1 owns batch 1 of the three 4-read batches
+            with open(out + ".shard1") as f:
+                recs = [x.split("\t") for x in f]
+            with open(out + ".shard1.idx") as f:
+                assert f.read() == "4"
+            assert os.path.exists(out + ".shard1.done")
+            assert [r[0] for r in recs] == ["p4", "p5", "p6", "p7"]
+            assert all(int(r[1]) & 4 == 0 for r in recs)
+            assert not os.path.exists(out)
+            return
         with open(out) as f:
             flags = [int(x.split("\t")[1]) for x in f
                      if not x.startswith("@")]

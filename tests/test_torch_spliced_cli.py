@@ -232,13 +232,26 @@ def test_port_conflicting_splice_strands_dropped():
 
 
 def test_port_refuses_out_of_slice_modes(tmp_path):
-    """Spliced runs on a graph index raise with their ROADMAP item."""
-    from hisat2_tpu_torch.index.variants import attach_variants
+    """Spliced runs on a graph index, refused until the graph slice came,
+    now run: a spliced aligner on a one-SNV index builds and places a read
+    carrying the SNV's allele as hisat2_tpu does (its row and Zs tag)."""
+    from hisat2_tpu.align.pipeline import TPUAligner
+    from hisat2_tpu.index.builder import build_fm_index
+    from hisat2_tpu.index.variants import attach_variants
     g = _genome()[:30000]
-    idx = t_build_fm_index([("c1", g)])
+    alt = (int(g[5000]) + 1) % 4
+    idx = build_fm_index([("c1", g)])
     snp = tmp_path / "v.snp"
-    snp.write_text("rs1\tsingle\tc1\t5000\tA\n")
+    snp.write_text(f"rs1\tsingle\tc1\t5000\t{'ACGT'[alt]}\n")
     attach_variants(idx, snp_file=str(snp))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        TorchAligner(idx, variants=idx._variants, spliced=True,
-                     device="cpu")
+    ta = TorchAligner(idx, variants=idx._variants, spliced=True,
+                      device="cpu")
+    ja = TPUAligner(idx, variants=idx._variants, spliced=True)
+    read = g[4950:5050].copy()
+    read[50] = alt
+    a, b = _align_one(ja, read), _align_one(ta, read)
+    assert [str(x) for x in a] == [str(x) for x in b] and len(b) == 1
+    assert b[0].ref_pos == 4950 and b[0].score == 0
+    rd = read.astype(np.int32)
+    assert ta.annotate_snps(b[0], rd) == ja.annotate_snps(a[0], rd) == \
+        ("50|S|rs1", (50,))
