@@ -66,7 +66,10 @@ checks them:
             canonical single-junction reads with both anchors >= 20 bp at
             their true position with an N of the planted length (>= 95%),
             unmodified reads at their true position (>= 99%), launch
-            counts (K13-K18 > 0); then K13+K14, K15, K16 (lite and full),
+            counts (K13-K18 > 0, one K15 launch per K13 launch: both base
+            pairs of a full step in one); then K13+K14, K15, K16 (lite and
+            full; one full step launches K13 and K15 once each, and their
+            registers, shared memory and blocks per SM are printed),
             K17 on a whole 4096-read full step (8192 lanes) and K18 on the
             slice's first merge against their plain twins, the lite and
             full step against the CPU step, and the CLI on the nss round
@@ -431,10 +434,12 @@ def work(torch, name, kw, out):
         extra = 0
         ops = N * C * (Lr + 1) * 60 + N * C * C * (Lr + 2) * 25
     elif name == "second_sweep":
+        # one plane prologue, then four sides (two base pairs), ~30
+        # integer ops per cell each
         N, C, W = kw["ch"].shape
         Lr = kw["reads"].shape[1]
         extra = 0
-        ops = N * C * (Lr + 1) * (60 + 2 * 30)
+        ops = N * C * (Lr + 1) * (60 + 4 * 30)
     elif name == "inject_known":
         N, C, W = kw["ch"].shape
         Lr = kw["reads"].shape[1]
@@ -540,6 +545,22 @@ def flat_outputs(x):
     if isinstance(x, (tuple, list)):
         return [v for e in x for v in flat_outputs(e)]
     return [x]
+
+
+def launch_shape(splice, name, kw):
+    """K13's or K15's launch on these arguments, as the CUDA runtime
+    reports it."""
+    N, C, W = kw["ch"].shape
+    Lr = kw["reads"].shape[1]
+    LP = kw["lenpen"][1].shape[1]
+    snv = kw.get("snv1_w") is not None
+    info = splice.sweep_launch_info(name, C, Lr, W, LP, snv)
+    check(info["blocks_per_sm"] >= 1, f"{name}: no block fits an SM")
+    return (f"C = {C}, L = {Lr}{', SNV windows' if snv else ''}: "
+            f"{info['regs']} registers, {info['smem']} + "
+            f"{info['static_smem']} bytes of shared memory per block, "
+            f"{info['threads']} threads, {info['blocks_per_sm']} blocks per "
+            f"SM")
 
 
 def compare(torch, name, kern, plain, kw):
@@ -822,6 +843,9 @@ def spliced_phase(torch, np, g, index, kernels, twins, driver,
     for name in SPLICED_KERNELS:
         check(launches[name] > 0, f"{name} never launched on the spliced "
               f"path")
+    check(launches["second_sweep"] == launches["pair_sweep"],
+          f"K15 launched {launches['second_sweep']} times over "
+          f"{launches['pair_sweep']} spliced full steps (one each)")
     path_launches["spliced"] = launches
     merge_kw = sal.splice_db.capture.get("merge_sites")
     check(merge_kw is not None, "no incremental site merge in the slice")
@@ -836,9 +860,18 @@ def spliced_phase(torch, np, g, index, kernels, twins, driver,
     for tier, a in (("lite", sal._fast), ("full", sal)):
         rd_t, ss = a._step_site_args(rdids)
         cap = {}
+        c0 = kernels.counts()
         a.step(*a.upload(codes, quals, lens, minsc), uniform, capture=cap,
                rdids=rd_t, ss=ss)
         caps[tier] = cap
+        c1 = kernels.counts()
+        n13, n15 = (c1[k] - c0[k] for k in ("pair_sweep", "second_sweep"))
+        check((n13, n15) == ((0, 0) if tier == "lite" else (1, 1)),
+              f"the spliced {tier} step launched K13 {n13} and K15 {n15} "
+              f"times")
+    for name in ("pair_sweep", "second_sweep"):
+        print(f"[spliced kernels] {name} launch: "
+              f"{launch_shape(splice, name, caps['full'][name])}")
     check("search_lanes_live" in caps["full"]
           and caps["full"]["search_lanes_live"]["reads"].shape[0] > 2048,
           "the full step's re-search is not in lane-list mode")
@@ -992,6 +1025,7 @@ def true_place(np, res, start, rc, n_reads):
 def genome_phase(torch, np, kernels, twins, driver, read_alignments,
                  TorchAligner, rows, bounds, path_launches, card, env):
     """Phase 11 (see the module docstring): genome scale on the card."""
+    from hisat2_tpu_torch.ops import splice
     from hisat2_tpu_torch.index import (FMIndex, ShardedFMIndex,
                                         attach_variants, build_fm_index)
     t_ph = time.perf_counter()
@@ -1269,19 +1303,17 @@ def genome_phase(torch, np, kernels, twins, driver, read_alignments,
               f"inputs")
         replay(scap, f"genome_c6_{tier}")
         if tier == "full":
-            kw = scap["pair_sweep"]
-            Cc = kw["starts"].shape[1]
-            smem = (Cc * (L + 1) * 42 + 96 * 4 + 16
-                    + (6 * Cc * Cc + Cc) * 4 + 64)
-            bounds["pair_sweep_c6"] = work(torch, "pair_sweep", kw,
-                                           twins["pair_sweep"][0](**kw))
-            print(f"[genome config6] K13 at k = 10: C = {Cc} core "
-                  f"diagonals, {smem} bytes of shared memory per block "
-                  f"(SNV-forgiving prefix included); kernel "
-                  f"{rows['pair_sweep']['genome_c6_full_ms']:.4f} ms on "
-                  f"{kw['starts'].shape[0]} lanes, bound "
-                  f"{bounds['pair_sweep_c6'][0]:.4f} ms "
-                  f"({bounds['pair_sweep_c6'][1]})")
+            for name in ("pair_sweep", "second_sweep", "indel_sweep"):
+                kw = scap[name]
+                bounds[name + "_c6"] = work(torch, name, kw,
+                                            twins[name][0](**kw))
+                shape = (f" ({launch_shape(splice, name, kw)})"
+                         if name != "indel_sweep" else "")
+                print(f"[genome config6] {name} at k = 10{shape}: kernel "
+                      f"{rows[name]['genome_c6_full_ms']:.4f} ms on "
+                      f"{kw['starts'].shape[0]} lanes, bound "
+                      f"{bounds[name + '_c6'][0]:.4f} ms "
+                      f"({bounds[name + '_c6'][1]})")
     # (b) continued: the config-6 lite and full step of shard 1 against
     # the CPU (a 1024-read batch)
     t0 = time.perf_counter()
@@ -1365,6 +1397,9 @@ def genome_phase(torch, np, kernels, twins, driver, read_alignments,
     for name in ("resolve_walk", "pair_sweep", "inject_known",
                  "second_sweep", "inject_indels"):
         check(slaunch[name] > 0, f"config 6: {name} never launched")
+    check(slaunch["second_sweep"] == slaunch["pair_sweep"],
+          f"config 6: K15 launched {slaunch['second_sweep']} times over "
+          f"{slaunch['pair_sweep']} spliced full steps (one each)")
     path_launches["genome_spliced"] = slaunch
     # the device's busy share of one more batch through the same entry
     # points, under torch.profiler (kernel time summed over the batch's

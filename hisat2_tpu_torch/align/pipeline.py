@@ -625,47 +625,48 @@ class TorchAligner(HostPhase):
     def _second_junctions(self, call, res, bsel, ch, ar, aq, al, am, cstart,
                           cvalid, margin, ss, rd2, n_text):
         """The second-junction composites off the top-2 raw base pairs
-        (pipeline.py:1376-1445): K15 once per base pair, then the
-        3-junction composite of its ungated sides."""
+        (pipeline.py:1376-1445): one K15 launch for both base pairs, then
+        the 3-junction composite of each pair's ungated sides."""
         N, Cc = cstart.shape
         params, lenpen = self._params_on(ar.device)
+        bflat = bsel.to(torch.int64).t()                 # [2, N]: q2, r2
+        b_i = (bflat // Cc).to(_I32)
+        b_j = (bflat % Cc).to(_I32)
+
+        def gpair(a):
+            return a.reshape(N, Cc * Cc).gather(1, bflat.t()).t()
+
+        b_score = gpair(res["raw"])
+        b_x = gpair(res["x"])
+        b_kind = gpair(res["kind"])
+        b_dir = gpair(res["spldir"])
+        b_ok = (b_score > -(2 ** 29)) & (b_kind != splice_ops.KIND_NONE)
+        sides = call("second_sweep", splice_ops.second_sweep, ch=ch,
+                     reads=ar, quals=aq, lens=al, starts=cstart,
+                     valid=cvalid.contiguous(), minsc=am,
+                     mm_pen=params["mm_pen"], n_pen=self.scoring.n_pen,
+                     n_text=n_text, prm=self.splice_params, lenpen=lenpen,
+                     margin=margin, b_i=b_i.contiguous(),
+                     b_j=b_j.contiguous(), b_x=b_x.contiguous(),
+                     b_score=b_score.contiguous(), b_valid=b_ok.contiguous(),
+                     ss=ss, rdids=rd2)
         out = {}
         for t, (pfx2, pfx3) in enumerate((("q2_", "q3_"), ("r2_", "r3_"))):
-            bflat = bsel[:, t].to(torch.int64)
-            b_i = (bflat // Cc).to(_I32)
-            b_j = (bflat % Cc).to(_I32)
-
-            def gpair(a):
-                return a.reshape(N, Cc * Cc).gather(1, bflat[:, None])[:, 0]
-
-            b_score = gpair(res["raw"])
-            b_x = gpair(res["x"])
-            b_kind = gpair(res["kind"])
-            b_ok = (b_score > -(2 ** 29)) & (b_kind != splice_ops.KIND_NONE)
-            q2 = call("second_sweep", splice_ops.second_sweep, ch=ch,
-                      reads=ar, quals=aq, lens=al, starts=cstart,
-                      valid=cvalid.contiguous(), minsc=am,
-                      mm_pen=params["mm_pen"], n_pen=self.scoring.n_pen,
-                      n_text=n_text, prm=self.splice_params,
-                      lenpen=lenpen, margin=margin,
-                      b_i=b_i.contiguous(), b_j=b_j.contiguous(),
-                      b_x=b_x.contiguous(), b_score=b_score.contiguous(),
-                      b_valid=b_ok.contiguous(), ss=ss, rdids=rd2)
-            lu, ru = q2["left"], q2["right"]
+            lu, ru = sides[t]["left"], sides[t]["right"]
             q3_sc = wrap_i32(lu["uscore"].to(torch.int64) + ru["uscore"]
-                             - b_score)
+                             - b_score[t])
             q3_ok = ((lu["uscore"] > -(2 ** 29)) & (ru["uscore"] > -(2 ** 29))
-                     & b_ok & (q3_sc >= am))
+                     & b_ok[t] & (q3_sc >= am))
             q3_sc = torch.where(q3_ok, q3_sc, -(2 ** 30)).to(_I32)
             st = lambda k: torch.stack([ru[k], lu[k]], 1).to(_I32)  # noqa
             out.update({
                 pfx2 + "score": st("score"), pfx2 + "d": st("d"),
                 pfx2 + "x": st("x"), pfx2 + "dir": st("dir"),
-                pfx2 + "bd1": cstart.gather(1, b_i[:, None].long())[:, 0],
-                pfx2 + "bd2": cstart.gather(1, b_j[:, None].long())[:, 0],
-                pfx2 + "bx": b_x, pfx2 + "bkind": b_kind,
-                pfx2 + "bdir": gpair(res["spldir"]),
-                pfx2 + "bknown": torch.zeros_like(b_x),
+                pfx2 + "bd1": cstart.gather(1, b_i[t][:, None].long())[:, 0],
+                pfx2 + "bd2": cstart.gather(1, b_j[t][:, None].long())[:, 0],
+                pfx2 + "bx": b_x[t], pfx2 + "bkind": b_kind[t],
+                pfx2 + "bdir": b_dir[t],
+                pfx2 + "bknown": torch.zeros_like(b_x[t]),
                 pfx3 + "score": q3_sc,
                 pfx3 + "ld": lu["ud"], pfx3 + "lx": lu["ux"],
                 pfx3 + "ldir": lu["udir"],

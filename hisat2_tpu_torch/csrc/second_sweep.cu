@@ -1,30 +1,40 @@
-// K15: the second-junction sweep of multi-exon reads.
+// K15: the second-junction sweep of multi-exon reads, both base pairs of
+// a spliced full step in one launch.
 //
 // Replaces hisat2_tpu/ops/splice.py:second_sweep (:1107) with the site
-// lookups of table_searchsorted (:192, site_search.cuh).  Plain twin:
-// hisat2_tpu_torch/ops/splice.py:second_sweep_ref.
+// lookups of table_searchsorted (:192, site_search.cuh), called once per
+// base pair by hisat2_tpu/align/pipeline.py:1389-1412 (the q2_ and r2_
+// pairs).  Plain twin: hisat2_tpu_torch/ops/splice.py:second_sweep_ref.
 //
-// One block per lane; the caller launches it once per base pair (the q2_
-// and r2_ pairs of align/pipeline.py:1389-1445).  The block builds the
-// lane's planes (splice_planes.cuh, without the budget bases), then sweeps
-// both sides in turn: right of (j0, x1), the inner diagonal j0 as donor
-// and every candidate diagonal as acceptor at x > x1; left of (i0, x1),
-// every diagonal as donor and i0 as acceptor at x < x1.  Per x the side's
-// two site-table candidates are looked up once (readid-gated) and kept in
-// shared memory; a cell (c, x) matching one is a known junction: free and
-// exempt from the gates.  Each thread folds its cells into two bests by
-// (classified direction and score, PWM probability, lowest flat index):
-// the minsc-gated set and the ungated "u" set; a block reduction merges
-// them.
+// One block per lane.  The planes depend on the lane alone, not on the
+// base pair, so the block builds them once (splice_planes.cuh, without
+// the budget bases), then sweeps four sides: for each base pair, right of
+// (j0, x1), the inner diagonal j0 as donor and every candidate diagonal
+// as acceptor at x > x1; left of (i0, x1), every diagonal as donor and i0
+// as acceptor at x < x1.  Every side's two site-table candidates per x
+// are looked up at once (readid-gated, 4 * (L+1) independent searches)
+// and kept in shared memory; a cell (c, x) matching one is a known
+// junction: free and exempt from the gates.  The per-(side, diagonal)
+// values (D, the splice gate, both length penalties, the PWM floor) are
+// tabled once.  Then a warp takes 32 columns of one diagonal and
+// evaluates each cell for all four sides (the inner diagonals' values at
+// those columns held in registers while the warp stays on them), folding
+// into two bests per side by (classified direction and score, PWM
+// probability, lowest flat index): the minsc-gated set and the ungated
+// "u" set; the gates are evaluated only where the cell can score (else
+// both keys are -1), and a cell with key -1 and probability 0 is not
+// folded (cell 0, always folded, dominates it).  A block reduction merges
+// them, one warp per (side, set).
 //
-// Bound: per lane 2 * C * (L+1) cells (about 2.8 k at C = 14, L = 100) of
-// shared-memory reads and integer compares, plus 2 * 2 * (L+1) site-table
-// binary searches; operations-bound, small beside K13.
+// Bound: per lane one plane prologue (C * (L+1) cells of class masks, PWM
+// products where a side is canonical, and prefix scans) and 4 * C *
+// (L+1) cells of shared-memory reads and integer compares, plus 4 * 2 *
+// (L+1) site-table binary searches; operations-bound on the CUDA cores.
 #include "site_search.cuh"
 #include "splice_planes.cuh"
 
 #define SS2_BIG (1 << 30)
-#define SS2_THREADS 256
+#define SS2_THREADS 256  // 8 warps: one per (side, set) in the final merge
 
 struct SecondArgs {
   const int* ch;
@@ -37,7 +47,7 @@ struct SecondArgs {
   const int* mm_pen;
   const float* pwm;
   const int* lp;
-  const int* b_i;
+  const int* b_i;      // [2, N] the base pairs: q2, then r2
   const int* b_j;
   const int* b_x;
   const int* b_score;
@@ -48,8 +58,19 @@ struct SecondArgs {
   long long n_text;
   int N, C, L, W, M, n_pen, LP, nlp_can, nlp_nc, min_intron, max_intron,
       pen_can, pen_noncan, min_anchor, min_anchor_noncan;
-  int* out;  // [2 sides, 8, N]: score d x dir uscore ud ux udir
+  int* out;  // [2 base pairs, 2 sides, 8, N]: score d x dir uscore ud ux udir
 };
+
+// the union region after the prologue: the four sides' site candidates
+__host__ __device__ inline size_t s2_post_bytes(int L) {
+  return (size_t)8 * (L + 1) * 5;
+}
+
+__host__ __device__ inline size_t s2_smem_bytes(int C, int L, int W,
+                                                int LP) {
+  SpOffsets o;
+  return sp_layout(C, L, W, LP, false, false, s2_post_bytes(L), &o);
+}
 
 __device__ __forceinline__ int s2_add(int a, int b) {
   return (int)((unsigned)a + (unsigned)b);
@@ -76,172 +97,216 @@ __device__ __forceinline__ void s2_warp_fold(S2Best& b) {
   }
 }
 
-__global__ void second_sweep_kernel(SecondArgs A) {
+__global__ void __launch_bounds__(SS2_THREADS, 3)
+second_sweep_kernel(SecondArgs A) {
   extern __shared__ __align__(16) char smem[];
-  __shared__ S2Best sRed[2][SS2_THREADS / 32];
+  // per side and candidate: D, splice gate, length penalties, PWM floor
+  __shared__ int tD[4][32], tLc[4][32], tLn[4][32];
+  __shared__ float tPth[4][32];
+  __shared__ uint8_t tSpl[4][32];
+  __shared__ S2Best sRed[8][SS2_THREADS / 32];
   const int n = blockIdx.x;
   const int C = A.C, L = A.L, X1 = L + 1;
   SpPlanes s;
-  float* pwm_s;
-  char* free_ = sp_carve(smem, C, L, false, s, &pwm_s);
-  int* sStart = (int*)free_;        // [C]
-  int* sK = sStart + C;             // [2][X1] site candidate value
-  uint8_t* sKm = (uint8_t*)(sK + 2 * X1);  // [2][X1] candidate usable
-  for (int k = threadIdx.x; k < 96; k += blockDim.x) pwm_s[k] = A.pwm[k];
-  for (int c = threadIdx.x; c < C; c += blockDim.x)
-    sStart[c] = A.starts[(size_t)n * C + c];
-  __syncthreads();
+  sp_carve(smem, C, L, A.W, A.LP, false, false, s2_post_bytes(L), s);
+  const int XS = s.XS, XSh = s.XSh, XSb = s.XSb;
+  sp_tables(s, A.pwm, A.lp, A.LP, A.starts + (size_t)n * C,
+            A.valid + (size_t)n * C, C);
   const int len = A.lens[n];
   const int minsc = A.minsc[n];
-  sp_build(s, pwm_s, A.ch + (size_t)n * C * A.W, A.reads + (size_t)n * L,
-           A.quals + (size_t)n * L, len, A.starts + (size_t)n * C,
-           A.valid + (size_t)n * C, A.n_text, A.mm_pen, A.n_pen, C, L, A.W,
-           A.M);
-  const uint8_t* vld = A.valid + (size_t)n * C;
-  const int bx = A.b_x[n], bsc = A.b_score[n];
-  const bool bval = A.b_valid[n] != 0;
+  SpLane in{A.ch + (size_t)n * C * A.W, nullptr, nullptr,
+            A.reads + (size_t)n * L, A.quals + (size_t)n * L, A.mm_pen, len,
+            A.n_pen, minsc, A.n_text};
+  sp_build(s, in, C, L, A.W, A.M);
+  int* sK = (int*)s.uni;                    // [4 sides][2][X1] site value
+  uint8_t* sKm = (uint8_t*)(sK + 8 * X1);   // [4][2][X1] candidate usable
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  for (int side = 0; side < 2; ++side) {   // 0 right, 1 left
-    const int inner = side == 0 ? A.b_j[n] : A.b_i[n];
-    const int istart = sStart[inner];
-    const int* Pin = s.P + (size_t)inner * X1;
-    const int* Pmin = s.Pm + (size_t)inner * X1;
-    const int tot_in = Pin[L];
-    const int mm_bx = (bx >= 0 && bx <= L) ? Pmin[bx] : INT_MIN;
-    if (A.use_ss) {
-      for (int x = threadIdx.x; x < X1; x += blockDim.x) {
-        const int rd = A.rdids[n];
-        const int pos = side == 0 ? s2_add(istart, x - 1) : s2_add(istart, x);
-        const int* tab = side == 0 ? A.st.kd : A.st.ka_s;
-        const int* oth = side == 0 ? A.st.ka : A.st.kd_s;
-        const int* rdt = side == 0 ? A.st.rdid : A.st.rdid_a;
-        const int* lob = side == 0 ? A.st.kd_lob : A.st.ka_lob;
-        const int lo = h2_table_searchsorted(tab, A.st.S, lob, A.st.NB,
-                                             A.st.shift, pos);
-        for (int t = 0; t < 2; ++t) {
-          const int ii = min(lo + t, A.st.S - 1);
-          const int srd = __ldg(rdt + ii);
-          const bool m = lo + t < A.st.S && __ldg(tab + ii) == pos &&
-                         (srd < 0 || srd < rd);
-          sK[t * X1 + x] = __ldg(oth + ii);
-          sKm[t * X1 + x] = m ? 1 : 0;
-        }
+  const int nwarp = blockDim.x >> 5;
+  const int LP = A.LP;
+  const size_t NN = (size_t)A.N;
+  // the four sides (base pair 0 right, 0 left, 1 right, 1 left): their
+  // inner diagonal, x1, base score, inner total and raw mismatches at x1
+  int cIn[4], cBx[4], cBsc[4], cTot[4], cMm[4];
+#pragma unroll
+  for (int cb = 0; cb < 4; ++cb) {
+    const size_t bo = (size_t)(cb >> 1) * NN + n;
+    const int inner = (cb & 1) == 0 ? A.b_j[bo] : A.b_i[bo];
+    const int bx = A.b_x[bo];
+    cIn[cb] = inner;
+    cBx[cb] = bx;
+    cBsc[cb] = A.b_score[bo];
+    cTot[cb] = s.P[inner * XS + L];
+    cMm[cb] = (bx >= 0 && bx <= L) ? s.Pm[inner * XSh + bx] : INT_MIN;
+  }
+  for (int t = threadIdx.x; t < 4 * C; t += blockDim.x) {
+    const int cb = t / C, c = t - cb * C;
+    const size_t bo = (size_t)(cb >> 1) * NN + n;
+    const int istart = s.start[(cb & 1) == 0 ? A.b_j[bo] : A.b_i[bo]];
+    const int D = (cb & 1) == 0
+        ? (int)((unsigned)s.start[c] - (unsigned)istart)
+        : (int)((unsigned)istart - (unsigned)s.start[c]);
+    tD[cb][c] = D;
+    tSpl[cb][c] = D >= A.min_intron && D <= A.max_intron && s.valid[c] &&
+                  A.b_valid[bo] != 0;
+    tLc[cb][c] = sp_lenpen(s.lp, s.lp + LP, A.nlp_can, D);
+    tLn[cb][c] = sp_lenpen(s.lp + 2 * LP, s.lp + 3 * LP, A.nlp_nc, D);
+    tPth[cb][c] = sp_pth(D);
+  }
+  // every side's two site-table candidates per x, looked up at once
+  if (A.use_ss) {
+    const int rd = A.rdids[n];
+    for (int t = threadIdx.x; t < 4 * X1; t += blockDim.x) {
+      const int cb = t / X1, x = t - cb * X1, side = cb & 1;
+      const size_t bo = (size_t)(cb >> 1) * NN + n;
+      const int istart = s.start[side == 0 ? A.b_j[bo] : A.b_i[bo]];
+      const int pos = side == 0 ? s2_add(istart, x - 1) : s2_add(istart, x);
+      const int* tab = side == 0 ? A.st.kd : A.st.ka_s;
+      const int* oth = side == 0 ? A.st.ka : A.st.kd_s;
+      const int* rdt = side == 0 ? A.st.rdid : A.st.rdid_a;
+      const int* lob = side == 0 ? A.st.kd_lob : A.st.ka_lob;
+      const int lo = h2_table_searchsorted(tab, A.st.S, lob, A.st.NB,
+                                           A.st.shift, pos);
+      for (int u = 0; u < 2; ++u) {
+        const int ii = min(lo + u, A.st.S - 1);
+        const int srd = __ldg(rdt + ii);
+        const bool m = lo + u < A.st.S && __ldg(tab + ii) == pos &&
+                       (srd < 0 || srd < rd);
+        sK[(2 * cb + u) * X1 + x] = __ldg(oth + ii);
+        sKm[(2 * cb + u) * X1 + x] = m ? 1 : 0;
       }
     }
-    __syncthreads();
-    S2Best bg{-2, -2.0f, INT_MAX}, bu{-2, -2.0f, INT_MAX};
-    for (int k = threadIdx.x; k < C * X1; k += blockDim.x) {
-      const int c = k / X1, x = k - c * X1;
-      const int* Pc = s.P + (size_t)c * X1;
-      const int* Pmc = s.Pm + (size_t)c * X1;
-      int score, D, dl, ar, anchor_l, anchor_r;
-      float dsf, asf, dsr, asr;
-      bool vx;
-      if (side == 0) {
-        const int pcx = Pin[x] - (bsc + tot_in);
-        score = -(pcx + (Pc[L] - Pc[x]));
-        dl = s.dc[(size_t)inner * X1 + x];
-        ar = s.ac[k];
-        dsf = s.dfw[(size_t)inner * X1 + x];
-        asf = s.afw[k];
-        dsr = s.drc[k];
-        asr = s.arc[(size_t)inner * X1 + x];
-        D = (int)((unsigned)sStart[c] - (unsigned)istart);
-        vx = x > bx && x <= len - 1;
-        anchor_l = (int)((unsigned)(x - bx) -
-                         2u * ((unsigned)Pmin[x] - (unsigned)mm_bx));
-        anchor_r = (len - x) - 2 * (Pmc[len] - Pmc[x]);
-      } else {
-        const int scx = -(bsc + Pin[x]);
-        score = -(Pc[x] + scx);
-        dl = s.dc[k];
-        ar = s.ac[(size_t)inner * X1 + x];
-        dsf = s.dfw[k];
-        asf = s.afw[(size_t)inner * X1 + x];
-        dsr = s.drc[(size_t)inner * X1 + x];
-        asr = s.arc[k];
-        D = (int)((unsigned)istart - (unsigned)sStart[c]);
-        vx = x >= 1 && x < bx;
-        anchor_l = x - 2 * Pmc[x];
-        anchor_r = (int)((unsigned)(bx - x) -
-                         2u * ((unsigned)mm_bx - (unsigned)Pmin[x]));
+  }
+  __syncthreads();
+  // the cells: a warp takes 32 columns of one diagonal and evaluates them
+  // for all four sides; its items go chunk by chunk, so the inner
+  // diagonals' values at its columns load once per chunk
+  S2Best bg[4], bu[4];
+#pragma unroll
+  for (int cb = 0; cb < 4; ++cb) {
+    bg[cb] = S2Best{-2, -2.0f, INT_MAX};
+    bu[cb] = S2Best{-2, -2.0f, INT_MAX};
+  }
+  const int nch = (X1 + 31) >> 5;
+  int cur = -1, iP[4], iPm[4];
+  unsigned iK[4];
+  for (int it = wid; it < C * nch; it += nwarp) {
+    const int ch = it / C, c = it - ch * C;
+    const int x = ch * 32 + lane;
+    const bool inx = x < X1;
+    if (ch != cur) {
+      cur = ch;
+#pragma unroll
+      for (int cb = 0; cb < 4; ++cb) {
+        const int in_c = cIn[cb];
+        iP[cb] = inx ? s.P[in_c * XS + x] : 0;
+        iPm[cb] = inx ? s.Pm[in_c * XSh + x] : 0;
+        // right sides: the inner diagonal is the donor; left: acceptor
+        iK[cb] = inx ? ((cb & 1) == 0 ? s.dk[in_c * XSb + x]
+                                      : s.ak[in_c * XSb + x]) : 0u;
       }
-      bool canonical, can_fw;
-      const int dir = sp_classify(dl, ar, &canonical, &can_fw);
-      const bool is_spl2 = D >= A.min_intron && D <= A.max_intron &&
-                           vld[c] && bval;
+    }
+    if (!inx) continue;
+    const int e = c * XS + x, k = c * X1 + x;
+    const int pcx = s.P[e], pcl = s.P[c * XS + L];
+    const int pmx = s.Pm[c * XSh + x], pml = s.Pm[c * XSh + len];
+    const unsigned dkc = s.dk[c * XSb + x], akc = s.ak[c * XSb + x];
+    const int st_c = s.start[c];
+#pragma unroll
+    for (int cb = 0; cb < 4; ++cb) {
+      const int side = cb & 1;
+      const int bx = cBx[cb], bsc = cBsc[cb], pin = iP[cb], pmin = iPm[cb];
+      const unsigned m = side == 0 ? iK[cb] & akc : dkc & iK[cb];
+      const bool canonical = (m & (SP_CFW | SP_CRC)) != 0;
       float splsc = 0.0f;
       if (canonical) {
-        const float prod = can_fw ? __fmul_rn(dsf, asf) : __fmul_rn(dsr, asr);
-        splsc = __fdiv_rn(1.0f, __fadd_rn(1.0f, prod));
+        const int ei = cIn[cb] * XS + x;
+        splsc = side == 0 ? sp_splsc(s.dpw[ei], s.apw[e])
+                          : sp_splsc(s.dpw[e], s.apw[ei]);
       }
-      bool known = false;
-      if (A.use_ss) {
-        const int tgt = side == 0 ? s2_add(sStart[c], x)
-                                  : s2_add(sStart[c], x - 1);
-        known = (sKm[x] && sK[x] == tgt) || (sKm[X1 + x] && sK[X1 + x] == tgt);
-      }
-      const int pen2 = known ? 0 : (canonical ? A.pen_can : A.pen_noncan);
-      const int sc2 = score - pen2;
-      const bool valid4 = vx && is_spl2;
-      const int sh = max(min(anchor_l, anchor_r), 1);
-      const int thresh = canonical
-          ? sp_max_intron_len(sh, A.min_anchor)
-          : sp_max_intron_len_noncan(sh, A.min_anchor_noncan);
-      const bool gated = thresh < A.max_intron;
-      const bool ok4 = valid4 &&
-          (known || (!(gated && D > thresh) &&
-                     !(gated && canonical && splsc < sp_pth(D))));
-      int lenpen = canonical
-          ? sp_lenpen(A.lp, A.lp + A.LP, A.nlp_can, D)
-          : sp_lenpen(A.lp + 2 * A.LP, A.lp + 3 * A.LP, A.nlp_nc, D);
-      if (known) lenpen = 0;
-      const int sc2u = ok4 ? sc2 - lenpen : -SS2_BIG;
-      const int sc2g = sc2u >= minsc ? sc2u : -SS2_BIG;
-      const int hd = dir != 0 ? 1 : 0;
-      const int ku = sc2u > -SS2_BIG / 2
-          ? (hd << 23) + max(sc2u, -(1 << 21)) + (1 << 21) : -1;
-      const int kg = sc2g > -SS2_BIG / 2
-          ? (hd << 23) + max(sc2g, -(1 << 21)) + (1 << 21) : -1;
-      if (s2_better(kg, splsc, k, bg)) bg = S2Best{kg, splsc, k};
-      if (s2_better(ku, splsc, k, bu)) bu = S2Best{ku, splsc, k};
-    }
-    s2_warp_fold(bg);
-    s2_warp_fold(bu);
-    if (lane == 0) {
-      sRed[0][wid] = bg;
-      sRed[1][wid] = bu;
-    }
-    __syncthreads();
-    if (wid == 0) {
-      const int nw = blockDim.x >> 5;
-      for (int set = 0; set < 2; ++set) {
-        S2Best b = lane < nw ? sRed[set][lane] : S2Best{-2, -2.0f, INT_MAX};
-        s2_warp_fold(b);
-        if (lane == 0) {
-          const int pick = b.idx;
-          const int c = min(pick / X1, C - 1);
-          const int x = pick % X1;
-          const int cc = pick / X1, xx = pick - cc * X1;
-          // the class of the picked cell (recomputed from the codes)
-          const int dl = side == 0 ? s.dc[(size_t)inner * X1 + xx]
-                                   : s.dc[(size_t)cc * X1 + xx];
-          const int ar = side == 0 ? s.ac[(size_t)cc * X1 + xx]
-                                   : s.ac[(size_t)inner * X1 + xx];
-          bool cn, cf;
-          const int dir = sp_classify(dl, ar, &cn, &cf);
-          const size_t NN = (size_t)A.N;
-          int* o = A.out + (size_t)side * 8 * NN + n;
-          const int f0 = set * 4;
-          o[(f0 + 0) * NN] = b.k >= 0 ? (b.k & ((1 << 23) - 1)) - (1 << 21)
-                                      : -SS2_BIG;
-          o[(f0 + 1) * NN] = sStart[c];
-          o[(f0 + 2) * NN] = x;
-          o[(f0 + 3) * NN] = dir;
+      const bool vx = side == 0 ? x > bx && x <= len - 1 : x >= 1 && x < bx;
+      int kg = -1, ku = -1;
+      if (vx && tSpl[cb][c]) {
+        int score, anchor_l, anchor_r;
+        if (side == 0) {
+          score = -((pin - (bsc + cTot[cb])) + (pcl - pcx));
+          anchor_l = (int)((unsigned)(x - bx) -
+                           2u * ((unsigned)pmin - (unsigned)cMm[cb]));
+          anchor_r = (len - x) - 2 * (pml - pmx);
+        } else {
+          score = -(pcx + -(bsc + pin));
+          anchor_l = x - 2 * pmx;
+          anchor_r = (int)((unsigned)(bx - x) -
+                           2u * ((unsigned)cMm[cb] - (unsigned)pmin));
         }
+        bool known = false;
+        if (A.use_ss) {
+          const int tgt = side == 0 ? s2_add(st_c, x) : s2_add(st_c, x - 1);
+          const int* k2 = sK + 2 * cb * X1;
+          const uint8_t* m2 = sKm + 2 * cb * X1;
+          known = (m2[x] && k2[x] == tgt) || (m2[X1 + x] && k2[X1 + x] == tgt);
+        }
+        const int D = tD[cb][c];
+        const int pen2 = known ? 0 : (canonical ? A.pen_can : A.pen_noncan);
+        const int sc2 = score - pen2;
+        const int sh = max(min(anchor_l, anchor_r), 1);
+        const int thresh = canonical
+            ? sp_max_intron_len(sh, A.min_anchor)
+            : sp_max_intron_len_noncan(sh, A.min_anchor_noncan);
+        const bool gated = thresh < A.max_intron;
+        const bool ok4 = known ||
+            (!(gated && D > thresh) &&
+             !(gated && canonical && splsc < tPth[cb][c]));
+        const int lenpen = known ? 0 : canonical ? tLc[cb][c] : tLn[cb][c];
+        const int sc2u = ok4 ? sc2 - lenpen : -SS2_BIG;
+        const int sc2g = sc2u >= minsc ? sc2u : -SS2_BIG;
+        const int hd = m != 0 ? 1 : 0;
+        ku = sc2u > -SS2_BIG / 2
+            ? (hd << 23) + max(sc2u, -(1 << 21)) + (1 << 21) : -1;
+        kg = sc2g > -SS2_BIG / 2
+            ? (hd << 23) + max(sc2g, -(1 << 21)) + (1 << 21) : -1;
       }
+      // a cell with key -1 and probability 0 loses to cell 0 (the same or
+      // a better key, the lowest index), which is always folded
+      const bool floor_g = kg == -1 && splsc == 0.0f && k != 0;
+      const bool floor_u = ku == -1 && splsc == 0.0f && k != 0;
+      if (!floor_g && s2_better(kg, splsc, k, bg[cb]))
+        bg[cb] = S2Best{kg, splsc, k};
+      if (!floor_u && s2_better(ku, splsc, k, bu[cb]))
+        bu[cb] = S2Best{ku, splsc, k};
     }
-    __syncthreads();
+  }
+#pragma unroll
+  for (int cb = 0; cb < 4; ++cb) {
+    s2_warp_fold(bg[cb]);
+    s2_warp_fold(bu[cb]);
+    if (lane == 0) {
+      sRed[2 * cb][wid] = bg[cb];
+      sRed[2 * cb + 1][wid] = bu[cb];
+    }
+  }
+  __syncthreads();
+  // warp w merges side w / 2's set w % 2 (0 the gated, 1 the ungated)
+  const int cb = wid >> 1, set = wid & 1, side = cb & 1;
+  S2Best b = lane < nwarp ? sRed[wid][lane] : S2Best{-2, -2.0f, INT_MAX};
+  s2_warp_fold(b);
+  if (lane == 0) {
+    const size_t bo = (size_t)(cb >> 1) * NN + n;
+    const int inner = side == 0 ? A.b_j[bo] : A.b_i[bo];
+    const int pick = b.idx;
+    const int c = min(pick / X1, C - 1);
+    const int x = pick % X1;
+    const int cc = pick / X1, xx = pick - cc * X1;
+    // the class of the picked cell (recomputed from the masks)
+    const unsigned m = side == 0
+        ? s.dk[inner * XSb + xx] & s.ak[cc * XSb + xx]
+        : s.dk[cc * XSb + xx] & s.ak[inner * XSb + xx];
+    int* o = A.out + (size_t)cb * 8 * NN + n;
+    const int f0 = set * 4;
+    o[(f0 + 0) * NN] = b.k >= 0 ? (b.k & ((1 << 23) - 1)) - (1 << 21)
+                                : -SS2_BIG;
+    o[(f0 + 1) * NN] = s.start[c];
+    o[(f0 + 2) * NN] = x;
+    o[(f0 + 3) * NN] = sp_dir(m);
   }
 }
 
@@ -258,7 +323,8 @@ H2_EXPORT int h2_second_sweep(
     int max_intron, int pen_can, int pen_noncan, int min_anchor,
     int min_anchor_noncan, void* out, void* stream) {
   if (C < 1 || C > 32 || L < 1 || L > SP_MAX_L || M < 16 ||
-      W != L + 2 * M || nlp_can < 1 || nlp_nc < 1 || (use_ss && S < 1))
+      W != L + 2 * M || LP < 1 || nlp_can < 1 || nlp_nc < 1 ||
+      nlp_can > LP || nlp_nc > LP || (use_ss && S < 1))
     return (int)cudaErrorInvalidValue;
   H2Sites st{(const int*)kd, (const int*)ka, (const int*)rdid,
              (const int*)ka_s, (const int*)kd_s, (const int*)rdid_a,
@@ -272,8 +338,7 @@ H2_EXPORT int h2_second_sweep(
                n_text, N, C, L, W, M, n_pen, LP, nlp_can, nlp_nc,
                min_intron, max_intron, pen_can, pen_noncan, min_anchor,
                min_anchor_noncan, (int*)out};
-  const size_t smem = sp_smem_bytes(C, L, false) + (size_t)C * 4 +
-                      (size_t)2 * (L + 1) * 5 + 64;
+  const size_t smem = s2_smem_bytes(C, L, W, LP);
   cudaError_t e = cudaFuncSetAttribute(
       second_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -281,4 +346,10 @@ H2_EXPORT int h2_second_sweep(
   if (N > 0)
     second_sweep_kernel<<<N, SS2_THREADS, smem, (cudaStream_t)stream>>>(A);
   return (int)cudaGetLastError();
+}
+
+// The launch of K15 at these shapes (sp_launch_info's out).
+H2_EXPORT int h2_second_sweep_info(int C, int L, int W, int LP, int* out) {
+  return sp_launch_info(second_sweep_kernel, SS2_THREADS,
+                        s2_smem_bytes(C, L, W, LP), out);
 }

@@ -120,7 +120,8 @@ KERNELS = {k.name: k for k in (
            [_P] * 24 + [_I] * 4 + [_LL] + [_I] * 15 + [_P] + [_P],
            "hisat2_tpu_torch/csrc/second_sweep.cu",
            "hisat2_tpu/ops/splice.py:1107 second_sweep (+ :192 "
-           "table_searchsorted)"),
+           "table_searchsorted; both base pairs of align/pipeline.py:"
+           "1389-1412 in one launch)"),
     Kernel("inject_known", "h2_inject_known",
            [_P] * 21 + [_I] * 3 + [_P] * 4 + [_LL] + [_I] * 10 + [_P]
            + [_P],

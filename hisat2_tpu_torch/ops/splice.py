@@ -12,7 +12,8 @@ The spliced slice (splice.py:192-626, :1107-1331):
   pair_sweep     K13 + K14 (csrc/pair_sweep.cu): the junction pair sweep
                  (:300), its top pairs (select_pairs :1318) and the two
                  raw-argmax base pairs of the second sweeps
-  second_sweep   K15 (csrc/second_sweep.cu, :1107)
+  second_sweep   K15 (csrc/second_sweep.cu, :1107), both base pairs of a
+                 step in one launch
   inject_known   K16 (csrc/inject_known.cu, :629)
   table_searchsorted  the sorted site-table lookup (:192); on the card a
                  device function of K15 and K16 (csrc/site_search.cuh)
@@ -30,6 +31,7 @@ copied from splice.py:42-107 (the host hybrid replay uses them).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -1202,8 +1204,35 @@ def pair_sweep_ref(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
         res["raw"])
 
 
+@functools.lru_cache(maxsize=None)
+def sweep_launch_info(name: str, C: int, L: int, W: int, LP: int,
+                      snv: bool = False) -> dict:
+    """K13's or K15's launch at these shapes, from the CUDA runtime
+    (csrc/pair_sweep.cu:h2_pair_sweep_info, second_sweep.cu:
+    h2_second_sweep_info): registers per thread, static and dynamic shared
+    bytes (csrc/splice_planes.cuh:sp_layout), threads per block and blocks
+    per SM (0 where a block does not fit).  snv: K13's SNV-forgiving
+    prefix and SNV windows (a graph index)."""
+    import ctypes
+    lib = kernels.load()
+    out = (ctypes.c_int * 5)()
+    if name == "pair_sweep":
+        fn = lib.h2_pair_sweep_info
+        args = (C, L, W, LP, int(snv))
+    else:
+        fn = lib.h2_second_sweep_info
+        args = (C, L, W, LP)
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(*args, out)
+    if err != 0:
+        raise RuntimeError(f"{name}: launch info failed with error {err}")
+    return dict(zip(("regs", "static_smem", "smem", "threads",
+                     "blocks_per_sm"), out))
+
+
 def _check_step_inputs(name, ch, reads, quals, lens, starts, valid, minsc,
-                       mm_pen, snv1_w=None, snv2_w=None):
+                       mm_pen, LP, snv1_w=None, snv2_w=None):
     i32 = torch.int32
     N, C, W = ch.shape
     L = reads.shape[1]
@@ -1221,19 +1250,22 @@ def _check_step_inputs(name, ch, reads, quals, lens, starts, valid, minsc,
     if L > 512 or M < 16 or W != L + 2 * M or C > 32:
         raise ValueError(f"{name}: needs L <= 512, a margin of at least 16 "
                          "and C <= 32")
-    # the lane's planes in shared memory (csrc/splice_planes.cuh:
-    # sp_smem_bytes, with the SNV-forgiving prefix on a graph index, and
-    # the pair sweep's per-pair arrays)
-    need = (C * (L + 1) * (42 if snv else 38) + 400
-            + (6 * C * C + C) * 4 + 64)
+    need = sweep_launch_info(name, C, L, W, LP, snv)["smem"]
     if need > SMEM_PER_BLOCK:
         raise ValueError(f"{name}: {C} candidates of {L} bp need {need} "
                          f"bytes of shared memory, above the "
                          f"{SMEM_PER_BLOCK} a block can use")
 
 
+_PWM_ON = {}
+
+
 def _pwm_dev(device):
-    return torch.from_numpy(PWM_FACTORS).to(device)
+    """PWM_FACTORS on `device`, copied there once."""
+    key = str(torch.device(device))
+    if key not in _PWM_ON:
+        _PWM_ON[key] = torch.from_numpy(PWM_FACTORS).to(device)
+    return _PWM_ON[key]
 
 
 def pair_sweep(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
@@ -1247,8 +1279,9 @@ def pair_sweep(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
         return pair_sweep_ref(ch, reads, quals, lens, starts, valid, minsc,
                               mm_pen, n_pen, n_text, prm, lenpen, max_gap,
                               margin, top, snv1_w, snv2_w)
+    _, lpk, nlp = lenpen
     _check_step_inputs("pair_sweep", ch, reads, quals, lens, starts, valid,
-                       minsc, mm_pen, snv1_w, snv2_w)
+                       minsc, mm_pen, lpk.shape[1], snv1_w, snv2_w)
     use_snv = snv1_w is not None
     i32 = torch.int32
     dev = ch.device
@@ -1259,7 +1292,6 @@ def pair_sweep(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
     res = torch.empty((6, N, C, C), dtype=i32, device=dev)
     sel = torch.empty((9, N, top), dtype=i32, device=dev)
     bsel = torch.empty((N, 2), dtype=i32, device=dev)
-    _, lpk, nlp = lenpen
     pwm = _pwm_dev(dev)
     kernels.KERNELS["pair_sweep"].launch(
         ch.data_ptr(), reads.data_ptr(), quals.data_ptr(), lens.data_ptr(),
@@ -1306,13 +1338,16 @@ def second_sweep_ref(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
                      margin: int, b_i, b_j, b_x, b_score, b_valid, ss=None,
                      rdids=None):
     """K15 in plain torch with the kernel's arguments: the planes from the
-    windows, then second_sweep_plain."""
+    windows, then second_sweep_plain once per base pair (b_i ... b_valid
+    [2, N]: the q2 and the r2 pair).  Returns [{"right", "left"}] * 2."""
     pl = _planes(n_text, reads, quals, lens, starts, valid, mm_pen, n_pen,
                  ch, margin)
     lp = lenpen[0]
-    return second_sweep_plain(ch, pl.pen_raw, pl.mm_raw, starts, valid, lens,
-                              minsc, prm, lp[0], lp[1], b_i, b_j, b_x,
-                              b_score, b_valid, ss, rdids)
+    return [second_sweep_plain(ch, pl.pen_raw, pl.mm_raw, starts, valid,
+                               lens, minsc, prm, lp[0], lp[1], b_i[t],
+                               b_j[t], b_x[t], b_score[t], b_valid[t], ss,
+                               rdids)
+            for t in range(2)]
 
 
 _SIDE_KEYS = ("score", "d", "x", "dir", "uscore", "ud", "ux", "udir")
@@ -1323,28 +1358,30 @@ def second_sweep(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
                  margin: int, b_i, b_j, b_x, b_score, b_valid, ss=None,
                  rdids=None):
     """K15 (csrc/second_sweep.cu) on CUDA tensors, second_sweep_ref on CPU
-    tensors."""
+    tensors: both base pairs of a step (b_i, b_j, b_x, b_score int32 and
+    b_valid bool, [2, N]) in one launch.  Returns one {"right": ...,
+    "left": ...} per base pair, each side's fields [N]."""
     if not ch.is_cuda:
         return second_sweep_ref(ch, reads, quals, lens, starts, valid, minsc,
                                 mm_pen, n_pen, n_text, prm, lenpen, margin,
                                 b_i, b_j, b_x, b_score, b_valid, ss, rdids)
+    _, lpk, nlp = lenpen
     _check_step_inputs("second_sweep", ch, reads, quals, lens, starts, valid,
-                       minsc, mm_pen)
+                       minsc, mm_pen, lpk.shape[1])
     i32 = torch.int32
     N, C, W = ch.shape
     L = reads.shape[1]
     for nm, t in (("b_i", b_i), ("b_j", b_j), ("b_x", b_x),
                   ("b_score", b_score)):
-        kernels.check_cuda(nm, t, i32, (N,))
-    kernels.check_cuda("b_valid", b_valid, torch.bool, (N,))
+        kernels.check_cuda(nm, t, i32, (2, N))
+    kernels.check_cuda("b_valid", b_valid, torch.bool, (2, N))
     use_ss = ss is not None
     if use_ss:
         site = _site_args(ss)
         kernels.check_cuda("rdids", rdids, i32, (N,))
     else:
         site = [ch.data_ptr()] * 8 + [0, 0, 0]
-    out = torch.empty((2, 8, N), dtype=i32, device=ch.device)
-    _, lpk, nlp = lenpen
+    out = torch.empty((2, 2, 8, N), dtype=i32, device=ch.device)
     pwm = _pwm_dev(ch.device)
     kernels.KERNELS["second_sweep"].launch(
         ch.data_ptr(), reads.data_ptr(), quals.data_ptr(), lens.data_ptr(),
@@ -1356,8 +1393,8 @@ def second_sweep(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
         nlp[0], nlp[1], prm.min_intron, prm.max_intron, prm.pen_can,
         prm.pen_noncan, prm.min_anchor, prm.min_anchor_noncan,
         out.data_ptr(), stream=kernels.stream_of(ch))
-    return {side: dict(zip(_SIDE_KEYS, out[s].unbind(0)))
-            for s, side in enumerate(("right", "left"))}
+    return [{side: dict(zip(_SIDE_KEYS, out[t, s].unbind(0)))
+             for s, side in enumerate(("right", "left"))} for t in range(2)]
 
 
 def inject_known_ref(ref_words, n_text: int, reads, quals, lens, rdids,

@@ -1,0 +1,218 @@
+"""The junction sweeps K13 (pair_sweep) and K15 (second_sweep) of this tree
+against an earlier commit's, in turns on one card.
+
+    git archive <commit> hisat2_tpu_torch/csrc | tar -x -C DIR
+    python3 sweep_ab.py DIR
+
+(DIR in a directory .gitignore lists, e.g. .chipwork/parent.)  It builds
+the earlier commit's pair_sweep.cu and second_sweep.cu into libraries of
+their own (their C symbols are this tree's), each whole and stopped right
+after its plane prologue (the sp_build call), and this tree's stopped the
+same way: one nvcc per library, all started together.  Then it runs
+chip_smoke.py's phases, and on phase 10's and phase 11 (e)'s spliced full
+step (where chip_smoke.launch_shape is called for K13, then K15) it takes
+the step's captured arguments and
+
+- checks that the earlier kernels give this tree's outputs;
+- times each kernel, whole and prologue-only, 20 launches back to back
+  between two CUDA events (median of 5 rounds), in turns: earlier, this,
+  this, earlier.
+
+Both trees launch through this tree's wrappers (ops/splice.py); only the C
+entry point differs, so the arguments and the host work per launch are
+the same.  The earlier K15 takes one base pair: it reads the first row of
+the stacked [2, N] arguments and writes the first result, so it runs once
+with the pairs as given and once with them swapped.  Prints one
+`[sweep ab] <step> {json}` line per step, then chip_smoke's own lines.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+import chip_smoke
+
+SWEEPS = ("pair_sweep", "second_sweep")
+# what a prologue-only copy writes, so that its planes stay live
+PRO_SINK = {"pair_sweep": "A.bsel[(size_t)n * 2]", "second_sweep": "A.out[n]"}
+_B = ("b_i", "b_j", "b_x", "b_score", "b_valid")
+
+
+def sweep_source(src, name, pro):
+    """pair_sweep.cu / second_sweep.cu, stopped after sp_build if pro."""
+    text = open(os.path.join(src, name + ".cu")).read()
+    if pro:
+        at = text.index("sp_build(", text.index("__global__"))
+        end = text.index(");", at) + 2
+        text = (text[:end] + "\n  __syncthreads();\n  if (threadIdx.x == 0) "
+                f"{PRO_SINK[name]} = s.P[L] + (int)s.Pm[L];\n  return;"
+                + text[end:])
+    return text
+
+
+def build_libs(kernels, parent_csrc):
+    """{(tree, name, pro): the library's C entry point}."""
+    out = os.path.join(kernels.BUILD_DIR, "sweep_ab")
+    os.makedirs(out, exist_ok=True)
+    jobs = []
+    for tree, src in (("parent", parent_csrc), ("this", kernels.CSRC)):
+        for name in SWEEPS:
+            for pro in ((False, True) if tree == "parent" else (True,)):
+                tag = f"{tree}_{name}_{'pro' if pro else 'whole'}"
+                cu = os.path.join(out, tag + ".cu")
+                with open(cu, "w") as f:
+                    f.write(sweep_source(src, name, pro))
+                so = os.path.join(out, f"lib{tag}.so")
+                cmd = [kernels._nvcc(), *kernels.ARCH_FLAGS, "-std=c++17",
+                       "-O3", "-Xcompiler", "-fPIC", "-shared", "-I", src,
+                       "-o", so, cu]
+                jobs.append(((tree, name, pro), so, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)))
+    fns = {}
+    for key, so, p in jobs:
+        _, err = p.communicate()
+        chip_smoke.check(p.returncode == 0, f"nvcc {key}: {err[-3000:]}")
+        fn = getattr(ctypes.CDLL(so), "h2_" + key[1])
+        fn.argtypes = kernels.KERNELS[key[1]].argtypes
+        fn.restype = ctypes.c_int
+        fns[key] = fn
+    return fns
+
+
+def through(torch, kernels, name, fn, call):
+    """call() with the wrapper of kernel `name` launching the C function
+    fn in place of this tree's."""
+    if fn is None:
+        return call()
+    k = kernels.KERNELS[name]
+
+    def launch(*args, stream):
+        with torch.cuda.device(stream.device):
+            err = fn(*args, stream.cuda_stream)
+        chip_smoke.check(err == 0, f"{name}: launch error {err}")
+    k.launch = launch
+    try:
+        return call()
+    finally:
+        del k.launch
+
+
+def b2b_ms(torch, fn, reps=20, rounds=5):
+    """Per-launch time of fn, `reps` calls back to back between two CUDA
+    events, median of `rounds`."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
+def same(torch, a, b):
+    """Equal tensors, f32 by their bits."""
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def compare_step(torch, kernels, splice, fns, tag, k13, k15):
+    """Equal outputs, then the timings in turns; prints and returns them."""
+    swapped = dict(k15, **{k: k15[k].flip(0).contiguous() for k in _B})
+
+    def k13_fn(tree, pro):
+        fn = None if (tree, pro) == ("this", False) else fns[
+            (tree, "pair_sweep", pro)]
+        return lambda: through(torch, kernels, "pair_sweep", fn,
+                               lambda: splice.pair_sweep(**k13))
+
+    def k15_fn(tree, pro):
+        fn = None if (tree, pro) == ("this", False) else fns[
+            (tree, "second_sweep", pro)]
+        one = lambda kw: through(torch, kernels, "second_sweep", fn,  # noqa
+                                 lambda: splice.second_sweep(**kw))
+        if tree == "this":
+            return lambda: one(k15)
+        return lambda: [one(k15)[0], one(swapped)[0]]
+
+    new, old = k13_fn("this", False)(), k13_fn("parent", False)()
+    for part in (0, 1):
+        for f in new[part]:
+            chip_smoke.check(same(torch, new[part][f], old[part][f]),
+                             f"{tag}: pair_sweep part {part} {f} != parent")
+    chip_smoke.check(torch.equal(new[2], old[2]),
+                     f"{tag}: base pairs != parent")
+    new, old = k15_fn("this", False)(), k15_fn("parent", False)()
+    for t in (0, 1):
+        for side in ("right", "left"):
+            for f, v in new[t][side].items():
+                chip_smoke.check(same(torch, v, old[t][side][f]),
+                                 f"{tag}: second_sweep pair {t} {side} {f} "
+                                 f"!= parent")
+    res = {}
+    for name, mk in (("pair_sweep", k13_fn), ("second_sweep", k15_fn)):
+        for pro in (False, True):
+            f = {tr: mk(tr, pro) for tr in ("parent", "this")}
+            t = [b2b_ms(torch, f[tr])
+                 for tr in ("parent", "this", "this", "parent")]
+            res[f"{name}_{'prologue' if pro else 'whole'}"] = {
+                "parent": [t[0], t[3]], "this": [t[1], t[2]]}
+    st, vd, prm = k13["starts"], k13["valid"], k13["prm"]
+    gcap = k13["max_gap"] or prm.max_gap
+    D = st[:, None, :] - st[:, :, None]
+    spl = (D >= prm.min_intron) & (D <= prm.max_intron)
+    join = spl | ((D >= 1) & (D < prm.min_intron)) | ((D <= -1)
+                                                       & (D >= -gcap))
+    both = vd[:, :, None] & vd[:, None, :] & join
+    res["pair_kinds"] = {k: float(v.float().mean()) for k, v in (
+        ("splice", spl & both), ("indel", ~spl & both),
+        ("splice_invalid", spl & ~both), ("rest", ~spl & ~both))}
+    res["N"], res["C"], res["L"] = (st.shape[0], st.shape[1],
+                                    k13["reads"].shape[1])
+    print(f"[sweep ab] {tag}: {json.dumps(res)}", flush=True)
+    return res
+
+
+def main() -> int:
+    if len(sys.argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("sweep_ab.py: no CUDA device", file=sys.stderr)
+        return 1
+    from hisat2_tpu_torch import kernels
+    from hisat2_tpu_torch.ops import splice
+    kernels.load()
+    fns = build_libs(kernels, os.path.join(os.path.abspath(sys.argv[1]),
+                                           "hisat2_tpu_torch", "csrc"))
+    caps, done = {}, []
+    shape = chip_smoke.launch_shape
+
+    def hook(splice_mod, name, kw):
+        caps[name] = kw
+        if name == "second_sweep":
+            tag = ("phase10", "config6")[len(done)]
+            done.append(compare_step(torch, kernels, splice, fns, tag,
+                                     caps["pair_sweep"], kw))
+        return shape(splice_mod, name, kw)
+    chip_smoke.launch_shape = hook
+    rc = chip_smoke.main()
+    chip_smoke.check(len(done) == 2, f"{len(done)} of 2 steps compared")
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

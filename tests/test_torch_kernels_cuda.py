@@ -6,7 +6,9 @@ the spliced kernels (K13-K17 on both spliced steps' intermediates, K18 on
 a 4096-row table set) and both spliced steps against the CPU; on the gss
 SNP + splice-site index at k = 10, K13 and K16 with their SNV inputs and
 both spliced graph steps, and a two-shard index with one shard on the CPU
-(shard_devices=["cuda:0", "cpu"]) against both shards on the card.
+(shard_devices=["cuda:0", "cpu"]) against both shards on the card; the
+junction sweeps K13 + K14 and the two-pair K15 on seeded random lanes at
+C in {1, 5, 14, 19, 32} and L in {60, 100, 150, 250}.
 Needs a CUDA device; skips without one.  On a machine without JAX run it as
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
@@ -518,6 +520,222 @@ def test_spliced_step_on_card_matches_cpu(scard):
         bp = c.step(*c.upload(codes, quals, lens, minsc), True, rdids=rdc,
                     ss=ssc)
         _eq(bk, bp, "spliced packed step")
+
+
+# --- the junction sweeps K13 + K14 and K15 on seeded random lanes ------------
+
+SWEEP_C = (1, 5, 14, 19, 32)
+SWEEP_L = (60, 100, 150, 250)
+SENT = 2 ** 31 - 2
+
+
+@pytest.fixture(scope="module")
+def sweep_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from hisat2_tpu_torch import kernels
+    kernels.load()
+
+
+def _pack2(codes):
+    """2-bit codes -> the packed int32 words of a reference plane."""
+    n = len(codes)
+    words = np.zeros((n + 15) // 16 + 128, np.uint32)
+    np.bitwise_or.at(words, np.arange(n) // 16,
+                     codes.astype(np.uint32) << (2 * (np.arange(n) % 16)))
+    return torch.from_numpy(words.view(np.int32)).cuda()
+
+
+def _sweep_world(C, L, seed, N=96, M=16, n=150_000):
+    """N lanes over C candidates of a seeded genome with 40 planted pairs
+    of GT-AG introns around a 20-40 bp exon: reads across one or both
+    junctions with their exon diagonals, reads with a deletion or an
+    insertion, decoys a few bp off (indel joins both ways), far decoys,
+    candidates at both text ends, N bases and mismatches, short reads,
+    invalid candidates, lanes with no valid pair; SNV planes with a delta
+    at ~3% of positions; site tables of the introns (half from file, half
+    temp sites with read ids)."""
+    from hisat2_tpu_torch.ops import splice
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, 4, n).astype(np.uint8)
+    introns, seconds = [], []
+    for k in range(40):                     # an intron, an exon, an intron
+        d = int(rng.integers(3000, n - 30_000))
+        D = int(rng.choice([40, 300, 2000, 20_000]))
+        e = d + D + int(rng.integers(20, 40))
+        D2 = int(rng.choice([60, 500, 3000]))
+        for a, b in ((d, D), (e, D2)):
+            g[a:a + 2], g[a + b - 2:a + b] = (2, 3), (0, 2)
+        introns.append((d, D))
+        seconds.append((e, D2))
+    deltas = [np.where(rng.random(n) < 0.03, rng.integers(1, 4, n), 0)
+              for _ in (0, 1)]
+    reads = np.full((N, L), 4, np.int32)
+    starts = np.zeros((N, C), np.int32)
+    valid = np.ones((N, C), bool)
+    lens = np.full(N, L, np.int32)
+    for i in range(N):
+        d, D = introns[i % len(introns)]
+        e, D2 = seconds[i % len(introns)]
+        x = int(rng.integers(4, L - 4))
+        s0 = d - x
+        r = np.concatenate([g[s0:d], g[d + D:d + D + L - x]])
+        row = [s0, s0 + D]
+        if i % 4 == 1:                      # across both introns
+            x = int(rng.integers(4, max(5, L - (e - d - D) - 4)))
+            s0 = d - x
+            r = np.concatenate([g[s0:d], g[d + D:e],
+                                g[e + D2:e + D2 + L]])[:L]
+            row = [s0, s0 + D, s0 + D + D2]
+        elif i % 8 == 6:                    # a 3 bp deletion
+            r = np.concatenate([g[s0:s0 + x], g[s0 + x + 3:s0 + L + 3]])
+            row = [s0, s0 + 3]
+        elif i % 8 == 7:                    # a 2 bp insertion
+            r = np.concatenate([g[s0:s0 + x], [1, 2], g[s0 + x:s0 + L]])[:L]
+            row = [s0, s0 - 2]
+        elif i % 9 == 4:                    # both text ends
+            row = [-int(rng.integers(1, 12)), n - L + int(rng.integers(1, 12))]
+            r = g[:L].copy()
+        row += [s0 + int(rng.integers(1, 12)), s0 - int(rng.integers(1, 6)),
+                s0 + D + int(rng.integers(-4, 5)), int(rng.integers(0, n)),
+                s0 + 45_000]
+        while len(row) < C:
+            row.append(int(rng.integers(-20, n + 20)))
+        starts[i] = row[:C]
+        r = r.astype(np.int32)
+        if i % 3 == 0:                      # catalog alleles on the 1st exon
+            for q in range(min(x, L)):
+                v = deltas[q % 2][s0 + q] if 0 <= s0 + q < n else 0
+                if v:
+                    r[q] = (g[s0 + q] + v) & 3
+        for q in rng.choice(L, int(rng.integers(0, 4)), replace=False):
+            r[q] = (r[q] + 1 + int(rng.integers(0, 3))) % 4
+        if i % 5 == 2:
+            r[int(rng.integers(0, L))] = 4
+        reads[i] = r
+        if i % 6 == 3:
+            lens[i] = L - int(rng.integers(1, L // 3))
+            reads[i, lens[i]:] = 4
+        valid[i] = rng.random(C) > 0.15
+        if i % 11 == 0:
+            valid[i] = False                # no valid pair
+        if i % 13 == 1:
+            valid[i] = False
+            valid[i, 0] = True              # one valid candidate
+    quals = rng.integers(0, 42, (N, L)).astype(np.int32)
+    mm_pen = np.array([2 + min(q, 40) * 4 // 40 for q in range(64)],
+                      np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa
+    st, vd = t(starts), t(valid)
+    mstart = torch.where(vd, st, -1).to(torch.int32).contiguous()
+    words = _pack2(g)
+    snv = [_pack2(v) for v in deltas]
+    win = lambda w: splice.diag_chars_plain(w, n, mstart, L, M)  # noqa
+    kw = dict(ch=win(words).contiguous(), reads=t(reads), quals=t(quals),
+              lens=t(lens), starts=st, valid=vd,
+              minsc=t((-(lens // 4) - 2).astype(np.int32)),
+              mm_pen=t(mm_pen), n_pen=1, n_text=n,
+              prm=splice.SpliceParams(), margin=M)
+    kw["lenpen"] = splice.lenpen_device(kw["prm"], "cuda")
+    s1w, s2w = (win(w).contiguous() for w in snv)
+    kd = np.array([d - 1 for d, _ in introns + seconds], np.int64)
+    ka = np.array([d + D for d, D in introns + seconds], np.int64)
+    rdid = np.where(np.arange(len(kd)) % 2 == 0, -1,
+                    rng.integers(0, 3 * N, len(kd)))
+    rdids = t(rng.integers(0, 3 * N, N).astype(np.int32))
+    return kw, (s1w, s2w), (kd, ka, rdid), rdids
+
+
+def _site_tabs(kd, ka, rdid, n, lob):
+    """SpliceSiteDB.device_tables' layout of the sites, on the card."""
+    nn = len(kd)
+    cap = 1 << nn.bit_length()
+    o, o2 = np.lexsort((ka, kd)), np.lexsort((kd, ka))
+    t = {}
+    for nm, v, f in (("ss_kd", kd[o], SENT), ("ss_ka", ka[o], SENT),
+                     ("ss_rdid", rdid[o], -1), ("ss_ka_s", ka[o2], SENT),
+                     ("ss_kd_s", kd[o2], SENT), ("ss_rdid_a", rdid[o2], -1)):
+        a = np.full(cap, f, np.int32)
+        a[:nn] = v
+        t[nm] = torch.from_numpy(a).cuda()
+    if lob:
+        shift = max(0, (n - 1).bit_length() - (1 << 19).bit_length() + 1)
+        edges = np.arange((1 << 19) + 1, dtype=np.int64) << shift
+        for nm, col in (("ss_kd_lob", "ss_kd"), ("ss_ka_lob", "ss_ka_s")):
+            t[nm] = torch.from_numpy(np.searchsorted(
+                t[col].cpu().numpy()[:nn], edges).astype(np.int32)).cuda()
+        t["ss_shift"] = shift
+    return t
+
+
+def _same(a, b, what):
+    a, b = a.cpu(), b.cpu()
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    assert a.dtype == b.dtype and a.shape == b.shape, what
+    assert torch.equal(a, b), what
+
+
+@pytest.mark.parametrize("L", SWEEP_L)
+@pytest.mark.parametrize("C", SWEEP_C)
+def test_junction_sweeps_random_on_card(sweep_card, C, L):
+    """K13 + K14 (SNV windows off and on) and the two-pair K15 (site tables
+    none, sorted and with the bucket index) against their plain twins on
+    seeded random lanes, f32 fields by their bits; a shape past a block's
+    shared memory is refused by the wrapper."""
+    from hisat2_tpu_torch import kernels
+    from hisat2_tpu_torch.ops import splice
+    kw, (s1w, s2w), sites, rdids = _sweep_world(C, L, 100 * C + L)
+    W, LP = kw["ch"].shape[2], kw["lenpen"][1].shape[1]
+    k13 = dict(kw, max_gap=10, top=min(4, C * C))
+    for snv in (False, True):
+        a = dict(k13, snv1_w=s1w, snv2_w=s2w) if snv else k13
+        po = splice.pair_sweep_ref(**a)
+        if not snv:
+            res, bsel = po[0], po[2]
+        if splice.sweep_launch_info("pair_sweep", C, L, W, LP,
+                                    snv)["smem"] > splice.SMEM_PER_BLOCK:
+            with pytest.raises(ValueError, match="shared memory"):
+                splice.pair_sweep(**a)
+            continue
+        n0 = kernels.KERNELS["pair_sweep"].launches
+        ko = splice.pair_sweep(**a)
+        torch.cuda.synchronize()
+        assert kernels.KERNELS["pair_sweep"].launches == n0 + 1
+        for part, (x, y) in enumerate(zip(ko[:2], po[:2])):
+            for f in y:
+                _same(x[f], y[f], f"C={C} L={L} snv={snv} part {part} {f}")
+        _same(ko[2], po[2], f"C={C} L={L} snv={snv} base pairs")
+    # K15: the q2 / r2 base pairs as the step builds them, and one of
+    # random pairs (x from -1 to L + 1, invalid scores, b_valid mixed)
+    N = kw["starts"].shape[0]
+    rng = np.random.default_rng(C * L)
+    bflat = bsel.long().t()
+    gp = lambda a: a.reshape(N, C * C).gather(1, bflat.t()).t()  # noqa
+    b_score, b_kind = gp(res["raw"]), gp(res["kind"])
+    pairs = dict(b_i=(bflat // C).int(), b_j=(bflat % C).int(),
+                 b_x=gp(res["x"]), b_score=b_score,
+                 b_valid=(b_score > -(2 ** 29)) & (b_kind != 0))
+    rnd = dict(b_i=rng.integers(0, C, N), b_j=rng.integers(0, C, N),
+               b_x=rng.integers(-1, L + 2, N),
+               b_score=np.where(rng.random(N) < 0.2, -(2 ** 30),
+                                -rng.integers(0, 40, N)),
+               b_valid=rng.random(N) < 0.8)
+    for k, v in rnd.items():
+        v = torch.from_numpy(v.astype(bool if k == "b_valid" else np.int32))
+        pairs[k] = torch.stack([pairs[k][0], v.cuda()]).contiguous()
+    for lob in (None, False, True):
+        ss = None if lob is None else _site_tabs(*sites, kw["n_text"], lob)
+        a = dict(kw, **pairs, ss=ss, rdids=rdids if ss is not None else None)
+        n0 = kernels.KERNELS["second_sweep"].launches
+        ko, po = splice.second_sweep(**a), splice.second_sweep_ref(**a)
+        torch.cuda.synchronize()
+        assert kernels.KERNELS["second_sweep"].launches == n0 + 1
+        for t in range(2):
+            for side in ("right", "left"):
+                for f in po[t][side]:
+                    _same(ko[t][side][f], po[t][side][f],
+                          f"C={C} L={L} sites={lob} pair {t} {side} {f}")
 
 
 @pytest.mark.parametrize("lob", [False, True])

@@ -243,23 +243,17 @@ def test_select_pairs_and_base_pairs_match_jax(sweep):
     _eq(bsel[:, 1], rawf.argmax(1), "r2 base pair")
 
 
-@pytest.mark.parametrize("sites", ["none", "sorted", "lob"])
-def test_second_sweep_plain_matches_jax(world, sweep, sites):
-    """K15, both sides, off the raw-argmax base pairs: without site tables,
-    with them (binary search) and with the bucket index."""
-    S = sweep
+def _jax_second(S, jss, bs):
+    """JAX's second_sweep on the base pairs bs [N] (flat pair ids), with
+    the site tables jss (or none); returns its result and the base pair's
+    (b_i, b_j, b_x, b_score, b_ok)."""
     N, C = S["starts"].shape
     res = S["res"]
-    rawf = np.asarray(res.raw).reshape(N, C * C)
-    bs = rawf.argmax(1)
     gp = lambda a: np.take_along_axis(  # noqa: E731
         np.asarray(a).reshape(N, -1), bs[:, None], 1)[:, 0]
     b_i, b_j = (bs // C).astype(np.int32), (bs % C).astype(np.int32)
     b_score, b_x, b_kind = gp(res.raw), gp(res.x), gp(res.kind)
     b_ok = (b_score > -2 ** 29) & (b_kind != 0)
-    jss = tss = None
-    if sites != "none":
-        jss, tss = _site_tables(world, 3 * N, sites == "lob")
     want = jax.jit(lambda ch, pr, mr, st, va, ln, ms, bi, bj, bx, bsc, bok,
                    ss, rd: j_splice.second_sweep(
                        ch, pr, mr, st, va, ln, ms, S["tables"], S["prm"],
@@ -268,17 +262,66 @@ def test_second_sweep_plain_matches_jax(world, sweep, sites):
         *(jnp.asarray(a) for a in (S["starts"], S["valid"], S["lens"],
                                    S["minsc"], b_i, b_j, b_x, b_score,
                                    b_ok)), jss, jnp.asarray(S["rdids"]))
+    return want, (b_i, b_j, b_x, b_score, b_ok)
+
+
+def _sites(world, S, sites):
+    """(JAX, torch) site tables of `sites`: none, sorted or with lob."""
+    if sites == "none":
+        return None, None
+    return _site_tables(world, 3 * len(S["lens"]), sites == "lob")
+
+
+def _second_ref(world, S, pairs, tss):
+    """The two-pair second_sweep_ref on the stacked base pairs."""
     lp = splice.lenpen_device(_tprm(), "cpu")
-    got = splice.second_sweep_ref(
+    stk = [_t(np.stack([p[k] for p in pairs])) for k in range(5)]
+    return splice.second_sweep_ref(
         _t(S["ch"]), _t(S["reads"]), _t(S["quals"]), _t(S["lens"]),
         _t(S["starts"]), _t(S["valid"]), _t(S["minsc"]), _t(S["mm_pen"]), 1,
-        world[2], _tprm(), lp, M, _t(b_i), _t(b_j), _t(b_x), _t(b_score),
-        _t(b_ok), tss, _t(S["rdids"]))
-    for side in ("right", "left"):
-        for f in want[side]:
-            _eq(got[side][f], want[side][f], f"{side} {f}")
+        world[2], _tprm(), lp, M, *stk, tss, _t(S["rdids"]))
+
+
+@pytest.mark.parametrize("sites", ["none", "sorted", "lob"])
+def test_second_sweep_plain_matches_jax(world, sweep, sites):
+    """K15, both sides, off the raw-argmax base pair, given as both of the
+    stacked pairs: without site tables, with them (binary search) and
+    with the bucket index."""
+    S = sweep
+    N, C = S["starts"].shape
+    bs = np.asarray(S["res"].raw).reshape(N, C * C).argmax(1)
+    jss, tss = _sites(world, S, sites)
+    want, pair = _jax_second(S, jss, bs)
+    got = _second_ref(world, S, [pair, pair], tss)
+    for t in range(2):
+        for side in ("right", "left"):
+            for f in want[side]:
+                _eq(got[t][side][f], want[side][f], f"pair {t} {side} {f}")
     assert sum(int((np.asarray(want[s]["uscore"]) > -2 ** 29).sum())
                for s in want) >= 3
+
+
+@pytest.mark.parametrize("sites", ["none", "lob"])
+def test_second_sweep_two_pairs_match_jax(world, sweep, sites):
+    """The two-pair K15 twin on the q2 and r2 base pairs equals two JAX
+    second_sweep calls, the r2 pair picked after masking the first
+    argmax to -2^30 (hisat2_tpu/align/pipeline.py:1389-1394)."""
+    S = sweep
+    N, C = S["starts"].shape
+    rawf = np.asarray(S["res"].raw).reshape(N, C * C).copy()
+    q2 = rawf.argmax(1)
+    rawf[np.arange(N), q2] = -(2 ** 30)
+    r2 = rawf.argmax(1)
+    assert (q2 != r2).sum() >= N // 2     # equal on a lane with no pair
+    jss, tss = _sites(world, S, sites)
+    runs = [_jax_second(S, jss, bs) for bs in (q2, r2)]
+    got = _second_ref(world, S, [r[1] for r in runs], tss)
+    for t, (want, _) in enumerate(runs):
+        for side in ("right", "left"):
+            for f in want[side]:
+                _eq(got[t][side][f], want[side][f], f"pair {t} {side} {f}")
+    d = [np.asarray(w[0]["right"]["d"]) for w in runs]
+    assert not np.array_equal(d[0], d[1])
 
 
 @pytest.mark.parametrize("C,lob", [(6, False), (6, True), (14, False),

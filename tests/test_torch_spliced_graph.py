@@ -242,26 +242,30 @@ def test_inject_known_snv_match_jax(gss, lite):
 
 
 def test_second_sweep_raw_planes_match_jax(gss):
-    """K15 takes no graph input: on the graph step's own arguments it
-    equals second_sweep on the raw planes."""
+    """K15 takes no graph input: on the graph step's own arguments (both
+    base pairs, stacked) it equals second_sweep on the raw planes, once
+    per base pair."""
     kw = _capture(gss, False)["second_sweep"]
+    assert tuple(kw["b_i"].shape) == (2, kw["starts"].shape[0])
     pl, M = _jax_planes(gss, kw, snv=False)
     prm = gss["ja"].splice_params
     tables = tuple(jnp.asarray(t) for t in j_splice.junction_prob_tables())
     j = lambda k: jnp.asarray(kw[k].numpy())  # noqa: E731
     ss = {k: (jnp.asarray(v.numpy()) if torch.is_tensor(v) else v)
           for k, v in kw["ss"].items()}
-    want = jax.jit(lambda ch, pr, mr, st, va, ln, ms, bi, bj, bx, bsc, bok,
-                   ss, rd: j_splice.second_sweep(
-                       ch, pr, mr, st, va, ln, ms, tables, prm, bi, bj, bx,
-                       bsc, bok, ss=ss, rdids=rd))(
-        j("ch"), pl.pen_raw, pl.mm_raw, j("starts"), j("valid"), j("lens"),
-        j("minsc"), j("b_i"), j("b_j"), j("b_x"), j("b_score"),
-        j("b_valid"), ss, j("rdids"))
+    sweep = jax.jit(lambda ch, pr, mr, st, va, ln, ms, bi, bj, bx, bsc, bok,
+                    ss, rd: j_splice.second_sweep(
+                        ch, pr, mr, st, va, ln, ms, tables, prm, bi, bj, bx,
+                        bsc, bok, ss=ss, rdids=rd))
     got = splice.second_sweep_ref(**kw)
-    for side in ("right", "left"):
-        for f in want[side]:
-            _eq(got[side][f], want[side][f], f"{side} {f}")
+    for t in range(2):
+        want = sweep(j("ch"), pl.pen_raw, pl.mm_raw, j("starts"), j("valid"),
+                     j("lens"), j("minsc"),
+                     *(j(k)[t] for k in ("b_i", "b_j", "b_x", "b_score",
+                                         "b_valid")), ss, j("rdids"))
+        for side in ("right", "left"):
+            for f in want[side]:
+                _eq(got[t][side][f], want[side][f], f"pair {t} {side} {f}")
 
 
 @pytest.mark.parametrize("lite", (True, False))
