@@ -18,7 +18,10 @@ checks them:
             to 20 placements, and a mate with 15 copies aligns alone)
   4 kernels linear path: each kernel on the real intermediates of one
             4096-read batch, against its plain torch twin on the card:
-            exact equality, median times of both
+            exact equality, median times of both; K8's launch (registers,
+            shared memory, blocks per SM), gap budget and live share, as
+            on every step below that holds K8 against its twin, and its
+            launch at L = 151 and 512 with G up to 32
   5 step    the whole linear device step on the card (kernels) against
             the step on the CPU (plain versions): equal packed buffers and
             layouts, spill and full_out
@@ -70,10 +73,10 @@ checks them:
             pairs of a full step in one); then K13+K14, K15, K16 (lite and
             full; one full step launches K13 and K15 once each, and their
             registers, shared memory and blocks per SM are printed),
-            K17 on a whole 4096-read full step (8192 lanes) and K18 on the
-            slice's first merge against their plain twins, the lite and
-            full step against the CPU step, and the CLI on the nss round
-            trip and mj3x against their oracles
+            K8 and K17 on a whole 4096-read full step (8192 lanes) and
+            K18 on the slice's first merge against their plain twins, the
+            lite and full step against the CPU step, and the CLI on the
+            nss round trip and mj3x against their oracles
  11 genome  genome scale, the shape of config 6 (BENCH_EXTRA.md:84-112)
             cut to two seeded 140 Mbp chromosomes: build_fm_index with a
             150 Mbp shard limit gives a ShardedFMIndex of two shards, each
@@ -408,9 +411,24 @@ def work(torch, name, kw, out):
         B, C = kw["cand_start"].shape
         extra, ops = 0, B * C * kw["reads"].shape[1] * 30
     elif name == "indel_sweep":
-        N, C, _ = kw["ch"].shape
-        extra = 0
-        ops = N * C * kw["reads"].shape[1] * kw["max_gap"] * 4 * 8
+        # a dead candidate's row needs only its start: the read and quals
+        # of each lane with a live candidate, the len + 2G columns
+        # [M - G, M + G + len) of each live window (and SNV window) that
+        # some shift reads, valid, starts, lens and minsc, the ten output
+        # planes; 8 integer ops for each of the 4G combos at each of the
+        # len + 1 split points of a live candidate
+        from hisat2_tpu_torch.ops.splice import indel_sweep_gap
+        N, C, W = kw["ch"].shape
+        G = indel_sweep_gap(kw["reads"].shape[1], W, kw["max_gap"],
+                            kw["prm"])
+        valid, lens = kw["valid"], kw["lens"].long()
+        live = int(valid.sum())
+        live_cols = int((valid.sum(1) * lens).sum())
+        nwin = 1 if kw.get("snv1_w") is None else 3
+        dense = ((live_cols + 2 * G * live) * 4 * nwin
+                 + int(lens[valid.any(1)].sum()) * 8 + N * C * 5 + N * 8)
+        extra, ob = 0, 10 * N * C * 4
+        ops = (live_cols + live) * G * 4 * 8
     elif name == "pack_slots":
         _, N, K = kw["uni"].shape
         extra, ops = 0, N * K * K * 2
@@ -548,15 +566,21 @@ def flat_outputs(x):
 
 
 def launch_shape(splice, name, kw):
-    """K13's or K15's launch on these arguments, as the CUDA runtime
-    reports it."""
+    """K8's, K13's or K15's launch on these arguments, as the CUDA runtime
+    reports it (K8's with its gap budget and the share of live
+    candidates)."""
     N, C, W = kw["ch"].shape
     Lr = kw["reads"].shape[1]
-    LP = kw["lenpen"][1].shape[1]
     snv = kw.get("snv1_w") is not None
-    info = splice.sweep_launch_info(name, C, Lr, W, LP, snv)
+    if name == "indel_sweep":
+        LP, G = 0, splice.indel_sweep_gap(Lr, W, kw["max_gap"], kw["prm"])
+        more = (f", G = {G}, live share "
+                f"{float(kw['valid'].float().mean()):.4f}")
+    else:
+        LP, G, more = kw["lenpen"][1].shape[1], 0, ""
+    info = splice.sweep_launch_info(name, C, Lr, W, LP, snv, G)
     check(info["blocks_per_sm"] >= 1, f"{name}: no block fits an SM")
-    return (f"C = {C}, L = {Lr}{', SNV windows' if snv else ''}: "
+    return (f"C = {C}, L = {Lr}{', SNV windows' if snv else ''}{more}: "
             f"{info['regs']} registers, {info['smem']} + "
             f"{info['static_smem']} bytes of shared memory per block, "
             f"{info['threads']} threads, {info['blocks_per_sm']} blocks per "
@@ -869,14 +893,15 @@ def spliced_phase(torch, np, g, index, kernels, twins, driver,
         check((n13, n15) == ((0, 0) if tier == "lite" else (1, 1)),
               f"the spliced {tier} step launched K13 {n13} and K15 {n15} "
               f"times")
-    for name in ("pair_sweep", "second_sweep"):
+    for name in ("pair_sweep", "second_sweep", "indel_sweep"):
         print(f"[spliced kernels] {name} launch: "
               f"{launch_shape(splice, name, caps['full'][name])}")
     check("search_lanes_live" in caps["full"]
           and caps["full"]["search_lanes_live"]["reads"].shape[0] > 2048,
           "the full step's re-search is not in lane-list mode")
     todo = [("full", "search_lanes_live"), ("full", "pair_sweep"),
-            ("full", "second_sweep"), ("lite", "inject_known"),
+            ("full", "second_sweep"), ("full", "indel_sweep"),
+            ("lite", "inject_known"),
             ("full", "inject_known"), ("full", "compact_cands"),
             ("full", "pack_slots"), ("lite", "pack_slots")]
     for tier, name in todo:
@@ -1098,6 +1123,8 @@ def genome_phase(torch, np, kernels, twins, driver, read_alignments,
           "the sampled step did not search the 49-column rows and resolve "
           "through the walk")
     replay(cap, "genome")
+    k8 = launch_shape(splice, "indel_sweep", cap["indel_sweep"])
+    print(f"[genome kernels] indel_sweep launch: {k8}")
     kw = cap["resolve_walk"]
     out = twins["resolve_walk"][0](**kw)
     bounds["resolve_walk"] = work(torch, "resolve_walk", kw, out)
@@ -1307,8 +1334,7 @@ def genome_phase(torch, np, kernels, twins, driver, read_alignments,
                 kw = scap[name]
                 bounds[name + "_c6"] = work(torch, name, kw,
                                             twins[name][0](**kw))
-                shape = (f" ({launch_shape(splice, name, kw)})"
-                         if name != "indel_sweep" else "")
+                shape = f" ({launch_shape(splice, name, kw)})"
                 print(f"[genome config6] {name} at k = 10{shape}: kernel "
                       f"{rows[name]['genome_c6_full_ms']:.4f} ms on "
                       f"{kw['starts'].shape[0]} lanes, bound "
@@ -1727,6 +1753,21 @@ def main() -> int:
         print(f"[kernels] {name}: equal to plain (tolerance: exact), "
               f"max_abs_err {err}; kernel {ms:.4f} ms, plain {pms:.4f} ms "
               f"(median of 10; inputs {shp[:4]})")
+    k8 = launch_shape(splice, "indel_sweep", cap["indel_sweep"])
+    print(f"[kernels] indel_sweep launch: {k8}")
+    # K8 at long-read shapes the gap budget can give (the window margin is
+    # max(16, G), align/pipeline.py), as the runtime reports them
+    for Lx, Gx, snv in ((151, 8, False), (151, 8, True), (512, 19, False),
+                        (512, 27, True), (512, 32, True)):
+        info = splice.sweep_launch_info("indel_sweep", 1, Lx,
+                                        Lx + 2 * max(16, Gx), 0, snv, Gx)
+        check(info["blocks_per_sm"] >= 1, f"indel_sweep: L = {Lx}, G = "
+              f"{Gx} does not fit an SM")
+        print(f"[kernels] indel_sweep launch at L = {Lx}, G = {Gx}"
+              f"{', SNV windows' if snv else ''}: {info['regs']} registers,"
+              f" {info['smem']} bytes of shared memory per block, "
+              f"{info['threads']} threads, {info['blocks_per_sm']} blocks "
+              f"per SM")
     phase_done("kernels")
 
     # 5 whole step: kernels on the card vs plain versions on the CPU
@@ -1879,6 +1920,8 @@ def main() -> int:
                   f"(tolerance: exact); kernel {ms:.4f} ms, plain "
                   f"{pms:.4f} ms (median of 10)")
         if tier == "full":
+            k8 = launch_shape(splice, "indel_sweep", cap["indel_sweep"])
+            print(f"[graph kernels] indel_sweep launch: {k8}")
             inj = splice.inject_indels(**cap["inject_indels"])
             live = int((inj["event"] >= 0).sum())
             check(live > 0, "no injected known-indel slot in the batch")

@@ -4,41 +4,59 @@
 // its SNV windows (:998-1002).  Plain twin:
 // hisat2_tpu_torch/ops/splice.py:self_indel_sweep_plain.
 //
-// One block per (lane, candidate).  The candidate's window (and on a graph
-// index its two SNV-plane windows: a mismatch that matches a catalog SNV
-// allele costs nothing, but still counts as a raw mismatch), the read, its
-// per-column mismatch penalties and N penalties go to shared memory; the
-// block's warps then build, for every shift delta in [-G, G], the penalty
-// prefix P_delta and the raw-mismatch prefix R_delta over x = 0..L (warp
-// scans, one warp per shift).  Each thread then owns split points x and
-// folds the 4 gap combos of every g = 1..G into two running minima of the
-// packed key ((min(pen, PCAP-1) << 6 | min(raw, 63)) << 6 | combo), for
-// the strict (>= min_anchor flanks) and the wide rows.  A block-wide
-// (key, x) minimum gives the first-index argmin, decoded as in
-// splice.py:1085-1100.  Gap-path penalties are summed in int64 and
-// clamped before packing, so no signed int32 overflow can occur (the
-// packed key itself stays below 2^31 by the PCAP clamp).
+// For each candidate, every split point x and every gap g = 1..G of four
+// kinds (deletion or insertion, the candidate holding the left or the
+// right segment) is scored from the penalty prefix P_delta and the raw
+// mismatch prefix R_delta of the read against the window shifted by
+// delta in {-g, 0, +g}, packed into one key ((min(pen, PCAP-1) * 64 +
+// min(raw, 63)) * 64 + cid), and the (key, x) minimum is kept for the
+// strict (>= min_anchor flanks) and the wide rows, decoded as in
+// splice.py:1085-1100.
 //
-// The SNV branch is a template parameter: on a linear index the block
-// stages one window and runs the mismatch test alone, as before it.
+// Design (Hopper):
+// - A dead candidate's row depends on its start alone (JAX's `pack` with
+//   ok false: score -2^30, d1 = d2 = start, x = 0, kind 0), so it is
+//   written and nothing else is done for it.  Most candidates are dead.
+// - A block of up to 4 warps takes 32 consecutive candidates; one ballot
+//   over their `valid` bytes lists the live ones, and warp w sweeps the
+//   live candidates w, w + 4, ... alone.  No block barrier.  The read is
+//   staged per live candidate, not per lane: most lanes hold at most one
+//   live candidate (PERF.md, the K8 split).
+// - Each warp stages its candidate's window (and on a graph index, per
+//   window column, the read bases a catalog SNV forgives) and the read's
+//   bases and mismatch penalties in its own shared memory, keeps P0/R0
+//   resident, and for each g builds P-g/R-g and P+g/R+g (warp scans over
+//   32-column chunks), folds the four combos of that g for the split
+//   points it owns (x = lane, lane + 32, ...) into a running (key, x)
+//   minimum per set, and drops them.  Shared memory is O(L) per warp and
+//   does not grow with G.
+// - 32-bit arithmetic that reproduces JAX's int32: prefixes, penalty sums
+//   and the packed key are computed in uint32 (wrapping, as XLA's int32
+//   does; signed overflow is undefined in CUDA C++) and compared as int32.
+//   From G = 17 on, cid reaches 64: a saturated key then wraps negative
+//   and JAX emits a +524288 row, and a cid >= 64 carries into the raw
+//   field, so `val & 63` decodes another combo; both are reproduced.
+//   The first-index argmin is the lexicographic (key, x) minimum.
 //
-// Bound: (2G+1) * (L+1) prefix entries per candidate in shared memory and
-// 4G combos per split point; at G = 5, L = 100 this is ~2k int ops per
-// split point, issue-bound.
+// Bound (chip_smoke.py:work): the windows of live candidates, each lane's
+// read and quals and the ten output planes, and ~8 integer operations for
+// each of the 4G combos at each split point of a live candidate.  The
+// kernel is latency-bound instead: a live candidate is one warp's chain
+// of 2G+1 chunked scans and G folds, overlapped only across warps.
 #include "common.cuh"
 
-#define SW_THREADS 128
+#define SW_MAX_WARPS 4
+#define SW_POOL 32
 #define SW_PCAP (1 << 19)
 #define SW_BIG (1 << 30)
 #define SW_MAX_L 1024
+#define SW_KEY_NONE 0x7FFFFFFF
 
-// int offset of the 8-byte aligned reduction scratch in shared memory
-// (nwin windows of W: 1, or 3 with the SNV planes)
-__host__ __device__ inline size_t sw_red_offset(int L, int W, int G,
-                                                int nwin) {
-  const size_t ints = nwin * (size_t)W + 3 * (size_t)L +
-                      2 * (size_t)(2 * G + 1) * (L + 1);
-  return (ints + 1) & ~(size_t)1;
+// ints of one warp's shared memory: the window, the read's bases and
+// mismatch penalties, six prefixes of L+1 (P0 R0 P-g R-g P+g R+g) and, with
+// SNV windows, one byte per window column
+__host__ __device__ inline int sw_warp_ints(int L, int W, bool snv) {
+  return W + 2 * L + 6 * (L + 1) + (snv ? (W + 3) / 4 : 0);
 }
 
 struct SwArgs {
@@ -58,180 +76,246 @@ struct SwArgs {
   int* out;  // [10, NC]: score d1 d2 x kind | w_score w_d1 w_d2 w_x w_kind
 };
 
-template <bool SNV>
-__global__ void indel_sweep_kernel(SwArgs A) {
-  extern __shared__ int smem[];
-  const long long cand = blockIdx.x;
-  if (cand >= A.NC) return;
-  const int L = A.L, W = A.W, M = A.M, G = A.G;
-  const int ND = 2 * G + 1;
-  int* sCh = smem;          // [W]
-  int* sS1 = sCh + W;       // [W] (SNV only)
-  int* sS2 = sS1 + W;       // [W] (SNV only)
-  int* sRd = SNV ? sS2 + W : sCh + W;  // [L]
-  int* sMmq = sRd + L;      // [L] mismatch penalty by quality
-  int* sIsn = sMmq + L;     // [L] N penalty (0 outside the read)
-  int* sP = sIsn + L;       // [ND, L+1]
-  int* sR = sP + ND * (L + 1);
-  unsigned long long* sRed =
-      (unsigned long long*)(smem + sw_red_offset(L, W, G, SNV ? 3 : 1));
-  const long long n = cand / A.C;
-  const int len = A.lens[n];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, wid = tid >> 5, nw = blockDim.x >> 5;
-  for (int m = tid; m < W; m += blockDim.x) {
-    sCh[m] = A.win[cand * W + m];
-    if (SNV) {
-      sS1[m] = A.snv1[cand * W + m];
-      sS2[m] = A.snv2[cand * W + m];
-    }
+__device__ __forceinline__ unsigned sw_scan(unsigned v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned t = __shfl_up_sync(H2_FULL_MASK, v, o);
+    if (lane >= o) v += t;
   }
-  for (int c = tid; c < L; c += blockDim.x) {
-    const int r = A.reads[n * L + c];
-    sRd[c] = r;
-    sMmq[c] = A.mm_pen[min(A.quals[n * L + c], 63)];
-    sIsn[c] = (c < len && r >= 4) ? A.n_pen : 0;
-  }
-  __syncthreads();
-  // prefixes of every shift: pen and raw mismatches of chs = ch[M+delta+c]
-  for (int d = wid; d < ND; d += nw) {
-    const int delta = d - G;
-    int* P = sP + d * (L + 1);
-    int* R = sR + d * (L + 1);
-    int cp = 0, cr = 0;
-    for (int b = 0; b < L; b += 32) {
-      const int c = b + lane;
-      int pen = 0, raw = 0;
-      if (c < L) {
-        const int chs = sCh[M + delta + c];
-        const int r = sRd[c];
-        const bool vp = c < len;
-        bool mm = vp && r < 4 && chs < 4 && r != chs;
-        raw = mm ? 1 : 0;
-        if (SNV) {
-          const int v1 = sS1[M + delta + c], v2 = sS2[M + delta + c];
-          if ((v1 != 0 && r == ((chs + v1) & 3)) ||
-              (v2 != 0 && r == ((chs + v2) & 3)))
-            mm = false;
-        }
-        pen = (mm ? sMmq[c] : 0) + sIsn[c] + ((vp && chs > 3) ? 100000 : 0);
-      }
-      const int sp = h2_warp_incl_sum(pen, lane);
-      const int sr = h2_warp_incl_sum(raw, lane);
-      if (c < L) {
-        P[c + 1] = cp + sp;
-        R[c + 1] = cr + sr;
-      }
-      cp += __shfl_sync(H2_FULL_MASK, sp, 31);
-      cr += __shfl_sync(H2_FULL_MASK, sr, 31);
-    }
-    if (lane == 0) {
-      P[0] = 0;
-      R[0] = 0;
-    }
-  }
-  __syncthreads();
+  return v;
+}
 
-  const long long PC1 = SW_PCAP - 1;
-  const int A_ = A.min_anchor;
-  const int* P0 = sP + G * (L + 1);
-  const int* R0 = sR + G * (L + 1);
-  const long long T0 = P0[len], TR0 = R0[len];
-  unsigned long long best_s = ~0ull, best_w = ~0ull;
-  for (int x = tid; x <= L; x += blockDim.x) {
-    unsigned int run_s = 0x7FFFFFFFu, run_w = 0x7FFFFFFFu;
-    for (int g = 1; g <= G; ++g) {
-      const int* Pm = sP + (G - g) * (L + 1);
-      const int* Rm = sR + (G - g) * (L + 1);
-      const int* Pp = sP + (G + g) * (L + 1);
-      const int* Rp = sR + (G + g) * (L + 1);
-      const long long Tm = Pm[len], Tp = Pp[len];
-      const long long TRm = Rm[len], TRp = Rp[len];
-      const bool inr = x + g <= L;
-      // P[x + g], saturating at the total past the end
-      const long long sP0 = inr ? P0[x + g] : T0;
-      const long long sR0 = inr ? R0[x + g] : TR0;
-      const long long sPm = inr ? Pm[x + g] : Tm;
-      const long long sRm = inr ? Rm[x + g] : TRm;
-      const long long cdel = (long long)A.rd_open + (long long)A.rd_ext * g;
-      const long long cins = (long long)A.rf_open + (long long)A.rf_ext * g;
-      const bool okw_d = x >= 1 && x <= len - 1;
-      const bool okw_i = x >= 1 && x + g <= len - 1;
-      const bool oks_d = x >= A_ && x <= len - A_;
-      const bool oks_i = x >= A_ && x + g <= len - A_;
-      long long pen[4], raw[4];
-      // deletion, candidate holds the RIGHT segment: left = d - g
-      pen[0] = Pm[x] + (T0 - P0[x]) + cdel;
-      raw[0] = Rm[x] + (TR0 - R0[x]);
-      // deletion, candidate holds the LEFT segment: right = d + g
-      pen[1] = P0[x] + (Tp - Pp[x]) + cdel;
-      raw[1] = R0[x] + (TRp - Rp[x]);
-      // insertion, candidate holds the RIGHT segment: left = d + g
-      pen[2] = Pp[x] + (T0 - sP0) + cins;
-      raw[2] = Rp[x] + (TR0 - sR0);
-      // insertion, candidate holds the LEFT segment: right = d - g
-      pen[3] = P0[x] + (Tm - sPm) + cins;
-      raw[3] = R0[x] + (TRm - sRm);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const long long cid = 4 * (g - 1) + k;
-        const long long key =
-            (min(pen[k], PC1) * 64 + min(raw[k], 63ll)) * 64 + cid;
-        const unsigned int v = (unsigned int)key;
-        const bool s_ok = k < 2 ? oks_d : oks_i;
-        const bool w_ok = k < 2 ? okw_d : okw_i;
-        if (s_ok && v < run_s) run_s = v;
-        if (w_ok && v < run_w) run_w = v;
+// JAX's packed key in int32 arithmetic
+__device__ __forceinline__ int sw_key(unsigned pen, unsigned raw,
+                                      unsigned cid) {
+  const int p = min((int)pen, SW_PCAP - 1), r = min((int)raw, 63);
+  return (int)(((unsigned)p * 64u + (unsigned)r) * 64u + cid);
+}
+
+// (key, x) lexicographic minimum
+__device__ __forceinline__ void sw_min(int& bk, int& bx, int k, int x) {
+  if (k < bk || (k == bk && x < bx)) {
+    bk = k;
+    bx = x;
+  }
+}
+
+struct SwWarp {
+  const int* ch;
+  const int* rd;
+  const int* mq;
+  const uint8_t* fz;  // read bases a catalog SNV forgives (SNV only)
+  int len, n_pen;
+};
+
+// penalty and raw mismatch of read base r (quality penalty mq) of a
+// column below len against window column m (splice.py:1035-1046)
+template <bool SNV>
+__device__ __forceinline__ void sw_col(const SwWarp& s, int r, int mq, int m,
+                                       unsigned& pen, unsigned& raw) {
+  const int chs = s.ch[m];
+  bool mm = r < 4 && chs < 4 && r != chs;
+  raw = mm;
+  if (SNV && mm && r >= 0 && ((s.fz[m] >> r) & 1)) mm = false;
+  pen = (mm ? (unsigned)mq : 0u) + (r >= 4 ? (unsigned)s.n_pen : 0u) +
+        (chs > 3 ? 100000u : 0u);
+}
+
+// P[0..len], R[0..len] of the shift starting at window column ma (and, if
+// TWO, of the one at mb); past len a prefix stays at its total, so
+// readers clamp their index to len
+template <bool SNV, bool TWO>
+__device__ void sw_build(const SwWarp& s, int lane, int ma, int* Pa,
+                         int* Ra, int mb, int* Pb, int* Rb) {
+  unsigned ca = 0, cra = 0, cb = 0, crb = 0;
+  for (int b = 0; b < s.len; b += 32) {
+    const int c = b + lane;
+    unsigned pa = 0, ra = 0, pb = 0, rb = 0;
+    if (c < s.len) {
+      const int r = s.rd[c], mq = s.mq[c];
+      sw_col<SNV>(s, r, mq, ma + c, pa, ra);
+      if (TWO) sw_col<SNV>(s, r, mq, mb + c, pb, rb);
+    }
+    pa = sw_scan(pa, lane);
+    ra = sw_scan(ra, lane);
+    if (TWO) {
+      pb = sw_scan(pb, lane);
+      rb = sw_scan(rb, lane);
+    }
+    if (c < s.len) {
+      Pa[c + 1] = (int)(ca + pa);
+      Ra[c + 1] = (int)(cra + ra);
+      if (TWO) {
+        Pb[c + 1] = (int)(cb + pb);
+        Rb[c + 1] = (int)(crb + rb);
       }
     }
-    const unsigned long long ks = ((unsigned long long)run_s << 32) | x;
-    const unsigned long long kw = ((unsigned long long)run_w << 32) | x;
-    if (ks < best_s) best_s = ks;
-    if (kw < best_w) best_w = kw;
-  }
-  // block-wide (key, x) minimum: first-index argmin of the running rows
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    best_s = min(best_s, __shfl_xor_sync(H2_FULL_MASK, best_s, o));
-    best_w = min(best_w, __shfl_xor_sync(H2_FULL_MASK, best_w, o));
+    ca += __shfl_sync(H2_FULL_MASK, pa, 31);
+    cra += __shfl_sync(H2_FULL_MASK, ra, 31);
+    if (TWO) {
+      cb += __shfl_sync(H2_FULL_MASK, pb, 31);
+      crb += __shfl_sync(H2_FULL_MASK, rb, 31);
+    }
   }
   if (lane == 0) {
-    sRed[2 * wid] = best_s;
-    sRed[2 * wid + 1] = best_w;
+    Pa[0] = Ra[0] = 0;
+    if (TWO) Pb[0] = Rb[0] = 0;
   }
-  __syncthreads();
-  if (tid != 0) return;
-  for (int k = 1; k < nw; ++k) {
-    best_s = min(best_s, sRed[2 * k]);
-    best_w = min(best_w, sRed[2 * k + 1]);
+}
+
+// one set's row of a candidate from its (key, x) minimum (splice.py:
+// 1085-1100); a dead candidate (live false) gets the constant row
+__device__ __forceinline__ void sw_write(const SwArgs& A, long long cand,
+                                         int which, int val, int am,
+                                         bool live) {
+  const int NCOMBO = 4 * A.G;
+  int cid = min(val & 63, NCOMBO);
+  const int score = -(val >> 12);
+  const bool ok = live && score >= A.minsc[cand / A.C] &&
+                  val < (SW_PCAP - 1) * 4096;
+  cid = ok ? cid : NCOMBO;
+  int o1 = 0, o2 = 0, kind = 0;
+  if (cid < NCOMBO) {
+    const int g = cid / 4 + 1, k = cid & 3;
+    o1 = k == 0 ? -g : (k == 2 ? g : 0);
+    o2 = k == 1 ? g : (k == 3 ? -g : 0);
+    kind = k < 2 ? 2 : 3;  // KIND_DEL, KIND_INS
   }
-  const int NCOMBO = 4 * G;
-  const int st = A.starts[cand];
-  const bool valid = A.valid[cand] != 0;
-  const int msc = A.minsc[n];
-  for (int which = 0; which < 2; ++which) {
-    const unsigned long long key = which == 0 ? best_s : best_w;
-    const unsigned int val = (unsigned int)(key >> 32);
-    const int am = (int)(key & 0xFFFFFFFFull);
-    int cid = min((int)(val & 63u), NCOMBO);
-    const int score = -(int)(val >> 12);
-    const bool ok = valid && score >= msc &&
-                    (long long)val < PC1 * 4096;
-    cid = ok ? cid : NCOMBO;
-    int o1 = 0, o2 = 0, kind = 0;
-    if (cid < NCOMBO) {
-      const int g = cid / 4 + 1, k = cid & 3;
-      o1 = k == 0 ? -g : (k == 2 ? g : 0);
-      o2 = k == 1 ? g : (k == 3 ? -g : 0);
-      kind = k < 2 ? 2 : 3;  // KIND_DEL, KIND_INS
+  const unsigned st = (unsigned)A.starts[cand];
+  int* out = A.out + (size_t)which * 5 * A.NC + cand;
+  out[0] = ok ? score : -SW_BIG;
+  out[A.NC] = (int)(st + (unsigned)o1);
+  out[2 * A.NC] = (int)(st + (unsigned)o2);
+  out[3 * A.NC] = ok ? am : 0;
+  out[4 * A.NC] = ok ? kind : 0;
+}
+
+template <bool SNV>
+__device__ void sw_sweep(const SwArgs& A, long long cand, int* ws,
+                         int lane) {
+  const int L = A.L, W = A.W, M = A.M, G = A.G;
+  int* sCh = ws;
+  int* sRd = sCh + W;
+  int* sMq = sRd + L;
+  int* P0 = sMq + L;
+  int* R0 = P0 + (L + 1);
+  int* Pm = R0 + (L + 1);
+  int* Rm = Pm + (L + 1);
+  int* Pp = Rm + (L + 1);
+  int* Rp = Pp + (L + 1);
+  uint8_t* sFz = (uint8_t*)(Rp + (L + 1));
+  const long long n = cand / A.C;
+  const int len = min(max(A.lens[n], 0), L);
+  // the window columns any shift reads: [M - G, M + G + len)
+  const int* win = A.win + cand * W;
+  for (int m = M - G + lane; m < M + G + len; m += 32) {
+    const int c = win[m];
+    sCh[m] = c;
+    if (SNV) {
+      const int v1 = A.snv1[cand * W + m], v2 = A.snv2[cand * W + m];
+      sFz[m] = (uint8_t)((v1 != 0 ? 1u << (((unsigned)c + v1) & 3u) : 0u) |
+                         (v2 != 0 ? 1u << (((unsigned)c + v2) & 3u) : 0u));
     }
-    int* out = A.out + (size_t)which * 5 * A.NC;
-    out[0 * A.NC + cand] = ok ? score : -SW_BIG;
-    out[1 * A.NC + cand] = st + o1;
-    out[2 * A.NC + cand] = st + o2;
-    out[3 * A.NC + cand] = ok ? am : 0;
-    out[4 * A.NC + cand] = ok ? kind : 0;
   }
+  for (int c = lane; c < len; c += 32) {
+    sRd[c] = A.reads[n * L + c];
+    sMq[c] = A.mm_pen[min(A.quals[n * L + c], 63)];
+  }
+  __syncwarp();
+  const SwWarp s{sCh, sRd, sMq, sFz, len, A.n_pen};
+  sw_build<SNV, false>(s, lane, M, P0, R0, 0, nullptr, nullptr);
+  __syncwarp();
+  const unsigned T0 = P0[len], TR0 = R0[len];
+  const int An = A.min_anchor;
+  // split points where some combo can pass: x >= min(1, A), and
+  // x <= max(len - 1, len - A)
+  const int xlo = max(0, min(1, An)), xhi = min(L, max(len - 1, len - An));
+  int bs = SW_KEY_NONE, bxs = 0, bw = SW_KEY_NONE, bxw = 0;
+  for (int g = 1; g <= G; ++g) {
+    sw_build<SNV, true>(s, lane, M - g, Pm, Rm, M + g, Pp, Rp);
+    __syncwarp();
+    const unsigned Tm = Pm[len], Tp = Pp[len], TRm = Rm[len], TRp = Rp[len];
+    const unsigned cdel = (unsigned)A.rd_open + (unsigned)A.rd_ext * g;
+    const unsigned cins = (unsigned)A.rf_open + (unsigned)A.rf_ext * g;
+    const unsigned cid = 4u * (g - 1);
+    for (int x = xlo + lane; x <= xhi; x += 32) {
+      const int xi = min(x, len), xg = min(x + g, len);
+      const unsigned p0 = P0[xi], r0 = R0[xi], p0g = P0[xg], r0g = R0[xg];
+      const unsigned pm = Pm[xi], rm = Rm[xi], pmg = Pm[xg], rmg = Rm[xg];
+      const unsigned pp = Pp[xi], rp = Rp[xi];
+      // deletion, the candidate holds the right / the left segment
+      const int kd = min(sw_key(pm + (T0 - p0) + cdel, rm + (TR0 - r0), cid),
+                         sw_key(p0 + (Tp - pp) + cdel, r0 + (TRp - rp),
+                                cid + 1));
+      // insertion, the candidate holds the right / the left segment
+      const int ki =
+          min(sw_key(pp + (T0 - p0g) + cins, rp + (TR0 - r0g), cid + 2),
+              sw_key(p0 + (Tm - pmg) + cins, r0 + (TRm - rmg), cid + 3));
+      const bool okw_d = x >= 1 && x <= len - 1;
+      const bool okw_i = x >= 1 && x + g <= len - 1;
+      const bool oks_d = x >= An && x <= len - An;
+      const bool oks_i = x >= An && x + g <= len - An;
+      sw_min(bs, bxs,
+             min(oks_d ? kd : SW_KEY_NONE, oks_i ? ki : SW_KEY_NONE), x);
+      sw_min(bw, bxw,
+             min(okw_d ? kd : SW_KEY_NONE, okw_i ? ki : SW_KEY_NONE), x);
+    }
+    __syncwarp();
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    sw_min(bs, bxs, __shfl_xor_sync(H2_FULL_MASK, bs, o),
+           __shfl_xor_sync(H2_FULL_MASK, bxs, o));
+    sw_min(bw, bxw, __shfl_xor_sync(H2_FULL_MASK, bw, o),
+           __shfl_xor_sync(H2_FULL_MASK, bxw, o));
+  }
+  if (lane < 2)
+    sw_write(A, cand, lane, lane ? bw : bs, lane ? bxw : bxs, true);
+  __syncwarp();
+}
+
+template <bool SNV>
+__global__ void __launch_bounds__(32 * SW_MAX_WARPS)
+    indel_sweep_kernel(SwArgs A) {
+  extern __shared__ int smem[];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const long long c0 = (long long)blockIdx.x * SW_POOL;
+  const long long me = c0 + lane;
+  const bool in = me < A.NC;
+  const bool live = in && A.valid[me] != 0;
+  unsigned m = __ballot_sync(H2_FULL_MASK, live);
+  if (wid == 0 && in && !live) {
+    sw_write(A, me, 0, SW_KEY_NONE, 0, false);
+    sw_write(A, me, 1, SW_KEY_NONE, 0, false);
+  }
+  int* ws = smem + (size_t)wid * sw_warp_ints(A.L, A.W, SNV);
+  for (int i = 0; i < wid; ++i) m &= m - 1;
+  while (m) {
+    sw_sweep<SNV>(A, c0 + __ffs(m) - 1, ws, lane);
+    for (int i = 0; i < nw; ++i) m &= m - 1;
+  }
+}
+
+// warps per block (as many as fit, up to 4) and their dynamic shared
+// bytes; an error where one warp's buffers do not fit a block
+static cudaError_t sw_config(int L, int W, bool snv, int* warps,
+                             size_t* smem) {
+  int dev = 0, cap = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e != cudaSuccess) return e;
+  const size_t per = (size_t)sw_warp_ints(L, W, snv) * sizeof(int);
+  *warps = (int)min((size_t)SW_MAX_WARPS, (size_t)cap / per);
+  *smem = per * *warps;
+  return *warps > 0 ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+static bool sw_shape_ok(int L, int W, int G) {
+  return L >= 1 && L <= SW_MAX_L && W >= L && (W - L) % 2 == 0 && G >= 0 &&
+         G <= (W - L) / 2;
 }
 
 H2_EXPORT int h2_indel_sweep(
@@ -241,24 +325,54 @@ H2_EXPORT int h2_indel_sweep(
     int min_anchor, int rd_open, int rd_ext, int rf_open, int rf_ext,
     void* out, const void* snv1, const void* snv2, int use_snv,
     void* stream) {
-  if (L > SW_MAX_L || L < 1 || W < L || (W - L) % 2 || G < 0 ||
-      G > (W - L) / 2)
-    return (int)cudaErrorInvalidValue;
+  if (!sw_shape_ok(L, W, G)) return (int)cudaErrorInvalidValue;
   SwArgs A{(const int*)win, (const int*)reads, (const int*)quals,
            (const int*)lens, (const int*)starts, (const uint8_t*)valid,
            (const int*)minsc, (const int*)mm_pen, (const int*)snv1,
            (const int*)snv2, NC, C, L, W, (W - L) / 2, G, n_pen, min_anchor,
            rd_open, rd_ext, rf_open, rf_ext, (int*)out};
-  const size_t smem =
-      sw_red_offset(L, W, G, use_snv ? 3 : 1) * sizeof(int) +
-      2 * (SW_THREADS / 32) * sizeof(unsigned long long);
+  int warps = 0;
+  size_t smem = 0;
+  cudaError_t e = sw_config(L, W, use_snv != 0, &warps, &smem);
+  if (e != cudaSuccess) return (int)e;
   auto kern = use_snv ? indel_sweep_kernel<true> : indel_sweep_kernel<false>;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
+    e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  if (NC > 0)
-    kern<<<(unsigned)NC, SW_THREADS, smem, (cudaStream_t)stream>>>(A);
+  const long long blocks = (NC + SW_POOL - 1) / SW_POOL;
+  if (blocks > 0)
+    kern<<<(unsigned)blocks, 32 * warps, smem, (cudaStream_t)stream>>>(A);
   return (int)cudaGetLastError();
+}
+
+// The launch at this shape, from the CUDA runtime: out = {registers per
+// thread, static shared bytes, dynamic shared bytes, threads per block,
+// blocks per SM}.
+H2_EXPORT int h2_indel_sweep_info(int L, int W, int G, int use_snv,
+                                  int* out) {
+  if (!sw_shape_ok(L, W, G)) return (int)cudaErrorInvalidValue;
+  int warps = 0;
+  size_t smem = 0;
+  cudaError_t e = sw_config(L, W, use_snv != 0, &warps, &smem);
+  if (e != cudaSuccess) return (int)e;
+  auto kern = use_snv ? indel_sweep_kernel<true> : indel_sweep_kernel<false>;
+  cudaFuncAttributes a;
+  e = cudaFuncGetAttributes(&a, kern);
+  if (e != cudaSuccess) return (int)e;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, 32 * warps,
+                                                    smem);
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = (int)smem;
+  out[3] = 32 * warps;
+  out[4] = blocks;
+  return (int)e;
 }

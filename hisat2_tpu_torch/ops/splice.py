@@ -162,6 +162,12 @@ def _sweep_meta(G):
     return o1 + [0], o2 + [0], kd + [0]
 
 
+def indel_sweep_gap(L: int, W: int, max_gap, prm: SpliceParams) -> int:
+    """Kernel 4's gap budget G for reads of L columns in windows of W: the
+    window margin, or less where max_gap (else prm.max_gap) asks."""
+    return int(min((W - L) // 2, max_gap if max_gap else prm.max_gap))
+
+
 def self_indel_sweep_plain(ch, reads, quals, lens, starts, valid, minsc,
                            mm_pen, n_pen: int, prm: SpliceParams,
                            max_gap: int = None, snv1_w=None, snv2_w=None):
@@ -173,7 +179,7 @@ def self_indel_sweep_plain(ch, reads, quals, lens, starts, valid, minsc,
     N, C, W = ch.shape
     L = reads.shape[1]
     M = (W - L) // 2
-    G = int(min(M, max_gap if max_gap else prm.max_gap))
+    G = indel_sweep_gap(L, W, max_gap, prm)
     rd = reads[:, None, :]
     mmq = mm_pen[torch.clamp(quals, max=63).to(torch.int64)][:, None, :]
     ln = lens[:, None]
@@ -238,6 +244,9 @@ def self_indel_sweep_plain(ch, reads, quals, lens, starts, valid, minsc,
             packed = ((torch.clamp(pen.to(torch.int64), max=_PCAP - 1) * 64
                        + torch.clamp(raw.to(torch.int64), max=63)) * 64
                       + cid)
+            # JAX packs in int32: past G = 16 a saturated key wraps
+            # negative (and decodes as a +524288 row), so wrap it too
+            packed = ((packed + 2 ** 31) & (2 ** 32 - 1)) - 2 ** 31
             run_s = torch.minimum(run_s, torch.where(oks, packed, BIGP))
             run_w = torch.minimum(run_w, torch.where(okw, packed, BIGP))
             cid += 1
@@ -273,7 +282,9 @@ def self_indel_sweep_plain(ch, reads, quals, lens, starts, valid, minsc,
 def self_indel_sweep(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
                      n_pen: int, prm: SpliceParams, max_gap: int = None,
                      snv1_w=None, snv2_w=None):
-    """Kernel 4 on CUDA tensors, self_indel_sweep_plain on CPU tensors."""
+    """Kernel 4 on CUDA tensors, self_indel_sweep_plain on CPU tensors.
+    Dead candidates get their constant row without a sweep; the kernel's
+    shared memory is O(L) per warp, so every gap budget launches."""
     if not ch.is_cuda:
         return self_indel_sweep_plain(ch, reads, quals, lens, starts, valid,
                                       minsc, mm_pen, n_pen, prm, max_gap,
@@ -281,8 +292,7 @@ def self_indel_sweep(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
     i32 = torch.int32
     N, C, W = ch.shape
     L = reads.shape[1]
-    M = (W - L) // 2
-    G = int(min(M, max_gap if max_gap else prm.max_gap))
+    G = indel_sweep_gap(L, W, max_gap, prm)
     for nm, t, shp in (("ch", ch, (N, C, W)), ("reads", reads, (N, L)),
                        ("quals", quals, (N, L)), ("lens", lens, (N,)),
                        ("starts", starts, (N, C)), ("minsc", minsc, (N,)),
@@ -1206,19 +1216,24 @@ def pair_sweep_ref(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
 
 @functools.lru_cache(maxsize=None)
 def sweep_launch_info(name: str, C: int, L: int, W: int, LP: int,
-                      snv: bool = False) -> dict:
-    """K13's or K15's launch at these shapes, from the CUDA runtime
+                      snv: bool = False, G: int = 0) -> dict:
+    """K13's, K15's or K8's launch at these shapes, from the CUDA runtime
     (csrc/pair_sweep.cu:h2_pair_sweep_info, second_sweep.cu:
-    h2_second_sweep_info): registers per thread, static and dynamic shared
-    bytes (csrc/splice_planes.cuh:sp_layout), threads per block and blocks
-    per SM (0 where a block does not fit).  snv: K13's SNV-forgiving
-    prefix and SNV windows (a graph index)."""
+    h2_second_sweep_info, indel_sweep.cu:h2_indel_sweep_info): registers
+    per thread, static and dynamic shared bytes (csrc/splice_planes.cuh:
+    sp_layout for K13 and K15), threads per block and blocks per SM (0
+    where a block does not fit).  snv: the SNV windows of a graph index
+    (and K13's SNV-forgiving prefix).  K8 reads G, its gap budget, and not
+    C or LP."""
     import ctypes
     lib = kernels.load()
     out = (ctypes.c_int * 5)()
     if name == "pair_sweep":
         fn = lib.h2_pair_sweep_info
         args = (C, L, W, LP, int(snv))
+    elif name == "indel_sweep":
+        fn = lib.h2_indel_sweep_info
+        args = (L, W, G, int(snv))
     else:
         fn = lib.h2_second_sweep_info
         args = (C, L, W, LP)

@@ -986,3 +986,124 @@ def test_mixed_shard_devices_on_card(card):
         np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
     assert s1 == s2
     assert len(np.unique(np.asarray(c1[0]))) >= 200
+
+
+# --- the indel sweep K8 on seeded random lanes -------------------------------
+
+INDEL_L = (100, 151, 512)
+INDEL_G = (1, 5, 17, 19, 27, 32)
+
+
+def _indel_world(rng, N, C, L, G, live):
+    """N lanes of C candidates with a margin of max(16, G): windows that
+    hold the read with a planted deletion or insertion of 1..G, random
+    windows, runs of N (100000 a column) and lanes of dense mismatches;
+    short reads, N bases and random qualities; SNV-plane windows with a
+    delta at ~5% of the columns; `valid` at the given live share."""
+    M = max(16, G)
+    W = L + 2 * M
+    ch = rng.integers(0, 4, (N, C, W)).astype(np.int32)
+    reads = rng.integers(0, 4, (N, L)).astype(np.int32)
+    lens = np.full(N, L, np.int32)
+    lens[::4] = L - rng.integers(1, L // 3, len(lens[::4]))
+    for n in range(N):
+        reads[n, lens[n]:] = 4
+        for c in range(C - 1):
+            g = int(rng.integers(1, G + 1))
+            x = int(rng.integers(1, max(2, lens[n] - g)))
+            seg = reads[n, :L].copy()
+            if c % 2:       # an insertion of g in the read: drop it here
+                seg = np.concatenate([seg[:x], seg[x + g:],
+                                      rng.integers(0, 4, g)])
+            else:           # a deletion of g in the read: add it here
+                seg = np.concatenate([seg[:x], rng.integers(0, 4, g), seg])
+            ch[n, c, M:M + L] = np.where(seg[:L] > 3, 0, seg[:L])
+        if n % 5 == 1:      # dense mismatches
+            ch[n][rng.random((C, W)) < 0.5] = rng.integers(0, 4)
+        if n % 3 == 2:      # a run of N in each window
+            for c in range(C):
+                a = int(rng.integers(0, W - 8))
+                ch[n, c, a:a + int(rng.integers(4, 48))] = 4
+    reads[rng.random(reads.shape) < 0.01] = 4
+    quals = rng.integers(0, 42, (N, L)).astype(np.int32)
+    starts = rng.integers(-5, 10 ** 7, (N, C)).astype(np.int32)
+    valid = rng.random((N, C)) < live
+    minsc = (-(rng.integers(L // 10, L, N))).astype(np.int32)
+    minsc[::7] = -10 ** 6
+    snv = tuple(np.where(rng.random((N, C, W)) < 0.05,
+                         rng.integers(1, 4, (N, C, W)), 0).astype(np.int32)
+                for _ in range(2))
+    return ch, reads, quals, lens, starts, valid, minsc, snv
+
+
+def _indel_both(kw, what):
+    """K8 against its plain twin on these arguments (one launch)."""
+    from hisat2_tpu_torch import kernels
+    from hisat2_tpu_torch.ops import splice
+    n0 = kernels.KERNELS["indel_sweep"].launches
+    ko = splice.self_indel_sweep(**kw)
+    po = splice.self_indel_sweep_plain(**kw)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["indel_sweep"].launches == n0 + 1, what
+    assert sorted(ko) == sorted(po), what
+    for k in po:
+        _same(ko[k], po[k], f"{what} {k}")
+    return po
+
+
+@pytest.mark.parametrize("G", INDEL_G)
+@pytest.mark.parametrize("L", INDEL_L)
+def test_indel_sweep_random_on_card(sweep_card, L, G):
+    """K8 against its plain twin with and without SNV windows at live
+    shares 0, 0.1 and 1, including L = 512 with G = 27 and 32 (above the
+    227 KB a block can use in the earlier design); dead rows are the
+    constant row."""
+    from hisat2_tpu_torch.ops import splice
+    from hisat2_tpu_torch.align.scoring import Scoring
+    rng = np.random.default_rng(1000 * L + G)
+    mm_pen = torch.from_numpy(Scoring().mm_pen_table()).cuda()
+    prm = splice.SpliceParams(allow_spliced=False)
+    for live in (0.0, 0.1, 1.0):
+        ch, reads, quals, lens, starts, valid, minsc, snv = _indel_world(
+            rng, 48, 6, L, G, live)
+        ch, reads, quals, lens, starts, valid, minsc, *snv = (
+            torch.from_numpy(a).cuda() for a in (ch, reads, quals, lens,
+                                                 starts, valid, minsc, *snv))
+        for use_snv in (False, True):
+            kw = dict(ch=ch, reads=reads, quals=quals, lens=lens,
+                      starts=starts, valid=valid, minsc=minsc,
+                      mm_pen=mm_pen, n_pen=1, prm=prm, max_gap=G,
+                      snv1_w=snv[0] if use_snv else None,
+                      snv2_w=snv[1] if use_snv else None)
+            po = _indel_both(kw, f"L={L} G={G} live={live} snv={use_snv}")
+            dead = ~kw["valid"]
+            for p in ("", "w_"):
+                assert bool((po[p + "score"][dead] == -2 ** 30).all())
+                assert torch.equal(po[p + "d1"][dead], kw["starts"][dead])
+            if live == 1.0 and G >= 5:
+                assert bool((po["kind"] != 0).any())
+
+
+def test_indel_sweep_wrapped_key_on_card(sweep_card):
+    """The int32 key wrap (G = 18, L = 300: a read of A against a window
+    of C with six N columns): the kernel emits JAX's +524288 deletion row,
+    as the twin does."""
+    from hisat2_tpu_torch.ops import splice
+    from hisat2_tpu_torch.align.scoring import Scoring
+    L, G = 300, 18
+    ch = np.ones((1, 1, L + 2 * G), np.int32)
+    ch[0, 0, G + 100:G + 106] = 4
+    i32 = torch.int32
+    kw = dict(ch=torch.from_numpy(ch).cuda(),
+              reads=torch.zeros((1, L), dtype=i32).cuda(),
+              quals=torch.full((1, L), 40, dtype=i32).cuda(),
+              lens=torch.tensor([L], dtype=i32).cuda(),
+              starts=torch.zeros((1, 1), dtype=i32).cuda(),
+              valid=torch.ones((1, 1), dtype=torch.bool).cuda(),
+              minsc=torch.tensor([-60], dtype=i32).cuda(),
+              mm_pen=torch.from_numpy(Scoring().mm_pen_table()).cuda(),
+              n_pen=1, prm=splice.SpliceParams(allow_spliced=False),
+              max_gap=G)
+    po = _indel_both(kw, "wrapped key")
+    assert [int(po[f][0, 0]) for f in ("score", "d1", "d2", "x", "kind")] \
+        == [524288, -1, 0, 7, 2]
