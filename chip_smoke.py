@@ -17,11 +17,15 @@ checks them:
             at k = 5; at the graph default k = 10 the search reports up
             to 20 placements, and a mate with 15 copies aligns alone)
   4 kernels linear path: each kernel on the real intermediates of one
-            4096-read batch, against its plain torch twin on the card:
-            exact equality, median times of both; K8's launch (registers,
-            shared memory, blocks per SM), gap budget and live share, as
-            on every step below that holds K8 against its twin, and its
-            launch at L = 151 and 512 with G up to 32
+            4096-read batch (K6+K7 on its core and its extra-slot launch),
+            against its plain torch twin on the card: exact equality,
+            median times of both; the launch (registers, shared memory,
+            blocks per SM) of K6+K7, with its live share, lanes by live
+            slots and distinct (lane, start) groups, and of K8, with its
+            gap budget and live share, as on every step below that holds
+            them against their twins (`step_shapes`), K6+K7's launch at
+            L = 151, 250, 512 and 2000 (with its local bytes) and K8's
+            at L = 151 and 512 with G up to 32
   5 step    the whole linear device step on the card (kernels) against
             the step on the CPU (plain versions): equal packed buffers and
             layouts, spill and full_out
@@ -47,7 +51,8 @@ checks them:
             100 bp mates, --fr, against the graph index, k = 10), 4096
             pairs per batch, one fused batch of 8192 mates: K12
             (rescue_window) on the phase's real rescue jobs against its
-            plain twin, with the whole rescue_candidates call, and timed
+            plain twin, with the whole rescue_candidates call and K6+K7
+            on the chunk's rescoring, and timed
             beside the library yardstick (a grouped bf16 conv1d plus
             topk); the fused lite and full step against the CPU step;
             4 batches through align/driver.py's _dispatch_pair_batch /
@@ -124,6 +129,13 @@ checks them:
             SAM body equal to the single-host run's and to mm3_ref_k10,
             and the dry-run twin (python -m hisat2_tpu_torch.parallel.dryrun
             --world 1 --device cuda) beside them
+ 13 long    reads above the kernels' former caps on phase 3's index: a
+            128-read batch whose longest read is LONG_L = 1100 bp (the
+            rest 100-300 bp) through the step on the card and on the CPU,
+            and 64 pairs (one of 1100 bp mates, a quarter needing mate
+            rescue) through align/driver.py's paired batch on both: equal
+            packed buffers and SAM, rescue jobs at 1100 bp, and K1,
+            K6+K7, K8 and K12 launched at that width
 
 Each kernel's bound (the kernels line's bound_ms) is the larger of the
 bytes it must move over 3.35 TB/s and its operations over the peak rate
@@ -149,6 +161,8 @@ from collections import deque
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 B, L, N_BATCHES, DEPTH = 4096, 100, 16, 8
+# phase 13: the longest read of its batches, above every former kernel cap
+LONG_L = 1100
 # the graph slice's SAM render (the carried quadratic read_alignments behind
 # the Zs annotator) takes about 3 s per batch: 4 batches still route reads
 # and launch every kernel
@@ -408,8 +422,21 @@ def work(torch, name, kw, out):
     elif name == "ref_window":
         extra, ops = ob // 16, ob                # a packed word per 16 chars
     elif name == "extend_ungapped":
-        B, C = kw["cand_start"].shape
-        extra, ops = 0, B * C * kw["reads"].shape[1] * 30
+        # what the result needs: each lane's read and quals, the len
+        # columns [margin, margin + len) of each distinct (lane, start)
+        # group's window (and SNV windows), the window of the dead start
+        # -1 once (it is the same for every lane), the starts, lens, minsc
+        # and tables, the eight output planes; ~30 integer ops per column
+        # of each group
+        st, lens = kw["cand_start"], kw["lens"].long()
+        B, C = st.shape
+        nwin = 1 if kw.get("snv1_win") is None else 3
+        live_g, dead_g = extend_groups(st)
+        cols = int((live_g * lens).sum())
+        dense = (int(lens.sum()) * 2 * 4 + (cols + int(lens.max())) * 4
+                 * nwin + B * C * 4 + B * 8 + 2 * 64 * 4)
+        extra, ob = 0, B * C * (7 * 4 + 1)
+        ops = int(((live_g + dead_g) * lens).sum()) * 30
     elif name == "indel_sweep":
         # a dead candidate's row needs only its start: the read and quals
         # of each lane with a live candidate, the len + 2G columns
@@ -565,26 +592,77 @@ def flat_outputs(x):
     return [x]
 
 
+def extend_groups(st):
+    """Per lane of K6+K7's starts [B, C]: its count of distinct live
+    starts, and 1 where it has a dead slot (start < 0).  The kernel
+    evaluates each distinct (lane, start) once; every dead slot of a lane
+    has start -1."""
+    srt = st.sort(1).values
+    first = srt.new_ones(srt.shape, dtype=bool)
+    first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    return ((srt >= 0) & first).sum(1), (srt < 0).any(1).long()
+
+
 def launch_shape(splice, name, kw):
-    """K8's, K13's or K15's launch on these arguments, as the CUDA runtime
-    reports it (K8's with its gap budget and the share of live
-    candidates)."""
-    N, C, W = kw["ch"].shape
+    """K6+K7's, K8's, K13's or K15's launch on these arguments, as the CUDA
+    runtime reports it: K6+K7's with its live share, its lanes by their
+    count of live slots, its distinct (lane, start) groups and its bound
+    (`work`), K8's with its gap budget and its share of live
+    candidates."""
     Lr = kw["reads"].shape[1]
-    snv = kw.get("snv1_w") is not None
-    if name == "indel_sweep":
-        LP, G = 0, splice.indel_sweep_gap(Lr, W, kw["max_gap"], kw["prm"])
-        more = (f", G = {G}, live share "
-                f"{float(kw['valid'].float().mean()):.4f}")
+    if name == "extend_ungapped":
+        from hisat2_tpu_torch.ops import extend
+        st = kw["cand_start"]
+        N, C = st.shape
+        snv = kw.get("snv1_win") is not None
+        info = extend.launch_info(Lr, snv)
+        live = st >= 0
+        by = live.sum(1).bincount(minlength=C + 1).tolist()
+        live_g, dead_g = extend_groups(st)
+        import torch
+        bound, by_what = work(torch, name, kw, extend.extend_grouped(**kw))
+        more = (f", live share {float(live.float().mean()):.4f}, lanes by "
+                f"live slots {by}, {int((live_g + dead_g).sum())} distinct "
+                f"(lane, start) groups of {N * C} slots, bound {bound:.4f} "
+                f"ms ({by_what})")
     else:
-        LP, G, more = kw["lenpen"][1].shape[1], 0, ""
-    info = splice.sweep_launch_info(name, C, Lr, W, LP, snv, G)
+        N, C, W = kw["ch"].shape
+        snv = kw.get("snv1_w") is not None
+        if name == "indel_sweep":
+            LP, G = 0, splice.indel_sweep_gap(Lr, W, kw["max_gap"],
+                                              kw["prm"])
+            more = (f", G = {G}, live share "
+                    f"{float(kw['valid'].float().mean()):.4f}")
+        else:
+            LP, G, more = kw["lenpen"][1].shape[1], 0, ""
+        info = splice.sweep_launch_info(name, C, Lr, W, LP, snv, G)
     check(info["blocks_per_sm"] >= 1, f"{name}: no block fits an SM")
-    return (f"C = {C}, L = {Lr}{', SNV windows' if snv else ''}{more}: "
-            f"{info['regs']} registers, {info['smem']} + "
+    return f"C = {C}, L = {Lr}{', SNV windows' if snv else ''}{more}: " + \
+        shape_text(info)
+
+
+def shape_text(info):
+    local = (f", {info['local_bytes']} local bytes per thread"
+             if "local_bytes" in info else "")
+    return (f"{info['regs']} registers, {info['smem']} + "
             f"{info['static_smem']} bytes of shared memory per block, "
             f"{info['threads']} threads, {info['blocks_per_sm']} blocks per "
-            f"SM")
+            f"SM{local}")
+
+
+# the kernels of a captured step whose launch launch_shape reports
+SHAPED = ("extend_ungapped", "extend_ungapped/extra", "indel_sweep",
+          "pair_sweep", "second_sweep")
+
+
+def step_shapes(splice, step, cap):
+    """Print the launch of each kernel of the captured step `step` that
+    launch_shape reports on (sweep_ab.py wraps this function to time the
+    step's kernels against an earlier tree's)."""
+    for key in SHAPED:
+        if key in cap:
+            shape = launch_shape(splice, key.split("/")[0], cap[key])
+            print(f"[launch] {step} {key}: {shape}")
 
 
 def compare(torch, name, kern, plain, kw):
@@ -893,14 +971,13 @@ def spliced_phase(torch, np, g, index, kernels, twins, driver,
         check((n13, n15) == ((0, 0) if tier == "lite" else (1, 1)),
               f"the spliced {tier} step launched K13 {n13} and K15 {n15} "
               f"times")
-    for name in ("pair_sweep", "second_sweep", "indel_sweep"):
-        print(f"[spliced kernels] {name} launch: "
-              f"{launch_shape(splice, name, caps['full'][name])}")
+    step_shapes(splice, "spliced full", caps["full"])
     check("search_lanes_live" in caps["full"]
           and caps["full"]["search_lanes_live"]["reads"].shape[0] > 2048,
           "the full step's re-search is not in lane-list mode")
     todo = [("full", "search_lanes_live"), ("full", "pair_sweep"),
             ("full", "second_sweep"), ("full", "indel_sweep"),
+            ("full", "extend_ungapped"),
             ("lite", "inject_known"),
             ("full", "inject_known"), ("full", "compact_cands"),
             ("full", "pack_slots"), ("lite", "pack_slots")]
@@ -1116,15 +1193,15 @@ def genome_phase(torch, np, kernels, twins, driver, read_alignments,
     cap = {}
     al.step(*up, uniform, capture=cap)
     want = ["fm_search2", "resolve_walk", "compact_cands", "ref_window",
-            "extend_ungapped", "indel_sweep", "pack_slots"]
+            "extend_ungapped", "extend_ungapped/extra", "indel_sweep",
+            "pack_slots"]
     check(sorted(cap) == sorted(want), f"genome step captured {sorted(cap)}")
     check(cap["compact_cands"]["offs"] is not None
           and cap["fm_search2"]["blocked"].shape[1] == 49,
           "the sampled step did not search the 49-column rows and resolve "
           "through the walk")
     replay(cap, "genome")
-    k8 = launch_shape(splice, "indel_sweep", cap["indel_sweep"])
-    print(f"[genome kernels] indel_sweep launch: {k8}")
+    step_shapes(splice, "genome linear", cap)
     kw = cap["resolve_walk"]
     out = twins["resolve_walk"][0](**kw)
     bounds["resolve_walk"] = work(torch, "resolve_walk", kw, out)
@@ -1330,14 +1407,15 @@ def genome_phase(torch, np, kernels, twins, driver, read_alignments,
               f"inputs")
         replay(scap, f"genome_c6_{tier}")
         if tier == "full":
-            for name in ("pair_sweep", "second_sweep", "indel_sweep"):
+            step_shapes(splice, "config6 full", scap)
+            for name in ("pair_sweep", "second_sweep", "indel_sweep",
+                         "extend_ungapped"):
                 kw = scap[name]
                 bounds[name + "_c6"] = work(torch, name, kw,
                                             twins[name][0](**kw))
-                shape = f" ({launch_shape(splice, name, kw)})"
-                print(f"[genome config6] {name} at k = 10{shape}: kernel "
+                print(f"[genome config6] {name} at k = 10: kernel "
                       f"{rows[name]['genome_c6_full_ms']:.4f} ms on "
-                      f"{kw['starts'].shape[0]} lanes, bound "
+                      f"{kw['reads'].shape[0]} lanes, bound "
                       f"{bounds[name + '_c6'][0]:.4f} ms "
                       f"({bounds[name + '_c6'][1]})")
     # (b) continued: the config-6 lite and full step of shard 1 against
@@ -1660,6 +1738,93 @@ def multi_phase(torch, np, index, batch, TorchAligner, build_fm_index,
     print(f"[multi] phase 12 took {time.perf_counter() - t_ph:.1f} s")
 
 
+def long_phase(torch, np, g, index, spots, kernels, driver, TorchAligner):
+    """Phase 13: reads above the kernels' former caps, on the linear index:
+    a 128-read batch whose longest read is LONG_L bp (the rest 100-300 bp)
+    through the step on the card and on the CPU (both layouts), and 64
+    pairs (one of LONG_L bp mates; a quarter with mate 1 at the end of a
+    planted repeat copy and mate 2 past it, so that mate 1 needs the
+    rescue) through align/driver.py's paired batch on both: packed
+    buffers and SAM equal, rescue jobs at the batch's width, and K1,
+    K6+K7, K8 and K12 launched at that width."""
+    from hisat2_tpu_torch.align.paired import PairPolicy
+    from hisat2_tpu_torch.io.fasta import ReadBatch
+    rng = np.random.default_rng(LONG_L)
+    n = len(g)
+    cu = TorchAligner(index, device="cuda")
+    cp = TorchAligner(index, device="cpu")
+
+    def read(s, ln, rc):
+        r = g[s:s + ln].copy()
+        p = rng.integers(0, ln, 2)
+        r[p] = (r[p] + 1) % 4
+        return (3 - r)[::-1].copy() if rc else r
+
+    B = 128
+    lens = rng.integers(100, 301, B).astype(np.int32)
+    lens[0] = LONG_L
+    codes = np.full((B, LONG_L), 4, np.uint8)
+    for i in range(B):
+        codes[i, :lens[i]] = read(int(rng.integers(0, n - LONG_L)),
+                                  int(lens[i]), i % 2)
+    quals = rng.integers(20, 41, (B, LONG_L)).astype(np.uint8)
+    minsc = cu._minsc(lens)
+    kernels.reset_counts()
+    for full in (False, True):
+        t0 = time.perf_counter()
+        bk = cu.step(*cu.upload(codes, quals, lens, minsc), False, full)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bp = cp.step(*cp.upload(codes, quals, lens, minsc), False, full)
+        check(torch.equal(bk.cpu(), bp), f"long-read step full_out={full}")
+        print(f"[long] step, {B} reads up to {LONG_L} bp, full_out={full}: "
+              f"packed [{bk.shape[0]}, {bk.shape[1]}] equal to the CPU "
+              f"plain step; card {1e3 * (t1 - t0):.1f} ms (host clock), "
+              f"CPU {time.perf_counter() - t1:.1f} s")
+    m1, m2, q1, q2 = [], [], [], []
+    P = 64
+    for i in range(P):
+        ln = LONG_L if i == 0 else int(rng.integers(100, 301))
+        if i % 4 == 3:
+            at = spots[i % REP_UNITS][int(rng.integers(0, REP_COPIES))]
+            a, b = read(at + 20, 100, False), read(at + 170, ln, True)
+        else:
+            s = int(rng.integers(0, n - 3 * LONG_L))
+            e = s + ln + int(rng.integers(20, 200))
+            a, b = read(s, ln, False), read(e - ln, ln, True)
+        m1.append(a)
+        m2.append(b)
+        q1.append(rng.integers(20, 41, len(a)).astype(np.uint8))
+        q2.append(rng.integers(20, 41, len(b)).astype(np.uint8))
+    names = [f"l{i}" for i in range(P)]
+    sam, jobs = [], []
+    for al in (cu, cp):
+        orig = al.rescue_mates
+        al.rescue_mates = lambda c_, *a, **k: (jobs.append(c_.shape),
+                                               orig(c_, *a, **k))[1]
+        sink = io.StringIO()
+        driver._align_pair_batch(
+            al, driver.SamWriter(sink, list(index.meta.ref_names),
+                                 index.meta.ref_lens, no_head=True),
+            PairPolicy(), al.scoring, 5, ReadBatch(names, m1, q1),
+            ReadBatch(list(names), m2, q2),
+            lambda pos, span, al_=al: al_.ref_codes[pos:pos + span],
+            np.arange(P, dtype=np.int64))
+        del al.rescue_mates
+        sam.append(sink.getvalue())
+    launches = kernels.counts()
+    check(sam[0] == sam[1], "long-read pairs: card SAM != CPU SAM")
+    check(jobs and all(j[1] == LONG_L for j in jobs),
+          f"long-read pairs: rescue jobs {jobs}")
+    for name in ("fm_search2", "extend_ungapped", "indel_sweep",
+                 "rescue_window"):
+        check(launches[name] > 0, f"{name} never launched on long reads")
+    print(f"[long] {P} pairs (mates up to {LONG_L} bp) through the paired "
+          f"batch with mate rescue: {sam[0].count(chr(10))} SAM records "
+          f"equal to the CPU's; rescue job shapes {jobs}; card launches "
+          f"{launches}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1740,21 +1905,35 @@ def main() -> int:
     al.step(*up, uniform, capture=cap)
     linear = ["fm_search2", "compact_cands", "ref_window", "extend_ungapped",
               "indel_sweep", "pack_slots"]
-    check(sorted(cap) == sorted(linear), f"captured {sorted(cap)}")
+    check(sorted(cap) == sorted(linear + ["extend_ungapped/extra"]),
+          f"captured {sorted(cap)}")
     rows = {}
-    for name in linear:
-        err, ms, pms = compare(torch, name, *twins[name], cap[name])
+    for key in linear + ["extend_ungapped/extra"]:
+        name = key.split("/")[0]
+        err, ms, pms = compare(torch, key, *twins[name], cap[key])
         k = kernels.KERNELS[name]
-        rows[name] = {"name": name, "route": "cuda", "source": k.source,
-                      "replaces": k.replaces, "max_abs_err": err,
-                      "linear_ms": ms, "linear_plain_ms": pms}
-        shp = [tuple(v.shape) for v in cap[name].values()
+        row = rows.setdefault(name, {
+            "name": name, "route": "cuda", "source": k.source,
+            "replaces": k.replaces, "max_abs_err": 0.0})
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        f = "linear" + key[len(name):].replace("/", "_")
+        row[f + "_ms"], row[f + "_plain_ms"] = ms, pms
+        shp = [tuple(v.shape) for v in cap[key].values()
                if torch.is_tensor(v)]
-        print(f"[kernels] {name}: equal to plain (tolerance: exact), "
+        print(f"[kernels] {key}: equal to plain (tolerance: exact), "
               f"max_abs_err {err}; kernel {ms:.4f} ms, plain {pms:.4f} ms "
               f"(median of 10; inputs {shp[:4]})")
-    k8 = launch_shape(splice, "indel_sweep", cap["indel_sweep"])
-    print(f"[kernels] indel_sweep launch: {k8}")
+    step_shapes(splice, "linear", cap)
+    # K6+K7 at the read lengths of its other column runs (K = 8, 16, and
+    # 16 in several tiles)
+    from hisat2_tpu_torch.ops import extend
+    for Lx in (151, 250, 512, 2000):
+        for snv in (False, True):
+            info = extend.launch_info(Lx, snv)
+            check(info["blocks_per_sm"] >= 1, f"extend_ungapped: L = {Lx} "
+                  f"does not fit an SM")
+            print(f"[kernels] extend_ungapped launch at L = {Lx}"
+                  f"{', SNV windows' if snv else ''}: {shape_text(info)}")
     # K8 at long-read shapes the gap budget can give (the window margin is
     # max(16, G), align/pipeline.py), as the runtime reports them
     for Lx, Gx, snv in ((151, 8, False), (151, 8, True), (512, 19, False),
@@ -1899,13 +2078,15 @@ def main() -> int:
         cap = {}
         a.step(*gup, True, capture=cap)
         want = linear[:4] + ["pack_slots"] + (
-            ["inject_indels", "indel_sweep"] if tier == "full" else [])
+            ["inject_indels", "indel_sweep", "extend_ungapped/extra"]
+            if tier == "full" else [])
         check(sorted(cap) == sorted(want), f"{tier} captured {sorted(cap)}")
         check(cap["extend_ungapped"]["snv1_win"] is not None,
               "graph extension without SNV windows")
-        for name in want:
-            err, ms, pms = compare(torch, name, *twins[name], cap[name])
-            if tier == "full" or name not in bounds:
+        for key in want:
+            name = key.split("/")[0]
+            err, ms, pms = compare(torch, key, *twins[name], cap[key])
+            if key == name and (tier == "full" or name not in bounds):
                 # the bound at the shapes `ms` is taken at (the full pass)
                 bounds[name] = work(torch, name, cap[name],
                                     twins[name][0](**cap[name]))
@@ -1915,13 +2096,13 @@ def main() -> int:
                 "replaces": kernels.KERNELS[name].replaces,
                 "max_abs_err": 0.0})
             row["max_abs_err"] = max(row["max_abs_err"], err)
-            row[f"{tier}_ms"], row[f"{tier}_plain_ms"] = ms, pms
-            print(f"[graph kernels] {tier} {name}: equal to plain "
+            f = tier + key[len(name):].replace("/", "_")
+            row[f + "_ms"], row[f + "_plain_ms"] = ms, pms
+            print(f"[graph kernels] {tier} {key}: equal to plain "
                   f"(tolerance: exact); kernel {ms:.4f} ms, plain "
                   f"{pms:.4f} ms (median of 10)")
         if tier == "full":
-            k8 = launch_shape(splice, "indel_sweep", cap["indel_sweep"])
-            print(f"[graph kernels] indel_sweep launch: {k8}")
+            step_shapes(splice, "graph full", cap)
             inj = splice.inject_indels(**cap["inject_indels"])
             live = int((inj["event"] >= 0).sum())
             check(live > 0, "no injected known-indel slot in the batch")
@@ -2120,6 +2301,28 @@ def main() -> int:
     for f in ke._fields:
         check(torch.equal(getattr(ke, f), getattr(pe, f)),
               f"rescue_candidates {f}")
+    # K6+K7 on the chunk's rescoring: 8 diagonals per job, no margin, no
+    # minsc (ops/rescue.py)
+    wins_k = [splice.diag_chars(w_, cap["n_text"], ks, L9, 0)
+              if w_ is not None else None
+              for w_ in (cap["ref_words"], cap["snv_delta1"],
+                         cap["snv_delta2"])]
+    ekw = dict(n_text=cap["n_text"], reads=cap["reads"], quals=cap["quals"],
+               lens=cap["lens"], cand_start=ks, mm_pen=cap["mm_pen"],
+               clip_pen=cap["clip_pen"], n_pen=cap["n_pen"],
+               win_chars=wins_k[0],
+               win_margin=0, allow_softclip=cap["allow_softclip"],
+               uniform_len=False, minsc=None, snv1_win=wins_k[1],
+               snv2_win=wins_k[2])
+    err_e, ms_e, pms_e = compare(torch, "extend_ungapped",
+                                 *twins["extend_ungapped"], ekw)
+    row = rows["extend_ungapped"]
+    row["max_abs_err"] = max(row["max_abs_err"], err_e)
+    row["rescue_ms"], row["rescue_plain_ms"] = ms_e, pms_e
+    print(f"[paired kernels] extend_ungapped on the rescue chunk "
+          f"{tuple(ks.shape)}: equal to plain (tolerance: exact); kernel "
+          f"{ms_e:.4f} ms, plain {pms_e:.4f} ms (median of 10)")
+    step_shapes(splice, "rescue", {"extend_ungapped": ekw})
     lib = rescue_library_ms(torch, kw)
     bounds["rescue_window"] = work(torch, "rescue_window", kw,
                                    twins["rescue_window"][0](**kw))
@@ -2289,6 +2492,9 @@ def main() -> int:
     multi_phase(torch, np, index, batches[0], TorchAligner, build_fm_index,
                 rows, path_launches, env)
     phase_done("multi")
+
+    long_phase(torch, np, g, index, spots, kernels, driver, TorchAligner)
+    phase_done("long")
 
     for name, r in rows.items():
         if name == "sharded_align_step":

@@ -478,12 +478,17 @@ class TorchAligner(HostPhase):
             if self.graph is not None:
                 s1x = splice_ops.diag_chars(gd["snv1"], meta.n, xs_m, L, 0)
                 s2x = splice_ops.diag_chars(gd["snv2"], meta.n, xs_m, L, 0)
-            ext_x = extend_ops.extend_grouped(
-                meta.n, ar, aq, al, xs_m, params["mm_pen"],
-                params["clip_pen"], self.scoring.n_pen, ch_x, 0,
-                allow_softclip=not self.scoring.no_softclip,
-                uniform_len=uniform, minsc=am, mm_min=self.scoring.mm_min,
-                snv1_win=s1x, snv2_win=s2x)
+            ext_x = call("extend_ungapped", extend_ops.extend_grouped,
+                         key="extend_ungapped/extra", n_text=meta.n,
+                         reads=ar, quals=aq, lens=al, cand_start=xs_m,
+                         mm_pen=params["mm_pen"],
+                         clip_pen=params["clip_pen"],
+                         n_pen=self.scoring.n_pen, win_chars=ch_x,
+                         win_margin=0,
+                         allow_softclip=not self.scoring.no_softclip,
+                         uniform_len=uniform, minsc=am,
+                         mm_min=self.scoring.mm_min, snv1_win=s1x,
+                         snv2_win=s2x)
         out = {}
         if self.lite:
             out["h_sat"] = cands.h_sat

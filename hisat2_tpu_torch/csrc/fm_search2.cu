@@ -19,6 +19,11 @@
 // re-search lists the lanes whose cut can still yield a hit) and writes
 // that lane's row; the caller has zeroed every other row.
 //
+// Every read length: the round log (L / 2 + 2 bytes) lives in a per-lane
+// local array up to L = FM_MAX_L; above it a second instantiation ORs the
+// log straight into the lane's row of `rounds`, which the wrapper has
+// zeroed, so the log is the global scratch the wrapper sized from L.
+//
 // Bound: each step is a dependent random gather of two rows (latency, not
 // bandwidth); at N = 8192 lanes one thread per lane is less than one wave
 // of the card's 132 SMs.  Hiding that latency (several lanes per warp in
@@ -165,6 +170,8 @@ __device__ __forceinline__ bool fm_phase(FmState& s, FmAcc& acc,
   return fail || astop;
 }
 
+// GLOG: the round log in the lane's zeroed row of `rounds` (L > FM_MAX_L)
+template <bool GLOG>
 __global__ void fm_search2_kernel(
     const uint32_t* __restrict__ blocked, const int* __restrict__ fchr,
     const int* __restrict__ ftab2, const int* __restrict__ reads,
@@ -178,8 +185,10 @@ __global__ void fm_search2_kernel(
   const int lane = use_lanes ? lanes[tid] : tid;
   const int len = lens[lane];
   const int* rd = reads + (size_t)lane * L;
-  uint32_t rw[FM_MAX_RW];
-  for (int k = 0; k < RW; ++k) rw[k] = 0u;
+  uint32_t rw_local[GLOG ? 1 : FM_MAX_RW];
+  uint32_t* rw = GLOG ? (uint32_t*)rounds + (size_t)lane * RW : rw_local;
+  if (!GLOG)
+    for (int k = 0; k < RW; ++k) rw[k] = 0u;
   FmState s{0, p.rows, len, true, false};
   FmAcc acc{0, 0, 0};
   const int S = (L + 1) / 2;
@@ -231,8 +240,9 @@ __global__ void fm_search2_kernel(
     rw[acc.nround >> 2] |= val << (8 * (acc.nround & 3));
   }
   nrounds[lane] = min(acc.nround + (term_round ? 1 : 0), p.R);
-  for (int k = 0; k < RW; ++k)
-    rounds[(size_t)lane * RW + k] = (int)rw[k];
+  if (!GLOG)
+    for (int k = 0; k < RW; ++k)
+      rounds[(size_t)lane * RW + k] = (int)rw[k];
   stopped_out[lane] = s.stopped;
 }
 
@@ -244,7 +254,7 @@ H2_EXPORT int h2_fm_search2(
     int row_w, void* top, void* bot, void* lo, void* hi, void* ab, void* uniq,
     void* post, void* rounds, void* nrounds, void* nh, void* stopped,
     void* stream) {
-  if (L > FM_MAX_L || L < 1 || (row_w != 44 && row_w != 49))
+  if (L < 1 || (row_w != 44 && row_w != 49))
     return (int)cudaErrorInvalidValue;
   FmParams p{rows, a_stop_len, a_cancel_len, min_hit_len, H, L / 2 + 2};
   const int RW = (p.R + 3) / 4;
@@ -252,8 +262,10 @@ H2_EXPORT int h2_fm_search2(
           (uint8_t*)uniq, (uint8_t*)post};
   const int threads = 128;
   const int blocks = (N + threads - 1) / threads;
+  auto kern = L <= FM_MAX_L ? fm_search2_kernel<false>
+                            : fm_search2_kernel<true>;
   if (blocks > 0)
-    fm_search2_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+    kern<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)blocked, (const int*)fchr, (const int*)ftab2,
         (const int*)reads, (const int*)lens, (const int*)lanes, use_lanes,
         N, L, zrow, zrow2, row_w, p, RW, o,

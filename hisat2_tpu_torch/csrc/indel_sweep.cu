@@ -30,6 +30,11 @@
 //   points it owns (x = lane, lane + 32, ...) into a running (key, x)
 //   minimum per set, and drops them.  Shared memory is O(L) per warp and
 //   does not grow with G.
+// - Every read length: where one warp's buffers do not fit the shared
+//   memory a block may use (L above ~5,800), each warp stages in its own
+//   slice of a global scratch that the wrapper allocates
+//   (h2_indel_sweep_scratch), and a grid of SW_GLOBAL_BLOCKS blocks walks
+//   the candidate pools.
 // - 32-bit arithmetic that reproduces JAX's int32: prefixes, penalty sums
 //   and the packed key are computed in uint32 (wrapping, as XLA's int32
 //   does; signed overflow is undefined in CUDA C++) and compared as int32.
@@ -49,8 +54,8 @@
 #define SW_POOL 32
 #define SW_PCAP (1 << 19)
 #define SW_BIG (1 << 30)
-#define SW_MAX_L 1024
 #define SW_KEY_NONE 0x7FFFFFFF
+#define SW_GLOBAL_BLOCKS 264  // grid of the global-staging mode
 
 // ints of one warp's shared memory: the window, the read's bases and
 // mismatch penalties, six prefixes of L+1 (P0 R0 P-g R-g P+g R+g) and, with
@@ -274,33 +279,45 @@ __device__ void sw_sweep(const SwArgs& A, long long cand, int* ws,
   __syncwarp();
 }
 
-template <bool SNV>
+// GLOBAL: each warp stages in its slice of `scratch` (sw_warp_ints ints
+// at block * warps + warp), not in shared memory (a separate
+// instantiation, so that the shared one keeps its shared-memory
+// accesses); blocks walk the pools of 32 candidates with a grid stride
+template <bool SNV, bool GLOBAL>
 __global__ void __launch_bounds__(32 * SW_MAX_WARPS)
-    indel_sweep_kernel(SwArgs A) {
+    indel_sweep_kernel(SwArgs A, int* scratch) {
   extern __shared__ int smem[];
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
-  const long long c0 = (long long)blockIdx.x * SW_POOL;
-  const long long me = c0 + lane;
-  const bool in = me < A.NC;
-  const bool live = in && A.valid[me] != 0;
-  unsigned m = __ballot_sync(H2_FULL_MASK, live);
-  if (wid == 0 && in && !live) {
-    sw_write(A, me, 0, SW_KEY_NONE, 0, false);
-    sw_write(A, me, 1, SW_KEY_NONE, 0, false);
-  }
-  int* ws = smem + (size_t)wid * sw_warp_ints(A.L, A.W, SNV);
-  for (int i = 0; i < wid; ++i) m &= m - 1;
-  while (m) {
-    sw_sweep<SNV>(A, c0 + __ffs(m) - 1, ws, lane);
-    for (int i = 0; i < nw; ++i) m &= m - 1;
+  const size_t per = sw_warp_ints(A.L, A.W, SNV);
+  int* ws = GLOBAL ? scratch + ((size_t)blockIdx.x * nw + wid) * per
+                   : smem + (size_t)wid * per;
+  const long long pools = (A.NC + SW_POOL - 1) / SW_POOL;
+  for (long long pool = blockIdx.x; pool < pools; pool += gridDim.x) {
+    const long long c0 = pool * SW_POOL;
+    const long long me = c0 + lane;
+    const bool in = me < A.NC;
+    const bool live = in && A.valid[me] != 0;
+    unsigned m = __ballot_sync(H2_FULL_MASK, live);
+    if (wid == 0 && in && !live) {
+      sw_write(A, me, 0, SW_KEY_NONE, 0, false);
+      sw_write(A, me, 1, SW_KEY_NONE, 0, false);
+    }
+    for (int i = 0; i < wid; ++i) m &= m - 1;
+    while (m) {
+      sw_sweep<SNV>(A, c0 + __ffs(m) - 1, ws, lane);
+      for (int i = 0; i < nw; ++i) m &= m - 1;
+    }
   }
 }
 
-// warps per block (as many as fit, up to 4) and their dynamic shared
-// bytes; an error where one warp's buffers do not fit a block
-static cudaError_t sw_config(int L, int W, bool snv, int* warps,
-                             size_t* smem) {
+// warps per block (as many as fit, up to 4), their dynamic shared bytes
+// and the global scratch bytes: 0 where one warp's buffers fit a block,
+// else SW_MAX_WARPS warps without shared memory, each staging in its own
+// slice of a scratch of `scratch` bytes over a grid of `grid` blocks
+static cudaError_t sw_config(int L, int W, bool snv, long long NC,
+                             int* warps, size_t* smem, size_t* scratch,
+                             long long* grid) {
   int dev = 0, cap = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -308,14 +325,43 @@ static cudaError_t sw_config(int L, int W, bool snv, int* warps,
                                dev);
   if (e != cudaSuccess) return e;
   const size_t per = (size_t)sw_warp_ints(L, W, snv) * sizeof(int);
+  const long long pools = (NC + SW_POOL - 1) / SW_POOL;
   *warps = (int)min((size_t)SW_MAX_WARPS, (size_t)cap / per);
   *smem = per * *warps;
-  return *warps > 0 ? cudaSuccess : cudaErrorInvalidValue;
+  *scratch = 0;
+  *grid = pools;
+  if (*warps == 0) {
+    *warps = SW_MAX_WARPS;
+    *smem = 0;
+    *grid = pools < SW_GLOBAL_BLOCKS ? pools : SW_GLOBAL_BLOCKS;
+    *scratch = per * SW_MAX_WARPS * (size_t)(*grid > 0 ? *grid : 1);
+  }
+  return cudaSuccess;
+}
+
+typedef void (*SwKernel)(SwArgs, int*);
+static SwKernel sw_pick(bool snv, bool global) {
+  return snv ? (global ? indel_sweep_kernel<true, true>
+                       : indel_sweep_kernel<true, false>)
+             : (global ? indel_sweep_kernel<false, true>
+                       : indel_sweep_kernel<false, false>);
 }
 
 static bool sw_shape_ok(int L, int W, int G) {
-  return L >= 1 && L <= SW_MAX_L && W >= L && (W - L) % 2 == 0 && G >= 0 &&
-         G <= (W - L) / 2;
+  return L >= 1 && W >= L && (W - L) % 2 == 0 && G >= 0 && G <= (W - L) / 2;
+}
+
+// The global scratch h2_indel_sweep needs at these shapes (0: none).
+H2_EXPORT int h2_indel_sweep_scratch(int L, int W, int G, int use_snv,
+                                     long long NC, long long* bytes) {
+  if (!sw_shape_ok(L, W, G)) return (int)cudaErrorInvalidValue;
+  int warps = 0;
+  size_t smem = 0, scratch = 0;
+  long long grid = 0;
+  cudaError_t e =
+      sw_config(L, W, use_snv != 0, NC, &warps, &smem, &scratch, &grid);
+  *bytes = (long long)scratch;
+  return (int)e;
 }
 
 H2_EXPORT int h2_indel_sweep(
@@ -324,7 +370,7 @@ H2_EXPORT int h2_indel_sweep(
     const void* mm_pen, long long NC, int C, int L, int W, int G, int n_pen,
     int min_anchor, int rd_open, int rd_ext, int rf_open, int rf_ext,
     void* out, const void* snv1, const void* snv2, int use_snv,
-    void* stream) {
+    void* scratch, void* stream) {
   if (!sw_shape_ok(L, W, G)) return (int)cudaErrorInvalidValue;
   SwArgs A{(const int*)win, (const int*)reads, (const int*)quals,
            (const int*)lens, (const int*)starts, (const uint8_t*)valid,
@@ -332,18 +378,21 @@ H2_EXPORT int h2_indel_sweep(
            (const int*)snv2, NC, C, L, W, (W - L) / 2, G, n_pen, min_anchor,
            rd_open, rd_ext, rf_open, rf_ext, (int*)out};
   int warps = 0;
-  size_t smem = 0;
-  cudaError_t e = sw_config(L, W, use_snv != 0, &warps, &smem);
+  size_t smem = 0, need = 0;
+  long long grid = 0;
+  cudaError_t e =
+      sw_config(L, W, use_snv != 0, NC, &warps, &smem, &need, &grid);
   if (e != cudaSuccess) return (int)e;
-  auto kern = use_snv ? indel_sweep_kernel<true> : indel_sweep_kernel<false>;
+  if (need > 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  auto kern = sw_pick(use_snv != 0, need > 0);
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const long long blocks = (NC + SW_POOL - 1) / SW_POOL;
-  if (blocks > 0)
-    kern<<<(unsigned)blocks, 32 * warps, smem, (cudaStream_t)stream>>>(A);
+  if (grid > 0)
+    kern<<<(unsigned)grid, 32 * warps, smem, (cudaStream_t)stream>>>(
+        A, (int*)scratch);
   return (int)cudaGetLastError();
 }
 
@@ -354,10 +403,12 @@ H2_EXPORT int h2_indel_sweep_info(int L, int W, int G, int use_snv,
                                   int* out) {
   if (!sw_shape_ok(L, W, G)) return (int)cudaErrorInvalidValue;
   int warps = 0;
-  size_t smem = 0;
-  cudaError_t e = sw_config(L, W, use_snv != 0, &warps, &smem);
+  size_t smem = 0, scratch = 0;
+  long long grid = 0;
+  cudaError_t e =
+      sw_config(L, W, use_snv != 0, 1, &warps, &smem, &scratch, &grid);
   if (e != cudaSuccess) return (int)e;
-  auto kern = use_snv ? indel_sweep_kernel<true> : indel_sweep_kernel<false>;
+  auto kern = sw_pick(use_snv != 0, scratch > 0);
   cudaFuncAttributes a;
   e = cudaFuncGetAttributes(&a, kern);
   if (e != cudaSuccess) return (int)e;

@@ -15,7 +15,8 @@
 // One block per job.  The window's chars are staged 2-bit packed in
 // shared memory (~14 KB for W = 57,344), with a validity plane used only
 // when the window leaves the text; the read is packed the same way with a
-// mask of its ACGT columns.  Each thread counts a strided set of
+// mask of its ACGT columns, in the same dynamic shared memory (L / 4
+// bytes: a read of any length whose window and words fit a block).  Each thread counts a strided set of
 // diagonals: per 16 read chars one funnel shift aligns the window word to
 // the diagonal, and an xor/or/and/popc counts the equal 2-bit fields, so a
 // diagonal of a 100 bp read costs 7 words.  Each thread keeps a private
@@ -32,7 +33,6 @@ namespace {
 
 constexpr int RW_THREADS = 512;
 constexpr int RW_TOP = 8;
-constexpr int RW_MAX_READ_WORDS = 64;  // reads up to 1024 bp
 
 // A match count rounded to the nearest bfloat16 value, ties to even
 // (8 significant bits: counts below 256 are exact).
@@ -85,14 +85,14 @@ rescue_window_kernel(const uint32_t* __restrict__ ref_words, int n_words,
                      const int* __restrict__ win_start, int L, int W,
                      int* __restrict__ out) {
   extern __shared__ uint32_t smem[];
-  __shared__ uint32_t rw[RW_MAX_READ_WORDS];
-  __shared__ uint32_t rm[RW_MAX_READ_WORDS];
   __shared__ unsigned long long wtop[RW_THREADS / 32 * RW_TOP];
   const int r = blockIdx.x;
   const int nwr = (L + 15) >> 4;
   const int nww = ((W - 1) >> 4) + nwr + 1;
   uint32_t* win = smem;          // [nww] 2-bit window chars
   uint32_t* wval = smem + nww;   // [nww] 0b01 per in-text char
+  uint32_t* rw = wval + nww;     // [nwr] 2-bit read chars
+  uint32_t* rm = rw + nwr;       // [nwr] 0b01 per ACGT read column
   const long long ws = win_start[r];
   const long long span = (long long)W + L - 1;
   const bool need_mask = ws < 0 || ws + span > n_text;
@@ -193,11 +193,10 @@ H2_EXPORT int h2_rescue_window(const void* ref_words, int n_words,
                                const void* win_start, int R, int L, int W,
                                void* out, void* stream) {
   if (R <= 0) return (int)cudaGetLastError();
-  if (L < 1 || L > 16 * RW_MAX_READ_WORDS || W < RW_TOP)
-    return (int)cudaErrorInvalidValue;
+  if (L < 1 || W < RW_TOP) return (int)cudaErrorInvalidValue;
   const int nwr = (L + 15) >> 4;
   const int nww = ((W - 1) >> 4) + nwr + 1;
-  const size_t smem = 2 * (size_t)nww * sizeof(uint32_t);
+  const size_t smem = 2 * (size_t)(nww + nwr) * sizeof(uint32_t);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         rescue_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

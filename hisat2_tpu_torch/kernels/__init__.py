@@ -87,7 +87,7 @@ KERNELS = {k.name: k for k in (
            "hisat2_tpu/ops/extend.py:225 extend_grouped (+ :72 "
            "pen_planes, with the SNV branch :100-111)"),
     Kernel("indel_sweep", "h2_indel_sweep",
-           [_P] * 8 + [_LL] + [_I] * 10 + [_P, _P, _P, _I, _P],
+           [_P] * 8 + [_LL] + [_I] * 10 + [_P, _P, _P, _I, _P, _P],
            "hisat2_tpu_torch/csrc/indel_sweep.cu",
            "hisat2_tpu/ops/splice.py:952 self_indel_sweep"),
     Kernel("compact_cands", "h2_compact_cands",
@@ -232,6 +232,23 @@ def load():
         lib.h2_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def launch_info(symbol: str, *args, n: int = 5) -> dict:
+    """A kernel's launch at these shapes, as the CUDA runtime reports it,
+    from its C entry point `symbol` (int arguments, then an int[n] it
+    fills): registers per thread, static and dynamic shared bytes,
+    threads per block, blocks per SM (0 where a block does not fit) and,
+    where n = 6, local bytes per thread (spills and stack)."""
+    out = (ctypes.c_int * n)()
+    fn = getattr(load(), symbol)
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(*args, out)
+    if err != 0:
+        raise RuntimeError(f"{symbol} failed with error {err}")
+    return dict(zip(("regs", "static_smem", "smem", "threads",
+                     "blocks_per_sm", "local_bytes"), out))
 
 
 def stream_of(t):

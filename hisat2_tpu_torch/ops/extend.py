@@ -5,7 +5,8 @@ live_pen_prefix :124 and extend_grouped :225).
 `extend_grouped` is the wrapper the pipeline calls: on CUDA tensors it
 launches kernel 3 (csrc/extend_ungapped.cu), which fuses pen_planes, with
 its SNV branch, into the extension (nothing else on the port's path
-consumes the planes, so none goes to device memory); on CPU tensors it
+consumes the planes, so none goes to device memory) and evaluates each
+distinct (lane, start) once; on CPU tensors it
 runs `extend_grouped_plain`, which is `pen_planes` + `extend_from_planes`,
 ports of the JAX code line by line.  `live_pen_prefix_plain` is the plain
 twin of the device function in csrc/live_prefix.cuh that kernel 7
@@ -341,15 +342,32 @@ def extend_grouped_plain(n_text: int, reads, quals, lens, cand_start,
                               planes, uniform_len, minsc, mm_min)
 
 
+def launch_info(L: int, snv: bool = False) -> dict:
+    """Kernel 3's launch at read length L, from the CUDA runtime
+    (csrc/extend_ungapped.cu:h2_extend_ungapped_info): registers per
+    thread, static and dynamic shared bytes, threads per block, blocks
+    per SM and local bytes per thread.  snv: the SNV windows of a graph
+    index."""
+    return kernels.launch_info("h2_extend_ungapped_info", L, int(snv), n=6)
+
+
 def extend_grouped(n_text: int, reads, quals, lens, cand_start, mm_pen,
                    clip_pen, n_pen: int, win_chars, win_margin: int = 0,
                    allow_softclip: bool = True, uniform_len: bool = False,
                    minsc=None, mm_min: int = 1, snv1_win=None,
                    snv2_win=None) -> ExtendResult:
-    """Kernel 3 on CUDA tensors, extend_grouped_plain on CPU tensors.
-    win_chars: the candidates' reference windows (splice.diag_chars with
-    margin win_margin); snv1_win / snv2_win: the SNV-plane windows of the
-    same diagonals on a graph index (None: no SNV forgiveness)."""
+    """Kernel 3 on CUDA tensors, extend_grouped_plain on CPU tensors, at
+    every read length.  win_chars: the candidates' reference windows
+    (splice.diag_chars with margin win_margin); snv1_win / snv2_win: the
+    SNV-plane windows of the same diagonals on a graph index (None: no SNV
+    forgiveness).
+
+    Contract of the kernel: win_chars, snv1_win and snv2_win are functions
+    of cand_start, as diag_chars makes them, so that two slots of a lane
+    with equal starts have equal rows.  The kernel evaluates each distinct
+    (lane, start) once, with the windows of its first slot, and writes
+    that row to every slot of the lane with the start (in the pipeline,
+    every dead slot of a lane has start -1)."""
     if not reads.is_cuda:
         return extend_grouped_plain(
             n_text, reads, quals, lens, cand_start, mm_pen, clip_pen, n_pen,
@@ -372,9 +390,9 @@ def extend_grouped(n_text: int, reads, quals, lens, cand_start, mm_pen,
     if use_snv:
         kernels.check_cuda("snv1_win", snv1_win, i32, (B, C, W))
         kernels.check_cuda("snv2_win", snv2_win, i32, (B, C, W))
-    if L > 1024 or W < L + 2 * win_margin:
-        raise ValueError("extend_ungapped: read length above 1024 or a "
-                         "window narrower than L + 2*margin")
+    if W < L + 2 * win_margin:
+        raise ValueError("extend_ungapped: a window narrower than "
+                         "L + 2*margin")
     dev = reads.device
     e = lambda: torch.empty((B, C), dtype=i32, device=dev)  # noqa: E731
     score, n_mm, n_n, n_snp, clip_l, clip_r, alt = (e(), e(), e(), e(), e(),

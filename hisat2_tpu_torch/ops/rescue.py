@@ -55,9 +55,9 @@ def rescue_window(ref_words, n_text: int, reads, win_start, W: int):
     kernels.check_cuda("ref_words", ref_words, i32)
     kernels.check_cuda("reads", reads, i32, (R, L))
     kernels.check_cuda("win_start", win_start, i32, (R,))
-    if L > 1024 or W < TOP:
-        raise ValueError(f"rescue_window: reads at most 1024 bp and the "
-                         f"window at least {TOP} wide")
+    if W < TOP:
+        raise ValueError(f"rescue_window: the window must be at least {TOP} "
+                         f"wide")
     out = torch.empty((R, TOP), dtype=i32, device=reads.device)
     kernels.KERNELS["rescue_window"].launch(
         ref_words.data_ptr(), ref_words.shape[0], n_text, reads.data_ptr(),

@@ -215,7 +215,9 @@ def partial_search2(blocked, fchr, ftab2_top, zrow: int, zrow2: int,
     """Kernel 1 on CUDA tensors, the plain version on CPU tensors.
 
     `uniform` only promises lens == L (the kernel reads read[len-1-t]
-    either way, which is what the uniform path reads then).  lanes: an
+    either way, which is what the uniform path reads then).  Any read
+    length: above 512 the kernel logs the rounds straight into the zeroed
+    `rounds` rows allocated here.  lanes: an
     int32 list of lane ids (kernel 1's lane-list mode, K17): only those
     lanes are searched and every other lane's row is zeros."""
     if not reads.is_cuda:
@@ -234,9 +236,6 @@ def partial_search2(blocked, fchr, ftab2_top, zrow: int, zrow2: int,
     if blocked.dim() != 2 or blocked.shape[1] not in (44, 49):
         raise ValueError("fm_search2 needs the 44-column fused table (49 "
                          "with the mark columns of a sampled SA)")
-    if L > 512:
-        raise ValueError(f"fm_search2: read length {L} exceeds the "
-                         f"kernel's bound of 512")
     R = L // 2 + 2
     RW = (R + 3) // 4
     dev = reads.device

@@ -279,12 +279,34 @@ def self_indel_sweep_plain(ch, reads, quals, lens, starts, valid, minsc,
     return out
 
 
+def _indel_sweep_scratch(L: int, W: int, G: int, snv: bool, NC: int, dev):
+    """K8's global staging at these shapes (csrc/indel_sweep.cu:
+    h2_indel_sweep_scratch): None where its warps stage in shared memory,
+    else an int32 buffer of the bytes the kernel asks for."""
+    import ctypes
+    fn = kernels.load().h2_indel_sweep_scratch
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    nbytes = ctypes.c_longlong(0)
+    with torch.cuda.device(dev):
+        err = fn(L, W, G, int(snv), NC, ctypes.byref(nbytes))
+    if err != 0:
+        raise RuntimeError(f"indel_sweep: scratch query failed with error "
+                           f"{err}")
+    if nbytes.value == 0:
+        return None
+    return torch.empty((nbytes.value + 3) // 4, dtype=torch.int32,
+                       device=dev)
+
+
 def self_indel_sweep(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
                      n_pen: int, prm: SpliceParams, max_gap: int = None,
                      snv1_w=None, snv2_w=None):
     """Kernel 4 on CUDA tensors, self_indel_sweep_plain on CPU tensors.
     Dead candidates get their constant row without a sweep; the kernel's
-    shared memory is O(L) per warp, so every gap budget launches."""
+    shared memory is O(L) per warp, so every gap budget launches, and
+    where one warp's buffers outgrow a block's shared memory (reads above
+    ~5,800 bp) it stages them in a global scratch allocated here."""
     if not ch.is_cuda:
         return self_indel_sweep_plain(ch, reads, quals, lens, starts, valid,
                                       minsc, mm_pen, n_pen, prm, max_gap,
@@ -303,10 +325,9 @@ def self_indel_sweep(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
     if use_snv:
         kernels.check_cuda("snv1_w", snv1_w, i32, (N, C, W))
         kernels.check_cuda("snv2_w", snv2_w, i32, (N, C, W))
-    if L > 1024:
-        raise ValueError("indel_sweep: read length above 1024")
     dev = ch.device
     res = torch.empty((10, N, C), dtype=i32, device=dev)
+    scratch = _indel_sweep_scratch(L, W, G, use_snv, N * C, dev)
     kernels.KERNELS["indel_sweep"].launch(
         ch.data_ptr(), reads.data_ptr(), quals.data_ptr(), lens.data_ptr(),
         starts.data_ptr(), valid.data_ptr(), minsc.data_ptr(),
@@ -314,6 +335,7 @@ def self_indel_sweep(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
         prm.rd_gap_open, prm.rd_gap_ext, prm.rf_gap_open, prm.rf_gap_ext,
         res.data_ptr(), (snv1_w if use_snv else ch).data_ptr(),
         (snv2_w if use_snv else ch).data_ptr(), int(use_snv),
+        scratch.data_ptr() if scratch is not None else None,
         stream=kernels.stream_of(ch))
     zi = torch.zeros((N, C), dtype=i32, device=dev)
     zf = torch.zeros((N, C), dtype=torch.float32, device=dev)
@@ -1225,25 +1247,13 @@ def sweep_launch_info(name: str, C: int, L: int, W: int, LP: int,
     where a block does not fit).  snv: the SNV windows of a graph index
     (and K13's SNV-forgiving prefix).  K8 reads G, its gap budget, and not
     C or LP."""
-    import ctypes
-    lib = kernels.load()
-    out = (ctypes.c_int * 5)()
     if name == "pair_sweep":
-        fn = lib.h2_pair_sweep_info
         args = (C, L, W, LP, int(snv))
     elif name == "indel_sweep":
-        fn = lib.h2_indel_sweep_info
         args = (L, W, G, int(snv))
     else:
-        fn = lib.h2_second_sweep_info
         args = (C, L, W, LP)
-    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(*args, out)
-    if err != 0:
-        raise RuntimeError(f"{name}: launch info failed with error {err}")
-    return dict(zip(("regs", "static_smem", "smem", "threads",
-                     "blocks_per_sm"), out))
+    return kernels.launch_info(f"h2_{name}_info", *args)
 
 
 def _check_step_inputs(name, ch, reads, quals, lens, starts, valid, minsc,
@@ -1262,9 +1272,13 @@ def _check_step_inputs(name, ch, reads, quals, lens, starts, valid, minsc,
         kernels.check_cuda("snv1_w", snv1_w, i32, (N, C, W))
         kernels.check_cuda("snv2_w", snv2_w, i32, (N, C, W))
     M = (W - L) // 2
-    if L > 512 or M < 16 or W != L + 2 * M or C > 32:
-        raise ValueError(f"{name}: needs L <= 512, a margin of at least 16 "
-                         "and C <= 32")
+    if L > 512:
+        raise ValueError(f"{name}: spliced reads above 512 bp are not run on "
+                         f"the card yet (ROADMAP.md Queue 3 item 15); this "
+                         f"batch's longest read is {L} bp")
+    if M < 16 or W != L + 2 * M or C > 32:
+        raise ValueError(f"{name}: needs a margin of at least 16 and "
+                         "C <= 32")
     need = sweep_launch_info(name, C, L, W, LP, snv)["smem"]
     if need > SMEM_PER_BLOCK:
         raise ValueError(f"{name}: {C} candidates of {L} bp need {need} "
@@ -1469,9 +1483,12 @@ def inject_known(ref_words, n_text: int, reads, quals, lens, rdids, starts,
                            ("snv_delta2", snv_delta2,
                             tuple(snv_delta1.shape))):
             kernels.check_cuda(nm, t, i32, shp)
-    if W != L + 2 * margin or L > 1024:
-        raise ValueError("inject_known: windows must be L + 2*margin wide "
-                         "and L <= 1024")
+    if L > 1024:
+        raise ValueError(f"inject_known: spliced reads above 1024 bp are not "
+                         f"run on the card yet (ROADMAP.md Queue 3 item 15); "
+                         f"this batch's longest read is {L} bp")
+    if W != L + 2 * margin:
+        raise ValueError("inject_known: windows must be L + 2*margin wide")
     J = 2 * slots * C
     res = torch.empty((9, N, J), dtype=i32, device=reads.device)
     kernels.KERNELS["inject_known"].launch(

@@ -1,6 +1,7 @@
-"""The junction sweeps K13 (pair_sweep) and K15 (second_sweep) and the
-indel sweep K8 (indel_sweep) of this tree against an earlier commit's, in
-turns on one card.
+"""The hand kernels this port has redesigned, against an earlier
+commit's, in turns on one card: the junction sweeps K13 (pair_sweep) and
+K15 (second_sweep), the indel sweep K8 (indel_sweep), the ungapped
+extension K6+K7 (extend_ungapped) and the FM search K1 (fm_search2).
 
     git archive <commit> hisat2_tpu_torch/csrc | tar -x -C DIR
     python3 sweep_ab.py DIR
@@ -9,28 +10,33 @@ turns on one card.
 the earlier commit's pair_sweep.cu and second_sweep.cu into libraries of
 their own (their C symbols are this tree's), each whole and stopped right
 after its plane prologue (the sp_build call), this tree's stopped the
-same way, and the earlier indel_sweep.cu whole: one nvcc per library, all
-started together.  Then it runs chip_smoke.py's phases.  On phase 10's
-and phase 11 (e)'s spliced full step (where chip_smoke.launch_shape is
-called for K13, then K15), and for K8 on phase 4's linear step and phase
-11 (e)'s config-6 full step (the first and the last step where
-launch_shape is called for K8), it takes the step's captured arguments
-and
+same way, the earlier indel_sweep.cu, extend_ungapped.cu and
+fm_search2.cu whole, and the earlier extend_ungapped.cu stopped after
+its scans (that tree's last/next-penalised scan, when it has one): one
+nvcc per library, all started together.  Then it runs chip_smoke.py's
+phases, and on the steps chip_smoke.step_shapes reports it takes the
+step's captured arguments and
 
 - checks that the earlier kernels give this tree's outputs;
-- times each kernel (K13 and K15 whole and prologue-only, K8 whole), 20
-  launches back to back between two CUDA events (median of 5 rounds), in
-  turns: earlier, this, this, earlier.  K13's and K15's launches are
-  issued from the host; K8's are captured in one CUDA graph (device
-  time), since the wrapper's host work per call outlasts the new kernel.
+- times each kernel, 20 launches back to back between two CUDA events
+  (median of 5 rounds), in turns: earlier, this, this, earlier.  K13's
+  and K15's launches (whole and prologue-only) are issued from the host,
+  on phase 10's and phase 11 (e)'s spliced full step; K8's, K6+K7's and
+  K1's are captured in one CUDA graph (device time), since the
+  wrapper's host work per call outlasts those kernels.  K8 runs on the
+  linear step and config 6's full step; K6+K7's core and extra-slot
+  launches on every step where chip_smoke holds them (linear, graph
+  full, spliced full, config 6 full, the genome linear step and a rescue
+  chunk), with the earlier tree's scans-only copy; K1 on the linear
+  step.
 
-Both trees launch through this tree's wrappers (ops/splice.py); only the C
-entry point differs, so the arguments and the host work per launch are
-the same.  The earlier K15 must take both base pairs of a step in one
-launch, as this tree's does.  Prints one
-`[sweep ab] <step> {json}` line per step for K13 + K15 and one
-`[sweep ab] <step> indel_sweep {json}` line per step for K8, then
-chip_smoke's own lines.
+Both trees launch through this tree's wrappers (ops/); only the C entry
+point differs, so the arguments and the host work per launch are the
+same.  The earlier K15 must take both base pairs of a step in one launch,
+as this tree's does; the earlier K8 may lack this tree's trailing scratch
+argument.  Prints one `[sweep ab] <step> {json}` line per step for K13 +
+K15, one `[sweep ab] <step> <kernel> {json}` line per step for K8, K6+K7
+and K1, then chip_smoke's own lines.
 """
 
 from __future__ import annotations
@@ -47,60 +53,86 @@ import chip_smoke
 SWEEPS = ("pair_sweep", "second_sweep")
 # what a prologue-only copy writes, so that its planes stay live
 PRO_SINK = {"pair_sweep": "A.bsel[(size_t)n * 2]", "second_sweep": "A.out[n]"}
+# the earlier K6+K7's scans (the last/next-penalised columns), after which
+# its scans-only copy stops
+EXT_SCANS_END = "  __syncwarp();\n\n  const int total_pen = sP[L];"
+# the earlier trees' kernels timed whole
+WHOLE = ("indel_sweep", "extend_ungapped", "fm_search2")
 
 
 def sweep_source(src, name, pro):
-    """pair_sweep.cu / second_sweep.cu, stopped after sp_build if pro."""
+    """pair_sweep.cu / second_sweep.cu, stopped after sp_build if pro;
+    extend_ungapped.cu stopped after its scans if pro (None where that
+    tree's kernel has no such point); any other source whole."""
     text = open(os.path.join(src, name + ".cu")).read()
-    if pro:
+    if pro and name in SWEEPS:
         at = text.index("sp_build(", text.index("__global__"))
         end = text.index(");", at) + 2
         text = (text[:end] + "\n  __syncthreads();\n  if (threadIdx.x == 0) "
                 f"{PRO_SINK[name]} = s.P[L] + (int)s.Pm[L];\n  return;"
                 + text[end:])
+    elif pro:
+        if EXT_SCANS_END not in text:
+            return None
+        end = text.index(EXT_SCANS_END) + len("  __syncwarp();")
+        text = (text[:end] + "\n  if (lane == 0) A.score[cand] = sP[L] + "
+                "sC[L] + sLast[L - 1] + sNext[0];\n  return;" + text[end:])
     return text
 
 
 def build_libs(kernels, parent_csrc):
-    """{(tree, name, pro): the library's C entry point}."""
+    """{(tree, name, pro): (the library's C entry point, the number of
+    this tree's arguments it takes before the stream)}."""
     out = os.path.join(kernels.BUILD_DIR, "sweep_ab")
     os.makedirs(out, exist_ok=True)
     jobs = []
     todo = [("parent", parent_csrc, name, pro) for name in SWEEPS
             for pro in (False, True)]
     todo += [("this", kernels.CSRC, name, True) for name in SWEEPS]
-    todo.append(("parent", parent_csrc, "indel_sweep", False))
+    todo += [("parent", parent_csrc, name, False) for name in WHOLE]
+    todo.append(("parent", parent_csrc, "extend_ungapped", True))
     for tree, src, name, pro in todo:
+        text = sweep_source(src, name, pro)
+        if text is None:
+            continue
         tag = f"{tree}_{name}_{'pro' if pro else 'whole'}"
         cu = os.path.join(out, tag + ".cu")
         with open(cu, "w") as f:
-            f.write(sweep_source(src, name, pro))
+            f.write(text)
         so = os.path.join(out, f"lib{tag}.so")
         cmd = [kernels._nvcc(), *kernels.ARCH_FLAGS, "-std=c++17", "-O3",
                "-Xcompiler", "-fPIC", "-shared", "-I", src, "-o", so, cu]
-        jobs.append(((tree, name, pro), so, subprocess.Popen(
+        nargs = len(kernels.KERNELS[name].argtypes) - 1
+        if name == "indel_sweep" and "void* scratch" not in text:
+            # an earlier K8 without this tree's trailing scratch argument
+            nargs -= "void* scratch" in sweep_source(kernels.CSRC, name,
+                                                     False)
+        jobs.append(((tree, name, pro), so, nargs, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     fns = {}
-    for key, so, p in jobs:
+    for key, so, nargs, p in jobs:
         _, err = p.communicate()
         chip_smoke.check(p.returncode == 0, f"nvcc {key}: {err[-3000:]}")
         fn = getattr(ctypes.CDLL(so), "h2_" + key[1])
-        fn.argtypes = kernels.KERNELS[key[1]].argtypes
+        at = kernels.KERNELS[key[1]].argtypes
+        fn.argtypes = at[:nargs] + at[-1:]
         fn.restype = ctypes.c_int
-        fns[key] = fn
+        fns[key] = (fn, nargs)
     return fns
 
 
 def through(torch, kernels, name, fn, call):
     """call() with the wrapper of kernel `name` launching the C function
-    fn in place of this tree's."""
+    fn = (function, number of arguments before the stream) in place of
+    this tree's."""
     if fn is None:
         return call()
     k = kernels.KERNELS[name]
+    f, nargs = fn
 
     def launch(*args, stream):
         with torch.cuda.device(stream.device):
-            err = fn(*args, stream.cuda_stream)
+            err = f(*args[:nargs], stream.cuda_stream)
         chip_smoke.check(err == 0, f"{name}: launch error {err}")
     k.launch = launch
     try:
@@ -214,28 +246,31 @@ def compare_step(torch, kernels, splice, fns, tag, k13, k15):
     return res
 
 
-def compare_k8(torch, kernels, splice, fns, tag, kw):
-    """K8 of both trees on one step's arguments: equal outputs, then the
-    whole kernel's timings in turns; prints and returns them."""
-    fn = {"parent": fns[("parent", "indel_sweep", False)], "this": None}
-    run = {tr: (lambda f=f: through(torch, kernels, "indel_sweep", f,
-                                    lambda: splice.self_indel_sweep(**kw)))
-           for tr, f in fn.items()}
-    new, old = run["this"](), run["parent"]()
-    for f in new:
-        chip_smoke.check(torch.equal(new[f], old[f]),
-                         f"{tag}: indel_sweep {f} != parent")
+def compare_graphed(torch, kernels, fns, tag, key, call, info):
+    """Kernel `key` (a name, or name/role) of both trees on one step's
+    arguments (call() runs its wrapper): equal outputs, then the device
+    time by CUDA graph in turns (earlier, this, this, earlier), and the
+    earlier tree's scans-only copy where one was built; prints and returns
+    them."""
+    name = key.split("/")[0]
+    run = {"parent": lambda: through(torch, kernels, name,
+                                     fns[("parent", name, False)], call),
+           "this": call}
+    old = chip_smoke.flat_outputs(run["parent"]())
+    new = chip_smoke.flat_outputs(run["this"]())
+    chip_smoke.check(len(old) == len(new), f"{tag}: {key} output arity")
+    for a, b in zip(new, old):
+        chip_smoke.check((a is None and b is None) or torch.equal(a, b),
+                         f"{tag}: {key} != parent")
     t = [graph_ms(torch, run[tr]) for tr in ("parent", "this", "this",
                                              "parent")]
-    N, C, W = kw["ch"].shape
-    L = kw["reads"].shape[1]
-    res = {"indel_sweep_whole": {"parent": [t[0], t[3]],
-                                 "this": [t[1], t[2]]},
-           "live_share": float(kw["valid"].float().mean()), "N": N, "C": C,
-           "W": W, "L": L,
-           "G": splice.indel_sweep_gap(L, W, kw["max_gap"], kw["prm"]),
-           "snv": kw.get("snv1_w") is not None}
-    print(f"[sweep ab] {tag} indel_sweep: {json.dumps(res)}", flush=True)
+    res = {"parent": [t[0], t[3]], "this": [t[1], t[2]]}
+    pro = fns.get(("parent", name, True))
+    if name == "extend_ungapped" and pro is not None:
+        res["parent_scans_only"] = graph_ms(
+            torch, lambda: through(torch, kernels, name, pro, call))
+    res.update(info)
+    print(f"[sweep ab] {tag} {key}: {json.dumps(res)}", flush=True)
     return res
 
 
@@ -248,32 +283,57 @@ def main() -> int:
         print("sweep_ab.py: no CUDA device", file=sys.stderr)
         return 1
     from hisat2_tpu_torch import kernels
-    from hisat2_tpu_torch.ops import splice
+    from hisat2_tpu_torch.ops import extend, search, splice
     kernels.load()
     fns = build_libs(kernels, os.path.join(os.path.abspath(sys.argv[1]),
                                            "hisat2_tpu_torch", "csrc"))
-    caps, done, k8 = {}, [], []
-    n_k8 = [0]
-    shape = chip_smoke.launch_shape
+    done = {"sweeps": [], "indel_sweep": [], "extend_ungapped": [],
+            "fm_search2": []}
+    shapes = chip_smoke.step_shapes
 
-    def hook(splice_mod, name, kw):
-        caps[name] = kw
-        if name == "second_sweep":
-            tag = ("phase10", "config6")[len(done)]
-            done.append(compare_step(torch, kernels, splice, fns, tag,
-                                     caps["pair_sweep"], kw))
-        if name == "indel_sweep":
-            # phase 4's linear step comes first; config 6's full step
-            # follows its own K13 + K15 comparison
-            if n_k8[0] == 0 or len(done) == 2:
-                tag = "linear" if n_k8[0] == 0 else "config6"
-                k8.append(compare_k8(torch, kernels, splice, fns, tag, kw))
-            n_k8[0] += 1
-        return shape(splice_mod, name, kw)
-    chip_smoke.launch_shape = hook
+    def hook(splice_mod, step, cap):
+        shapes(splice_mod, step, cap)
+        if step in ("spliced full", "config6 full"):
+            done["sweeps"].append(compare_step(
+                torch, kernels, splice, fns, step, cap["pair_sweep"],
+                cap["second_sweep"]))
+        if step in ("linear", "config6 full"):
+            kw = cap["indel_sweep"]
+            N, C, W = kw["ch"].shape
+            L = kw["reads"].shape[1]
+            done["indel_sweep"].append(compare_graphed(
+                torch, kernels, fns, step, "indel_sweep",
+                lambda: splice.self_indel_sweep(**kw),
+                {"live_share": float(kw["valid"].float().mean()), "N": N,
+                 "C": C, "W": W, "L": L,
+                 "G": splice.indel_sweep_gap(L, W, kw["max_gap"],
+                                             kw["prm"]),
+                 "snv": kw.get("snv1_w") is not None}))
+        for key in ("extend_ungapped", "extend_ungapped/extra"):
+            if key not in cap:
+                continue
+            kw = cap[key]
+            st = kw["cand_start"]
+            live_g, dead_g = chip_smoke.extend_groups(st)
+            done["extend_ungapped"].append(compare_graphed(
+                torch, kernels, fns, step, key,
+                lambda: extend.extend_grouped(**kw),
+                {"live_share": float((st >= 0).float().mean()),
+                 "groups": int((live_g + dead_g).sum()), "B": st.shape[0],
+                 "C": st.shape[1], "L": kw["reads"].shape[1],
+                 "snv": kw.get("snv1_win") is not None}))
+        if step == "linear":
+            kw = cap["fm_search2"]
+            done["fm_search2"].append(compare_graphed(
+                torch, kernels, fns, step, "fm_search2",
+                lambda: search.partial_search2(**kw),
+                {"N": kw["reads"].shape[0], "L": kw["reads"].shape[1]}))
+    chip_smoke.step_shapes = hook
     rc = chip_smoke.main()
-    chip_smoke.check(len(done) == 2, f"{len(done)} of 2 steps compared")
-    chip_smoke.check(len(k8) == 2, f"K8 compared on {len(k8)} of 2 steps")
+    n = {k: len(v) for k, v in done.items()}
+    chip_smoke.check(n["sweeps"] == 2 and n["indel_sweep"] == 2
+                     and n["extend_ungapped"] >= 8 and n["fm_search2"] == 1,
+                     f"steps compared: {n}")
     return rc
 
 

@@ -15,6 +15,7 @@ Needs a CUDA device; skips without one.  On a machine without JAX run it as
 
 (tests/conftest.py imports jax).  Integer results: exact equality."""
 
+import io
 import os
 
 import numpy as np
@@ -183,7 +184,7 @@ def _replay(cap, names):
     twins = kernel_twins()
     assert sorted(cap) == sorted(names)
     for name in names:
-        kern, plain = twins[name]
+        kern, plain = twins[name.split("/")[0]]
         ko, po = _flat(kern(**cap[name])), _flat(plain(**cap[name]))
         torch.cuda.synchronize()
         assert sorted(ko) == sorted(po), name
@@ -266,7 +267,7 @@ def test_graph_kernels_match_plain_on_card(gcard, lite):
     names = ["fm_search2", "compact_cands", "ref_window",
              "extend_ungapped", "pack_slots"]
     if not lite:
-        names += ["inject_indels", "indel_sweep"]
+        names += ["inject_indels", "indel_sweep", "extend_ungapped/extra"]
     assert cap["extend_ungapped"]["snv1_win"] is not None
     _replay(cap, names)
 
@@ -492,7 +493,7 @@ def test_spliced_kernels_match_plain_on_card(scard):
             want |= {"pair_sweep", "second_sweep", "search_lanes_live"}
         assert want <= set(cap)
         for name in sorted(want):
-            kern, plain = twins[name]
+            kern, plain = twins[name.split("/")[0]]
             ko = _flat_list(kern(**cap[name]))
             po = _flat_list(plain(**cap[name]))
             assert len(ko) == len(po)
@@ -941,7 +942,7 @@ def test_spliced_graph_kernels_match_plain_on_card(gss_card, L):
             assert cap["pair_sweep"]["snv1_w"] is not None
             assert cap["pair_sweep"]["starts"].shape[1] == 19
         for name in sorted(cap):
-            kern, plain = twins[name]
+            kern, plain = twins[name.split("/")[0]]
             ko = _flat_list(kern(**cap[name]))
             po = _flat_list(plain(**cap[name]))
             assert len(ko) == len(po)
@@ -1107,3 +1108,349 @@ def test_indel_sweep_wrapped_key_on_card(sweep_card):
     po = _indel_both(kw, "wrapped key")
     assert [int(po[f][0, 0]) for f in ("score", "d1", "d2", "x", "kind")] \
         == [524288, -1, 0, 7, 2]
+
+
+# --- every read length on the DNA paths (K1/K17, K6+K7, K8, K12) -------------
+
+EXT_L = (36, 75, 100, 151, 250, 512, 513, 600, 1100, 2000)
+
+
+def _extend_world(rng, words, n_text, B, C, L, live, snv_words, ties):
+    """B lanes of C slots, windows made by K5's twin from the starts (the
+    kernel's contract): starts at a live share `live` drawn from a few
+    diagonals per lane (repeats within a lane, some past the text ends),
+    the rest -1; reads from the text with mismatches, Ns, garbage ends and
+    shorter lengths; optionally the two clip-gain tie rows."""
+    from hisat2_tpu_torch.ops import splice
+    g_at = rng.integers(0, n_text - L, B)
+    ref = splice.diag_chars_plain(words, n_text,
+                                  torch.from_numpy(g_at[:, None].astype(
+                                      np.int32)).to(words.device), L, 0)
+    reads = ref[:, 0].cpu().numpy().astype(np.int32).copy()
+    reads[reads > 3] = 0
+    lens = np.full(B, L, np.int32)
+    for i in range(B):
+        for p in rng.integers(0, L, int(rng.integers(0, 2 + L // 30))):
+            reads[i, p] = (reads[i, p] + 1) % 4
+        if i % 4 == 1:
+            reads[i, :int(rng.integers(1, 12))] = int(rng.integers(0, 4))
+        if i % 4 == 2:
+            reads[i, L - int(rng.integers(1, 12)):] = (reads[i, -1] + 1) % 4
+        if i % 5 == 0:
+            reads[i, int(rng.integers(0, L))] = 4
+        if i % 3 == 0 and L > 20:
+            lens[i] = L - int(rng.integers(1, 20))
+            reads[i, lens[i]:] = 4
+    quals = rng.integers(0, 42, (B, L)).astype(np.int32)
+    quals[::2] = 40
+    st = np.full((B, C), -1, np.int64)
+    for i in range(B):
+        diag = [g_at[i], g_at[i] + int(rng.integers(-3, 4)),
+                int(rng.integers(-60, n_text + 60)), n_text - L // 3,
+                -(L // 4)]
+        for j in range(C):
+            if rng.random() < live:
+                st[i, j] = diag[int(rng.integers(0, len(diag)))]
+    if ties and B >= 2:
+        for i in (0, 1):
+            st[i, 0] = g_at[i]
+            lens[i] = L
+            quals[i] = 40
+            reads[i] = np.minimum(ref[i, 0].cpu().numpy(), 3)
+        reads[0, [0, 8, 9]] = (reads[0, [0, 8, 9]] + 1) % 4
+        quals[0, 1:8], quals[0, 8], quals[0, 9] = 0, 30, 20
+        reads[1, [L - 10, L - 9, L - 1]] = (reads[1, [L - 10, L - 9, L - 1]]
+                                            + 1) % 4
+        quals[1, 1:10], quals[1, L - 10], quals[1, L - 9] = 0, 30, 20
+    dev = words.device
+    t = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, np.int32)).to(dev)
+    stt = t(st)
+    margin = 16
+    win = splice.diag_chars_plain(words, n_text, stt, L, margin)
+    s1 = s2 = None
+    if snv_words is not None:
+        s1, s2 = (splice.diag_chars_plain(w, n_text, stt, L, margin)
+                  for w in snv_words)
+    minsc = t(np.array([int(-0.6 - 0.6 * x) for x in lens]))
+    return dict(n_text=n_text, reads=t(reads), quals=t(quals), lens=t(lens),
+                cand_start=stt, win_chars=win, win_margin=margin,
+                minsc=minsc, snv1_win=s1, snv2_win=s2)
+
+
+@pytest.mark.parametrize("L", EXT_L)
+def test_extend_ungapped_random_on_card(card, L):
+    """K6+K7 against its plain twin at C in {1, 6, 8, 19}, live shares 0,
+    0.1, 0.5 and 1 with repeated starts within lanes, uniform_len on and
+    off, soft clipping off, minsc None, SNV windows on and off, and the
+    clip-gain ties; one evaluation per distinct (lane, start) gives the
+    twin's row to every slot."""
+    from hisat2_tpu_torch import kernels
+    from hisat2_tpu_torch.index.format import score_tables, to_device
+    from hisat2_tpu_torch.ops import extend
+    g, idx = card
+    dev = to_device(idx, "cuda")
+    tabs = score_tables(Scoring(), "cuda")
+    rng = np.random.default_rng(7000 + L)
+
+    def snv_plane():
+        # a delta of 1-3 at ~5% of the text's columns, 2-bit packed
+        nw = dev.ref_words.shape[0]
+        d = np.where(rng.random(16 * nw) < 0.05,
+                     rng.integers(1, 4, 16 * nw), 0).astype(np.uint32)
+        w = (d.reshape(nw, 16) << (2 * np.arange(16, dtype=np.uint32))).sum(
+            1, dtype=np.uint64).astype(np.uint32)
+        return torch.from_numpy(w.view(np.int32)).cuda()
+    snv_words = (snv_plane(), snv_plane())
+    B = 48 if L <= 512 else 16
+    cases = [(1, 1.0, {}), (6, 0.1, {}), (6, 0.5, {"uniform_len": True}),
+             (8, 1.0, {"snv": True}), (19, 0.0, {}),
+             (19, 0.1, {"snv": True}), (6, 0.5, {"allow_softclip": False}),
+             (8, 0.5, {"minsc": None})]
+    for C, live, opt in cases:
+        opt = dict(opt)
+        snv = opt.pop("snv", False)
+        kw = _extend_world(rng, dev.ref_words, idx.meta.n, B, C, L, live,
+                           snv_words if snv else None, ties=C > 1)
+        if opt.get("uniform_len"):
+            kw["lens"] = torch.full_like(kw["lens"], L)
+        kw.update(mm_pen=tabs["mm_pen"], clip_pen=tabs["clip_pen"],
+                  n_pen=1, mm_min=2, **opt)
+        n0 = kernels.KERNELS["extend_ungapped"].launches
+        ko = extend.extend_grouped(**kw)
+        po = extend.extend_grouped_plain(**kw)
+        torch.cuda.synchronize()
+        what = f"L={L} C={C} live={live} {opt}"
+        assert kernels.KERNELS["extend_ungapped"].launches == n0 + 1, what
+        for f in po._fields:
+            _eq(getattr(ko, f), getattr(po, f), f"{what} {f}")
+        if C > 1 and opt.get("allow_softclip", True) and not snv:
+            assert int(po.clip_l[0, 0]) == 10 and int(po.clip_r[1, 0]) == 10
+
+
+@pytest.mark.parametrize("L", [513, 600, 1100, 2000])
+def test_fm_search_long_reads_on_card(card, L):
+    """K1 dense and in its lane-list mode (K17) above the 512 bp the round
+    log held in local memory: the log goes to the rounds rows."""
+    from hisat2_tpu_torch import kernels
+    from hisat2_tpu_torch.index.format import to_device
+    from hisat2_tpu_torch.ops import search
+    g, idx = card
+    dev = to_device(idx, "cuda")
+    m = idx.meta
+    rng = np.random.default_rng(L)
+    _, reads, lens, _ = _reads(rng, g, 256, L)
+    rd, ln = (torch.from_numpy(a).cuda() for a in (reads, lens))
+    a = search.partial_search2(dev.blocked, dev.fchr, dev.ftab2_top, m.zrow,
+                               m.zrow2, m.rows, rd, ln, 6, 16, 9)
+    b = search.partial_search2_plain(dev.blocked, dev.fchr, dev.ftab2_top,
+                                     m.zrow, m.zrow2, m.rows, rd, ln, 6, 16,
+                                     9)
+    for f in a._fields:
+        _eq(getattr(a, f), getattr(b, f), f"L={L} {f}")
+    assert int(a.nrounds.max()) > 0
+    cut = ln.clone()
+    cut[::3] = 5                                  # dead lanes
+    cut[1::3] = torch.clamp(cut[1::3] // 2, min=17)
+    n0 = kernels.KERNELS["search_lanes_live"].launches
+    k = search.search_lanes_live(dev.blocked, dev.fchr, dev.ftab2_top,
+                                 m.zrow, m.zrow2, m.rows, rd, cut, 2, 16, 9,
+                                 chunk=64)
+    p = search.search_lanes_live_ref(dev.blocked, dev.fchr, dev.ftab2_top,
+                                     m.zrow, m.zrow2, m.rows, rd, cut, 2,
+                                     16, 9, chunk=64)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["search_lanes_live"].launches == n0 + 1
+    for f in k._fields:
+        _eq(getattr(k, f), getattr(p, f), f"L={L} lane list {f}")
+
+
+@pytest.mark.parametrize("L,G", [(513, 5), (600, 19), (1100, 5),
+                                 (1100, 19), (1100, 27), (2000, 27),
+                                 (6500, 5)])
+def test_indel_sweep_long_reads_on_card(sweep_card, L, G):
+    """K8 against its plain twin above the former 1024 bp cap, with and
+    without SNV windows; at L = 6500 one warp's buffers outgrow the shared
+    memory a block can use and the kernel stages them in its global
+    scratch."""
+    from hisat2_tpu_torch.ops import splice
+    from hisat2_tpu_torch.align.scoring import Scoring
+    rng = np.random.default_rng(L + G)
+    mm_pen = torch.from_numpy(Scoring().mm_pen_table()).cuda()
+    prm = splice.SpliceParams(allow_spliced=False)
+    N = 16 if L < 5000 else 4
+    ch, reads, quals, lens, starts, valid, minsc, snv = _indel_world(
+        rng, N, 6, L, G, 0.3)
+    ch, reads, quals, lens, starts, valid, minsc, *snv = (
+        torch.from_numpy(a).cuda() for a in (ch, reads, quals, lens, starts,
+                                             valid, minsc, *snv))
+    W = ch.shape[2]
+    staged = splice._indel_sweep_scratch(L, W, G, False, N * 6, ch.device)
+    assert (staged is not None) == (L > 5000)
+    for use_snv in (False, True):
+        kw = dict(ch=ch, reads=reads, quals=quals, lens=lens, starts=starts,
+                  valid=valid, minsc=minsc, mm_pen=mm_pen, n_pen=1, prm=prm,
+                  max_gap=G, snv1_w=snv[0] if use_snv else None,
+                  snv2_w=snv[1] if use_snv else None)
+        _indel_both(kw, f"L={L} G={G} snv={use_snv}")
+
+
+@pytest.mark.parametrize("L", [513, 600, 1100, 2000])
+def test_rescue_window_long_mates_on_card(card, L):
+    """K12 on mates above its former 1024 bp cap and around 512 (the
+    read's words in dynamic shared memory), with windows inside the text,
+    at its start and past its end."""
+    from hisat2_tpu_torch.index.format import to_device
+    from hisat2_tpu_torch.ops import rescue
+    g, idx = card
+    dev = to_device(idx, "cuda")
+    n, W, R = idx.meta.n, 57344, 12
+    rng = np.random.default_rng(L)
+    reads = np.zeros((R, L), np.int32)
+    ws = np.zeros(R, np.int64)
+    for i in range(R):
+        s = int(rng.integers(0, n - L))
+        reads[i] = g[s:s + L]
+        ws[i] = (s - int(rng.integers(0, W - L))) // 56320 * 56320
+    ws[1], ws[2] = -56320, n - 1000
+    reads[3, ::17] = 4
+    rd = torch.from_numpy(reads).cuda()
+    wst = torch.from_numpy(ws.astype(np.int32)).cuda()
+    k = rescue.rescue_window(dev.ref_words, n, rd, wst, W)
+    p = rescue.rescue_window_plain(dev.ref_words, n, rd, wst, W)
+    torch.cuda.synchronize()
+    _eq(k, p, f"rescue_window L={L}")
+
+
+@pytest.fixture(scope="module")
+def long_card(card, tmp_path_factory):
+    """Linear and graph aligners on the card and the CPU over the card
+    fixture's genome (the graph with a catalog of SNVs and indels), with
+    a repeat for mate rescue."""
+    from hisat2_tpu_torch.align.pipeline import TorchAligner
+    g, _ = card
+    g = g.copy()
+    rng = np.random.default_rng(1101)
+    unit = rng.integers(0, 4, 1200).astype(np.uint8)
+    for k in range(24):                 # 24 copies: the mate needs rescue
+        g[150_000 + 5_000 * k:150_000 + 5_000 * k + 1200] = unit
+    lin = build_fm_index([("c", g)])
+    gidx = build_fm_index([("c", g)])
+    snp = tmp_path_factory.mktemp("long") / "v.snp"
+    pos = np.sort(rng.choice(np.arange(1_000, len(g) - 1_000), 300,
+                             replace=False))
+    with open(snp, "w") as f:
+        for i, p in enumerate(pos):
+            if i % 3 == 0:
+                f.write(f"d{i}\tdeletion\tc\t{p}\t{int(rng.integers(1, 6))}"
+                        f"\n")
+            elif i % 3 == 1:
+                alt = "ACGT"[(int(g[p]) + 1) % 4]
+                f.write(f"s{i}\tsingle\tc\t{p}\t{alt}\n")
+            else:
+                f.write(f"i{i}\tinsertion\tc\t{p}\tACG\n")
+    attach_variants(gidx, snp_file=str(snp))
+    out = {}
+    for name, ix, var in (("linear", lin, None),
+                          ("graph", gidx, gidx._variants)):
+        out[name] = (TorchAligner(ix, device="cuda", variants=var),
+                     TorchAligner(ix, device="cpu", variants=var))
+    return g, out
+
+
+def _long_batch(rng, g, B, Lmax):
+    """B reads of 100-300 bp and one of Lmax bp from g, with mismatches,
+    some reverse-complemented."""
+    lens = rng.integers(100, 301, B).astype(np.int32)
+    lens[0] = Lmax
+    codes = np.full((B, Lmax), 4, np.uint8)
+    for i in range(B):
+        s = int(rng.integers(0, len(g) - Lmax))
+        r = g[s:s + lens[i]].copy()
+        r[rng.integers(0, lens[i], 2)] ^= 1
+        if i % 2:
+            r = (3 - r)[::-1]
+        codes[i, :lens[i]] = r
+    quals = rng.integers(5, 41, (B, Lmax)).astype(np.uint8)
+    return codes, quals, lens
+
+
+@pytest.mark.parametrize("Lmax", [600, 1100])
+@pytest.mark.parametrize("kind", ["linear", "graph"])
+def test_long_read_steps_on_card_match_cpu(long_card, kind, Lmax):
+    """TorchAligner's step on the card against the CPU step (plain twins)
+    on a batch whose longest read is Lmax (both passes of the graph
+    aligner): packed buffers equal."""
+    g, als = long_card
+    cu, cp = als[kind]
+    rng = np.random.default_rng(Lmax + (kind == "graph"))
+    codes, quals, lens = _long_batch(rng, g, 48, Lmax)
+    for a, c in ((cu, cp), (cu._fast, cp._fast)):
+        if a is None:
+            continue
+        minsc = a._minsc(lens)
+        for full in (False, True):
+            bk = a.step(*a.upload(codes, quals, lens, minsc), False, full)
+            bp = c.step(*c.upload(codes, quals, lens, minsc), False, full)
+            _eq(bk, bp, f"{kind} L={Lmax} lite={a.lite} full_out={full}")
+
+
+@pytest.mark.parametrize("kind", ["linear", "graph"])
+def test_long_read_pairs_on_card_match_cpu(long_card, kind):
+    """Paired batches through align_batch's paired path with mate rescue,
+    one pair of 1100 bp mates: the card's alignments equal the CPU's."""
+    from hisat2_tpu_torch.align import driver
+    from hisat2_tpu_torch.align.paired import PairPolicy
+    from hisat2_tpu_torch.io.fasta import ReadBatch
+    g, als = long_card
+    cu, cp = als[kind]
+    rng = np.random.default_rng(77 + (kind == "graph"))
+    B, Lm = 16, 1100
+    m1, m2, q1, q2 = [], [], [], []
+    for i in range(B):
+        ln = Lm if i == 0 else int(rng.integers(100, 301))
+        if i % 4 == 3:
+            # mate 1 ends a copy of the repeat, mate 2 lies past it: only
+            # mate 2 aligns alone, and mate 1 needs the rescue
+            u = 150_000 + 5_000 * (i % 24) + 1200
+            s, e = u - ln, u + 50 + ln
+        else:
+            s = int(rng.integers(0, len(g) - 2 * Lm))
+            e = s + ln + int(rng.integers(50, 400))
+        a = g[s:s + ln].copy()
+        b = (3 - g[e - ln:e])[::-1].copy()
+        a[rng.integers(0, ln, 2)] ^= 1
+        m1.append(a)
+        m2.append(b)
+        q1.append(rng.integers(5, 41, ln).astype(np.uint8))
+        q2.append(rng.integers(5, 41, ln).astype(np.uint8))
+    out, jobs = [], []
+    for al in (cu, cp):
+        rescue_mates = al.rescue_mates
+        al.rescue_mates = lambda codes, *a, **k: (
+            jobs.append(codes.shape), rescue_mates(codes, *a, **k))[1]
+        sink = io.StringIO()
+        w = driver.SamWriter(sink, ["c"], [len(g)], no_head=True)
+        rd = np.arange(B, dtype=np.int64)
+        ref_fn = (lambda al_: (lambda pos, span: al_.ref_codes[pos:pos
+                                                               + span]))(al)
+        driver._align_pair_batch(
+            al, w, PairPolicy(), al.scoring, 5,
+            ReadBatch([f"p{i}" for i in range(B)], m1, q1),
+            ReadBatch([f"p{i}" for i in range(B)], m2, q2), ref_fn, rd)
+        del al.rescue_mates
+        out.append(sink.getvalue())
+    assert out[0] == out[1]
+    assert out[0].count("\n") >= 2 * B
+    assert jobs and all(shp[1] == Lm for shp in jobs)   # rescue at 1100 bp
+
+
+def test_spliced_long_reads_refused_on_card(card):
+    """A spliced batch above 512 bp raises, naming ROADMAP item 15."""
+    from hisat2_tpu_torch.align.pipeline import TorchAligner
+    g, idx = card
+    al = TorchAligner(idx, device="cuda", spliced=True)
+    rng = np.random.default_rng(5)
+    codes, quals, lens = _long_batch(rng, g, 8, 600)
+    with pytest.raises(ValueError, match="item 15"):
+        al.align_batch(codes, quals, lens)
