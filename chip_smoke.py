@@ -25,7 +25,9 @@ checks them:
             gap budget and live share, as on every step below that holds
             them against their twins (`step_shapes`), K6+K7's launch at
             L = 151, 250, 512 and 2000 (with its local bytes) and K8's
-            at L = 151 and 512 with G up to 32
+            at L = 151 and 512 with G up to 32; K1's launch on 44- and
+            49-column tables and the share of its lanes' steps that fetch
+            one fused row
   5 step    the whole linear device step on the card (kernels) against
             the step on the CPU (plain versions): equal packed buffers and
             layouts, spill and full_out
@@ -135,7 +137,18 @@ checks them:
             and 64 pairs (one of 1100 bp mates, a quarter needing mate
             rescue) through align/driver.py's paired batch on both: equal
             packed buffers and SAM, rescue jobs at 1100 bp, and K1,
-            K6+K7, K8 and K12 launched at that width
+            K6+K7, K8 and K12 launched at that width; a spliced batch of
+            64 reads whose longest is SPLICED_LONG_L = 600 bp (half across
+            phase 10's introns) through dispatch/advance/collect, then its
+            lite and full steps on the card against the CPU's, with K13,
+            K15 and K16 launched at that width; the full step of the same
+            batch with its longest read at SPLICED_GLOBAL_L = 1100 bp,
+            where K13 and K15 stage their planes in global memory: both
+            against their twins on its lanes, and on those lanes tiled to
+            three times the global grid and more (each block then walks
+            3-4 lanes); K13's and K15's launches (shared or global
+            staging) at 600 bp and at config 6's C = 19 with SNV windows
+            at L = 500
 
 Each kernel's bound (the kernels line's bound_ms) is the larger of the
 bytes it must move over 3.35 TB/s and its operations over the peak rate
@@ -161,8 +174,9 @@ from collections import deque
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 B, L, N_BATCHES, DEPTH = 4096, 100, 16, 8
-# phase 13: the longest read of its batches, above every former kernel cap
-LONG_L = 1100
+# phase 13: the longest read of its batches, above every former kernel cap,
+# and of its spliced batch, above the junction sweeps' former 512 bp cap
+LONG_L, SPLICED_LONG_L, SPLICED_GLOBAL_L = 1100, 600, 1100
 # the graph slice's SAM render (the carried quadratic read_alignments behind
 # the Zs annotator) takes about 3 s per batch: 4 batches still route reads
 # and launch every kernel
@@ -413,8 +427,8 @@ def work(torch, name, kw, out):
         "ilen", "ins_chars", "rkey", "r_ilen", "r_row")))
     rate = CUDA_CORE
     if name == "fm_search2":
-        chars = int(kw["lens"].sum())
-        extra, ops = chars * 176, chars * 40     # a 44-word row per char
+        rows = fm_rows(kw, kw["reads"], kw["lens"])
+        extra, ops = rows * 176, rows * 40       # the 44 words K1 reads
     elif name == "compact_cands":
         rows = (kw["bot"] - kw["top"]).clamp(0, kw["P"])
         N, H = kw["top"].shape
@@ -469,8 +483,8 @@ def work(torch, name, kw, out):
         ops, rate = 2 * 4 * kw["W"] * L * R, BF16
     elif name == "search_lanes_live":
         live = kw["cut"] >= kw["min_hit_len"]
-        chars = int(kw["cut"][live].sum())
-        extra, ops = chars * 176, chars * 40
+        rows = fm_rows(kw, kw["reads"][live], kw["cut"][live])
+        extra, ops = rows * 176, rows * 40
     elif name == "pair_sweep":
         # planes (48 PWM factors + prefixes per column), then ~25 integer
         # ops per (pair, x)
@@ -513,6 +527,20 @@ def work(torch, name, kw, out):
     by = dense + extra + ob
     t_b, t_o = by / HBM * 1e3, ops / rate * 1e3
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def fm_rows(kw, reads, lens):
+    """The fused rows K1 (or K17) fetches searching these lanes: two a
+    search step, one where top and bot lie in one 128-row block, as the
+    plain twin counts them on the same index arguments."""
+    from hisat2_tpu_torch.ops.search import partial_search2_plain
+    st = {}
+    partial_search2_plain(
+        kw["blocked"], kw["fchr"], kw["ftab2_top"], kw["zrow"], kw["zrow2"],
+        kw["rows"], reads, lens, kw["max_hits"], kw["min_hit_len"],
+        kw["min_k"], uniform=kw.get("uniform", False),
+        anchor_stop=kw.get("anchor_stop", True), stats=st)
+    return 2 * st.get("steps", 0) - st.get("one_row", 0)
 
 
 def walk_sectors(torch, kw, row):
@@ -644,6 +672,10 @@ def launch_shape(splice, name, kw):
 def shape_text(info):
     local = (f", {info['local_bytes']} local bytes per thread"
              if "local_bytes" in info else "")
+    if "scratch_per_block" in info:
+        local += (f", planes in global scratch, {info['scratch_per_block']}"
+                  f" bytes per block" if info["scratch_per_block"] else
+                  ", planes in shared memory")
     return (f"{info['regs']} registers, {info['smem']} + "
             f"{info['static_smem']} bytes of shared memory per block, "
             f"{info['threads']} threads, {info['blocks_per_sm']} blocks per "
@@ -1823,6 +1855,174 @@ def long_phase(torch, np, g, index, spots, kernels, driver, TorchAligner):
           f"batch with mate rescue: {sam[0].count(chr(10))} SAM records "
           f"equal to the CPU's; rescue job shapes {jobs}; card launches "
           f"{launches}")
+    spliced_long(torch, np, g, index, kernels, TorchAligner, rng, read)
+
+
+def spliced_long(torch, np, g, index, kernels, TorchAligner, rng, read):
+    """Phase 13's spliced batch: 64 reads, the longest SPLICED_LONG_L bp
+    (the rest 100-300), half across phase 10's introns, through
+    dispatch/advance/collect on the card; then the lite and full steps on
+    the card against the CPU's with the card's site DB; K13 and K15 on
+    the full step against their twins (planes in shared memory); the
+    batch again with its longest read at SPLICED_GLOBAL_L bp, where both
+    stage their planes in global memory (sweeps_global); their launches
+    at 600 bp and at config 6's C = 19 with SNV windows at L = 500."""
+    from hisat2_tpu_torch.ops import splice
+    introns, _ = pick_introns(np, np.random.default_rng(1010), g)
+    Ls, Bs = SPLICED_LONG_L, 64
+    lens = rng.integers(100, 301, Bs).astype(np.int32)
+    lens[0] = Ls
+    codes = np.full((Bs, Ls), 4, np.uint8)
+    for i in range(Bs):
+        n_ = int(lens[i])
+        if i % 2 == 0:
+            d, e, _ = introns[int(rng.integers(0, len(introns)))]
+            x = int(rng.integers(20, n_ - 20))
+            r = np.concatenate([g[d - x:d], g[e:e + n_ - x]])
+            codes[i, :n_] = np.where(r < 4, 3 - r, 4)[::-1] if i % 4 else r
+        else:
+            codes[i, :n_] = read(int(rng.integers(0, len(g) - Ls)), n_,
+                                 i % 4 == 1)
+    quals = rng.integers(20, 41, (Bs, Ls)).astype(np.uint8)
+    rdids = np.arange(Bs, dtype=np.int64)
+    scu = TorchAligner(index, device="cuda", spliced=True, lane_meta=True)
+    scp = TorchAligner(index, device="cpu", spliced=True, lane_meta=True)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    res = scu.collect(scu.advance(scu.dispatch(codes, quals, lens, rdids)))
+    t1 = time.perf_counter()
+    launches = kernels.counts()
+    for name in ("pair_sweep", "second_sweep", "inject_known"):
+        check(launches[name] > 0, f"{name} never launched on a spliced "
+              f"batch of {Ls} bp")
+    cols = res.raw["cols"]
+    rd = np.asarray(cols[0])
+    first = np.unique(rd, return_index=True)[1]
+    spliced = int((np.asarray(cols[16])[first] == 1).sum())
+    check(spliced > 0, "spliced long batch: no spliced alignment")
+    print(f"[long] spliced batch, {Bs} reads up to {Ls} bp through "
+          f"dispatch/advance/collect: {len(first)} reads aligned, {spliced} "
+          f"spliced, {1e3 * (t1 - t0):.1f} ms (host clock); launches "
+          f"{launches}")
+    for k in ("sites", "_col_jl", "_col_jr", "_col_rdid"):
+        setattr(scp.splice_db, k, getattr(scu.splice_db, k))
+    for a, c in ((scu._fast, scp._fast), (scu, scp)):
+        rd_, ss = a._step_site_args(rdids)
+        rdc, ssc = c._step_site_args(rdids)
+        minsc = a._minsc(lens)
+        cap = {}
+        bk = a.step(*a.upload(codes, quals, lens, minsc), False, rdids=rd_,
+                    ss=ss, capture=cap)
+        t2 = time.perf_counter()
+        bp = c.step(*c.upload(codes, quals, lens, minsc), False, rdids=rdc,
+                    ss=ssc)
+        check(torch.equal(bk.cpu(), bp),
+              f"spliced long step lite={a.lite} != CPU step")
+        print(f"[long] spliced {'lite' if a.lite else 'full'} step at {Ls} "
+              f"bp: packed [{bk.shape[0]}, {bk.shape[1]}] equal to the CPU "
+              f"plain step (CPU {time.perf_counter() - t2:.1f} s)")
+        step_shapes(splice, f"spliced long {'lite' if a.lite else 'full'}",
+                    cap)
+    # K13 and K15 on this full step, their planes in shared memory
+    from hisat2_tpu_torch.ops import kernel_twins
+    twins = kernel_twins()
+    for name in ("pair_sweep", "second_sweep"):
+        check(splice.sweep_launch_info(**sweep_shape(splice, name, cap[
+            name]))["scratch_per_block"] == 0, f"{name} at {Ls} bp: "
+            "planes not in shared memory")
+        _, ms, pms = compare(torch, name, *twins[name], cap[name])
+        print(f"[long] {name} on the spliced full step at {Ls} bp, planes "
+              f"in shared memory: equal to plain (tolerance: exact); kernel "
+              f"{ms:.4f} ms, plain {pms:.4f} ms (median of 10)")
+    sweeps_global(torch, np, g, twins, splice, scu, introns, rng, codes,
+                  quals, lens, rdids)
+    LP = splice.lenpen_device(splice.SpliceParams(), "cpu")[1].shape[1]
+    for name in ("pair_sweep", "second_sweep"):
+        for Lx, snv in ((Ls, False), (500, True), (500, False)):
+            info = splice.sweep_launch_info(name, 19, Lx, Lx + 32, LP,
+                                            snv and name == "pair_sweep")
+            check(info["blocks_per_sm"] >= 1, f"{name}: C = 19, L = {Lx} "
+                  f"does not fit an SM")
+            print(f"[long] {name} launch at C = 19, L = {Lx}"
+                  f"{', SNV windows' if snv else ''} (margin 16): "
+                  f"{shape_text(info)}")
+
+
+def sweep_shape(splice, name, kw):
+    """sweep_launch_info's arguments for K13's or K15's captured call."""
+    N, C, W = kw["ch"].shape
+    snv = name == "pair_sweep" and kw.get("snv1_w") is not None
+    return dict(name=name, C=C, L=kw["reads"].shape[1], W=W,
+                LP=kw["lenpen"][1].shape[1], snv=snv)
+
+
+# K13's and K15's arguments with a row per lane, and K15's base pairs
+# ([2, N]: a column per lane)
+SWEEP_LANE_ARGS = ("ch", "reads", "quals", "lens", "starts", "valid",
+                   "minsc", "snv1_w", "snv2_w", "rdids")
+SWEEP_PAIR_ARGS = ("b_i", "b_j", "b_x", "b_score", "b_valid")
+
+
+def tile_lanes(kw, idx):
+    """A sweep's captured arguments over the lanes `idx` (a device index
+    tensor, lanes repeated in any order)."""
+    out = dict(kw)
+    for k in SWEEP_LANE_ARGS:
+        if out.get(k) is not None:
+            out[k] = out[k][idx].contiguous()
+    for k in SWEEP_PAIR_ARGS:
+        if k in out:
+            out[k] = out[k][:, idx].contiguous()
+    return out
+
+
+def sweeps_global(torch, np, g, twins, splice, scu, introns, rng, codes,
+                  quals, lens, rdids):
+    """The spliced full step of phase 13's batch with its first read
+    lengthened to SPLICED_GLOBAL_L bp (across a junction, as before), on
+    the card: K13's and K15's planes outgrow a block's shared memory
+    there, so both take their global instantiation.  Each is held against
+    its twin on the step's lanes (timed), then run on those lanes tiled,
+    in a seeded order, to three times the grid the card holds and more, so
+    that every block of the global grid walks 3-4 lanes through its one
+    scratch slice: each tiled lane's outputs must equal its row of the
+    first run (every output has a row per lane)."""
+    Lg, Bs = SPLICED_GLOBAL_L, len(lens)
+    c2 = np.full((Bs, Lg), 4, np.uint8)
+    c2[:, :codes.shape[1]] = codes
+    q2 = rng.integers(20, 41, (Bs, Lg)).astype(np.uint8)
+    q2[:, :quals.shape[1]] = quals
+    d, e, _ = introns[int(rng.integers(0, len(introns)))]
+    x = int(rng.integers(20, Lg - 20))
+    c2[0] = np.concatenate([g[d - x:d], g[e:e + Lg - x]])
+    l2 = lens.copy()
+    l2[0] = Lg
+    rd_, ss = scu._step_site_args(rdids)
+    cap = {}
+    scu.step(*scu.upload(c2, q2, l2, scu._minsc(l2)), False, rdids=rd_,
+             ss=ss, capture=cap)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name in ("pair_sweep", "second_sweep"):
+        kw = cap[name]
+        info = splice.sweep_launch_info(**sweep_shape(splice, name, kw))
+        check(info["scratch_per_block"] > 0, f"{name} at {Lg} bp: planes "
+              "not in global memory")
+        _, ms, pms = compare(torch, name, *twins[name], kw)
+        N = kw["ch"].shape[0]
+        grid = sms * info["blocks_per_sm"]
+        nt = 3 * grid + 7
+        idx = torch.from_numpy(np.random.default_rng(nt).integers(
+            0, N, nt)).cuda()
+        kern = twins[name][0]
+        whole = flat_outputs(kern(**kw))
+        tiled = flat_outputs(kern(**tile_lanes(kw, idx)))
+        check(all(torch.equal(a[idx], b) for a, b in zip(whole, tiled)),
+              f"{name}: lanes tiled over the global grid != their rows")
+        print(f"[long] {name} on the spliced full step at {Lg} bp, planes "
+              f"in global scratch ({info['scratch_per_block']} bytes a "
+              f"block): equal to plain (tolerance: exact); kernel {ms:.4f} "
+              f"ms, plain {pms:.4f} ms (median of 10); its {N} lanes tiled "
+              f"to {nt} over a grid of {grid} blocks: equal rows")
 
 
 def main() -> int:
@@ -1924,6 +2124,20 @@ def main() -> int:
               f"max_abs_err {err}; kernel {ms:.4f} ms, plain {pms:.4f} ms "
               f"(median of 10; inputs {shp[:4]})")
     step_shapes(splice, "linear", cap)
+    # K1: its launch, and the share of its lanes' steps whose top and bot
+    # lie in one 128-row block (one fused row fetched), from the twin
+    from hisat2_tpu_torch.ops import search
+    for cols in (44, 49):
+        info = kernels.launch_info("h2_fm_search2_info", cols, n=6)
+        print(f"[kernels] fm_search2 launch on the {cols}-column table: "
+              f"{shape_text(info)}, "
+              f"{-(-cap['fm_search2']['reads'].shape[0] * 8 // info['threads'])}"
+              f" blocks for this step's lanes")
+    fm_st = {}
+    search.partial_search2_plain(**cap["fm_search2"], stats=fm_st)
+    print(f"[kernels] fm_search2 steps: {fm_st['steps']} lane steps, "
+          f"{fm_st['one_row']} ({fm_st['one_row'] / fm_st['steps']:.4f}) "
+          f"with top and bot in one 128-row block")
     # K6+K7 at the read lengths of its other column runs (K = 8, 16, and
     # 16 in several tiles)
     from hisat2_tpu_torch.ops import extend

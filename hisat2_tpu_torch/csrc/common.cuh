@@ -75,3 +75,60 @@ __device__ __forceinline__ int h2_floordiv(int a, int d) {
   if ((a % d != 0) && (a < 0)) q -= 1;
   return q;
 }
+
+// A unit's slice of a global staging scratch: its bytes rounded up to 256.
+__host__ __device__ inline size_t h2_slice(size_t bytes) {
+  return (bytes + 255) & ~(size_t)255;
+}
+
+// Where a kernel stages the `per` bytes each of its units (a warp, or a
+// whole block) works in.  Where one unit fits the dynamic shared memory a
+// block of `shared_k` can opt in to (`room`), the caller sizes its shared
+// launch.  Past it, the global instantiation `global_k` (`threads` threads
+// of `units` units a block, no dynamic shared memory) stages in a slice
+// of a global scratch per unit, over as many blocks as the card holds at
+// once, no more than `blocks` (those the work needs) and no more than the
+// caller's scratch of `have` bytes holds (a query passes SIZE_MAX); the
+// blocks walk the work with a grid stride.  ops/ allocates `scratch`
+// bytes (kernels.scratch).
+struct H2Staging {
+  bool global;
+  size_t room;     // dynamic shared bytes a block of shared_k may use
+  size_t slice;    // global: scratch bytes per unit
+  long long grid;  // global: blocks
+  size_t scratch;  // global: scratch bytes of the grid
+};
+
+template <class K>
+inline cudaError_t h2_staging(K* shared_k, K* global_k, int threads,
+                              int units, size_t per, long long blocks,
+                              size_t have, H2Staging* s) {
+  int dev = 0, cap = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaFuncAttributes a;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, shared_k);
+  if (e != cudaSuccess) return e;
+  s->room = (size_t)cap - a.sharedSizeBytes;
+  s->global = per > s->room;
+  s->slice = s->scratch = 0;
+  s->grid = blocks;
+  if (!s->global) return cudaSuccess;
+  int occ = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, global_k, threads,
+                                                    0);
+  if (e != cudaSuccess) return e;
+  s->slice = h2_slice(per);
+  const size_t block = s->slice * units;
+  long long grid = (long long)sms * (occ > 0 ? occ : 1);
+  if (blocks < grid) grid = blocks;
+  if ((size_t)grid > have / block) grid = (long long)(have / block);
+  if (grid < 1 && blocks > 0) return cudaErrorInvalidValue;
+  s->grid = grid;
+  s->scratch = block * (size_t)grid;
+  return cudaSuccess;
+}

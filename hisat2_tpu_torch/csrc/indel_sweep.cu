@@ -33,8 +33,8 @@
 // - Every read length: where one warp's buffers do not fit the shared
 //   memory a block may use (L above ~5,800), each warp stages in its own
 //   slice of a global scratch that the wrapper allocates
-//   (h2_indel_sweep_scratch), and a grid of SW_GLOBAL_BLOCKS blocks walks
-//   the candidate pools.
+//   (h2_indel_sweep_scratch), and a grid of as many blocks as the card
+//   holds at once walks the candidate pools (common.cuh: h2_staging).
 // - 32-bit arithmetic that reproduces JAX's int32: prefixes, penalty sums
 //   and the packed key are computed in uint32 (wrapping, as XLA's int32
 //   does; signed overflow is undefined in CUDA C++) and compared as int32.
@@ -55,7 +55,6 @@
 #define SW_PCAP (1 << 19)
 #define SW_BIG (1 << 30)
 #define SW_KEY_NONE 0x7FFFFFFF
-#define SW_GLOBAL_BLOCKS 264  // grid of the global-staging mode
 
 // ints of one warp's shared memory: the window, the read's bases and
 // mismatch penalties, six prefixes of L+1 (P0 R0 P-g R-g P+g R+g) and, with
@@ -279,8 +278,8 @@ __device__ void sw_sweep(const SwArgs& A, long long cand, int* ws,
   __syncwarp();
 }
 
-// GLOBAL: each warp stages in its slice of `scratch` (sw_warp_ints ints
-// at block * warps + warp), not in shared memory (a separate
+// GLOBAL: each warp stages in its slice of `scratch` (h2_slice of its
+// sw_warp_ints ints, at block * warps + warp), not in shared memory (a separate
 // instantiation, so that the shared one keeps its shared-memory
 // accesses); blocks walk the pools of 32 candidates with a grid stride
 template <bool SNV, bool GLOBAL>
@@ -290,7 +289,8 @@ __global__ void __launch_bounds__(32 * SW_MAX_WARPS)
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   const size_t per = sw_warp_ints(A.L, A.W, SNV);
-  int* ws = GLOBAL ? scratch + ((size_t)blockIdx.x * nw + wid) * per
+  int* ws = GLOBAL ? scratch + ((size_t)blockIdx.x * nw + wid) *
+                                   (h2_slice(per * sizeof(int)) / sizeof(int))
                    : smem + (size_t)wid * per;
   const long long pools = (A.NC + SW_POOL - 1) / SW_POOL;
   for (long long pool = blockIdx.x; pool < pools; pool += gridDim.x) {
@@ -311,34 +311,6 @@ __global__ void __launch_bounds__(32 * SW_MAX_WARPS)
   }
 }
 
-// warps per block (as many as fit, up to 4), their dynamic shared bytes
-// and the global scratch bytes: 0 where one warp's buffers fit a block,
-// else SW_MAX_WARPS warps without shared memory, each staging in its own
-// slice of a scratch of `scratch` bytes over a grid of `grid` blocks
-static cudaError_t sw_config(int L, int W, bool snv, long long NC,
-                             int* warps, size_t* smem, size_t* scratch,
-                             long long* grid) {
-  int dev = 0, cap = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  if (e != cudaSuccess) return e;
-  const size_t per = (size_t)sw_warp_ints(L, W, snv) * sizeof(int);
-  const long long pools = (NC + SW_POOL - 1) / SW_POOL;
-  *warps = (int)min((size_t)SW_MAX_WARPS, (size_t)cap / per);
-  *smem = per * *warps;
-  *scratch = 0;
-  *grid = pools;
-  if (*warps == 0) {
-    *warps = SW_MAX_WARPS;
-    *smem = 0;
-    *grid = pools < SW_GLOBAL_BLOCKS ? pools : SW_GLOBAL_BLOCKS;
-    *scratch = per * SW_MAX_WARPS * (size_t)(*grid > 0 ? *grid : 1);
-  }
-  return cudaSuccess;
-}
-
 typedef void (*SwKernel)(SwArgs, int*);
 static SwKernel sw_pick(bool snv, bool global) {
   return snv ? (global ? indel_sweep_kernel<true, true>
@@ -347,20 +319,39 @@ static SwKernel sw_pick(bool snv, bool global) {
                        : indel_sweep_kernel<false, false>);
 }
 
+// warps per block (as many as fit, up to 4) and their dynamic shared
+// bytes, else (h2_staging) SW_MAX_WARPS warps without shared memory, each
+// staging in its slice of a scratch of `have` bytes
+static cudaError_t sw_config(int L, int W, bool snv, long long NC,
+                             size_t have, int* warps, size_t* smem,
+                             H2Staging* st) {
+  const size_t per = (size_t)sw_warp_ints(L, W, snv) * sizeof(int);
+  const long long pools = (NC + SW_POOL - 1) / SW_POOL;
+  cudaError_t e = h2_staging(sw_pick(snv, false), sw_pick(snv, true),
+                             32 * SW_MAX_WARPS, SW_MAX_WARPS, per, pools,
+                             have, st);
+  if (e != cudaSuccess) return e;
+  *warps = st->global ? SW_MAX_WARPS
+                      : (int)min((size_t)SW_MAX_WARPS, st->room / per);
+  *smem = st->global ? 0 : per * *warps;
+  return cudaSuccess;
+}
+
 static bool sw_shape_ok(int L, int W, int G) {
   return L >= 1 && W >= L && (W - L) % 2 == 0 && G >= 0 && G <= (W - L) / 2;
 }
 
-// The global scratch h2_indel_sweep needs at these shapes (0: none).
+// The global scratch h2_indel_sweep needs for NC candidates at these
+// shapes (0: none).
 H2_EXPORT int h2_indel_sweep_scratch(int L, int W, int G, int use_snv,
                                      long long NC, long long* bytes) {
   if (!sw_shape_ok(L, W, G)) return (int)cudaErrorInvalidValue;
   int warps = 0;
-  size_t smem = 0, scratch = 0;
-  long long grid = 0;
+  size_t smem = 0;
+  H2Staging st;
   cudaError_t e =
-      sw_config(L, W, use_snv != 0, NC, &warps, &smem, &scratch, &grid);
-  *bytes = (long long)scratch;
+      sw_config(L, W, use_snv != 0, NC, SIZE_MAX, &warps, &smem, &st);
+  *bytes = (long long)st.scratch;
   return (int)e;
 }
 
@@ -370,7 +361,7 @@ H2_EXPORT int h2_indel_sweep(
     const void* mm_pen, long long NC, int C, int L, int W, int G, int n_pen,
     int min_anchor, int rd_open, int rd_ext, int rf_open, int rf_ext,
     void* out, const void* snv1, const void* snv2, int use_snv,
-    void* scratch, void* stream) {
+    void* scratch, long long scratch_bytes, void* stream) {
   if (!sw_shape_ok(L, W, G)) return (int)cudaErrorInvalidValue;
   SwArgs A{(const int*)win, (const int*)reads, (const int*)quals,
            (const int*)lens, (const int*)starts, (const uint8_t*)valid,
@@ -378,13 +369,14 @@ H2_EXPORT int h2_indel_sweep(
            (const int*)snv2, NC, C, L, W, (W - L) / 2, G, n_pen, min_anchor,
            rd_open, rd_ext, rf_open, rf_ext, (int*)out};
   int warps = 0;
-  size_t smem = 0, need = 0;
-  long long grid = 0;
+  size_t smem = 0;
+  H2Staging st;
   cudaError_t e =
-      sw_config(L, W, use_snv != 0, NC, &warps, &smem, &need, &grid);
+      sw_config(L, W, use_snv != 0, NC, scratch ? (size_t)scratch_bytes : 0,
+                &warps, &smem, &st);
   if (e != cudaSuccess) return (int)e;
-  if (need > 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
-  auto kern = sw_pick(use_snv != 0, need > 0);
+  const long long grid = st.grid;
+  auto kern = sw_pick(use_snv != 0, st.global);
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -403,12 +395,12 @@ H2_EXPORT int h2_indel_sweep_info(int L, int W, int G, int use_snv,
                                   int* out) {
   if (!sw_shape_ok(L, W, G)) return (int)cudaErrorInvalidValue;
   int warps = 0;
-  size_t smem = 0, scratch = 0;
-  long long grid = 0;
+  size_t smem = 0;
+  H2Staging st;
   cudaError_t e =
-      sw_config(L, W, use_snv != 0, 1, &warps, &smem, &scratch, &grid);
+      sw_config(L, W, use_snv != 0, 1, SIZE_MAX, &warps, &smem, &st);
   if (e != cudaSuccess) return (int)e;
-  auto kern = sw_pick(use_snv != 0, scratch > 0);
+  auto kern = sw_pick(use_snv != 0, st.global);
   cudaFuncAttributes a;
   e = cudaFuncGetAttributes(&a, kern);
   if (e != cudaSuccess) return (int)e;

@@ -41,7 +41,11 @@
 // cores; the windows (three int32 planes on a graph index) are the bytes.
 // Shared memory sets the blocks per SM: about 22 bytes a cell (int16 Pm /
 // Pr, one PWM product a side, the class masks with the budget bits in
-// place of the bases), so four blocks at C = 19 on a graph index.  A
+// place of the bases), so four blocks at C = 19 on a graph index.  Where
+// a lane's planes outgrow a block's shared memory (long reads, many
+// candidates) the global instantiation keeps them in its slice of a
+// global scratch (common.cuh: h2_staging), any L up to SP_MAX_COLS
+// and any C.  A
 // splice pair's step at x reads four shared-memory words: both prefixes
 // and both masks.  f32 is kept bit-exact: every product, sum and quotient
 // goes through __fmul_rn, __fadd_rn and __fdiv_rn, so nvcc cannot
@@ -83,7 +87,7 @@ struct PairArgs {
 
 // the union region after the prologue: per-pair fields, then the list
 __host__ __device__ inline size_t ps_post_bytes(int C) {
-  return (size_t)18 * C * C + 2 * PS_PAD;
+  return (size_t)20 * C * C + 4 * PS_PAD + 4;
 }
 
 __host__ __device__ inline size_t ps_smem_bytes(int C, int L, int W, int LP,
@@ -109,317 +113,352 @@ __device__ __forceinline__ int ps_key(bool ok, int hd, int score) {
   return ok ? (hd << 23) + max(score, -(1 << 21)) + (1 << 21) : -1;
 }
 
+// GLOBAL: the planes in the block's slice of `scratch` (h2_staging), the
+// blocks walking the lanes with a grid stride; else in dynamic shared
+// memory, a block per lane
+template <bool GLOBAL>
 __global__ void __launch_bounds__(PS_THREADS, 4)
-pair_sweep_kernel(PairArgs A) {
+pair_sweep_kernel(PairArgs A, char* scratch) {
   extern __shared__ __align__(16) char smem[];
   __shared__ int kcount[4], kfill[4], knext, klen;
-  const int n = blockIdx.x;
   const int C = A.C, L = A.L, CC = C * C;
   const bool snv = A.use_snv != 0;
   SpPlanes s;
-  sp_carve(smem, C, L, A.W, A.LP, true, snv, ps_post_bytes(C), s);
+  char* base = smem;
+  if (GLOBAL) {
+    SpOffsets so;
+    base = scratch + (size_t)blockIdx.x *
+        h2_slice(sp_layout(C, L, A.W, A.LP, true, snv, ps_post_bytes(C),
+                           &so));
+  }
+  sp_carve(base, C, L, A.W, A.LP, true, snv, ps_post_bytes(C), s);
   const int XS = s.XS, XSh = s.XSh, XSb = s.XSb;
-  sp_tables(s, A.pwm, A.lp, A.LP, A.starts + (size_t)n * C,
-            A.valid + (size_t)n * C, C);
-  const int len = A.lens[n];
-  const int minsc = A.minsc[n];
-  const size_t lw = (size_t)n * C * A.W;
-  SpLane in{A.ch + lw, snv ? A.s1w + lw : nullptr,
-            snv ? A.s2w + lw : nullptr, A.reads + (size_t)n * L,
-            A.quals + (size_t)n * L, A.mm_pen, len, A.n_pen, minsc,
-            A.n_text};
-  sp_build(s, in, C, L, A.W, A.M);
-  // the union region now holds the per-pair fields and the pair list
-  int* sScore = (int*)s.uni;       // [CC]
-  int* sRaw = sScore + CC;
-  int* sSpl = sRaw + CC;
-  int16_t* sX = (int16_t*)(sSpl + CC);
-  uint16_t* plist = (uint16_t*)(sX + CC);   // [CC + PS_PAD]
-  uint8_t* sKind = (uint8_t*)(plist + CC + PS_PAD);
-  uint8_t* sDir = sKind + CC;
-  // sort the pairs by kind (a counting sort, warp by warp: one ballot and
-  // one shared atomic per kind and 32 pairs; the order inside a kind is
-  // free, every pair writes its own fields)
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int nwarp = blockDim.x >> 5;
-  const unsigned lt = (1u << lane) - 1;
-  if (threadIdx.x < 4) kcount[threadIdx.x] = 0;
-  if (threadIdx.x == 0) knext = 0;
-  __syncthreads();
-  for (int p0 = wid * 32; p0 < CC; p0 += nwarp * 32) {
-    const int p = p0 + lane;
-    int kd = -1;
-    if (p < CC) {
+  for (int n = blockIdx.x; n < A.N; n += gridDim.x) {
+    sp_tables(s, A.pwm, A.lp, A.LP, A.starts + (size_t)n * C,
+              A.valid + (size_t)n * C, C);
+    const int len = A.lens[n];
+    const int minsc = A.minsc[n];
+    const size_t lw = (size_t)n * C * A.W;
+    SpLane in{A.ch + lw, snv ? A.s1w + lw : nullptr,
+              snv ? A.s2w + lw : nullptr, A.reads + (size_t)n * L,
+              A.quals + (size_t)n * L, A.mm_pen, len, A.n_pen, minsc,
+              A.n_text};
+    sp_build(s, in, C, L, A.W, A.M);
+    // the union region now holds the per-pair fields and the pair list
+    int* sScore = (int*)s.uni;       // [CC]
+    int* sRaw = sScore + CC;
+    int* sSpl = sRaw + CC;
+    int16_t* sX = (int16_t*)(sSpl + CC);
+    int* plist = (int*)(sX + CC + (CC & 1));  // [CC + PS_PAD]
+    uint8_t* sKind = (uint8_t*)(plist + CC + PS_PAD);
+    uint8_t* sDir = sKind + CC;
+    // sort the pairs by kind (a counting sort, warp by warp: one ballot and
+    // one shared atomic per kind and 32 pairs; the order inside a kind is
+    // free, every pair writes its own fields)
+    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+    const int nwarp = blockDim.x >> 5;
+    const unsigned lt = (1u << lane) - 1;
+    if (threadIdx.x < 4) kcount[threadIdx.x] = 0;
+    if (threadIdx.x == 0) knext = 0;
+    __syncthreads();
+    for (int p0 = wid * 32; p0 < CC; p0 += nwarp * 32) {
+      const int p = p0 + lane;
+      int kd = -1;
+      if (p < CC) {
+        const int i = p / C, j = p - i * C;
+        const int D = ps_sub(s.start[j], s.start[i]);
+        const bool is_spl = D >= A.min_intron && D <= A.max_intron;
+        const bool join = is_spl || (D >= 1 && D < A.min_intron) ||
+                          (D <= -1 && D >= -A.gcap);
+        const bool pmask = s.valid[i] && s.valid[j] && join;
+        kd = is_spl ? (pmask ? PK_SPL : PK_SPLX) : (pmask ? PK_IND : PK_NONE);
+        sKind[p] = (uint8_t)kd;
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const unsigned m = __ballot_sync(H2_FULL_MASK, kd == k);
+        if (lane == 0 && m) atomicAdd(&kcount[k], __popc(m));
+      }
+    }
+    __syncthreads();
+    // each kind's run padded to whole warps (a warp takes one loop)
+    if (threadIdx.x == 0) {
+      int at = 0;
+      for (int k = 0; k < 4; ++k) {
+        kfill[k] = at;
+        at += (kcount[k] + 31) & ~31;
+      }
+      klen = at;
+    }
+    for (int t = threadIdx.x; t < CC + PS_PAD; t += blockDim.x)
+      plist[t] = -1;
+    __syncthreads();
+    for (int p0 = wid * 32; p0 < CC; p0 += nwarp * 32) {
+      const int p = p0 + lane;
+      const int kd = p < CC ? sKind[p] : -1;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const unsigned m = __ballot_sync(H2_FULL_MASK, kd == k);
+        int at = 0;
+        if (lane == 0 && m) at = atomicAdd(&kfill[k], __popc(m));
+        at = __shfl_sync(H2_FULL_MASK, at, 0);
+        if (kd == k) plist[at + __popc(m & lt)] = p;
+      }
+    }
+    __syncthreads();
+    // the warps take the list 32 pairs at a time as they finish (the costly
+    // kinds first), so that none waits long on another
+    for (int t0 = __shfl_sync(H2_FULL_MASK,
+                              lane ? 0 : atomicAdd(&knext, 32), 0);
+         t0 < klen;
+         t0 = __shfl_sync(H2_FULL_MASK,
+                          lane ? 0 : atomicAdd(&knext, 32), 0)) {
+      const int p = plist[t0 + lane];
+      if (p < 0) continue;
+      const int pk = sKind[p];
       const int i = p / C, j = p - i * C;
       const int D = ps_sub(s.start[j], s.start[i]);
       const bool is_spl = D >= A.min_intron && D <= A.max_intron;
-      const bool join = is_spl || (D >= 1 && D < A.min_intron) ||
-                        (D <= -1 && D >= -A.gcap);
-      const bool pmask = s.valid[i] && s.valid[j] && join;
-      kd = is_spl ? (pmask ? PK_SPL : PK_SPLX) : (pmask ? PK_IND : PK_NONE);
-      sKind[p] = (uint8_t)kd;
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const unsigned m = __ballot_sync(H2_FULL_MASK, kd == k);
-      if (lane == 0 && m) atomicAdd(&kcount[k], __popc(m));
-    }
-  }
-  __syncthreads();
-  // each kind's run padded to whole warps (a warp takes one loop)
-  if (threadIdx.x == 0) {
-    int at = 0;
-    for (int k = 0; k < 4; ++k) {
-      kfill[k] = at;
-      at += (kcount[k] + 31) & ~31;
-    }
-    klen = at;
-  }
-  for (int t = threadIdx.x; t < CC + PS_PAD; t += blockDim.x)
-    plist[t] = 0xFFFF;
-  __syncthreads();
-  for (int p0 = wid * 32; p0 < CC; p0 += nwarp * 32) {
-    const int p = p0 + lane;
-    const int kd = p < CC ? sKind[p] : -1;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const unsigned m = __ballot_sync(H2_FULL_MASK, kd == k);
-      int at = 0;
-      if (lane == 0 && m) at = atomicAdd(&kfill[k], __popc(m));
-      at = __shfl_sync(H2_FULL_MASK, at, 0);
-      if (kd == k) plist[at + __popc(m & lt)] = (uint16_t)p;
-    }
-  }
-  __syncthreads();
-  // the warps take the list 32 pairs at a time as they finish (the costly
-  // kinds first), so that none waits long on another
-  for (int t0 = __shfl_sync(H2_FULL_MASK, lane ? 0 : atomicAdd(&knext, 32), 0);
-       t0 < klen;
-       t0 = __shfl_sync(H2_FULL_MASK, lane ? 0 : atomicAdd(&knext, 32), 0)) {
-    const int p = plist[t0 + lane];
-    if (p == 0xFFFF) continue;
-    const int pk = sKind[p];
-    const int i = p / C, j = p - i * C;
-    const int D = ps_sub(s.start[j], s.start[i]);
-    const bool is_spl = D >= A.min_intron && D <= A.max_intron;
-    const bool is_del = D >= 1 && D < A.min_intron;
-    const bool is_ins = D <= -1 && D >= -A.gcap;
-    const long long I = D < 0 ? -(long long)D : 0;
-    const int gap_pen = is_del ? A.rd_go + A.rd_ge * D
-                      : is_ins ? A.rf_go + A.rf_ge * (-D) : 0;
-    const int shift = (is_ins && I <= A.V) ? (int)I : 0;
-    const int* Pi = s.P + i * XS;     // splice joins: raw
-    const int* Pj = s.P + j * XS;
-    const int* Fi = s.Pi + i * XS;    // indel joins: SNV-forgiving
-    const int* Fj = s.Pi + j * XS;
-    const int16_t* Ri = s.Pr + i * XSh;
-    const int16_t* Rj = s.Pr + j * XSh;
-    int bk = INT_MIN, bt = INT_MAX;
-    float bp = -2.0f;
-    if (pk == PK_SPL || pk == PK_SPLX) {
-      // x = L+1 never wins a splice pair: its key is -1, its probability
-      // 0 and its tie key the largest.  (donor mask & acceptor mask) holds
-      // the class and, in SP_OK, both sides' budget tests
-      const int tot_j = Pj[L];
-      const uint8_t* dki = s.dk + i * XSb;
-      const uint8_t* akj = s.ak + j * XSb;
-      const float* dpi = s.dpw + i * XS;
-      const float* apj = s.apw + j * XS;
-      // a step whose key is -1 and probability 0 loses to x = 0 (the same
-      // or a better key, the lowest tie key), so only x = 0 and the steps
-      // that score or are canonical are folded
-      if (pk == PK_SPL) {
-        // x scores on [1, xhi] where both budget tests hold
-        const long long xh = min((long long)L, (long long)len - 1 - I);
-        const int xhi = (int)max(xh, 0LL);
+      const bool is_del = D >= 1 && D < A.min_intron;
+      const bool is_ins = D <= -1 && D >= -A.gcap;
+      const long long I = D < 0 ? -(long long)D : 0;
+      const int gap_pen = is_del ? A.rd_go + A.rd_ge * D
+                        : is_ins ? A.rf_go + A.rf_ge * (-D) : 0;
+      const int shift = (is_ins && I <= A.V) ? (int)I : 0;
+      const int* Pi = s.P + i * XS;     // splice joins: raw
+      const int* Pj = s.P + j * XS;
+      const int* Fi = s.Pi + i * XS;    // indel joins: SNV-forgiving
+      const int* Fj = s.Pi + j * XS;
+      const int16_t* Ri = s.Pr + i * XSh;
+      const int16_t* Rj = s.Pr + j * XSh;
+      int bk = INT_MIN, bt = INT_MAX;
+      float bp = -2.0f;
+      if (pk == PK_SPL || pk == PK_SPLX) {
+        // x = L+1 never wins a splice pair: its key is -1, its probability
+        // 0 and its tie key the largest.  (donor mask & acceptor mask) holds
+        // the class and, in SP_OK, both sides' budget tests
+        const int tot_j = Pj[L];
+        const uint8_t* dki = s.dk + i * XSb;
+        const uint8_t* akj = s.ak + j * XSb;
+        const float* dpi = s.dpw + i * XS;
+        const float* apj = s.apw + j * XS;
+        // a step whose key is -1 and probability 0 loses to x = 0 (the same
+        // or a better key, the lowest tie key), so only x = 0 and the steps
+        // that score or are canonical are folded
+        if (pk == PK_SPL) {
+          // x scores on [1, xhi] where both budget tests hold
+          const long long xh = min((long long)L, (long long)len - 1 - I);
+          const int xhi = (int)max(xh, 0LL);
 #pragma unroll 1
-        for (int x = 0; x <= L; ++x) {
-          const unsigned m = dki[x] & akj[x];
-          const bool canonical = (m & (SP_CFW | SP_CRC)) != 0;
-          const bool ok = x >= 1 && x <= xhi && (m & SP_OK);
-          if (!(ok || canonical || x == 0)) continue;
-          const float splsc = canonical ? sp_splsc(dpi[x], apj[x]) : 0.0f;
-          const int score = -(Pi[x] + (tot_j - Pj[x])) -
-                            (canonical ? A.pen_can : A.pen_noncan);
-          ps_fold(ps_key(ok, (m & ~SP_OK) != 0 ? 1 : 0, score), splsc, x, bk,
-                  bp, bt);
+          for (int x = 0; x <= L; ++x) {
+            const unsigned m = dki[x] & akj[x];
+            const bool canonical = (m & (SP_CFW | SP_CRC)) != 0;
+            const bool ok = x >= 1 && x <= xhi && (m & SP_OK);
+            if (!(ok || canonical || x == 0)) continue;
+            const float splsc = canonical ? sp_splsc(dpi[x], apj[x]) : 0.0f;
+            const int score = -(Pi[x] + (tot_j - Pj[x])) -
+                              (canonical ? A.pen_can : A.pen_noncan);
+            ps_fold(ps_key(ok, (m & ~SP_OK) != 0 ? 1 : 0, score), splsc, x, bk,
+                    bp, bt);
+          }
+        } else {
+#pragma unroll 1
+          for (int x = 0; x <= L; ++x) {
+            const unsigned m = dki[x] & akj[x];
+            if (m & (SP_CFW | SP_CRC))
+              ps_fold(-1, sp_splsc(dpi[x], apj[x]), x, bk, bp, bt);
+            else if (x == 0)
+              ps_fold(-1, 0.0f, 0, bk, bp, bt);
+          }
         }
       } else {
+        const int totf_j = Fj[L], totr_j = Rj[L];
+        if (pk == PK_IND) {
+          const long long xh = min((long long)L, (long long)len - 1 - I);
+          const int xhi = (int)max(xh, 0LL);
 #pragma unroll 1
-        for (int x = 0; x <= L; ++x) {
-          const unsigned m = dki[x] & akj[x];
-          if (m & (SP_CFW | SP_CRC))
-            ps_fold(-1, sp_splsc(dpi[x], apj[x]), x, bk, bp, bt);
-          else if (x == 0)
-            ps_fold(-1, 0.0f, 0, bk, bp, bt);
+          for (int x = 0; x <= L + 1; ++x) {
+            const int xi = min(x, L);         // past L the prefixes hold totals
+            const int xs = min(x + shift, L);
+            const int raw4 = Ri[xi] + (totr_j - Rj[xs]);
+            const int score_ind = -(Fi[xi] + (totf_j - Fj[xs])) - gap_pen;
+            ps_fold(ps_key(x >= 1 && x <= xhi, 0, score_ind), 0.0f,
+                    raw4 * (L + 2) + x, bk, bp, bt);
+          }
+        } else {
+          // every key -1, every probability 0: the lowest tie key
+#pragma unroll 1
+          for (int x = 0; x <= L + 1; ++x) {
+            const int raw4 = Ri[min(x, L)] + (totr_j - Rj[min(x + shift, L)]);
+            bt = min(bt, raw4 * (L + 2) + x);
+          }
+          bk = -1;
+          bp = 0.0f;
         }
       }
-    } else {
-      const int totf_j = Fj[L], totr_j = Rj[L];
-      if (pk == PK_IND) {
-        const long long xh = min((long long)L, (long long)len - 1 - I);
-        const int xhi = (int)max(xh, 0LL);
-#pragma unroll 1
-        for (int x = 0; x <= L + 1; ++x) {
-          const int xi = min(x, L);         // past L the prefixes hold totals
-          const int xs = min(x + shift, L);
-          const int raw4 = Ri[xi] + (totr_j - Rj[xs]);
-          const int score_ind = -(Fi[xi] + (totf_j - Fj[xs])) - gap_pen;
-          ps_fold(ps_key(x >= 1 && x <= xhi, 0, score_ind), 0.0f,
-                  raw4 * (L + 2) + x, bk, bp, bt);
-        }
-      } else {
-        // every key -1, every probability 0: the lowest tie key
-#pragma unroll 1
-        for (int x = 0; x <= L + 1; ++x) {
-          const int raw4 = Ri[min(x, L)] + (totr_j - Rj[min(x + shift, L)]);
-          bt = min(bt, raw4 * (L + 2) + x);
-        }
-        bk = -1;
-        bp = 0.0f;
-      }
+      const int bx = is_spl ? bt : bt % (L + 2);
+      const int bs = bk >= 0 ? (bk & ((1 << 23) - 1)) - (1 << 21) : -PS_BIG;
+      bp = fmaxf(bp, 0.0f);
+      // class at the chosen x (none past x = L: the one-hot take of
+      // splice.py:286-297 reads code 0, AA)
+      const unsigned mx = bx <= L ? s.dk[i * XSb + bx] & s.ak[j * XSb + bx] : 0;
+      const int spldir = is_spl ? sp_dir(mx) : 0;
+      const bool canonical = spldir == 1 || spldir == 2;
+      const int kind = is_spl ? 1 : is_del ? 2 : is_ins ? 3 : 0;
+      const int16_t* Pmi = s.Pm + i * XSh;
+      const int16_t* Pmj = s.Pm + j * XSh;
+      const int mm_l = bx <= L ? Pmi[bx] : 0;
+      const int xr = (int)min((long long)bx + I, (long long)L);
+      const int mm_r = Pmj[len] - Pmj[xr];
+      bool ok = bs > -PS_BIG / 2;
+      const int shorter_raw = min(bx, len - bx);
+      const bool pre_can = shorter_raw < A.min_anchor &&
+          sp_intron_len_prob(shorter_raw, D, A.max_intron, 14, 4) > 0.01f;
+      const bool pre_non = shorter_raw < A.min_anchor_noncan &&
+          sp_intron_len_prob(shorter_raw, D, A.max_intron, 16, 0) > 0.01f;
+      bool spl_ok = canonical ? !pre_can : !pre_non;
+      const int adj_l = bx - 2 * mm_l;
+      const int adj_r = (len - bx) - 2 * mm_r;
+      const int shorter = max(min(adj_l, adj_r), 1);
+      const int thresh = canonical
+          ? sp_max_intron_len(shorter, A.min_anchor)
+          : sp_max_intron_len_noncan(shorter, A.min_anchor_noncan);
+      const bool gated = thresh < A.max_intron;
+      spl_ok = spl_ok && !(gated && D > thresh);
+      spl_ok = spl_ok && !(gated && canonical && bp < sp_pth(D));
+      const int mm_short = adj_l <= adj_r ? mm_l : mm_r;
+      spl_ok = spl_ok && !(gated && mm_short > 0);
+      const int LP = A.LP;
+      const int lenpen = canonical
+          ? sp_lenpen(s.lp, s.lp + LP, A.nlp_can, D)
+          : sp_lenpen(s.lp + 2 * LP, s.lp + 3 * LP, A.nlp_nc, D);
+      int score = kind == 1 ? bs - lenpen : bs;
+      if (kind == 1) ok = ok && spl_ok;
+      const int raw = ok ? score : -PS_BIG;
+      ok = ok && score >= minsc;
+      score = ok ? score : -PS_BIG;
+      sScore[p] = score;
+      sRaw[p] = raw;
+      sX[p] = (int16_t)bx;
+      sDir[p] = (uint8_t)spldir;
+      sSpl[p] = __float_as_int(bp);
     }
-    const int bx = is_spl ? bt : bt % (L + 2);
-    const int bs = bk >= 0 ? (bk & ((1 << 23) - 1)) - (1 << 21) : -PS_BIG;
-    bp = fmaxf(bp, 0.0f);
-    // class at the chosen x (none past x = L: the one-hot take of
-    // splice.py:286-297 reads code 0, AA)
-    const unsigned mx = bx <= L ? s.dk[i * XSb + bx] & s.ak[j * XSb + bx] : 0;
-    const int spldir = is_spl ? sp_dir(mx) : 0;
-    const bool canonical = spldir == 1 || spldir == 2;
-    const int kind = is_spl ? 1 : is_del ? 2 : is_ins ? 3 : 0;
-    const int16_t* Pmi = s.Pm + i * XSh;
-    const int16_t* Pmj = s.Pm + j * XSh;
-    const int mm_l = bx <= L ? Pmi[bx] : 0;
-    const int xr = (int)min((long long)bx + I, (long long)L);
-    const int mm_r = Pmj[len] - Pmj[xr];
-    bool ok = bs > -PS_BIG / 2;
-    const int shorter_raw = min(bx, len - bx);
-    const bool pre_can = shorter_raw < A.min_anchor &&
-        sp_intron_len_prob(shorter_raw, D, A.max_intron, 14, 4) > 0.01f;
-    const bool pre_non = shorter_raw < A.min_anchor_noncan &&
-        sp_intron_len_prob(shorter_raw, D, A.max_intron, 16, 0) > 0.01f;
-    bool spl_ok = canonical ? !pre_can : !pre_non;
-    const int adj_l = bx - 2 * mm_l;
-    const int adj_r = (len - bx) - 2 * mm_r;
-    const int shorter = max(min(adj_l, adj_r), 1);
-    const int thresh = canonical
-        ? sp_max_intron_len(shorter, A.min_anchor)
-        : sp_max_intron_len_noncan(shorter, A.min_anchor_noncan);
-    const bool gated = thresh < A.max_intron;
-    spl_ok = spl_ok && !(gated && D > thresh);
-    spl_ok = spl_ok && !(gated && canonical && bp < sp_pth(D));
-    const int mm_short = adj_l <= adj_r ? mm_l : mm_r;
-    spl_ok = spl_ok && !(gated && mm_short > 0);
-    const int LP = A.LP;
-    const int lenpen = canonical
-        ? sp_lenpen(s.lp, s.lp + LP, A.nlp_can, D)
-        : sp_lenpen(s.lp + 2 * LP, s.lp + 3 * LP, A.nlp_nc, D);
-    int score = kind == 1 ? bs - lenpen : bs;
-    if (kind == 1) ok = ok && spl_ok;
-    const int raw = ok ? score : -PS_BIG;
-    ok = ok && score >= minsc;
-    score = ok ? score : -PS_BIG;
-    sScore[p] = score;
-    sRaw[p] = raw;
-    sX[p] = (int16_t)bx;
-    sDir[p] = (uint8_t)spldir;
-    sSpl[p] = __float_as_int(bp);
-  }
-  __syncthreads();
-  // the kinds (sKind held the sort keys until now)
-  for (int p = threadIdx.x; p < CC; p += blockDim.x) {
-    const int i = p / C, j = p - i * C;
-    const int D = ps_sub(s.start[j], s.start[i]);
-    sKind[p] = (uint8_t)((D >= A.min_intron && D <= A.max_intron) ? 1
-                         : (D >= 1 && D < A.min_intron) ? 2
-                         : (D <= -1 && D >= -A.gcap) ? 3 : 0);
-  }
-  __syncthreads();
-  // the [6, N, C, C] planes, coalesced
-  {
-    const size_t NCC = (size_t)A.N * CC;
-    int* o = A.res + (size_t)n * CC;
+    __syncthreads();
+    // the kinds (sKind held the sort keys until now)
     for (int p = threadIdx.x; p < CC; p += blockDim.x) {
-      o[p] = sScore[p];
-      o[NCC + p] = sX[p];
-      o[2 * NCC + p] = sKind[p];
-      o[3 * NCC + p] = sDir[p];
-      o[4 * NCC + p] = sSpl[p];
-      o[5 * NCC + p] = sRaw[p];
+      const int i = p / C, j = p - i * C;
+      const int D = ps_sub(s.start[j], s.start[i]);
+      sKind[p] = (uint8_t)((D >= A.min_intron && D <= A.max_intron) ? 1
+                           : (D >= 1 && D < A.min_intron) ? 2
+                           : (D <= -1 && D >= -A.gcap) ? 3 : 0);
     }
-  }
-  if (wid == 0) {
-    // K14: the best (score desc, index asc) strictly after the previous
-    // pick, `top` times
-    int prev_v = INT_MAX, prev_p = -1;
-    for (int r = 0; r < A.top; ++r) {
-      int bv = INT_MIN, bpk = INT_MAX;
-      for (int p = lane; p < CC; p += 32) {
-        const int v = sScore[p];
-        const bool after = v < prev_v || (v == prev_v && p > prev_p);
-        if (after && (v > bv || (v == bv && p < bpk))) {
-          bv = v;
-          bpk = p;
-        }
+    __syncthreads();
+    // the [6, N, C, C] planes, coalesced
+    {
+      const size_t NCC = (size_t)A.N * CC;
+      int* o = A.res + (size_t)n * CC;
+      for (int p = threadIdx.x; p < CC; p += blockDim.x) {
+        o[p] = sScore[p];
+        o[NCC + p] = sX[p];
+        o[2 * NCC + p] = sKind[p];
+        o[3 * NCC + p] = sDir[p];
+        o[4 * NCC + p] = sSpl[p];
+        o[5 * NCC + p] = sRaw[p];
       }
+    }
+    if (wid == 0) {
+      // K14: the best (score desc, index asc) strictly after the previous
+      // pick, `top` times
+      int prev_v = INT_MAX, prev_p = -1;
+      for (int r = 0; r < A.top; ++r) {
+        int bv = INT_MIN, bpk = INT_MAX;
+        for (int p = lane; p < CC; p += 32) {
+          const int v = sScore[p];
+          const bool after = v < prev_v || (v == prev_v && p > prev_p);
+          if (after && (v > bv || (v == bv && p < bpk))) {
+            bv = v;
+            bpk = p;
+          }
+        }
 #pragma unroll
-      for (int o2 = 16; o2 > 0; o2 >>= 1) {
-        const int v2 = __shfl_xor_sync(H2_FULL_MASK, bv, o2);
-        const int p2 = __shfl_xor_sync(H2_FULL_MASK, bpk, o2);
-        if (v2 > bv || (v2 == bv && p2 < bpk)) {
-          bv = v2;
-          bpk = p2;
+        for (int o2 = 16; o2 > 0; o2 >>= 1) {
+          const int v2 = __shfl_xor_sync(H2_FULL_MASK, bv, o2);
+          const int p2 = __shfl_xor_sync(H2_FULL_MASK, bpk, o2);
+          if (v2 > bv || (v2 == bv && p2 < bpk)) {
+            bv = v2;
+            bpk = p2;
+          }
         }
-      }
-      if (lane == 0) {
-        const size_t NT = (size_t)A.N * A.top;
-        const size_t o = (size_t)n * A.top + r;
-        const int i = bpk / C, j = bpk - (bpk / C) * C;
-        A.sel[o] = bv;
-        A.sel[NT + o] = i;
-        A.sel[2 * NT + o] = j;
-        A.sel[3 * NT + o] = s.start[i];
-        A.sel[4 * NT + o] = s.start[j];
-        A.sel[5 * NT + o] = sX[bpk];
-        A.sel[6 * NT + o] = sKind[bpk];
-        A.sel[7 * NT + o] = sDir[bpk];
-        A.sel[8 * NT + o] = sSpl[bpk];
-      }
-      prev_v = bv;
-      prev_p = bpk;
-    }
-  } else if (wid == 1) {
-    // the base pairs of the second sweeps: the first raw argmax, then the
-    // first argmax with it masked to -2^30
-    int b0 = -1;
-    for (int t = 0; t < 2; ++t) {
-      int bv = INT_MIN, bpk = INT_MAX;
-      for (int p = lane; p < CC; p += 32) {
-        const int v = p == b0 ? -PS_BIG : sRaw[p];
-        if (v > bv || (v == bv && p < bpk)) {
-          bv = v;
-          bpk = p;
+        if (lane == 0) {
+          const size_t NT = (size_t)A.N * A.top;
+          const size_t o = (size_t)n * A.top + r;
+          const int i = bpk / C, j = bpk - (bpk / C) * C;
+          A.sel[o] = bv;
+          A.sel[NT + o] = i;
+          A.sel[2 * NT + o] = j;
+          A.sel[3 * NT + o] = s.start[i];
+          A.sel[4 * NT + o] = s.start[j];
+          A.sel[5 * NT + o] = sX[bpk];
+          A.sel[6 * NT + o] = sKind[bpk];
+          A.sel[7 * NT + o] = sDir[bpk];
+          A.sel[8 * NT + o] = sSpl[bpk];
         }
+        prev_v = bv;
+        prev_p = bpk;
       }
+    } else if (wid == 1) {
+      // the base pairs of the second sweeps: the first raw argmax, then the
+      // first argmax with it masked to -2^30
+      int b0 = -1;
+      for (int t = 0; t < 2; ++t) {
+        int bv = INT_MIN, bpk = INT_MAX;
+        for (int p = lane; p < CC; p += 32) {
+          const int v = p == b0 ? -PS_BIG : sRaw[p];
+          if (v > bv || (v == bv && p < bpk)) {
+            bv = v;
+            bpk = p;
+          }
+        }
 #pragma unroll
-      for (int o2 = 16; o2 > 0; o2 >>= 1) {
-        const int v2 = __shfl_xor_sync(H2_FULL_MASK, bv, o2);
-        const int p2 = __shfl_xor_sync(H2_FULL_MASK, bpk, o2);
-        if (v2 > bv || (v2 == bv && p2 < bpk)) {
-          bv = v2;
-          bpk = p2;
+        for (int o2 = 16; o2 > 0; o2 >>= 1) {
+          const int v2 = __shfl_xor_sync(H2_FULL_MASK, bv, o2);
+          const int p2 = __shfl_xor_sync(H2_FULL_MASK, bpk, o2);
+          if (v2 > bv || (v2 == bv && p2 < bpk)) {
+            bv = v2;
+            bpk = p2;
+          }
         }
+        if (lane == 0) A.bsel[(size_t)n * 2 + t] = bpk;
+        b0 = bpk;
       }
-      if (lane == 0) A.bsel[(size_t)n * 2 + t] = bpk;
-      b0 = bpk;
     }
+    __syncthreads();  // the next lane's tables overwrite these planes
   }
 }
 
 static bool ps_shape_ok(int C, int L, int W, int M, int LP) {
-  return C >= 1 && C <= 32 && L >= 1 && L <= SP_MAX_L && M >= 16 &&
+  return C >= 1 && L >= 1 && L <= SP_MAX_COLS && M >= 16 &&
          W == L + 2 * M && LP >= 1;
+}
+
+static cudaError_t ps_config(int C, int L, int W, int LP, bool snv,
+                             long long N, size_t have, H2Staging* c) {
+  return h2_staging(pair_sweep_kernel<false>, pair_sweep_kernel<true>,
+                    PS_THREADS, 1, ps_smem_bytes(C, L, W, LP, snv), N, have,
+                    c);
+}
+
+// The global scratch h2_pair_sweep needs for N lanes at these shapes (0:
+// none, the planes fit the shared memory).
+H2_EXPORT int h2_pair_sweep_scratch(int C, int L, int W, int LP,
+                                    int use_snv, long long N,
+                                    long long* bytes) {
+  if (!ps_shape_ok(C, L, W, (W - L) / 2, LP))
+    return (int)cudaErrorInvalidValue;
+  H2Staging c;
+  cudaError_t e = ps_config(C, L, W, LP, use_snv != 0, N, SIZE_MAX, &c);
+  *bytes = (long long)c.scratch;
+  return (int)e;
 }
 
 H2_EXPORT int h2_pair_sweep(
@@ -431,7 +470,7 @@ H2_EXPORT int h2_pair_sweep(
     int pen_noncan, int min_anchor, int min_anchor_noncan, int rd_go,
     int rd_ge, int rf_go, int rf_ge, int top, const void* s1w,
     const void* s2w, int use_snv, void* res, void* sel, void* bsel,
-    void* stream) {
+    void* scratch, long long scratch_bytes, void* stream) {
   if (!ps_shape_ok(C, L, W, M, LP) || top < 1 || top > C * C ||
       nlp_can < 1 || nlp_nc < 1 || nlp_can > LP || nlp_nc > LP)
     return (int)cudaErrorInvalidValue;
@@ -443,19 +482,20 @@ H2_EXPORT int h2_pair_sweep(
              min_anchor, min_anchor_noncan, rd_go, rd_ge, rf_go, rf_ge, top,
              (const int*)s1w, (const int*)s2w, use_snv, (int*)res, (int*)sel,
              (int*)bsel};
-  const size_t smem = ps_smem_bytes(C, L, W, LP, use_snv != 0);
-  cudaError_t e = cudaFuncSetAttribute(
-      pair_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  // past the shared memory, as many blocks as the scratch holds
+  H2Staging c;
+  cudaError_t e = ps_config(C, L, W, LP, use_snv != 0, N,
+                            scratch ? (size_t)scratch_bytes : 0, &c);
   if (e != cudaSuccess) return (int)e;
-  if (N > 0)
-    pair_sweep_kernel<<<N, PS_THREADS, smem, (cudaStream_t)stream>>>(A);
-  return (int)cudaGetLastError();
+  return (int)sp_launch(pair_sweep_kernel<false>, pair_sweep_kernel<true>,
+                        PS_THREADS, ps_smem_bytes(C, L, W, LP, use_snv != 0),
+                        c, A, scratch, stream);
 }
 
 // The launch of K13 at these shapes (sp_launch_info's out).
 H2_EXPORT int h2_pair_sweep_info(int C, int L, int W, int LP, int use_snv,
                                  int* out) {
-  return sp_launch_info(pair_sweep_kernel, PS_THREADS,
-                        ps_smem_bytes(C, L, W, LP, use_snv != 0), out);
+  return sp_launch_info(pair_sweep_kernel<false>, pair_sweep_kernel<true>,
+                        PS_THREADS, ps_smem_bytes(C, L, W, LP, use_snv != 0),
+                        out);
 }

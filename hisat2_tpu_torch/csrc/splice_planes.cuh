@@ -32,34 +32,44 @@
 //     outside the text; a byte holds every value the planes test), the
 //     read as bytes and each column's quality penalty;
 //  2. masks and PWM products: each warp takes a contiguous run of the
-//     C * (L+1) cells, 32 at a time; a cell whose donor dinucleotide is
-//     GT or CT, or whose acceptor dinucleotide is AG or AC, queues its one
-//     PWM product on that side in the warp's own queue (a product is read
-//     only where the junction is canonical, and then exactly one of the
-//     two on each side is: about a quarter of the cells need one, none
-//     more than two); then the warp's lanes take its queue, one product
-//     each, 9-factor products first, the factors from tables indexed by
-//     the staged byte (the reverse-complement ones pre-flipped).  The
-//     queues live in the P plane, which step 3 writes;
+//     C * (L+1) cells (in pieces of SP_PIECE), 32 at a time; a cell whose
+//     donor dinucleotide is GT or CT, or whose acceptor dinucleotide is
+//     AG or AC, queues its one PWM product on that side in the warp's own
+//     queue (a product is read only where the junction is canonical, and
+//     then exactly one of the two on each side is: about a quarter of the
+//     cells need one, none more than two); then the warp's lanes take its
+//     queue, one product each, 9-factor products first, the factors from
+//     tables indexed by the staged byte (the reverse-complement ones
+//     pre-flipped).  The queues live in the P plane, which step 3 writes;
 //  3. penalties: one (diagonal, column) cell per thread, each written
 //     where its prefix goes;
 //  4. prefixes: a group of 8 lanes per diagonal (16 past L = 256), so
-//     that up to 32 diagonals go at once, each lane a run of columns: the
-//     lane's run totals, one group scan each (P, Pi, Pm, Pr sums, the
-//     last penalized column a max), then the run again to turn the
-//     penalties into prefixes in place.  On K13 the budget bases too,
-//     by the same pattern: the next penalized column a suffix min, the
-//     qualifying columns a bit mask per lane, br a suffix max and bl a
-//     prefix max over them, each folded into its side's budget bit.
+//     that up to 32 diagonals go at once (more in turns), each lane a run
+//     of columns: the lane's run totals, one group scan each (P, Pi, Pm,
+//     Pr sums, the last penalized column a max), then the run again to
+//     turn the penalties into prefixes in place.  On K13 the budget bases
+//     too, by the same pattern: the next penalized column a suffix min,
+//     the qualifying columns (found 32 columns at a time, each word's
+//     penalized columns a bit mask, and marked in the acceptor mask's
+//     spare bit SP_Q until the donor pass clears it), br a suffix max and
+//     bl a prefix max over them, each folded into its side's budget bit.
 // Rows are strided so that a warp reading one column of 32 different rows
 // hits 32 banks: an odd number of words per row for every plane width.
 // The staged windows share room with what the kernel keeps after the
 // prologue (its union region).
+//
+// Where the planes of one lane outgrow the shared memory a block can use
+// (long reads, many candidates), the kernels carve the same SpPlanes out
+// of the block's slice of a global scratch instead (common.cuh:
+// h2_staging, a block a lane): their own template instantiation, so that
+// the shared one keeps its shared-memory accesses, each block walking the
+// lanes with a grid stride.
 #pragma once
 
 #include "live_prefix.cuh"
 
-#define SP_MAX_L 512      // step 4's runs of columns fit a 32-bit mask
+#define SP_MAX_COLS 32766  // the int16 column counts (Pm, Pr, K13's x)
+#define SP_PIECE 32768     // step 2's cells per queue (uint16 items)
 #define SP_FTAB 240       // factor tables: 5 byte values x (9 + 9 + 15 + 15)
 #define SP_DFW 0          // table offsets: donor forward [5][9]
 #define SP_DRC 45         // donor reverse complement [5][9]
@@ -71,6 +81,7 @@
 #define SP_SFW 12u    // GC-AG, AT-AC: semi-canonical forward
 #define SP_SRC 48u    // CT-GC, GA-AT: semi-canonical reverse
 #define SP_OK 128u    // K13: the side's budget test holds
+#define SP_Q 64u      // K13, acceptor mask, step 4 only: a qualifying column
 
 struct SpPlanes {
   int X1;        // L + 1 columns per diagonal
@@ -158,30 +169,55 @@ __host__ __device__ inline size_t sp_layout(int C, int L, int W, int LP,
   return at;
 }
 
-// The launch of a sweep kernel at `threads` and `smem` dynamic bytes:
+// Launch the shared or the global instantiation as h2_staging says (a
+// block a lane; the dynamic shared bytes set first where they pass 48 KB).
+template <class A>
+inline cudaError_t sp_launch(void (*shared_k)(A, char*),
+                             void (*global_k)(A, char*), int threads,
+                             size_t need, const H2Staging& c, const A& args,
+                             void* scratch, void* stream) {
+  auto k = c.global ? global_k : shared_k;
+  const size_t smem = c.global ? 0 : need;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  if (c.grid > 0)
+    k<<<(unsigned)c.grid, threads, smem, (cudaStream_t)stream>>>(
+        args, (char*)scratch);
+  return cudaGetLastError();
+}
+
+// The launch of a sweep kernel at `threads` with planes of `need` bytes:
 // out = {registers per thread, static shared bytes, dynamic shared bytes,
-// threads per block, blocks per SM (0 where a block does not fit)}.
+// threads per block, blocks per SM, local bytes per thread, global scratch
+// bytes per block (0 where the planes fit the shared memory)}.
 template <class K>
-inline int sp_launch_info(K* kernel, int threads, size_t smem, int* out) {
+inline int sp_launch_info(K* shared_k, K* global_k, int threads,
+                          size_t need, int* out) {
+  H2Staging c;
+  cudaError_t e = h2_staging(shared_k, global_k, threads, 1, need, 1,
+                             SIZE_MAX, &c);
+  if (e != cudaSuccess) return (int)e;
+  K* k = c.global ? global_k : shared_k;
+  const size_t smem = c.global ? 0 : need;
   cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  e = cudaFuncGetAttributes(&a, k);
   if (e != cudaSuccess) return (int)e;
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
   out[2] = (int)smem;
   out[3] = threads;
   out[4] = 0;
-  int dev = 0, cap = 0;
-  e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  if (e != cudaSuccess) return (int)e;
-  if (smem + a.sharedSizeBytes > (size_t)cap) return 0;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], kernel,
+  out[5] = (int)a.localSizeBytes;
+  out[6] = (int)c.slice;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], k,
                                                             threads, smem);
 }
 
@@ -419,60 +455,66 @@ __device__ inline void sp_build(const SpPlanes& s, const SpLane& in, int C,
   }
   __syncthreads();
   // 2. masks, then this warp's PWM products: cells [lo, hi) (k = c * X1
-  // + x), its queue at P-plane entries [2 lo, 2 hi) (9-factor items from
-  // the front, 15-factor ones from the back; an item is 2 k + side)
+  // + x), SP_PIECE cells at a time, each piece's queue at P-plane entries
+  // [2 plo, 2 phi) (9-factor items from the front, 15-factor ones from the
+  // back; an item is 2 (k - plo) + side, which a uint16 holds)
   {
     const int ncell = C * X1;
-    const int lo = wid * ncell / nwarp, hi = (wid + 1) * ncell / nwarp;
-    uint16_t* q = (uint16_t*)s.P + 2 * lo;
-    const int qcap = 2 * (hi - lo);
+    const int lo = (int)((long long)wid * ncell / nwarp);
+    const int hi = (int)((long long)(wid + 1) * ncell / nwarp);
     const unsigned lt = (1u << lane) - 1;
-    int n9 = 0, n15 = 0;
-    int c = (lo + lane) / X1, x = (lo + lane) - c * X1;  // cell lo + lane
-    for (int k0 = lo; k0 < hi; k0 += 32) {
-      const int k = k0 + lane;
-      unsigned need9 = 0, need15 = 0;
-      if (k < hi) {
-        const uint8_t* w = s.w + c * W + M + x;
-        const unsigned dm = s.mtab[w[0] * 5 + w[1]];
-        const unsigned am = s.mtab[25 + w[-2] * 5 + w[-1]];
-        s.dk[c * XSb + x] = (uint8_t)dm;
-        s.ak[c * XSb + x] = (uint8_t)am;
-        s.dpw[c * XS + x] = 0.0f;
-        s.apw[c * XS + x] = 0.0f;
-        // donor side: GT -> forward donor (9), CT -> reverse acceptor
-        // (15); acceptor side: AG -> forward acceptor (15), AC -> reverse
-        // donor (9)
-        need9 = (dm & SP_CFW) | (am & SP_CRC);
-        need15 = ((dm & SP_CRC) >> 1) | ((am & SP_CFW) << 1);
-      }
+    for (int plo = lo; plo < hi; plo += SP_PIECE) {
+      const int phi = min(plo + SP_PIECE, hi);
+      uint16_t* q = (uint16_t*)s.P + 2 * (size_t)plo;
+      const int qcap = 2 * (phi - plo);
+      int n9 = 0, n15 = 0;
+      int c = (plo + lane) / X1, x = (plo + lane) - c * X1;  // cell plo + lane
+      for (int k0 = plo; k0 < phi; k0 += 32) {
+        const int k = k0 + lane;
+        unsigned need9 = 0, need15 = 0;
+        if (k < phi) {
+          const uint8_t* w = s.w + c * W + M + x;
+          const unsigned dm = s.mtab[w[0] * 5 + w[1]];
+          const unsigned am = s.mtab[25 + w[-2] * 5 + w[-1]];
+          s.dk[c * XSb + x] = (uint8_t)dm;
+          s.ak[c * XSb + x] = (uint8_t)am;
+          s.dpw[c * XS + x] = 0.0f;
+          s.apw[c * XS + x] = 0.0f;
+          // donor side: GT -> forward donor (9), CT -> reverse acceptor
+          // (15); acceptor side: AG -> forward acceptor (15), AC ->
+          // reverse donor (9)
+          need9 = (dm & SP_CFW) | (am & SP_CRC);
+          need15 = ((dm & SP_CRC) >> 1) | ((am & SP_CFW) << 1);
+        }
 #pragma unroll
-      for (int side = 0; side < 2; ++side) {
-        const bool a = (need9 >> side) & 1u, b = (need15 >> side) & 1u;
-        const unsigned ma = __ballot_sync(H2_FULL_MASK, a);
-        const unsigned mb = __ballot_sync(H2_FULL_MASK, b);
-        const int item = 2 * k + side;
-        if (a) q[n9 + __popc(ma & lt)] = (uint16_t)item;
-        if (b) q[qcap - 1 - (n15 + __popc(mb & lt))] = (uint16_t)item;
-        n9 += __popc(ma);
-        n15 += __popc(mb);
+        for (int side = 0; side < 2; ++side) {
+          const bool a = (need9 >> side) & 1u, b = (need15 >> side) & 1u;
+          const unsigned ma = __ballot_sync(H2_FULL_MASK, a);
+          const unsigned mb = __ballot_sync(H2_FULL_MASK, b);
+          const int item = 2 * (k - plo) + side;
+          if (a) q[n9 + __popc(ma & lt)] = (uint16_t)item;
+          if (b) q[qcap - 1 - (n15 + __popc(mb & lt))] = (uint16_t)item;
+          n9 += __popc(ma);
+          n15 += __popc(mb);
+        }
+        for (x += 32; x >= X1; x -= X1) ++c;
       }
-      for (x += 32; x >= X1; x -= X1) ++c;
-    }
-    __syncwarp();
-    for (int t = lane; t < n9 + n15; t += 32) {
-      const int it = t < n9 ? q[t] : q[qcap - 1 - (t - n9)];
-      const int k = it >> 1, side = it & 1;
-      const int ck = k / X1, xk = k - ck * X1;
-      const uint8_t* w = s.w + ck * W + M + xk;
-      if (side == 0)
-        s.dpw[ck * XS + xk] =
-            (s.dk[ck * XSb + xk] & SP_CFW) ? sp_pwm<9>(w - 3, s.ftab + SP_DFW)
-                                           : sp_pwm<15>(w - 1, s.ftab + SP_ARC);
-      else
-        s.apw[ck * XS + xk] =
-            (s.ak[ck * XSb + xk] & SP_CFW) ? sp_pwm<15>(w - 14, s.ftab + SP_AFW)
-                                           : sp_pwm<9>(w - 6, s.ftab + SP_DRC);
+      __syncwarp();
+      for (int t = lane; t < n9 + n15; t += 32) {
+        const int it = t < n9 ? q[t] : q[qcap - 1 - (t - n9)];
+        const int k = plo + (it >> 1), side = it & 1;
+        const int ck = k / X1, xk = k - ck * X1;
+        const uint8_t* w = s.w + ck * W + M + xk;
+        if (side == 0)
+          s.dpw[ck * XS + xk] = (s.dk[ck * XSb + xk] & SP_CFW)
+              ? sp_pwm<9>(w - 3, s.ftab + SP_DFW)
+              : sp_pwm<15>(w - 1, s.ftab + SP_ARC);
+        else
+          s.apw[ck * XS + xk] = (s.ak[ck * XSb + xk] & SP_CFW)
+              ? sp_pwm<15>(w - 14, s.ftab + SP_AFW)
+              : sp_pwm<9>(w - 6, s.ftab + SP_DRC);
+      }
+      __syncwarp();
     }
   }
   __syncthreads();
@@ -496,7 +538,7 @@ __device__ inline void sp_build(const SpPlanes& s, const SpLane& in, int C,
   // [g * run, (g + 1) * run): the run's totals, the group's exclusive
   // scans of them, then the prefixes in place
   const int G = L <= 256 ? 8 : 16, g = lane & (G - 1);
-  const int run = (L + G - 1) / G;   // <= 32: a run's columns fit a mask
+  const int run = (L + G - 1) / G;
   for (int cg = wid * (32 / G); cg < C; cg += nwarp * (32 / G)) {
     const int c = cg + lane / G;
     const bool act = c < C;
@@ -524,7 +566,7 @@ __device__ inline void sp_build(const SpPlanes& s, const SpLane& in, int C,
     // the last penalized column before the run, the next one after it
     int last = budget ? sp_excl_max(tl, g, G, -1) : -1;
     const int nxt = budget ? sp_excl_suffix_min(tn, g, G, L) : L;
-    unsigned pmask = 0;  // the run's penalized columns
+    unsigned pmask = 0;  // the penalized columns of the run's first word
     for (int col = c0; col < c1; ++col) {
       const int pen = P[col + 1];
       ps += pen;
@@ -539,7 +581,7 @@ __device__ inline void sp_build(const SpPlanes& s, const SpLane& in, int C,
         pr += pen > 0 ? 1 : 0;
         Pr[col + 1] = (int16_t)pr;
       }
-      if (pen > 0) pmask |= 1u << (col - c0);
+      if (pen > 0 && col - c0 < 32) pmask |= 1u << (col - c0);
     }
     if (act && g == 0) {
       P[0] = 0;
@@ -554,37 +596,60 @@ __device__ inline void sp_build(const SpPlanes& s, const SpLane& in, int C,
     // one at or after; br[x] is the largest tot - P at a qualifying
     // column >= x, bl[x] the largest P at a qualifying column < x; the
     // donor side at x passes when P[x] - bl[x] <= -minsc, the acceptor
-    // side when (tot - P[x]) - br[x] <= -minsc
+    // side when (tot - P[x]) - br[x] <= -minsc.  The run goes 32 columns
+    // (a word) at a time; past a word's last penalized column the next
+    // one is found by a scan of the Pr steps that never revisits a column
     const int tot = act ? P[L] : 0;
-    unsigned qmask = 0;
-    int tb = 0, tq = 0;
-    for (int col = c0; col < c1; ++col) {
-      const unsigned bit = 1u << (col - c0);
-      if (pmask & bit) {
-        last = col;
-        continue;
-      }
-      // the next penalized column: in the run's mask, else after the run
-      const unsigned after = pmask & ~((bit << 1) - 1);
-      const int nc = after ? c0 + __ffs(after) - 1 : nxt;
-      if (nc - (last + 1) >= 8) {
-        qmask |= bit;
-        tb = max(tb, tot - P[col]);
-        tq = max(tq, P[col]);
-      }
-    }
     uint8_t* dk = s.dk + cr * XSb;
     uint8_t* ak = s.ak + cr * XSb;
+    int tb = 0, tq = 0, np = c0 - 1;
+    for (int w0 = c0; w0 < c1; w0 += 32) {
+      const int w1 = min(w0 + 32, c1);
+      unsigned pw = pmask;
+      if (w0 != c0) {
+        pw = 0;
+        for (int col = w0; col < w1; ++col)
+          if (Pr[col + 1] != Pr[col]) pw |= 1u << (col - w0);
+      }
+      for (int col = w0; col < w1; ++col) {
+        const unsigned bit = 1u << (col - w0);
+        if (pw & bit) {
+          last = col;
+          continue;
+        }
+        // the next penalized column: in the word's mask, else after it
+        const unsigned after = pw & ~((bit << 1) - 1);
+        int nc;
+        if (after) {
+          nc = w0 + __ffs(after) - 1;
+        } else {
+          if (np < w1) {
+            np = w1;
+            while (np < c1 && Pr[np + 1] == Pr[np]) ++np;
+          }
+          nc = np < c1 ? np : nxt;
+        }
+        if (nc - (last + 1) >= 8) {
+          ak[col] |= SP_Q;
+          tb = max(tb, tot - P[col]);
+          tq = max(tq, P[col]);
+        }
+      }
+    }
     int m = sp_excl_suffix_max(tb, g, G, 0);
     if (act && g == 0 && (tot - P[L]) - 0 <= -in.minsc) ak[L] |= SP_OK;
     for (int col = c1 - 1; col >= c0; --col) {
-      if ((qmask >> (col - c0)) & 1u) m = max(m, tot - P[col]);
+      if (ak[col] & SP_Q) m = max(m, tot - P[col]);
       if ((tot - P[col]) - m <= -in.minsc) ak[col] |= SP_OK;
     }
     m = sp_excl_max(tq, g, G, 0);
     if (act && g == 0 && P[0] - 0 <= -in.minsc) dk[0] |= SP_OK;
     for (int col = c0; col < c1; ++col) {
-      if ((qmask >> (col - c0)) & 1u) m = max(m, P[col]);
+      const unsigned a = ak[col];
+      if (a & SP_Q) {
+        m = max(m, P[col]);
+        ak[col] = (uint8_t)(a & ~SP_Q);
+      }
       if (P[col + 1] - m <= -in.minsc) dk[col + 1] |= SP_OK;
     }
   }

@@ -87,11 +87,11 @@ KERNELS = {k.name: k for k in (
            "hisat2_tpu/ops/extend.py:225 extend_grouped (+ :72 "
            "pen_planes, with the SNV branch :100-111)"),
     Kernel("indel_sweep", "h2_indel_sweep",
-           [_P] * 8 + [_LL] + [_I] * 10 + [_P, _P, _P, _I, _P, _P],
+           [_P] * 8 + [_LL] + [_I] * 10 + [_P, _P, _P, _I, _P, _LL, _P],
            "hisat2_tpu_torch/csrc/indel_sweep.cu",
            "hisat2_tpu/ops/splice.py:952 self_indel_sweep"),
     Kernel("compact_cands", "h2_compact_cands",
-           [_P] * 15 + [_I] * 13 + [_P] * 12 + [_P],
+           [_P] * 15 + [_I] * 13 + [_P] * 13 + [_LL, _P],
            "hisat2_tpu_torch/csrc/compact_cands.cu",
            "hisat2_tpu/ops/resolve.py:174-186 resolve_consecutive (full "
            "SA) + align/pipeline.py:772-998 compaction (ops/compact.py:"
@@ -112,12 +112,13 @@ KERNELS = {k.name: k for k in (
            "hisat2_tpu/ops/rescue.py:25 rescue_candidates (the one-hot "
            "cross-correlation and top_k, :39-59)"),
     Kernel("pair_sweep", "h2_pair_sweep",
-           [_P] * 10 + [_LL] + [_I] * 22 + [_P, _P, _I] + [_P] * 3 + [_P],
+           [_P] * 10 + [_LL] + [_I] * 22 + [_P, _P, _I] + [_P] * 4
+           + [_LL, _P],
            "hisat2_tpu_torch/csrc/pair_sweep.cu",
            "hisat2_tpu/ops/splice.py:300 pair_sweep (+ :1318 select_pairs, "
            "align/pipeline.py:1389-1396 base pairs)"),
     Kernel("second_sweep", "h2_second_sweep",
-           [_P] * 24 + [_I] * 4 + [_LL] + [_I] * 15 + [_P] + [_P],
+           [_P] * 24 + [_I] * 4 + [_LL] + [_I] * 15 + [_P, _P, _LL, _P],
            "hisat2_tpu_torch/csrc/second_sweep.cu",
            "hisat2_tpu/ops/splice.py:1107 second_sweep (+ :192 "
            "table_searchsorted; both base pairs of align/pipeline.py:"
@@ -239,7 +240,8 @@ def launch_info(symbol: str, *args, n: int = 5) -> dict:
     from its C entry point `symbol` (int arguments, then an int[n] it
     fills): registers per thread, static and dynamic shared bytes,
     threads per block, blocks per SM (0 where a block does not fit) and,
-    where n = 6, local bytes per thread (spills and stack)."""
+    where n >= 6, local bytes per thread (spills and stack) and, where n
+    = 7 (K13, K15), the global scratch bytes per block."""
     out = (ctypes.c_int * n)()
     fn = getattr(load(), symbol)
     fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
@@ -248,7 +250,34 @@ def launch_info(symbol: str, *args, n: int = 5) -> dict:
     if err != 0:
         raise RuntimeError(f"{symbol} failed with error {err}")
     return dict(zip(("regs", "static_smem", "smem", "threads",
-                     "blocks_per_sm", "local_bytes"), out))
+                     "blocks_per_sm", "local_bytes", "scratch_per_block"),
+                    out))
+
+
+def scratch(symbol: str, argtypes, *args, dev):
+    """The global scratch a kernel asks for at these shapes, from its C
+    query `symbol` (arguments of the ctypes types `argtypes`, the last one
+    the count of lanes or candidates, then a long long it fills with the
+    bytes): None where it needs none, else an uninitialised byte buffer on
+    `dev`.  The kernel launches as many blocks as the buffer it is given
+    holds (scratch_args), so a smaller one only makes each block walk more
+    lanes."""
+    fn = getattr(load(), symbol)
+    fn.argtypes = list(argtypes) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    nbytes = ctypes.c_longlong(0)
+    with torch.cuda.device(dev):
+        err = fn(*args, ctypes.byref(nbytes))
+    if err != 0:
+        raise RuntimeError(f"{symbol} failed with error {err}")
+    if nbytes.value == 0:
+        return None
+    return torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
+
+
+def scratch_args(buf):
+    """The (pointer, bytes) a kernel entry point takes for its scratch."""
+    return (None, 0) if buf is None else (buf.data_ptr(), buf.numel())
 
 
 def stream_of(t):

@@ -253,7 +253,9 @@ def compact_cands(sa, top, bot, lo, hi, nh, abefore, post, stopped,
     sa: the device full SA (int32, padded to a multiple of 8); top2 ..
     nh2: the spliced prefix re-search's hits (spliced mode); offs / offs2:
     the resolved offsets of a sampled-SA index (the kernel then reads them
-    in place of the SA)."""
+    in place of the SA).  Where one warp's pool of slot keys outgrows a
+    block's shared memory (long reads with a large -k) the kernel keeps
+    the pools in a global scratch allocated here."""
     if not top.is_cuda:
         return compact_candidates_plain(sa, top, bot, lo, hi, nh, abefore,
                                         post, stopped, P, C, CC, min_k,
@@ -294,6 +296,7 @@ def compact_cands(sa, top, bot, lo, hi, nh, abefore, post, stopped,
                 torch.empty(N, dtype=b, device=dev) if lane_meta else None,
                 torch.empty(N, dtype=_I32, device=dev) if lite_cap else None)
     ptr = [t.data_ptr() if t is not None else None for t in out]
+    scratch = compact_scratch(H, P, C, H2, P2, N, dev)
     kernels.KERNELS["compact_cands"].launch(
         sa.data_ptr(), top.data_ptr(), bot.data_ptr(), lo.data_ptr(),
         hi.data_ptr(), nh.data_ptr(), abefore.data_ptr(), post.data_ptr(),
@@ -304,8 +307,18 @@ def compact_cands(sa, top, bot, lo, hi, nh, abefore, post, stopped,
         offs2.data_ptr() if offs is not None and spliced else None,
         N, H, P, C, CC, min_k, min(maxsize, 2 ** 31 - 1),
         short_rows, lite_cap, int(lane_meta), H2, P2, max_intron, *ptr,
-        stream=kernels.stream_of(top))
+        *kernels.scratch_args(scratch), stream=kernels.stream_of(top))
     return out
+
+
+def compact_scratch(H: int, P: int, C: int, H2: int, P2: int, N: int, dev):
+    """Kernel 5's global staging for N lanes at these shapes
+    (csrc/compact_cands.cu:h2_compact_cands_scratch): None where each
+    warp's pool of H * P + H2 * P2 slot keys fits a block's shared memory,
+    else the buffer the kernel asks for."""
+    import ctypes
+    return kernels.scratch("h2_compact_cands_scratch", [ctypes.c_int] * 6,
+                           H, P, C, H2, P2, N, dev=dev)
 
 
 # the unified slot schema (pipeline.py:1221-1277), in the order of the

@@ -110,8 +110,12 @@ def partial_search2_plain(blocked, fchr, ftab2_top, zrow: int, zrow2: int,
                           rows: int, reads, lens, max_hits: int = 8,
                           min_hit_len: int = 16, min_k: int = 16,
                           uniform: bool = False,
-                          anchor_stop: bool = True) -> PartialHits:
-    """Plain torch twin of kernel 1 (search.py:409 line by line)."""
+                          anchor_stop: bool = True,
+                          stats: dict = None) -> PartialHits:
+    """Plain torch twin of kernel 1 (search.py:409 line by line).  stats:
+    a dict that gains the lanes' search steps ("steps") and those whose
+    top and bot lie in one 128-row block, where kernel 1 fetches one
+    fused row ("one_row")."""
     B, L = reads.shape
     dev = reads.device
     i32 = torch.int32
@@ -175,6 +179,11 @@ def partial_search2_plain(blocked, fchr, ftab2_top, zrow: int, zrow2: int,
         top, bot = state[0], state[1]
         pos1 = lens - 1 - 2 * s
         pos2 = pos1 - 1
+        if stats is not None:
+            act = pos1 >= 0
+            stats["steps"] = stats.get("steps", 0) + int(act.sum())
+            stats["one_row"] = stats.get("one_row", 0) + int(
+                (act & ((top >> 7) == (bot >> 7))).sum())
         i2 = torch.cat([top, bot]).to(torch.int64)
         rws = rk.gather_rows(blocked, i2)
         cc1 = torch.clamp(c1, max=3).to(torch.int64)
@@ -207,6 +216,23 @@ def partial_search2_plain(blocked, fchr, ftab2_top, zrow: int, zrow2: int,
                           interleave(2), interleave(3))
 
 
+def _outputs(B: int, H: int, RW: int, dev, zeroed: bool) -> PartialHits:
+    """kernel 1's output buffers: zeros for the lane-list mode, whose
+    unlisted rows the kernel leaves alone; uninitialised for the dense
+    mode, where the kernel writes every field of every row."""
+    new = torch.zeros if zeroed else torch.empty
+    i32, b8 = torch.int32, torch.bool
+    return PartialHits(new((B, RW), dtype=i32, device=dev),
+                       new((B,), dtype=i32, device=dev),
+                       *(new((B, H), dtype=i32, device=dev)
+                         for _ in range(4)),
+                       new((B,), dtype=i32, device=dev),
+                       new((B, H), dtype=i32, device=dev),
+                       new((B, H), dtype=b8, device=dev),
+                       new((B, H), dtype=b8, device=dev),
+                       new((B,), dtype=b8, device=dev))
+
+
 def partial_search2(blocked, fchr, ftab2_top, zrow: int, zrow2: int,
                     rows: int, reads, lens, max_hits: int = 8,
                     min_hit_len: int = 16, min_k: int = 16,
@@ -216,10 +242,10 @@ def partial_search2(blocked, fchr, ftab2_top, zrow: int, zrow2: int,
 
     `uniform` only promises lens == L (the kernel reads read[len-1-t]
     either way, which is what the uniform path reads then).  Any read
-    length: above 512 the kernel logs the rounds straight into the zeroed
-    `rounds` rows allocated here.  lanes: an
-    int32 list of lane ids (kernel 1's lane-list mode, K17): only those
-    lanes are searched and every other lane's row is zeros."""
+    length: the kernel writes every field of a searched lane's row, the
+    round log included, so the dense mode's outputs are not zero-filled.
+    lanes: an int32 list of lane ids (kernel 1's lane-list mode, K17):
+    only those lanes are searched and every other lane's row is zeros."""
     if not reads.is_cuda:
         if lanes is not None:
             raise ValueError("the lane-list mode is a kernel mode; the "
@@ -237,12 +263,7 @@ def partial_search2(blocked, fchr, ftab2_top, zrow: int, zrow2: int,
         raise ValueError("fm_search2 needs the 44-column fused table (49 "
                          "with the mark columns of a sampled SA)")
     R = L // 2 + 2
-    RW = (R + 3) // 4
-    dev = reads.device
-    z = lambda *s: torch.zeros(s, dtype=i32, device=dev)  # noqa: E731
-    zb = lambda *s: torch.zeros(s, dtype=torch.bool, device=dev)  # noqa
-    out = PartialHits(z(B, RW), z(B), z(B, H), z(B, H), z(B, H), z(B, H),
-                      z(B), z(B, H), zb(B, H), zb(B, H), zb(B))
+    out = _outputs(B, H, (R + 3) // 4, reads.device, lanes is not None)
     a_stop_len = min_k + 12 if anchor_stop else 2 ** 30
     K = B
     name = "fm_search2"

@@ -282,21 +282,11 @@ def self_indel_sweep_plain(ch, reads, quals, lens, starts, valid, minsc,
 def _indel_sweep_scratch(L: int, W: int, G: int, snv: bool, NC: int, dev):
     """K8's global staging at these shapes (csrc/indel_sweep.cu:
     h2_indel_sweep_scratch): None where its warps stage in shared memory,
-    else an int32 buffer of the bytes the kernel asks for."""
+    else the buffer the kernel asks for."""
     import ctypes
-    fn = kernels.load().h2_indel_sweep_scratch
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    nbytes = ctypes.c_longlong(0)
-    with torch.cuda.device(dev):
-        err = fn(L, W, G, int(snv), NC, ctypes.byref(nbytes))
-    if err != 0:
-        raise RuntimeError(f"indel_sweep: scratch query failed with error "
-                           f"{err}")
-    if nbytes.value == 0:
-        return None
-    return torch.empty((nbytes.value + 3) // 4, dtype=torch.int32,
-                       device=dev)
+    return kernels.scratch("h2_indel_sweep_scratch",
+                           [ctypes.c_int] * 4 + [ctypes.c_longlong], L, W, G,
+                           int(snv), NC, dev=dev)
 
 
 def self_indel_sweep(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
@@ -335,8 +325,7 @@ def self_indel_sweep(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
         prm.rd_gap_open, prm.rd_gap_ext, prm.rf_gap_open, prm.rf_gap_ext,
         res.data_ptr(), (snv1_w if use_snv else ch).data_ptr(),
         (snv2_w if use_snv else ch).data_ptr(), int(use_snv),
-        scratch.data_ptr() if scratch is not None else None,
-        stream=kernels.stream_of(ch))
+        *kernels.scratch_args(scratch), stream=kernels.stream_of(ch))
     zi = torch.zeros((N, C), dtype=i32, device=dev)
     zf = torch.zeros((N, C), dtype=torch.float32, device=dev)
     out = {}
@@ -541,7 +530,6 @@ PWM_FACTORS = np.concatenate([_F_DONOR.reshape(-1), _F_ACC.reshape(-1)])
 
 _F32 = torch.float32
 _PTH = (0.99, 0.97, 0.94, 0.91, 0.88, 0.8)
-SMEM_PER_BLOCK = 232448  # an sm_90 block's dynamic shared memory maximum
 
 
 def table_searchsorted(tab, q, lob=None, shift=None):
@@ -1243,17 +1231,22 @@ def sweep_launch_info(name: str, C: int, L: int, W: int, LP: int,
     (csrc/pair_sweep.cu:h2_pair_sweep_info, second_sweep.cu:
     h2_second_sweep_info, indel_sweep.cu:h2_indel_sweep_info): registers
     per thread, static and dynamic shared bytes (csrc/splice_planes.cuh:
-    sp_layout for K13 and K15), threads per block and blocks per SM (0
-    where a block does not fit).  snv: the SNV windows of a graph index
-    (and K13's SNV-forgiving prefix).  K8 reads G, its gap budget, and not
-    C or LP."""
-    if name == "pair_sweep":
-        args = (C, L, W, LP, int(snv))
-    elif name == "indel_sweep":
-        args = (L, W, G, int(snv))
-    else:
-        args = (C, L, W, LP)
-    return kernels.launch_info(f"h2_{name}_info", *args)
+    sp_layout for K13 and K15), threads per block and blocks per SM; for
+    K13 and K15 also local bytes per thread and the global scratch bytes
+    per block (0 where the planes fit a block's shared memory, else the
+    global instantiation runs with no dynamic shared memory).  snv: the
+    SNV windows of a graph index (and K13's SNV-forgiving prefix).  K8
+    reads G, its gap budget, and not C or LP."""
+    if name == "indel_sweep":
+        return kernels.launch_info("h2_indel_sweep_info", L, W, G, int(snv))
+    args = (C, L, W, LP, int(snv)) if name == "pair_sweep" else (C, L, W,
+                                                                  LP)
+    return kernels.launch_info(f"h2_{name}_info", *args, n=7)
+
+
+# K13's and K15's planes count columns in int16 (csrc/splice_planes.cuh:
+# SP_MAX_COLS)
+SWEEP_MAX_L = 32766
 
 
 def _check_step_inputs(name, ch, reads, quals, lens, starts, valid, minsc,
@@ -1272,18 +1265,29 @@ def _check_step_inputs(name, ch, reads, quals, lens, starts, valid, minsc,
         kernels.check_cuda("snv1_w", snv1_w, i32, (N, C, W))
         kernels.check_cuda("snv2_w", snv2_w, i32, (N, C, W))
     M = (W - L) // 2
-    if L > 512:
-        raise ValueError(f"{name}: spliced reads above 512 bp are not run on "
-                         f"the card yet (ROADMAP.md Queue 3 item 15); this "
-                         f"batch's longest read is {L} bp")
-    if M < 16 or W != L + 2 * M or C > 32:
-        raise ValueError(f"{name}: needs a margin of at least 16 and "
-                         "C <= 32")
-    need = sweep_launch_info(name, C, L, W, LP, snv)["smem"]
-    if need > SMEM_PER_BLOCK:
-        raise ValueError(f"{name}: {C} candidates of {L} bp need {need} "
-                         f"bytes of shared memory, above the "
-                         f"{SMEM_PER_BLOCK} a block can use")
+    # the pipeline's margin is max(16, gap budget) (pipeline.py:1008, as
+    # JAX's), which the PWM windows (14 columns left of x) need
+    if M < 16 or W != L + 2 * M:
+        raise ValueError(f"{name}: needs windows of L + 2 * margin columns "
+                         f"with a margin of at least 16")
+    if L > SWEEP_MAX_L:
+        raise ValueError(f"{name}: the planes count columns in int16, so a "
+                         f"read of {L} bp passes their {SWEEP_MAX_L}")
+
+
+def _sweep_scratch(name: str, C: int, L: int, W: int, LP: int, snv: bool,
+                   N: int, dev):
+    """K13's or K15's global staging for N lanes at these shapes
+    (csrc/pair_sweep.cu:h2_pair_sweep_scratch, second_sweep.cu:
+    h2_second_sweep_scratch): None where a lane's planes fit a block's
+    shared memory, else a buffer of the bytes the kernel asks for (a slice
+    per block of its grid)."""
+    import ctypes
+    args = (C, L, W, LP, int(snv)) if name == "pair_sweep" else (C, L, W,
+                                                                  LP)
+    return kernels.scratch(
+        f"h2_{name}_scratch", [ctypes.c_int] * len(args) + [ctypes.c_longlong],
+        *args, N, dev=dev)
 
 
 _PWM_ON = {}
@@ -1303,7 +1307,9 @@ def pair_sweep(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
                snv2_w=None):
     """K13 + K14 (csrc/pair_sweep.cu) on CUDA tensors, pair_sweep_ref on
     CPU tensors.  snv1_w / snv2_w: the SNV-plane windows of the candidates
-    on a graph index (None on a linear one)."""
+    on a graph index (None on a linear one).  The kernel keeps a lane's
+    planes in shared memory where they fit, else in a global scratch
+    allocated here."""
     if not ch.is_cuda:
         return pair_sweep_ref(ch, reads, quals, lens, starts, valid, minsc,
                               mm_pen, n_pen, n_text, prm, lenpen, max_gap,
@@ -1322,6 +1328,8 @@ def pair_sweep(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
     sel = torch.empty((9, N, top), dtype=i32, device=dev)
     bsel = torch.empty((N, 2), dtype=i32, device=dev)
     pwm = _pwm_dev(dev)
+    scratch = _sweep_scratch("pair_sweep", C, L, W, lpk.shape[1], use_snv,
+                             N, dev)
     kernels.KERNELS["pair_sweep"].launch(
         ch.data_ptr(), reads.data_ptr(), quals.data_ptr(), lens.data_ptr(),
         starts.data_ptr(), valid.data_ptr(), minsc.data_ptr(),
@@ -1333,7 +1341,7 @@ def pair_sweep(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
         (snv1_w if use_snv else ch).data_ptr(),
         (snv2_w if use_snv else ch).data_ptr(), int(use_snv),
         res.data_ptr(), sel.data_ptr(), bsel.data_ptr(),
-        stream=kernels.stream_of(ch))
+        *kernels.scratch_args(scratch), stream=kernels.stream_of(ch))
     out = dict(zip(("score", "x", "kind", "spldir", "splscore", "raw"),
                    res.unbind(0)))
     out["splscore"] = out["splscore"].view(_F32)
@@ -1389,7 +1397,8 @@ def second_sweep(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
     """K15 (csrc/second_sweep.cu) on CUDA tensors, second_sweep_ref on CPU
     tensors: both base pairs of a step (b_i, b_j, b_x, b_score int32 and
     b_valid bool, [2, N]) in one launch.  Returns one {"right": ...,
-    "left": ...} per base pair, each side's fields [N]."""
+    "left": ...} per base pair, each side's fields [N].  Planes in shared
+    memory where they fit, else in a global scratch allocated here."""
     if not ch.is_cuda:
         return second_sweep_ref(ch, reads, quals, lens, starts, valid, minsc,
                                 mm_pen, n_pen, n_text, prm, lenpen, margin,
@@ -1412,6 +1421,8 @@ def second_sweep(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
         site = [ch.data_ptr()] * 8 + [0, 0, 0]
     out = torch.empty((2, 2, 8, N), dtype=i32, device=ch.device)
     pwm = _pwm_dev(ch.device)
+    scratch = _sweep_scratch("second_sweep", C, L, W, lpk.shape[1], False,
+                             N, ch.device)
     kernels.KERNELS["second_sweep"].launch(
         ch.data_ptr(), reads.data_ptr(), quals.data_ptr(), lens.data_ptr(),
         starts.data_ptr(), valid.data_ptr(), minsc.data_ptr(),
@@ -1421,7 +1432,8 @@ def second_sweep(ch, reads, quals, lens, starts, valid, minsc, mm_pen,
         int(use_ss), n_text, N, C, L, W, margin, n_pen, lpk.shape[1],
         nlp[0], nlp[1], prm.min_intron, prm.max_intron, prm.pen_can,
         prm.pen_noncan, prm.min_anchor, prm.min_anchor_noncan,
-        out.data_ptr(), stream=kernels.stream_of(ch))
+        out.data_ptr(), *kernels.scratch_args(scratch),
+        stream=kernels.stream_of(ch))
     return [{side: dict(zip(_SIDE_KEYS, out[t, s].unbind(0)))
              for s, side in enumerate(("right", "left"))} for t in range(2)]
 
@@ -1483,10 +1495,6 @@ def inject_known(ref_words, n_text: int, reads, quals, lens, rdids, starts,
                            ("snv_delta2", snv_delta2,
                             tuple(snv_delta1.shape))):
             kernels.check_cuda(nm, t, i32, shp)
-    if L > 1024:
-        raise ValueError(f"inject_known: spliced reads above 1024 bp are not "
-                         f"run on the card yet (ROADMAP.md Queue 3 item 15); "
-                         f"this batch's longest read is {L} bp")
     if W != L + 2 * margin:
         raise ValueError("inject_known: windows must be L + 2*margin wide")
     J = 2 * slots * C

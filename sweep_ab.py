@@ -1,7 +1,10 @@
 """The hand kernels this port has redesigned, against an earlier
 commit's, in turns on one card: the junction sweeps K13 (pair_sweep) and
 K15 (second_sweep), the indel sweep K8 (indel_sweep), the ungapped
-extension K6+K7 (extend_ungapped) and the FM search K1 (fm_search2).
+extension K6+K7 (extend_ungapped) and the FM search K1 (fm_search2, and
+its lane-list mode K17); and, of this tree alone, the device time of the
+kernels not yet redesigned (K4, K5, K9, K10, K16, K20) on the steps that
+launch them.
 
     git archive <commit> hisat2_tpu_torch/csrc | tar -x -C DIR
     python3 sweep_ab.py DIR
@@ -27,14 +30,25 @@ step's captured arguments and
   linear step and config 6's full step; K6+K7's core and extra-slot
   launches on every step where chip_smoke holds them (linear, graph
   full, spliced full, config 6 full, the genome linear step and a rescue
-  chunk), with the earlier tree's scans-only copy; K1 on the linear
-  step.
+  chunk), with the earlier tree's scans-only copy; K1 on the linear,
+  graph full, spliced full and config 6 full steps, and K17 (K1's
+  lane-list mode, its lane list made outside the graph) on the spliced
+  and config 6 full steps;
+- times this tree's K1 on the linear step with and without an L2
+  access-policy window (persisting) over the fused table, in turns;
+- times this tree's compact_cands (K3+K4), ref_window (K5), pack_slots
+  (K9), inject_indels (K10), inject_known (K16) and resolve_walk (K20)
+  by CUDA graph on every reported step that launches them, alone (no
+  earlier tree): the inputs of the next redesign's ranking.
 
 Both trees launch through this tree's wrappers (ops/); only the C entry
 point differs, so the arguments and the host work per launch are the
-same.  The earlier K15 must take both base pairs of a step in one launch,
-as this tree's does; the earlier K8 may lack this tree's trailing scratch
-argument.  Prints one `[sweep ab] <step> {json}` line per step for K13 +
+same, except that an earlier K1 of one thread a lane (no FM_G), which
+writes only a lane's events, gets zero-filled outputs (the device work
+its wrapper did).  The earlier
+K15 must take both base pairs of a step in one launch, as this tree's
+does; the earlier K8, K13 and K15 may lack this tree's trailing scratch
+arguments (the scratch, its bytes).  Prints one `[sweep ab] <step> {json}` line per step for K13 +
 K15, one `[sweep ab] <step> <kernel> {json}` line per step for K8, K6+K7
 and K1, then chip_smoke's own lines.
 """
@@ -58,6 +72,44 @@ PRO_SINK = {"pair_sweep": "A.bsel[(size_t)n * 2]", "second_sweep": "A.out[n]"}
 EXT_SCANS_END = "  __syncwarp();\n\n  const int total_pen = sP[L];"
 # the earlier trees' kernels timed whole
 WHOLE = ("indel_sweep", "extend_ungapped", "fm_search2")
+# this tree's kernels timed alone, by CUDA graph
+ALONE = ("compact_cands", "ref_window", "pack_slots", "inject_indels",
+         "inject_known", "resolve_walk")
+# an L2 access-policy window on a stream: the persisting set-aside at its
+# largest and a window over `bytes` from `base` whose hit ratio is the
+# set-aside's share of it (on = 0: no window, the set-aside released)
+L2_WINDOW_SRC = r"""
+#include <cuda_runtime.h>
+extern "C" int h2_l2_window(void* base, long long bytes, void* stream,
+                            int on, float* ratio, long long* setaside) {
+  int dev = 0, maxwin = 0, maxpers = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&maxwin, cudaDevAttrMaxAccessPolicyWindowSize,
+                               dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&maxpers, cudaDevAttrMaxPersistingL2CacheSize,
+                               dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize,
+                           on ? (size_t)maxpers : 0);
+  if (e != cudaSuccess) return (int)e;
+  const long long nb = bytes < maxwin ? bytes : maxwin;
+  cudaStreamAttrValue a = {};
+  a.accessPolicyWindow.base_ptr = base;
+  a.accessPolicyWindow.num_bytes = on ? (size_t)nb : 0;
+  const float r = on ? (float)maxpers / (float)nb : 0.0f;
+  a.accessPolicyWindow.hitRatio = r > 1.0f ? 1.0f : r;
+  a.accessPolicyWindow.hitProp = cudaAccessPropertyPersisting;
+  a.accessPolicyWindow.missProp = cudaAccessPropertyStreaming;
+  *ratio = a.accessPolicyWindow.hitRatio;
+  *setaside = maxpers;
+  e = cudaStreamSetAttribute((cudaStream_t)stream,
+                             cudaStreamAttributeAccessPolicyWindow, &a);
+  if (e == cudaSuccess && !on) e = cudaCtxResetPersistingL2Cache();
+  return (int)e;
+}
+"""
 
 
 def sweep_source(src, name, pro):
@@ -103,22 +155,54 @@ def build_libs(kernels, parent_csrc):
         cmd = [kernels._nvcc(), *kernels.ARCH_FLAGS, "-std=c++17", "-O3",
                "-Xcompiler", "-fPIC", "-shared", "-I", src, "-o", so, cu]
         nargs = len(kernels.KERNELS[name].argtypes) - 1
-        if name == "indel_sweep" and "void* scratch" not in text:
-            # an earlier K8 without this tree's trailing scratch argument
-            nargs -= "void* scratch" in sweep_source(kernels.CSRC, name,
-                                                     False)
+        this = sweep_source(kernels.CSRC, name, False)
+        for arg in ("void* scratch", "long long scratch_bytes"):
+            # an earlier kernel without this tree's trailing scratch
+            # arguments
+            nargs -= arg in this and arg not in text
         jobs.append(((tree, name, pro), so, nargs, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    cu = os.path.join(out, "l2_window.cu")
+    with open(cu, "w") as f:
+        f.write(L2_WINDOW_SRC)
+    so = os.path.join(out, "libl2_window.so")
+    jobs.append(((None, "l2_window", False), so, 0, subprocess.Popen(
+        [kernels._nvcc(), *kernels.ARCH_FLAGS, "-Xcompiler", "-fPIC",
+         "-shared", "-o", so, cu], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)))
     fns = {}
+    # an earlier K1 of one thread a lane writes only a lane's events
+    fns["k1_fills"] = "FM_G" not in sweep_source(parent_csrc, "fm_search2",
+                                                 False)
     for key, so, nargs, p in jobs:
         _, err = p.communicate()
         chip_smoke.check(p.returncode == 0, f"nvcc {key}: {err[-3000:]}")
         fn = getattr(ctypes.CDLL(so), "h2_" + key[1])
+        if key[1] == "l2_window":
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
+                           ctypes.c_void_p, ctypes.c_int,
+                           ctypes.POINTER(ctypes.c_float),
+                           ctypes.POINTER(ctypes.c_longlong)]
+            fn.restype = ctypes.c_int
+            fns["l2_window"] = fn
+            continue
         at = kernels.KERNELS[key[1]].argtypes
         fn.argtypes = at[:nargs] + at[-1:]
         fn.restype = ctypes.c_int
         fns[key] = (fn, nargs)
     return fns
+
+
+def zeroed_outputs(call):
+    """call() with kernel 1's wrapper zero-filling its outputs, as the
+    earlier design (which writes only a lane's events) needs."""
+    from hisat2_tpu_torch.ops import search
+    orig = search._outputs
+    search._outputs = lambda B, H, RW, dev, zeroed: orig(B, H, RW, dev, True)
+    try:
+        return call()
+    finally:
+        search._outputs = orig
 
 
 def through(torch, kernels, name, fn, call):
@@ -139,6 +223,31 @@ def through(torch, kernels, name, fn, call):
         return call()
     finally:
         del k.launch
+
+
+def l2_window_ab(torch, window, fn, blocked):
+    """K1's device time by CUDA graph on a fresh stream without and with
+    an L2 access-policy window (persisting) over the fused table, in
+    turns (off, on, on, off); its outputs equal either way."""
+    res = {"off": [], "on": []}
+    ref = chip_smoke.flat_outputs(fn())
+    for mode in ("off", "on", "on", "off"):
+        s = torch.cuda.Stream()
+        ratio, setaside = ctypes.c_float(0), ctypes.c_longlong(0)
+        err = window(blocked.data_ptr(), blocked.numel() * 4, s.cuda_stream,
+                     int(mode == "on"), ctypes.byref(ratio),
+                     ctypes.byref(setaside))
+        chip_smoke.check(err == 0, f"L2 window: error {err}")
+        with torch.cuda.stream(s):
+            res[mode].append(graph_ms(torch, fn))
+            out = chip_smoke.flat_outputs(fn())
+        torch.cuda.synchronize()
+        chip_smoke.check(all(torch.equal(a, b) for a, b in zip(out, ref)),
+                         "fm_search2 under the L2 window != without")
+        if mode == "on":
+            res.update(hit_ratio=ratio.value, set_aside=setaside.value,
+                       window_bytes=blocked.numel() * 4)
+    return res
 
 
 def b2b_ms(torch, fn, reps=20, rounds=5):
@@ -253,9 +362,13 @@ def compare_graphed(torch, kernels, fns, tag, key, call, info):
     earlier tree's scans-only copy where one was built; prints and returns
     them."""
     name = key.split("/")[0]
+    src = "fm_search2" if name == "search_lanes_live" else name
     run = {"parent": lambda: through(torch, kernels, name,
-                                     fns[("parent", name, False)], call),
+                                     fns[("parent", src, False)], call),
            "this": call}
+    if src == "fm_search2" and fns["k1_fills"]:
+        par = run["parent"]
+        run["parent"] = lambda: zeroed_outputs(par)
     old = chip_smoke.flat_outputs(run["parent"]())
     new = chip_smoke.flat_outputs(run["this"]())
     chip_smoke.check(len(old) == len(new), f"{tag}: {key} output arity")
@@ -287,8 +400,10 @@ def main() -> int:
     kernels.load()
     fns = build_libs(kernels, os.path.join(os.path.abspath(sys.argv[1]),
                                            "hisat2_tpu_torch", "csrc"))
+    from hisat2_tpu_torch.ops import kernel_twins
+    twins = kernel_twins()
     done = {"sweeps": [], "indel_sweep": [], "extend_ungapped": [],
-            "fm_search2": []}
+            "fm_search2": [], "alone": []}
     shapes = chip_smoke.step_shapes
 
     def hook(splice_mod, step, cap):
@@ -322,18 +437,53 @@ def main() -> int:
                  "groups": int((live_g + dead_g).sum()), "B": st.shape[0],
                  "C": st.shape[1], "L": kw["reads"].shape[1],
                  "snv": kw.get("snv1_win") is not None}))
-        if step == "linear":
+        if step in ("linear", "graph full", "spliced full", "config6 full"):
             kw = cap["fm_search2"]
             done["fm_search2"].append(compare_graphed(
                 torch, kernels, fns, step, "fm_search2",
                 lambda: search.partial_search2(**kw),
-                {"N": kw["reads"].shape[0], "L": kw["reads"].shape[1]}))
+                {"N": kw["reads"].shape[0], "L": kw["reads"].shape[1],
+                 "cols": kw["blocked"].shape[1]}))
+            if step == "linear":
+                res = l2_window_ab(torch, fns["l2_window"],
+                                   lambda: search.partial_search2(**kw),
+                                   kw["blocked"])
+                print(f"[sweep ab] linear fm_search2 L2 window: "
+                      f"{json.dumps(res)}", flush=True)
+            kl = cap.get("search_lanes_live")
+            if kl is not None and kl["reads"].shape[0] > kl.get("chunk",
+                                                                2048):
+                lanes = torch.nonzero(kl["cut"] >= kl["min_hit_len"])[
+                    :, 0].to(torch.int32).contiguous()
+                args = {k: v for k, v in kl.items() if k not in ("cut",
+                                                                 "chunk")}
+                args["lens"] = kl["cut"]
+                done["fm_search2"].append(compare_graphed(
+                    torch, kernels, fns, step, "search_lanes_live",
+                    lambda: search.partial_search2(**args, lanes=lanes),
+                    {"N": kl["reads"].shape[0], "lanes": lanes.shape[0],
+                     "L": kl["reads"].shape[1],
+                     "cols": kl["blocked"].shape[1]}))
+        for key in sorted(cap):
+            name = key.split("/")[0]
+            if name not in ALONE:
+                continue
+            kw = cap[key]
+            try:
+                t = [graph_ms(torch, lambda: twins[name][0](**kw))
+                     for _ in range(2)]
+                res = {"this": t}
+            except RuntimeError as e:       # a wrapper that syncs
+                res = {"not measured": str(e)[:200]}
+            done["alone"].append(res)
+            print(f"[sweep ab] {step} {key} alone: {json.dumps(res)}",
+                  flush=True)
     chip_smoke.step_shapes = hook
     rc = chip_smoke.main()
     n = {k: len(v) for k, v in done.items()}
     chip_smoke.check(n["sweeps"] == 2 and n["indel_sweep"] == 2
-                     and n["extend_ungapped"] >= 8 and n["fm_search2"] == 1,
-                     f"steps compared: {n}")
+                     and n["extend_ungapped"] >= 8 and n["fm_search2"] >= 6
+                     and n["alone"] >= 10, f"steps compared: {n}")
     return rc
 
 

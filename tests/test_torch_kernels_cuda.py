@@ -8,7 +8,11 @@ SNP + splice-site index at k = 10, K13 and K16 with their SNV inputs and
 both spliced graph steps, and a two-shard index with one shard on the CPU
 (shard_devices=["cuda:0", "cpu"]) against both shards on the card; the
 junction sweeps K13 + K14 and the two-pair K15 on seeded random lanes at
-C in {1, 5, 14, 19, 32} and L in {60, 100, 150, 250}.
+C in {1, 5, 14, 19, 32, 33, 40} and L from 60 to 2000 (planes in shared
+memory, and in the global scratch where they outgrow it); the FM search
+K1 and its lane-list mode K17 on seeded random lanes; the spliced
+kernels and the spliced step on reads of 600-2000 bp; the DNA step at
+-k 64 with a 6,000 bp read (K4's pools in the global scratch).
 Needs a CUDA device; skips without one.  On a machine without JAX run it as
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
@@ -525,8 +529,10 @@ def test_spliced_step_on_card_matches_cpu(scard):
 
 # --- the junction sweeps K13 + K14 and K15 on seeded random lanes ------------
 
-SWEEP_C = (1, 5, 14, 19, 32)
-SWEEP_L = (60, 100, 150, 250)
+SWEEP_C = (1, 5, 14, 19, 32, 33, 40)
+# 480 and 512: config 6's C = 19 with SNV windows passes a block's shared
+# memory from L ~ 475; above 512 step 4's runs of columns span words
+SWEEP_L = (60, 100, 150, 250, 480, 512, 513, 1000, 2000)
 SENT = 2 ** 31 - 2
 
 
@@ -669,6 +675,23 @@ def _site_tabs(kd, ka, rdid, n, lob):
     return t
 
 
+def _scratch_of_blocks(blocks):
+    """A stand-in for kernels.scratch that gives a kernel the global
+    scratch of `blocks` blocks (the query's bytes for one lane, or one pool
+    of candidates, times `blocks`), so that the kernel launches that many
+    blocks and each walks many lanes through its one slice."""
+    from hisat2_tpu_torch import kernels
+    real = kernels.scratch
+
+    def cut(symbol, argtypes, *args, dev):
+        one = real(symbol, argtypes, *args[:-1], 1, dev=dev)
+        if one is None:
+            return None
+        return torch.empty(blocks * one.numel(), dtype=torch.uint8,
+                           device=dev)
+    return cut
+
+
 def _same(a, b, what):
     a, b = a.cpu(), b.cpu()
     if a.dtype == torch.float32:
@@ -679,34 +702,49 @@ def _same(a, b, what):
 
 @pytest.mark.parametrize("L", SWEEP_L)
 @pytest.mark.parametrize("C", SWEEP_C)
-def test_junction_sweeps_random_on_card(sweep_card, C, L):
+def test_junction_sweeps_random_on_card(sweep_card, monkeypatch, C, L):
     """K13 + K14 (SNV windows off and on) and the two-pair K15 (site tables
     none, sorted and with the bucket index) against their plain twins on
-    seeded random lanes, f32 fields by their bits; a shape past a block's
-    shared memory is refused by the wrapper."""
+    seeded random lanes, f32 fields by their bits; where a lane's planes
+    pass a block's shared memory the kernels stage them in their global
+    scratch, and there they are held twice: over the grid they ask for,
+    and given the scratch of two blocks, so that each block walks half
+    the lanes through its one slice."""
     from hisat2_tpu_torch import kernels
     from hisat2_tpu_torch.ops import splice
-    kw, (s1w, s2w), sites, rdids = _sweep_world(C, L, 100 * C + L)
+    kw, (s1w, s2w), sites, rdids = _sweep_world(
+        C, L, 100 * C + L, N=96 if L <= 250 else 32)
     W, LP = kw["ch"].shape[2], kw["lenpen"][1].shape[1]
     k13 = dict(kw, max_gap=10, top=min(4, C * C))
+    staged = [splice.sweep_launch_info("pair_sweep", C, L, W, LP, snv)[
+        "scratch_per_block"] > 0 for snv in (False, True)]
+    staged.append(splice.sweep_launch_info("second_sweep", C, L, W, LP)[
+        "scratch_per_block"] > 0)
+    if (C, L) in ((14, 100), (19, 250)):
+        assert not any(staged), staged
+    if (C, L) == (19, 512):              # config 6's shape, SNV windows
+        assert staged[:2] == [False, True], staged
+    if (C, L) in ((40, 1000), (19, 2000)):
+        assert all(staged), staged
     for snv in (False, True):
         a = dict(k13, snv1_w=s1w, snv2_w=s2w) if snv else k13
         po = splice.pair_sweep_ref(**a)
         if not snv:
             res, bsel = po[0], po[2]
-        if splice.sweep_launch_info("pair_sweep", C, L, W, LP,
-                                    snv)["smem"] > splice.SMEM_PER_BLOCK:
-            with pytest.raises(ValueError, match="shared memory"):
-                splice.pair_sweep(**a)
-            continue
-        n0 = kernels.KERNELS["pair_sweep"].launches
-        ko = splice.pair_sweep(**a)
-        torch.cuda.synchronize()
-        assert kernels.KERNELS["pair_sweep"].launches == n0 + 1
-        for part, (x, y) in enumerate(zip(ko[:2], po[:2])):
-            for f in y:
-                _same(x[f], y[f], f"C={C} L={L} snv={snv} part {part} {f}")
-        _same(ko[2], po[2], f"C={C} L={L} snv={snv} base pairs")
+        for blocks in (None, 2)[:1 + staged[snv]]:
+            with monkeypatch.context() as mp:
+                if blocks:
+                    mp.setattr(kernels, "scratch", _scratch_of_blocks(blocks))
+                n0 = kernels.KERNELS["pair_sweep"].launches
+                ko = splice.pair_sweep(**a)
+                torch.cuda.synchronize()
+            assert kernels.KERNELS["pair_sweep"].launches == n0 + 1
+            what = (f"C={C} L={L} snv={snv} global={staged[snv]} "
+                    f"blocks={blocks}")
+            for part, (x, y) in enumerate(zip(ko[:2], po[:2])):
+                for f in y:
+                    _same(x[f], y[f], f"{what} part {part} {f}")
+            _same(ko[2], po[2], f"{what} base pairs")
     # K15: the q2 / r2 base pairs as the step builds them, and one of
     # random pairs (x from -1 to L + 1, invalid scores, b_valid mixed)
     N = kw["starts"].shape[0]
@@ -728,15 +766,21 @@ def test_junction_sweeps_random_on_card(sweep_card, C, L):
     for lob in (None, False, True):
         ss = None if lob is None else _site_tabs(*sites, kw["n_text"], lob)
         a = dict(kw, **pairs, ss=ss, rdids=rdids if ss is not None else None)
-        n0 = kernels.KERNELS["second_sweep"].launches
-        ko, po = splice.second_sweep(**a), splice.second_sweep_ref(**a)
-        torch.cuda.synchronize()
-        assert kernels.KERNELS["second_sweep"].launches == n0 + 1
-        for t in range(2):
-            for side in ("right", "left"):
-                for f in po[t][side]:
-                    _same(ko[t][side][f], po[t][side][f],
-                          f"C={C} L={L} sites={lob} pair {t} {side} {f}")
+        po = splice.second_sweep_ref(**a)
+        for blocks in (None, 2)[:1 + staged[2]]:
+            with monkeypatch.context() as mp:
+                if blocks:
+                    mp.setattr(kernels, "scratch", _scratch_of_blocks(blocks))
+                n0 = kernels.KERNELS["second_sweep"].launches
+                ko = splice.second_sweep(**a)
+                torch.cuda.synchronize()
+            assert kernels.KERNELS["second_sweep"].launches == n0 + 1
+            for t in range(2):
+                for side in ("right", "left"):
+                    for f in po[t][side]:
+                        _same(ko[t][side][f], po[t][side][f],
+                              f"C={C} L={L} sites={lob} global={staged[2]} "
+                              f"blocks={blocks} pair {t} {side} {f}")
 
 
 @pytest.mark.parametrize("lob", [False, True])
@@ -1268,17 +1312,19 @@ def test_fm_search_long_reads_on_card(card, L):
 @pytest.mark.parametrize("L,G", [(513, 5), (600, 19), (1100, 5),
                                  (1100, 19), (1100, 27), (2000, 27),
                                  (6500, 5)])
-def test_indel_sweep_long_reads_on_card(sweep_card, L, G):
+def test_indel_sweep_long_reads_on_card(sweep_card, monkeypatch, L, G):
     """K8 against its plain twin above the former 1024 bp cap, with and
     without SNV windows; at L = 6500 one warp's buffers outgrow the shared
     memory a block can use and the kernel stages them in its global
-    scratch."""
+    scratch, held again with the scratch of one block (its three pools of
+    candidates walked by one block's warps)."""
+    from hisat2_tpu_torch import kernels
     from hisat2_tpu_torch.ops import splice
     from hisat2_tpu_torch.align.scoring import Scoring
     rng = np.random.default_rng(L + G)
     mm_pen = torch.from_numpy(Scoring().mm_pen_table()).cuda()
     prm = splice.SpliceParams(allow_spliced=False)
-    N = 16 if L < 5000 else 4
+    N = 16 if L < 5000 else 12
     ch, reads, quals, lens, starts, valid, minsc, snv = _indel_world(
         rng, N, 6, L, G, 0.3)
     ch, reads, quals, lens, starts, valid, minsc, *snv = (
@@ -1293,6 +1339,10 @@ def test_indel_sweep_long_reads_on_card(sweep_card, L, G):
                   max_gap=G, snv1_w=snv[0] if use_snv else None,
                   snv2_w=snv[1] if use_snv else None)
         _indel_both(kw, f"L={L} G={G} snv={use_snv}")
+        if staged is not None:
+            with monkeypatch.context() as mp:
+                mp.setattr(kernels, "scratch", _scratch_of_blocks(1))
+                _indel_both(kw, f"L={L} G={G} snv={use_snv} one block")
 
 
 @pytest.mark.parametrize("L", [513, 600, 1100, 2000])
@@ -1445,12 +1495,185 @@ def test_long_read_pairs_on_card_match_cpu(long_card, kind):
     assert jobs and all(shp[1] == Lm for shp in jobs)   # rescue at 1100 bp
 
 
-def test_spliced_long_reads_refused_on_card(card):
-    """A spliced batch above 512 bp raises, naming ROADMAP item 15."""
+@pytest.mark.parametrize("Lmax", [600, 1100])
+def test_spliced_long_reads_on_card_match_cpu(scard, Lmax):
+    """Spliced steps (lite and full) on the card against the CPU step on a
+    batch whose longest read is Lmax, the rest 100-300 bp, reads across
+    the fixture's introns: packed buffers equal."""
     from hisat2_tpu_torch.align.pipeline import TorchAligner
+    al, idx, _, batch = scard
+    cpu = TorchAligner(idx, spliced=True, lane_meta=True, device="cpu")
+    for k in ("sites", "_col_jl", "_col_jr", "_col_rdid"):
+        setattr(cpu.splice_db, k, getattr(al.splice_db, k))
+    codes, quals, lens = batch(24, Lmax)
+    rng = np.random.default_rng(Lmax)
+    lens[1:] = rng.integers(100, 301, len(lens) - 1)
+    for i in range(1, len(lens)):
+        codes[i, lens[i]:] = 4
+    rdids = np.arange(len(lens), dtype=np.int64) + 100
+    for a, c in ((al._fast, cpu._fast), (al, cpu)):
+        rd, ss = a._step_site_args(rdids)
+        rdc, ssc = c._step_site_args(rdids)
+        minsc = a._minsc(lens)
+        bk = a.step(*a.upload(codes, quals, lens, minsc), False, rdids=rd,
+                    ss=ss)
+        bp = c.step(*c.upload(codes, quals, lens, minsc), False, rdids=rdc,
+                    ss=ssc)
+        _eq(bk, bp, f"spliced step L={Lmax} lite={a.lite}")
+
+
+@pytest.mark.parametrize("L", [1100, 2000])
+def test_spliced_kernels_long_reads_match_plain_on_card(scard, L):
+    """K13+K14, K15 (planes in the global scratch at these lengths), K16
+    (lite and full), K17 and the spliced modes of kernels 5 and 6 on the
+    real intermediates of both spliced steps at L bp."""
+    from hisat2_tpu_torch.ops import kernel_twins
+    twins = kernel_twins()
+    al, _, _, batch = scard
+    codes, quals, lens = batch(64, L)
+    rdids = 10 ** 6 + np.arange(len(lens), dtype=np.int64)
+    for a in (al._fast, al):
+        rd, ss = a._step_site_args(rdids)
+        cap = {}
+        a.step(*a.upload(codes, quals, lens, a._minsc(lens)), True,
+               capture=cap, rdids=rd, ss=ss)
+        want = {"inject_known", "compact_cands", "pack_slots"}
+        if not a.lite:
+            want |= {"pair_sweep", "second_sweep"}
+        assert want <= set(cap)
+        for name in sorted(cap):
+            kern, plain = twins[name.split("/")[0]]
+            ko = _flat_list(kern(**cap[name]))
+            po = _flat_list(plain(**cap[name]))
+            torch.cuda.synchronize()
+            assert len(ko) == len(po)
+            for x, y in zip(ko, po):
+                _cmp(x, y, f"{name} L={L}")
+
+
+# kernel 5's arguments with a row per lane
+COMPACT_LANE_ARGS = ("top", "bot", "lo", "hi", "nh", "abefore", "post",
+                     "stopped", "top2", "bot2", "lo2", "nh2", "offs", "offs2")
+
+
+def test_dna_step_k64_long_read_on_card_matches_cpu(card, monkeypatch):
+    """The unpaired DNA step at -k 64 (64 rows a hit) with a 6,000 bp read
+    on the card fixture's 300 kbp genome (min_k = 10: H = 274 hits, so a
+    warp's pool of 17,536 slot keys passes a block's shared memory and
+    kernel 5 stages it in its global scratch) against the CPU step; then
+    kernel 5 on the step's lanes against its twin, and on those lanes
+    tiled to 24 (seeded order) with the scratch of one block, so that each
+    of its four warps walks six lanes through its one pool: each tiled
+    lane's outputs equal its row of the untiled run."""
+    from hisat2_tpu_torch import kernels
+    from hisat2_tpu_torch.align.pipeline import TorchAligner
+    from hisat2_tpu_torch.ops import compact
     g, idx = card
-    al = TorchAligner(idx, device="cuda", spliced=True)
-    rng = np.random.default_rng(5)
-    codes, quals, lens = _long_batch(rng, g, 8, 600)
-    with pytest.raises(ValueError, match="item 15"):
-        al.align_batch(codes, quals, lens)
+    cu = TorchAligner(idx, device="cuda", k=64)
+    cp = TorchAligner(idx, device="cpu", k=64)
+    assert cu.msize == 64 and cu.min_k == 10
+    rng = np.random.default_rng(64)
+    L = 6000
+    lens = np.array([L, 150], np.int32)
+    codes = np.full((2, L), 4, np.uint8)
+    for i, n in enumerate(lens):
+        s = int(rng.integers(0, len(g) - n))
+        r = g[s:s + n].copy()
+        r[rng.integers(0, n, 3)] ^= 1
+        codes[i, :n] = r
+    # a 17-mer of the motif the fixture plants 5 times: more hits
+    codes[1, 40:57] = g[MOTIF_AT[0]:MOTIF_AT[0] + 17]
+    quals = rng.integers(5, 41, (2, L)).astype(np.uint8)
+    H = max(cu.max_hits, L // (cu.min_k + 12) + 2)
+    assert compact.compact_scratch(H, 64, cu.max_cands, 0, 0, 4,
+                                   torch.device("cuda")) is not None
+    minsc = cu._minsc(lens)
+    n0 = kernels.KERNELS["compact_cands"].launches
+    cap = {}
+    for full in (False, True):
+        bk = cu.step(*cu.upload(codes, quals, lens, minsc), False, full,
+                     capture=cap)
+        bp = cp.step(*cp.upload(codes, quals, lens, minsc), False, full)
+        _eq(bk, bp, f"-k 64 L={L} full_out={full}")
+    assert kernels.KERNELS["compact_cands"].launches == n0 + 2
+    kw = cap["compact_cands"]
+    ko = _flat_list(compact.compact_cands(**kw))
+    for x, y in zip(ko, _flat_list(compact.compact_candidates_plain(**kw))):
+        _cmp(x, y, "-k 64 kernel 5")
+    N = kw["top"].shape[0]
+    idx = torch.from_numpy(np.random.default_rng(24).integers(0, N, 24))
+    tiled = dict(kw)
+    for k in COMPACT_LANE_ARGS:
+        if tiled.get(k) is not None:
+            tiled[k] = tiled[k][idx.cuda()].contiguous()
+    with monkeypatch.context() as mp:
+        mp.setattr(kernels, "scratch", _scratch_of_blocks(1))
+        kt = _flat_list(compact.compact_cands(**tiled))
+        torch.cuda.synchronize()
+    for x, y in zip(ko, kt):
+        _cmp(None if x is None else x[idx.cuda()], y,
+             "-k 64 kernel 5, lanes tiled over one block")
+
+
+FM_L = (1, 2, 33, 100, 151, 512, 513, 2000)
+
+
+@pytest.mark.parametrize("L", FM_L)
+def test_fm_search_random_on_card(card, L):
+    """K1 dense and in its lane-list mode (K17) against the plain twin on
+    seeded random lanes, on the 44-column table and on the 49-column one
+    of a sampled SA: lens below L (0 too), N bases, reads ending in the
+    planted motif (anchor stops), hit caps reached (H = 2), anchor_stop
+    on and off; every PartialHits field equal."""
+    from hisat2_tpu_torch import kernels
+    from hisat2_tpu_torch.index.format import to_device
+    from hisat2_tpu_torch.ops import search
+    g, idx = card
+    rng = np.random.default_rng(1000 + L)
+    B = 300
+    reads = rng.integers(0, 4, (B, L)).astype(np.int32)
+    lens = rng.integers(0, L + 1, B).astype(np.int32)
+    for i in range(B):
+        s = int(rng.integers(0, len(g) - L))
+        if i % 4:
+            reads[i] = g[s:s + L]
+        if i % 7 == 3:
+            reads[i, rng.integers(0, L, 1 + L // 50)] = 4
+        if i % 5 == 0:
+            lens[i] = L
+        if i % 11 == 2 and L >= 17:
+            at = MOTIF_AT[i % len(MOTIF_AT)]
+            lens[i] = L
+            reads[i, L - 17:] = g[at:at + 17]
+        reads[i, lens[i]:] = rng.integers(0, 5, L - lens[i])
+    rd, ln = (torch.from_numpy(a).cuda() for a in (reads, lens))
+    m = idx.meta
+    dev = to_device(idx, "cuda")
+    marks = torch.randint(-2 ** 31, 2 ** 31 - 1, (dev.blocked.shape[0], 5),
+                          dtype=torch.int32, device="cuda")
+    for blocked in (dev.blocked, torch.cat([dev.blocked, marks],
+                                           1).contiguous()):
+        for H, stop in ((6, True), (2, True), (6, False)):
+            args = (blocked, dev.fchr, dev.ftab2_top, m.zrow, m.zrow2,
+                    m.rows, rd, ln, H, 16, 9)
+            what = f"L={L} cols={blocked.shape[1]} H={H} stop={stop}"
+            a = search.partial_search2(*args, anchor_stop=stop)
+            b = search.partial_search2_plain(*args, anchor_stop=stop)
+            for f in a._fields:
+                _eq(getattr(a, f), getattr(b, f), f"{what} {f}")
+            # the lane-list mode: every other lane, in a shuffled order
+            lanes = torch.from_numpy(rng.permutation(B)[:B // 2].astype(
+                np.int32)).cuda()
+            n0 = kernels.KERNELS["search_lanes_live"].launches
+            k = search.partial_search2(*args, anchor_stop=stop, lanes=lanes)
+            torch.cuda.synchronize()
+            assert kernels.KERNELS["search_lanes_live"].launches == n0 + 1
+            on = torch.zeros(B, dtype=torch.bool, device="cuda")
+            on[lanes.long()] = True
+            for f in a._fields:
+                x, y = getattr(k, f), getattr(b, f)
+                m_ = on.reshape((B,) + (1,) * (y.dim() - 1))
+                _eq(x, torch.where(m_, y, torch.zeros_like(y)),
+                    f"{what} lane list {f}")
+    if L >= 33:
+        assert int(b.nh.sum()) > 0

@@ -86,6 +86,37 @@ def test_partial_search2_plain_matches_jax(idx120, L, anchor_stop,
         assert np.asarray(a.stopped).any()
 
 
+@pytest.mark.parametrize("anchor_stop", [True, False])
+def test_partial_search2_plain_matches_jax_one_row_steps(anchor_stop):
+    """Kernel 1's plain twin on a 3 kbp genome (24 blocks of 128 rows),
+    where top and bot lie in one block on most steps (kernel 1 then
+    fetches one fused row), against JAX: every PartialHits field equal."""
+    rng = np.random.default_rng(3000 + anchor_stop)
+    g = rng.integers(0, 4, 3000).astype(np.int8)
+    idx = build_fm_index([("c", g)])
+    tdev = to_device(idx, "cpu")
+    B, L = 40, 100
+    reads, lens = _reads(rng, g, B, L, True)
+    m = idx.meta
+    jdev = idx.to_device()
+    a = jsearch.partial_search2(
+        jdev.blocked, jdev.fchr, jdev.ftab2_top, m.zrow, m.zrow2, m.rows,
+        jnp.asarray(reads), jnp.asarray(lens), 6, 16, 3,
+        anchor_stop=anchor_stop)
+    stats = {}
+    b = tsearch.partial_search2_plain(
+        tdev.blocked, tdev.fchr, tdev.ftab2_top, m.zrow, m.zrow2, m.rows,
+        torch.from_numpy(reads), torch.from_numpy(lens), 6, 16, 3,
+        anchor_stop=anchor_stop, stats=stats)
+    for f in a._fields:
+        x = np.asarray(getattr(a, f))
+        y = getattr(b, f).numpy()
+        assert x.dtype == y.dtype, f
+        np.testing.assert_array_equal(x, y, err_msg=f)
+    assert stats["one_row"] > stats["steps"] // 2
+    assert np.asarray(a.nh).sum() > B // 2
+
+
 def test_search_wrapper_needs_kernel_on_cuda_only(idx120):
     """On CPU tensors the wrapper runs the plain version and launches
     nothing."""

@@ -374,3 +374,58 @@ def test_inject_known_plain_matches_jax(world, C, lob):
     assert ok.sum() >= 5
     assert (np.asarray(want["clip_l"])[ok] > 0).any() \
         or (np.asarray(want["clip_r"])[ok] > 0).any()
+
+
+@pytest.mark.parametrize("C", [33, 40])
+def test_sweeps_plain_match_jax_above_32_candidates(world, C):
+    """K13 + K14 and the two-pair K15 twins at C = 33 and 40 candidates
+    (a spliced run at -k 24 and above: C = max(k + 1, 6) + 8), where the
+    card's kernels take the diagonals 32 at a time in turns, against
+    splice.py:300, :1318 (the top 4 by score, lax.top_k's tie order) and
+    two second_sweep calls on the q2 / r2 base pairs, with site tables."""
+    N = 24
+    reads, quals, lens, starts, valid, minsc, rdids = _lanes(world, N, C)
+    # one copy of each lane's 7 diagonals, at the end of the row, after
+    # C - 7 far decoys
+    n = world[2]
+    dec = np.random.default_rng(C).integers(0, n, (N, C - 7))
+    starts = np.concatenate([dec, starts[:, :7]], axis=1).astype(np.int32)
+    valid = np.concatenate([np.ones((N, C - 7), bool), valid[:, :7]], 1)
+    ch, pl, mm_pen = _planes(world, reads, quals, lens, starts, valid)
+    prm = j_splice.SpliceParams()
+    tables = tuple(jnp.asarray(t) for t in j_splice.junction_prob_tables())
+    res = jax.jit(lambda *a: j_splice.pair_sweep(*a, tables, prm,
+                                                 max_gap=5))(
+        ch, pl.pen_raw, pl.pen, pl.mm_raw, jnp.asarray(starts),
+        jnp.asarray(valid), jnp.asarray(lens), jnp.asarray(minsc))
+    S = dict(reads=reads, quals=quals, lens=lens, starts=starts, valid=valid,
+             minsc=minsc, rdids=rdids, ch=ch, pl=pl, mm_pen=mm_pen, res=res,
+             tables=tables, prm=prm)
+    lp = splice.lenpen_device(_tprm(), "cpu")
+    got, sel, bsel = splice.pair_sweep_ref(
+        _t(ch), _t(reads), _t(quals), _t(lens), _t(starts), _t(valid),
+        _t(minsc), _t(mm_pen), 1, world[2], _tprm(), lp, 5, M, top=4)
+    for f in ("score", "x", "kind", "spldir", "splscore", "raw"):
+        _eq(got[f], getattr(res, f), f"C={C} {f}")
+    want = j_splice.select_pairs(res, jnp.asarray(starts), top=4)
+    for f in want:
+        _eq(sel[f], want[f], f"C={C} top pairs {f}")
+    rawf = np.asarray(res.raw).reshape(N, C * C).copy()
+    q2 = rawf.argmax(1)
+    rawf[np.arange(N), q2] = -(2 ** 30)
+    r2 = rawf.argmax(1)
+    _eq(bsel[:, 0], q2, "q2 base pair")
+    _eq(bsel[:, 1], r2, "r2 base pair")
+    jss, tss = _sites(world, S, "lob")
+    runs = [_jax_second(S, jss, bs) for bs in (q2, r2)]
+    two = _second_ref(world, S, [r[1] for r in runs], tss)
+    for t, (w, _) in enumerate(runs):
+        for side in ("right", "left"):
+            for f in w[side]:
+                _eq(two[t][side][f], w[side][f],
+                    f"C={C} pair {t} {side} {f}")
+    score = np.asarray(res.score)
+    assert ((score > -2 ** 29) & (np.asarray(res.kind) == 1)).sum() >= 5
+    # the picks reach past the first 32 diagonals
+    assert (np.asarray(want["j"]) >= 32).any() or \
+        (np.asarray(want["i"]) >= 32).any()
