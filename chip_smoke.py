@@ -56,7 +56,8 @@ checks them:
             plain twin, with the whole rescue_candidates call and K6+K7
             on the chunk's rescoring, and timed
             beside the library yardstick (a grouped bf16 conv1d plus
-            topk); the fused lite and full step against the CPU step;
+            topk); the fused lite and full step against the CPU step
+            (K4 and K9 on their arguments against their twins);
             4 batches through align/driver.py's _dispatch_pair_batch /
             advance / _align_pair_batch with SAM to memory: pairs/s,
             host ms per stage, concordant share (>= 0.95 among pairs
@@ -133,10 +134,12 @@ checks them:
             --world 1 --device cuda) beside them
  13 long    reads above the kernels' former caps on phase 3's index: a
             128-read batch whose longest read is LONG_L = 1100 bp (the
-            rest 100-300 bp) through the step on the card and on the CPU,
-            and 64 pairs (one of 1100 bp mates, a quarter needing mate
-            rescue) through align/driver.py's paired batch on both: equal
-            packed buffers and SAM, rescue jobs at 1100 bp, and K1,
+            rest 100-300 bp) through the step on the card and on the CPU
+            (K4 and K9 on its arguments against their twins, as on the
+            spliced steps below), and 64 pairs (one of 1100 bp mates, a
+            quarter needing mate rescue) through align/driver.py's
+            paired batch on both: equal packed buffers and SAM, rescue
+            jobs at 1100 bp, and K1,
             K6+K7, K8 and K12 launched at that width; a spliced batch of
             64 reads whose longest is SPLICED_LONG_L = 600 bp (half across
             phase 10's introns) through dispatch/advance/collect, then its
@@ -163,6 +166,7 @@ before the last is a JSON object with per-kernel numbers; the last line is
 import gzip
 import io
 import json
+import math
 import os
 import shutil
 import statistics
@@ -430,9 +434,28 @@ def work(torch, name, kw, out):
         rows = fm_rows(kw, kw["reads"], kw["lens"])
         extra, ops = rows * 176, rows * 40       # the 44 words K1 reads
     elif name == "compact_cands":
-        rows = (kw["bot"] - kw["top"]).clamp(0, kw["P"])
+        # the rows of the live hits (and of the spliced re-search's live
+        # hits), each resolved once from the SA or read from the walk's
+        # offsets (so offs / offs2 count by those rows, not in full); the
+        # sorts' J log2 J compares a lane over its J slots
+        from hisat2_tpu_torch.ops.compact import research_live, resolve_live
         N, H = kw["top"].shape
-        extra, ops = int(rows.sum()) * 4, N * (H * kw["P"]) ** 2
+        P = kw["P"]
+        hv, _ = resolve_live(kw["top"], kw["bot"], kw["lo"], kw["hi"],
+                             kw["nh"], P, kw["min_k"], kw["maxsize"],
+                             kw["short_rows"], kw["lite_cap"])
+        rows = int(torch.where(hv, (kw["bot"] - kw["top"]).clamp(0, P),
+                               0).sum())
+        J = H * P
+        if kw.get("top2") is not None:
+            P2 = kw["P2"]
+            hv2, _ = research_live(kw["top2"], kw["bot2"], kw["nh2"], P2)
+            rows += int(torch.where(hv2, (kw["bot2"] - kw["top2"]).clamp(
+                0, P2), 0).sum())
+            J += kw["top2"].shape[1] * P2
+        dense -= nbytes(torch, kw.get("offs"), kw.get("offs2"))
+        extra = rows * 4
+        ops = N * J * max(1, (J - 1).bit_length())
     elif name == "ref_window":
         extra, ops = ob // 16, ob                # a packed word per 16 chars
     elif name == "extend_ungapped":
@@ -471,8 +494,24 @@ def work(torch, name, kw, out):
         extra, ob = 0, 10 * N * C * 4
         ops = (live_cols + live) * G * 4 * 8
     elif name == "pack_slots":
-        _, N, K = kw["uni"].shape
-        extra, ops = 0, N * K * K * 2
+        # the schema's planes read once, whatever reads them: each
+        # distinct tensor once (a plane that fills two fields, as d1 and
+        # d2 of the ungapped slots, is read once), by the elements it
+        # spans (a broadcast plane reads one row); a constant or absent
+        # field, or a block's key outside the schema, reads nothing; ~4
+        # integer ops per slot key and ~40 per selected slot (a round of
+        # the selection, its field loads and the packing)
+        from hisat2_tpu_torch.ops.compact import SLOT_FIELDS
+        blocks = kw["blocks"]
+        fields = SLOT_FIELDS[:17 if kw.get("has_event") else 16]
+        planes = {(v.data_ptr(), tuple(v.shape), v.stride(), v.dtype): v
+                  for b in blocks for f in fields
+                  if torch.is_tensor(v := b.get(f))}
+        dense = sum(math.prod(n for n, s in zip(v.shape, v.stride()) if s)
+                    * v.element_size() for v in planes.values())
+        N = blocks[0]["score"].shape[0]
+        K = sum(b["score"].shape[1] for b in blocks)
+        extra, ops = 0, N * (4 * K + 40 * kw["Mdev"])
     elif name == "inject_indels":
         N, C = kw["starts"].shape
         extra = 0
@@ -714,6 +753,18 @@ def compare(torch, name, kern, plain, kw):
                   if a.numel() else 0.0)
         check(torch.equal(a, b), f"{name}: kernel != plain")
     return err, median_ms(torch, kern, kw), median_ms(torch, plain, kw)
+
+
+def hold_slots(torch, tag, cap):
+    """K4 (compact_cands) and K9 (pack_slots) on one captured step's
+    arguments against their plain twins: exact equality."""
+    from hisat2_tpu_torch.ops import kernel_twins
+    twins = kernel_twins()
+    for name in ("compact_cands", "pack_slots"):
+        err, ms, pms = compare(torch, name, *twins[name], cap[name])
+        print(f"[{tag}] {name}: equal to plain (tolerance: exact), "
+              f"max_abs_err {err}; kernel {ms:.4f} ms, plain {pms:.4f} ms "
+              f"(median of 10)")
 
 
 def run_cli(args, cwd, env, timeout):
@@ -1804,11 +1855,14 @@ def long_phase(torch, np, g, index, spots, kernels, driver, TorchAligner):
     kernels.reset_counts()
     for full in (False, True):
         t0 = time.perf_counter()
-        bk = cu.step(*cu.upload(codes, quals, lens, minsc), False, full)
+        lcap = {}
+        bk = cu.step(*cu.upload(codes, quals, lens, minsc), False, full,
+                     capture=lcap)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         bp = cp.step(*cp.upload(codes, quals, lens, minsc), False, full)
         check(torch.equal(bk.cpu(), bp), f"long-read step full_out={full}")
+        hold_slots(torch, f"long step full_out={full}", lcap)
         print(f"[long] step, {B} reads up to {LONG_L} bp, full_out={full}: "
               f"packed [{bk.shape[0]}, {bk.shape[1]}] equal to the CPU "
               f"plain step; card {1e3 * (t1 - t0):.1f} ms (host clock), "
@@ -1918,6 +1972,8 @@ def spliced_long(torch, np, g, index, kernels, TorchAligner, rng, read):
                     ss=ssc)
         check(torch.equal(bk.cpu(), bp),
               f"spliced long step lite={a.lite} != CPU step")
+        hold_slots(torch, f"long spliced {'lite' if a.lite else 'full'}",
+                   cap)
         print(f"[long] spliced {'lite' if a.lite else 'full'} step at {Ls} "
               f"bp: packed [{bk.shape[0]}, {bk.shape[1]}] equal to the CPU "
               f"plain step (CPU {time.perf_counter() - t2:.1f} s)")
@@ -2563,12 +2619,15 @@ def main() -> int:
         a = getattr(pal, tier) if tier else pal
         c = getattr(pcpu, tier) if tier else pcpu
         t0 = time.perf_counter()
-        bk = a.step(*a.upload(codes, quals, lens, minsc), True)
+        pcap = {}
+        bk = a.step(*a.upload(codes, quals, lens, minsc), True,
+                    capture=pcap)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         bp = c.step(*c.upload(codes, quals, lens, minsc), True)
         w = bk.shape[1]
         nm = "lite" if tier else "full"
+        hold_slots(torch, f"paired step {nm}", pcap)
         check(torch.equal(bk.cpu(), bp), f"paired {nm} packed step")
         check(a._out_specs[w] == c._out_specs[w], f"paired {nm} _out_specs")
         print(f"[paired step] fused {nm} step, {2 * len(codes)} lanes: "

@@ -32,9 +32,9 @@ on the card:
   second_sweep             K15       (ops/splice.py), twice, spliced full
                                      pass
 
-The per-block concatenation into the unified slot schema and the int32/16/8
-packing (`_pack_out`) are torch glue.  The lite tier (pipeline.py:307-313)
-skips the sweeps and the extra slots and sets h_sat.
+Kernel 6 reads the blocks of the unified slot schema in place; the
+int32/16/8 packing (`_pack_out`) is torch glue.  The lite tier
+(pipeline.py:307-313) skips the sweeps and the extra slots and sets h_sat.
 
 Genome scale (pipeline.py:324-416, :1679-1689, :1941-2000): a
 ShardedFMIndex runs one step per shard on the same batch, each against its
@@ -498,7 +498,6 @@ class TorchAligner(HostPhase):
                         "h_alignable": cands.h_alignable,
                         "h_stop": hits.stopped})
 
-        zc = torch.zeros((N, cstart.shape[1]), dtype=_I32, device=dv)
         blocks = []
         if sp.allow_spliced:
             # the junction pair sweep and its top pairs (:1080-1099)
@@ -509,13 +508,12 @@ class TorchAligner(HostPhase):
                 n_pen=self.scoring.n_pen, n_text=meta.n, prm=sp,
                 lenpen=lenpen, max_gap=g_budget, margin=margin,
                 top=self.max_pairs, snv1_w=s1w, snv2_w=s2w)
-            zt = torch.zeros_like(sel["score"])
             blocks.append(dict(
                 sel, ab=torch.maximum(compact_ops.take_cols(cab, sel["i"]),
                                       compact_ops.take_cols(cab, sel["j"])),
                 post=(compact_ops.take_cols(cpost, sel["i"])
                       & compact_ops.take_cols(cpost, sel["j"])),
-                known=zt, selfgap=zt))
+                known=0, selfgap=0))
         rd2 = None
         if self.use_ss:
             # known/temp splice-site injection (:1109-1140)
@@ -531,10 +529,9 @@ class TorchAligner(HostPhase):
                        clip_pen=params["clip_pen"], snv1_w=s1w, snv2_w=s2w,
                        snv_delta1=gd.get("snv1"), snv_delta2=gd.get("snv2"))
             src_i = inj.pop("src")
-            zi = torch.zeros_like(src_i)
             blocks.append(dict(inj, ab=compact_ops.take_cols(cab, src_i),
                                post=compact_ops.take_cols(cpost, src_i),
-                               known=zi + 1, selfgap=zi))
+                               known=1, selfgap=0))
         if self.has_indels and not self.lite:
             # known ALT indel injection (:1141-1160)
             injd = call("inject_indels", splice_ops.inject_indels,
@@ -549,10 +546,9 @@ class TorchAligner(HostPhase):
                         snv_delta1=gd["snv1"], snv_delta2=gd["snv2"],
                         slots=self.ss_slots)
             src_i = injd.pop("src")
-            zi = torch.zeros_like(src_i)
             blocks.append(dict(injd, ab=compact_ops.take_cols(cab, src_i),
                                post=compact_ops.take_cols(cpost, src_i),
-                               known=zi + 1, selfgap=zi))
+                               known=1, selfgap=0))
         if not self.lite:
             # single-anchor small-gap sweep, strict + wide rows (:1161-1209)
             selfw = call("indel_sweep", splice_ops.self_indel_sweep,
@@ -566,7 +562,7 @@ class TorchAligner(HostPhase):
             spost = compact_ops.take_cols(cpost, src_i)
             blocks.append(dict({k2: selfw[k2] for k2 in
                                 ("score", "d1", "d2", "x", "kind", "spldir")},
-                               ab=sab, post=spost, known=zc, selfgap=zc + 1))
+                               ab=sab, post=spost, known=0, selfgap=1))
         if not self.lite and not sp.allow_spliced:
             # wide rows (:1181-1209): DNA mode only
             other_d = selfw["w_d1"] + selfw["w_d2"] - cstart
@@ -583,44 +579,34 @@ class TorchAligner(HostPhase):
                                   -splice_ops._BIG),
                 d1=selfw["w_d1"], d2=selfw["w_d2"], x=selfw["w_x"],
                 kind=torch.where(pair_eq, selfw["w_kind"], 0),
-                spldir=selfw["w_spldir"], ab=wab, post=wpost, known=zc,
-                selfgap=zc))
+                spldir=selfw["w_spldir"], ab=wab, post=wpost, known=0,
+                selfgap=0))
         if ext_x is not None:
-            zx = torch.zeros((N, xstart.shape[1]), dtype=_I32, device=dv)
             blocks.append(dict(
                 score=torch.where(xvalid & ext_x.ok, ext_x.score,
                                   -splice_ops._BIG),
-                d1=xstart, d2=xstart, x=zx, kind=zx, spldir=zx,
-                known=zx, ab=xab, post=xpost, selfgap=zx,
+                d1=xstart, d2=xstart, x=0, kind=0, spldir=0,
+                known=0, ab=xab, post=xpost, selfgap=0,
                 n_mm=ext_x.n_mm, n_n=ext_x.n_n,
                 clip_l=ext_x.clip_l, clip_r=ext_x.clip_r,
                 alt=ext_x.alt_score))
 
-        # the unified slot schema (:1211-1277) as one [F, N, Ktot] tensor:
-        # the ungapped slots, then every block; the event row only on an
+        # the unified slot schema (:1211-1277): the ungapped slots, then
+        # every block, read in place by kernel 6; the event row only on an
         # index with known ALT indels (-1 outside the injected block)
-        fields = compact_ops.SLOT_FIELDS[:17 if self.has_indels else 16]
-        base = dict(score=ext.score, d1=cstart, d2=cstart, x=zc, kind=zc,
-                    spldir=zc, known=zc, ab=cab, post=cpost, selfgap=zc,
+        base = dict(score=ext.score, d1=cstart, d2=cstart, x=0, kind=0,
+                    spldir=0, known=0, ab=cab, post=cpost, selfgap=0,
                     n_mm=ext.n_mm, n_n=ext.n_n, clip_l=ext.clip_l,
                     clip_r=ext.clip_r, alt=ext.alt_score,
                     valid=cvalid_long & ext.ok)
-        parts = []
-        for b in [base] + blocks:
-            zw = torch.zeros_like(b["score"], dtype=_I32)
-            dflt = {"n_mm": zw, "n_n": zw, "clip_l": zw, "clip_r": zw,
-                    "alt": zw + extend_ops.NO_ALT, "event": zw - 1}
-            if "valid" not in b:
-                dflt["valid"] = b["score"] > -(2 ** 30)
-            parts.append(torch.stack([b.get(f, dflt.get(f)).to(_I32)
-                                      for f in fields]))
-        uni = torch.cat(parts, dim=2)
-        Ktot = uni.shape[2]
+        blocks = [base] + blocks
+        Ktot = sum(b["score"].shape[1] for b in blocks)
         Mdev = min(Ktot, max(10, self.msize + 2))
         use_spill = (not full_out) and Mdev > 2
         wide_d2 = bool(sp.allow_spliced or self.use_ss)
-        out.update(call("pack_slots", compact_ops.pack_slots, uni=uni,
-                        Mdev=Mdev, use_spill=use_spill, spliced=wide_d2))
+        out.update(call("pack_slots", compact_ops.pack_slots, blocks=blocks,
+                        Mdev=Mdev, use_spill=use_spill, spliced=wide_d2,
+                        has_event=self.has_indels))
         if self.spliced:
             out.update(self._second_junctions(
                 call, res, bsel, ch, ar, aq, al, am, cstart, cvalid, margin,

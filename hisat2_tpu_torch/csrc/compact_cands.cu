@@ -2,25 +2,37 @@
 // into K4).
 //
 // Replaces hisat2_tpu/ops/resolve.py:resolve_consecutive, full-SA branch
-// (:174-186), and the DNA-mode compaction of
-// hisat2_tpu/align/pipeline.py:772-998 with ops/compact.py:22-62
-// (select_ranked, take_cols).  Plain twin:
+// (:174-186), and the compaction of hisat2_tpu/align/pipeline.py:772-998
+// with ops/compact.py:22-62 (select_ranked, take_cols).  Plain twin:
 // hisat2_tpu_torch/ops/compact.py:compact_candidates_plain.
 //
 // One warp per lane (read strand).  The warp gates the lane's H hits (hit
 // count, long/short row caps, the lite tier's caps), resolves the rows
-// top..top+P-1 of every live hit straight from the suffix array, and keeps
-// the J = H*P slot keys in shared memory:
-//   ident = start (+ 2^30 for sweep-only slots), SENT for dead slots.
-// It then keeps the first occurrence of each identity, ranks the kept
-// slots by identity (kept identities are distinct, so the stable rank is
-// the count of smaller kept keys), takes the first C, drops a short slot
-// whose start also holds a long slot (dup_short), and reduces each taken
-// slot's provenance over the J slots: min abefore, all-post, any
-// align-capable.  Slots m < CC go to the core arrays, the rest to the
-// extra arrays.  The JAX version builds [N, J, J] and [N, C, J] one-hot
-// masks because the TPU had no fast gather; here every lookup is a direct
-// index and the O(J^2) comparisons are spread over the warp's 32 lanes.
+// top..top+P-1 of every live hit straight from the suffix array, and
+// compacts the live slots of the J = H*P (a slot's key: its start; its
+// identity: start, + 2^30 for a sweep-only slot) into a list in slot
+// order.  The JAX version compares every pair of the J slots ([N, J, J]
+// and [N, C, J] one-hot masks, the TPU having no fast gather); here the
+// passes are sorts of the live list, prefix counts and segmented
+// reductions, with a warp bitonic sort of 64-bit keys (in registers by
+// shuffles up to 32 live slots, in the warp's pool past that):
+//   1. sort by (start, j): each live slot's start segment (its first
+//      position, by binary search), and in spliced mode the lane's 8
+//      lowest align-capable starts (the first 8 of them in this order);
+//   2. sort by (dead, identity, j): the first of each run of equal
+//      identities is the kept slot (first occurrence); in DNA mode the
+//      kept identities are distinct and are the compaction key, so a kept
+//      slot's rank is a warp prefix count of the kept before it, and the
+//      first C ranks are taken;
+//   3. (spliced mode) sort of the kept by (distance key, j), the first C
+//      taken;
+//   4. provenance: min abefore, all post, any align-capable and any taken
+//      align-capable over the live slots of each start segment (shared
+//      atomics at the segment's first position), read by each taken
+//      slot's segment (a slot not taken reads start 0's, as JAX's
+//      zero-filled start): dup_short drops a sweep-only slot whose start
+//      also holds a taken align-capable slot.
+// Slots m < CC go to the core arrays, the rest to the extra arrays.
 //
 // Sampled SA (off_rate > 0): the rows' offsets come resolved by the walk
 // (csrc/resolve_walk.cu, K19+K20) as offs [N, H, P] and offs2 [N, H2, P2],
@@ -33,9 +45,14 @@
 // distance (ties by slot index, the stable rank of JAX), the re-search
 // rows inheriting the lane's last hit's provenance.
 //
-// Bound: per lane ~J reads of the SA (scattered, one 4 B load each) and
-// O(J^2 / 32) shared-memory compares per thread; at J = 60 it is a few
-// hundred instructions per thread, latency-bound on the SA gathers.
+// Bound: bytes, the live rows' SA (or offs) reads, a few hundred bytes a
+// lane: 0.0006 ms on a linear step, 0.0010 on config 6's full step
+// (chip_smoke.py:work); the sorts are O(n log^2 n / 32) a thread over
+// the lane's n live slots (1.8 a lane on the linear step, 13 on the
+// spliced ones).  Measured on an H100 (PERF.md): 0.015 ms linear, 0.041
+// spliced and config 6 full, of which the resolve pass took 0.006-0.010
+// in the previous design; its four O(J^2 / 32) passes took 0.023 and
+// 0.082-0.124 ms, following J^2.
 #include "common.cuh"
 
 #define CC_SENT 0x7FFFFFFE  // 2^31 - 2
@@ -74,8 +91,18 @@ struct CompactArgs {
   int* h_sat;    // [N] (lite)
 };
 
+// the warp's pool (ints): the sort keys (2 * JP, JP = J rounded up to a
+// power of 2; then the start segments' reductions), start [J], flag [J],
+// slot / cstart / cflag [C], abefore / post [H], the 8 lowest
+// align-capable starts; even, so that the next pool's keys stay aligned
+__host__ __device__ inline int cc_pow2(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
 __host__ __device__ inline int cc_warp_ints(int J, int C, int H) {
-  return 4 * J + 3 * C + 2 * H + 8;
+  return (2 * cc_pow2(J) + 2 * J + 3 * C + 2 * H + 8 + 1) & ~1;
 }
 
 // |a - b| in wrapping int32, |INT_MIN| = INT_MIN as jnp.abs
@@ -84,6 +111,68 @@ __device__ __forceinline__ int cc_wrap_absdiff(int a, int b) {
   return d < 0 ? (int)(0u - (unsigned)d) : d;
 }
 
+__device__ __forceinline__ unsigned cc_bias(int v) {
+  return (unsigned)v ^ 0x80000000u;  // signed order as unsigned
+}
+
+// ascending sort of s[0..np) (np a power of 2, padded with ~0) by the warp
+__device__ void cc_sort(unsigned long long* s, int np, int lane) {
+  if (np <= 1) return;
+  if (np <= 32) {  // the lanes below np form their own bitonic blocks
+    unsigned long long v = lane < np ? s[lane] : ~0ull;
+    for (int k = 2; k <= np; k <<= 1) {
+      for (int jj = k >> 1; jj > 0; jj >>= 1) {
+        const unsigned long long o = __shfl_xor_sync(H2_FULL_MASK, v, jj);
+        const bool keep_min = ((lane & jj) == 0) == ((lane & k) == 0);
+        v = keep_min ? (o < v ? o : v) : (o > v ? o : v);
+      }
+    }
+    __syncwarp();
+    if (lane < np) s[lane] = v;
+    __syncwarp();
+    return;
+  }
+  for (int k = 2; k <= np; k <<= 1) {
+    for (int jj = k >> 1; jj > 0; jj >>= 1) {
+      for (int i = lane; i < (np >> 1); i += 32) {
+        const int lo = ((i & ~(jj - 1)) << 1) | (i & (jj - 1));
+        const int hi = lo + jj;
+        const unsigned long long a = s[lo], b = s[hi];
+        if ((a > b) == ((lo & k) == 0)) {
+          s[lo] = b;
+          s[hi] = a;
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// the first position of s[0..n) whose high word is >= hi
+__device__ __forceinline__ int cc_lower_bound(const unsigned long long* s,
+                                              int n, unsigned hi) {
+  int lo = 0, len = n;
+  while (len > 0) {
+    const int half = len >> 1;
+    if ((unsigned)(s[lo + half] >> 32) < hi) {
+      lo += half + 1;
+      len -= half + 1;
+    } else {
+      len = half;
+    }
+  }
+  return lo;
+}
+
+#define CC_ALIGN 2       // align-capable
+#define CC_LIVE 4        // live after the proximity filter (the live rows
+                         // before it are the sort keys)
+#define CC_KEPT 8        // the first of its identity
+#define CC_TAKEN 16      // among the first C
+#define CC_SEG_POST 1    // segment reductions: all post
+#define CC_SEG_ALIGN 2   // any align-capable
+#define CC_SEG_TAKEN 4   // any taken align-capable
+
 // GLOBAL: each warp keeps its pool in its slice of `scratch` (cc_config),
 // not in shared memory (a separate instantiation, so that the shared one
 // keeps its shared-memory accesses), the warps walking the lanes with a
@@ -91,28 +180,32 @@ __device__ __forceinline__ int cc_wrap_absdiff(int a, int b) {
 template <bool GLOBAL>
 __global__ void compact_cands_kernel(CompactArgs A, int warps,
                                      int* scratch) {
-  extern __shared__ int smem[];
+  extern __shared__ __align__(16) int smem[];
   const int lane = threadIdx.x & 31;
   const int wid = threadIdx.x >> 5;
+  const unsigned lt = (1u << lane) - 1;
   const int H = A.H, P = A.P, C = A.C, J1 = H * P;
   const int J = J1 + A.H2 * A.P2;
   const bool spliced = A.H2 > 0;
   const size_t per = cc_warp_ints(J, C, H);
-  int* sIdent = GLOBAL ? scratch + ((size_t)blockIdx.x * warps + wid) *
-                                       (h2_slice(per * sizeof(int)) /
-                                        sizeof(int))
-                       : smem + (size_t)wid * per;
+  int* pool = GLOBAL ? scratch + ((size_t)blockIdx.x * warps + wid) *
+                                     (h2_slice(per * sizeof(int)) /
+                                      sizeof(int))
+                     : smem + (size_t)wid * per;
+  const int JP = cc_pow2(J);
+  unsigned long long* sKey = reinterpret_cast<unsigned long long*>(pool);
+  int* sSegAb = pool;            // [JP] (after the sorts)
+  int* sSegBits = pool + JP;     // [JP]
+  int* sStart = pool + 2 * JP;   // [J]
+  int* sFlag = sStart + J;       // [J]: CC_* bits, segment start << 8
+  int* sSlot = sFlag + J;        // [C] slot -> source j, -1 if empty
+  int* sCStart = sSlot + C;      // [C]
+  int* sCFlag = sCStart + C;     // [C] bit0 taken, bit1 short
+  int* sAb = sCFlag + C;         // [H]
+  int* sPost = sAb + H;          // [H]
+  int* sLsort = sPost + H;       // [8] lowest align-capable starts
   for (int n = blockIdx.x * warps + wid; n < A.N;
        n += gridDim.x * warps) {  // uniform per warp
-    int* sStart = sIdent + J;
-    int* sFlag = sStart + J;     // bit0 live, bit1 align-capable, bit2 kept
-    int* sSlot = sFlag + J;      // [C] slot -> source j, -1 if empty
-    int* sCStart = sSlot + C;    // [C]
-    int* sCFlag = sCStart + C;   // [C] bit0 taken, bit1 short
-    int* sAb = sCFlag + C;       // [H]
-    int* sPost = sAb + H;        // [H]
-    int* sSkey = sPost + H;      // [J] compaction key
-    int* sLsort = sSkey + J;     // [8] lowest align-capable starts
     const int nh = A.nh[n];
     const bool stopped = A.stopped[n] != 0;
     const bool lite = A.lite_cap > 0;
@@ -140,136 +233,202 @@ __global__ void compact_cands_kernel(CompactArgs A, int warps,
       sAb[h] = A.abefore[(size_t)n * H + h];
       sPost[h] = A.post[(size_t)n * H + h];
     }
-    // --- resolve rows top..top+P-1 and form the slot keys ---
-    for (int j = lane; j < J; j += 32) {
-      if (j >= J1) {  // a re-search row: sweep-only
+    // --- resolve rows top..top+P-1, compact the live slots by (start, j)
+    int nl = 0, na = 0;
+    for (int base = 0; base < J; base += 32) {
+      const int j = base + lane;
+      bool cv = false, align = false;
+      int st = 0;
+      if (j >= J1 && j < J) {  // a re-search row: sweep-only
         const int j2 = j - J1, h2 = j2 / A.P2, jj = j2 - h2 * A.P2;
         const size_t o2 = (size_t)n * A.H2 + h2;
         const int t = A.top2[o2];
         const int w2 = (int)((unsigned)A.bot2[o2] - (unsigned)t);
-        const bool cv = h2 < A.nh2[n] && w2 <= A.P2 && jj < w2;
-        int st = 0;
+        cv = h2 < A.nh2[n] && w2 <= A.P2 && jj < w2;
         if (cv)
           st = (int)((unsigned)(A.offs2 != nullptr
                                     ? A.offs2[o2 * A.P2 + jj]
                                     : __ldg(A.sa + ((long long)t + jj))) -
                      (unsigned)A.lo2[o2]);
-        sIdent[j] = cv ? (int)((unsigned)st + (unsigned)CC_SHORTBIT)
-                       : CC_SENT;
+      } else if (j < J1) {
+        const int h = j / P, jj = j - h * P;
+        const int t = top[h];
+        const int w = (int)((unsigned)bot[h] - (unsigned)t);
+        const bool islong =
+            (int)((unsigned)hi[h] - (unsigned)lo[h]) > A.min_k + 2;
+        const bool hv = h < nh && (!lite || islong) &&
+                        (islong ? w <= maxsize : w <= A.short_rows);
+        cv = hv && jj < w;
+        align = islong && (w == 1 || !stopped);
+        if (cv) {
+          const int off = A.offs != nullptr
+                              ? A.offs[((size_t)n * H + h) * P + jj]
+                              : __ldg(A.sa + ((long long)t + jj));
+          st = (int)((unsigned)off - (unsigned)lo[h]);
+        }
+      }
+      if (j < J) {
         sStart[j] = st;
-        sFlag[j] = cv ? 1 : 0;
-        continue;
+        sFlag[j] = (cv ? CC_LIVE : 0) | (align ? CC_ALIGN : 0);
       }
-      const int h = j / P, jj = j - h * P;
-      const int t = top[h];
-      const int w = (int)((unsigned)bot[h] - (unsigned)t);
-      const bool islong =
-          (int)((unsigned)hi[h] - (unsigned)lo[h]) > A.min_k + 2;
-      const bool hv = h < nh && (!lite || islong) &&
-                      (islong ? w <= maxsize : w <= A.short_rows);
-      const bool cv = hv && jj < w;
-      const bool align = islong && (w == 1 || !stopped);
-      int st = 0, ident = CC_SENT;
-      if (cv) {
-        const int off = A.offs != nullptr
-                            ? A.offs[((size_t)n * H + h) * P + jj]
-                            : __ldg(A.sa + ((long long)t + jj));
-        st = (int)((unsigned)off - (unsigned)lo[h]);
-        ident = (int)((unsigned)st + (align ? 0u : (unsigned)CC_SHORTBIT));
-      }
-      sIdent[j] = ident;
-      sStart[j] = st;
-      sFlag[j] = (cv ? 1 : 0) | (align ? 2 : 0);
+      const unsigned bal = __ballot_sync(H2_FULL_MASK, cv);
+      if (cv)
+        sKey[nl + __popc(bal & lt)] =
+            ((unsigned long long)cc_bias(st) << 32) | (unsigned)j;
+      nl += __popc(bal);
+      na += __popc(__ballot_sync(H2_FULL_MASK, cv && align));
     }
+    const int np = cc_pow2(nl);
+    for (int p = nl + lane; p < np; p += 32) sKey[p] = ~0ull;
     for (int m = lane; m < C; m += 32) sSlot[m] = -1;
-    for (int k = lane; k < 8; k += 32) sLsort[k] = CC_SENT;
     __syncwarp();
+    // --- 1. by (start, j): start segments, the 8 lowest align starts ---
+    cc_sort(sKey, np, lane);
+    for (int p = lane; p < nl; p += 32) {
+      const unsigned long long k = sKey[p];
+      const int j = (int)(unsigned)k;
+      sFlag[j] |= cc_lower_bound(sKey, nl, (unsigned)(k >> 32)) << 8;
+    }
+    __syncwarp();
+    int head0 = -1;  // the segment of start 0 (a slot not taken)
+    if (lane == 0) {
+      const int p = cc_lower_bound(sKey, nl, cc_bias(0));
+      if (p < nl && (unsigned)(sKey[p] >> 32) == cc_bias(0)) head0 = p;
+    }
+    head0 = __shfl_sync(H2_FULL_MASK, head0, 0);
+    const int nls = min(J, 8);
     if (spliced) {
-      // the 8 lowest align-capable starts, duplicates kept (sort + [:8])
-      for (int j = lane; j < J; j += 32) {
-        if ((sFlag[j] & 3) != 3) continue;
-        const int v = sStart[j];
-        int r = 0;
-        for (int k = 0; k < J; ++k)
-          if ((sFlag[k] & 3) == 3) {
-            const int u = sStart[k];
-            r += (u < v || (u == v && k < j)) ? 1 : 0;
-          }
-        if (r < 8) sLsort[r] = v;
+      // the first 8 of sort(where(live & align, start, SENT)): the align
+      // starts in order, SENT past them (J - na copies), then any start
+      // above SENT (INT_MAX)
+      int found = 0;
+      for (int base = 0; base < nl && found < nls; base += 32) {
+        const int p = base + lane;
+        const bool a =
+            p < nl && (sFlag[(int)(unsigned)sKey[p]] & CC_ALIGN) != 0;
+        const unsigned bal = __ballot_sync(H2_FULL_MASK, a);
+        const int r = found + __popc(bal & lt);
+        if (a && r < nls) sLsort[r] = (int)((unsigned)(sKey[p] >> 32) ^
+                                            0x80000000u);
+        found += __popc(bal);
       }
       __syncwarp();
-      // proximity filter and the distance key
-      for (int j = lane; j < J; j += 32) {
+      if (lane == 0) {
+        int kle = 0;
+        while (kle < min(found, nls) && sLsort[kle] != INT_MAX) ++kle;
+        for (int k = kle; k < nls; ++k)
+          sLsort[k] = k - kle < J - na ? CC_SENT : INT_MAX;
+      }
+      __syncwarp();
+      // the proximity filter of the short slots
+      for (int p = lane; p < nl; p += 32) {
+        const unsigned long long k = sKey[p];
+        const int j = (int)(unsigned)k;
+        if (sFlag[j] & CC_ALIGN) continue;
         const int st = sStart[j];
         int ad = INT_MAX;
-        for (int k = 0; k < 8; ++k)
-          ad = min(ad, cc_wrap_absdiff(st, sLsort[k]));
-        int f = sFlag[j];
-        const bool align = (f & 2) != 0;
-        if ((f & 1) && !align && !(ad <= A.max_intron)) f &= ~1;
-        sFlag[j] = f;
-        const bool cv = f & 1;
-        sIdent[j] = cv ? (int)((unsigned)st +
-                               (align ? 0u : (unsigned)CC_SHORTBIT))
-                       : CC_SENT;
-        sSkey[j] = !cv ? CC_SENT
-                 : align ? st
-                 : (int)((unsigned)CC_SHORTBIT +
-                         (unsigned)min(ad, CC_SHORTBIT - 1));
+        for (int q = 0; q < nls; ++q)
+          ad = min(ad, cc_wrap_absdiff(st, sLsort[q]));
+        if (!(ad <= A.max_intron)) sFlag[j] &= ~CC_LIVE;
       }
-    } else {
-      for (int j = lane; j < J; j += 32) sSkey[j] = sIdent[j];
     }
     __syncwarp();
-    // --- first occurrence of each identity ---
-    for (int j = lane; j < J; j += 32) {
-      const int id = sIdent[j];
-      bool kept = id != CC_SENT;
-      for (int k = 0; k < j && kept; ++k) kept = sIdent[k] != id;
-      if (kept) sFlag[j] |= 4;
+    // --- 2. by (dead, identity, j): first occurrence, DNA rank ---
+    for (int p = lane; p < nl; p += 32) {
+      const int j = (int)(unsigned)sKey[p];
+      const int f = sFlag[j];
+      const unsigned id =
+          (unsigned)sStart[j] + ((f & CC_ALIGN) ? 0u : (unsigned)CC_SHORTBIT);
+      sKey[p] = ((unsigned long long)((f & CC_LIVE) ? 0 : 1) << 63) |
+                ((unsigned long long)(id ^ 0x80000000u) << 31) |
+                (unsigned)j;
     }
     __syncwarp();
-    // --- stable rank among kept slots; take the first C ---
-    int nlong = 0;
-    for (int j = lane; j < J; j += 32) {
-      if (!(sFlag[j] & 4)) continue;
-      const int key = sSkey[j];
-      int r = 0;
-      for (int k = 0; k < J; ++k)
-        if (sFlag[k] & 4) {
-          const int u = sSkey[k];
-          r += (u < key || (u == key && k < j)) ? 1 : 0;
+    cc_sort(sKey, np, lane);
+    int nlong = 0, r0 = 0;
+    for (int base = 0; base < nl; base += 32) {
+      const int p = base + lane;
+      bool kept = false;
+      int j = 0;
+      if (p < nl) {
+        const unsigned long long k = sKey[p];
+        j = (int)((unsigned)k & 0x7FFFFFFFu);
+        const unsigned id = (unsigned)(k >> 31) ^ 0x80000000u;
+        kept = !(k >> 63) && id != (unsigned)CC_SENT &&
+               (p == 0 || (sKey[p - 1] >> 31) != (k >> 31));
+        if (kept) {
+          sFlag[j] |= CC_KEPT;
+          if (sFlag[j] & CC_ALIGN) ++nlong;
         }
-      if (r < C) sSlot[r] = j;
-      if (sFlag[j] & 2) ++nlong;
+      }
+      if (!spliced) {
+        const unsigned bal = __ballot_sync(H2_FULL_MASK, kept);
+        const int r = r0 + __popc(bal & lt);
+        if (kept && r < C) sSlot[r] = j;
+        r0 += __popc(bal);
+      }
+    }
+    __syncwarp();
+    if (spliced) {
+      // --- 3. the kept by (distance key, j) ---
+      for (int p = lane; p < nl; p += 32) {
+        const int j = (int)((unsigned)sKey[p] & 0x7FFFFFFFu);
+        const int f = sFlag[j];
+        const int st = sStart[j];
+        int skey = st;
+        if (!(f & CC_ALIGN)) {
+          int ad = INT_MAX;
+          for (int q = 0; q < nls; ++q)
+            ad = min(ad, cc_wrap_absdiff(st, sLsort[q]));
+          skey = (int)((unsigned)CC_SHORTBIT +
+                       (unsigned)min(ad, CC_SHORTBIT - 1));
+        }
+        sKey[p] = ((unsigned long long)((f & CC_KEPT) ? 0 : 1) << 63) |
+                  ((unsigned long long)cc_bias(skey) << 31) | (unsigned)j;
+      }
+      __syncwarp();
+      cc_sort(sKey, np, lane);
+      for (int p = lane; p < min(nl, C); p += 32) {
+        const unsigned long long k = sKey[p];
+        if (!(k >> 63)) sSlot[p] = (int)((unsigned)k & 0x7FFFFFFFu);
+      }
     }
     __syncwarp();
     for (int m = lane; m < C; m += 32) {
       const int j = sSlot[m];
       sCStart[m] = j >= 0 ? sStart[j] : 0;
-      sCFlag[m] = j >= 0 ? (1 | ((sFlag[j] & 2) ? 0 : 2)) : 0;
+      sCFlag[m] = j >= 0 ? (1 | ((sFlag[j] & CC_ALIGN) ? 0 : 2)) : 0;
+      if (j >= 0) sFlag[j] |= CC_TAKEN;
+    }
+    for (int p = lane; p < nl; p += 32) {  // the keys are spent
+      sSegAb[p] = CC_BIG;
+      sSegBits[p] = CC_SEG_POST;
     }
     __syncwarp();
-    // --- dup_short and per-slot provenance ---
+    // --- 4. provenance over each start segment ---
+    for (int j = lane; j < J; j += 32) {
+      const int f = sFlag[j];
+      if (!(f & CC_LIVE)) continue;
+      const int seg = f >> 8;
+      const int h = j < J1 ? j / P : max(nh - 1, 0);
+      atomicMin(sSegAb + seg, sAb[h]);
+      if (!sPost[h]) atomicAnd(sSegBits + seg, ~CC_SEG_POST);
+      if (f & CC_ALIGN)
+        atomicOr(sSegBits + seg,
+                 CC_SEG_ALIGN | ((f & CC_TAKEN) ? CC_SEG_TAKEN : 0));
+    }
+    __syncwarp();
     for (int m = lane; m < C; m += 32) {
+      const int j = sSlot[m];
       const int cs = sCStart[m];
       const int cf = sCFlag[m];
+      const int seg = j >= 0 ? sFlag[j] >> 8 : head0;
+      const int ab = seg >= 0 ? sSegAb[seg] : CC_BIG;
+      const int bits = seg >= 0 ? sSegBits[seg] : CC_SEG_POST;
       bool valid = (cf & 1) != 0;
-      if (cf & 2) {
-        for (int m2 = 0; m2 < C; ++m2)
-          if (sCStart[m2] == cs && sCFlag[m2] == 1) valid = false;
-      }
-      int ab = CC_BIG;
-      bool allpost = true, anyalign = false;
-      for (int j = 0; j < J; ++j) {
-        const int f = sFlag[j];
-        if (!(f & 1) || sStart[j] != cs) continue;
-        const int h = j < J1 ? j / P : max(nh - 1, 0);
-        ab = min(ab, sAb[h]);
-        allpost = allpost && sPost[h] != 0;
-        anyalign = anyalign || (f & 2);
-      }
-      const bool vlong = valid && anyalign;
+      if ((cf & 2) && (bits & CC_SEG_TAKEN)) valid = false;  // dup_short
+      const bool allpost = (bits & CC_SEG_POST) != 0;
+      const bool vlong = valid && (bits & CC_SEG_ALIGN);
       if (m < A.CC) {
         const size_t o = (size_t)n * A.CC + m;
         A.cstart[o] = cs;

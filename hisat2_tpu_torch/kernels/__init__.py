@@ -97,7 +97,7 @@ KERNELS = {k.name: k for k in (
            "SA) + align/pipeline.py:772-998 compaction (ops/compact.py:"
            "22-62)"),
     Kernel("pack_slots", "h2_pack_slots",
-           [_P] + [_I] * 7 + [_P] * 8 + [_P],
+           [_P, _P] + [_I] * 8 + [_P] * 6 + [_LL, _P],
            "hisat2_tpu_torch/csrc/pack_slots.cu",
            "hisat2_tpu/align/pipeline.py:1211-1375 slot merge, top-Mdev, "
            "flags, spill layout"),

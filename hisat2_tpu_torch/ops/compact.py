@@ -12,14 +12,17 @@ pipeline.py:772-998) launches kernel 5 (csrc/compact_cands.cu) on CUDA
 tensors and runs `compact_candidates_plain` on CPU tensors; on a
 sampled-SA index both take the rows' offsets resolved by the walk
 (ops/resolve.py, K19+K20) on the live slots that `resolve_live` marks;
-`pack_slots` (K9: top-Mdev slot selection, flags and the spill layout,
-pipeline.py:1278-1371) launches kernel 6 (csrc/pack_slots.cu) or runs
-`pack_slots_plain`.  The plain versions are line-by-line ports of the JAX
-code.
+`pack_slots` (K9: the unified slot schema, top-Mdev slot selection,
+flags and the spill layout, pipeline.py:1211-1371) launches kernel 6
+(csrc/pack_slots.cu) on the schema's blocks in place, or runs
+`pack_slots_plain` on the schema `slot_schema` concatenates.  The plain
+versions are line-by-line ports of the JAX code.
 """
 
 from __future__ import annotations
 
+import ctypes
+import struct
 from typing import NamedTuple, Optional
 
 import torch
@@ -316,13 +319,14 @@ def compact_scratch(H: int, P: int, C: int, H2: int, P2: int, N: int, dev):
     (csrc/compact_cands.cu:h2_compact_cands_scratch): None where each
     warp's pool of H * P + H2 * P2 slot keys fits a block's shared memory,
     else the buffer the kernel asks for."""
-    import ctypes
     return kernels.scratch("h2_compact_cands_scratch", [ctypes.c_int] * 6,
                            H, P, C, H2, P2, N, dev=dev)
 
 
+# alt_score when no alternate representation exists (ops/extend.py)
+NO_ALT = -(2 ** 30)
 # the unified slot schema (pipeline.py:1221-1277), in the order of the
-# [F, N, K] tensor that pack_slots takes; "event" only on indexes with
+# [F, N, K] tensor that slot_schema builds; "event" only on indexes with
 # known ALT indels
 SLOT_FIELDS = ("score", "d1", "d2", "x", "kind", "spldir", "known", "ab",
                "post", "selfgap", "n_mm", "n_n", "clip_l", "clip_r", "alt",
@@ -330,15 +334,40 @@ SLOT_FIELDS = ("score", "d1", "d2", "x", "kind", "spldir", "known", "ab",
 # the dense per-slot outputs, in kernel 6's output order
 _DENSE_OUT = ("score", "d1", "x", "ab", "n_mm", "n_n", "clip_l", "clip_r",
               "flags", "dd", "event")
+# an absent field's value in the schema (pipeline.py:1256-1268); an
+# absent "valid" is score > -2^30
+_SLOT_DEFAULT = {"n_mm": 0, "n_n": 0, "clip_l": 0, "clip_r": 0,
+                 "alt": NO_ALT, "event": -1}
 
 
-def pack_slots_plain(uni, Mdev: int, use_spill: bool,
-                     spliced: bool = False) -> dict:
-    """Plain torch twin of kernel 6 (pipeline.py:1278-1371): uni int32
-    [F, N, K] in SLOT_FIELDS order -> the u_* outputs (and the sp_*
-    spill rows).  DNA mode ships d2 - d1 as a byte; spliced mode (a
-    spliced or site-injecting pass, :1313-1318, :1351-1355) keeps the
-    full d2 and spills 5 words."""
+def slot_schema(blocks, has_event: bool):
+    """The unified slot schema (pipeline.py:1211-1277) as one int32
+    [F, N, K] tensor in SLOT_FIELDS order (F = 17 with the event row):
+    the blocks' columns side by side.  blocks: dicts of [N, W] planes (any
+    integer or bool dtype) or int constants by field name; an absent field
+    takes its default."""
+    fields = SLOT_FIELDS[:17 if has_event else 16]
+    parts = []
+    for b in blocks:
+        sc = b["score"]
+        zw = torch.zeros(sc.shape, dtype=_I32, device=sc.device)
+        dflt = dict(_SLOT_DEFAULT, valid=sc > -(2 ** 30))
+        planes = []
+        for f in fields:
+            v = b.get(f, dflt.get(f))
+            planes.append(zw + v if isinstance(v, int) else v.to(_I32))
+        parts.append(torch.stack(planes))
+    return torch.cat(parts, dim=2)
+
+
+def pack_slots_plain(blocks, Mdev: int, use_spill: bool,
+                     spliced: bool = False, has_event: bool = False) -> dict:
+    """Plain torch twin of kernel 6 (pipeline.py:1211-1371): the unified
+    slot schema of `blocks` (slot_schema) -> the u_* outputs (and the
+    sp_* spill rows).  DNA mode ships d2 - d1 as a byte; spliced mode (a spliced or
+    site-injecting pass, :1313-1318, :1351-1355) keeps the full d2 and
+    spills 5 words."""
+    uni = slot_schema(blocks, has_event)
     F, N, Ktot = uni.shape
     dv = uni.device
     uni = dict(zip(SLOT_FIELDS[:F], uni.unbind(0)))
@@ -408,40 +437,78 @@ def pack_slots_plain(uni, Mdev: int, use_spill: bool,
     return out
 
 
-def pack_slots(uni, Mdev: int, use_spill: bool,
-               spliced: bool = False) -> dict:
-    """Kernel 6 on CUDA tensors, pack_slots_plain on CPU tensors.  uni:
-    int32 [F, N, K], the unified slot schema in SLOT_FIELDS order (F = 16,
-    or 17 with the event row)."""
-    if not uni.is_cuda:
-        return pack_slots_plain(uni, Mdev, use_spill, spliced)
-    F, N, K = uni.shape
-    kernels.check_cuda("uni", uni, _I32)
-    if F not in (16, 17):
-        raise ValueError("pack_slots: uni must hold 16 or 17 fields")
-    has_event = F == 17
+# csrc/pack_slots.cu: PkField (a pointer, then int sn, sk, kind, cval:
+# 24 bytes) and its kinds PK_CONST, PK_I32, PK_U8, PK_I8, PK_I16, PK_I64,
+# PK_FROM_SCORE
+_PK_FIELD = "Qiiii"
+_PK_KIND = {torch.int32: 1, torch.uint8: 2, torch.bool: 2, torch.int8: 3,
+            torch.int16: 4, torch.int64: 5}
+_PK_CONST, _PK_FROM_SCORE, _PK_MAXB = 0, 6, 8
+
+
+def pack_slots(blocks, Mdev: int, use_spill: bool, spliced: bool = False,
+               has_event: bool = False) -> dict:
+    """Kernel 6 on CUDA tensors, pack_slots_plain on CPU tensors.  blocks:
+    the schema's blocks in order (dicts of [N, W] planes or int constants
+    by SLOT_FIELDS name; an absent field takes its default), read in place
+    by the kernel through a table of pointers, dtypes and strides; the
+    event row only where has_event."""
+    sc0 = blocks[0]["score"]
+    if not sc0.is_cuda:
+        return pack_slots_plain(blocks, Mdev, use_spill, spliced, has_event)
+    if not 1 <= len(blocks) <= _PK_MAXB:
+        raise ValueError(f"pack_slots: 1 to {_PK_MAXB} blocks")
+    N = sc0.shape[0]
+    dev = sc0.device
+    tab, k0, keep = [], [], []  # keep: the views the launch reads
+    K = 0
+    for b in blocks:
+        W = b["score"].shape[1]
+        k0.append(K)
+        K += W
+        for f in SLOT_FIELDS:
+            v = b.get(f) if f != "event" or has_event else -1
+            if v is None and f == "valid":
+                tab += (0, 0, 0, _PK_FROM_SCORE, 0)
+                continue
+            if v is None:
+                v = _SLOT_DEFAULT[f]
+            if isinstance(v, int):
+                tab += (0, 0, 0, _PK_CONST, (v + 2 ** 31) % 2 ** 32 - 2 ** 31)
+                continue
+            if v.dtype not in _PK_KIND:
+                v = v.to(_I32)
+            if v.device != dev:
+                raise ValueError(f"pack_slots: {f} on {v.device}, not {dev}")
+            if v.shape != (N, W):
+                v = torch.broadcast_to(v, (N, W))
+            keep.append(v)
+            sn, sk = v.stride()
+            tab += (v.data_ptr(), sn, sk, _PK_KIND[v.dtype], 0)
+    k0.append(K)
+    tab = ctypes.create_string_buffer(struct.pack(
+        "=" + _PK_FIELD * (len(tab) // 5), *tab))
+    k0 = ctypes.create_string_buffer(struct.pack(f"={len(k0)}i", *k0))
     do_select = Mdev < K or use_spill
     Wd = 2 if use_spill else Mdev
-    dev = uni.device
     dense = torch.empty((len(_DENSE_OUT), N, Wd), dtype=_I32, device=dev)
     alt = torch.empty((N, 1), dtype=_I32, device=dev)
     z = torch.empty(0, dtype=_I32, device=dev)
-    Msp = Mdev - 2
-    words = (torch.empty((N * Msp, 6), dtype=_I32, device=dev)
-             if use_spill else z)
-    cnt = torch.empty(N, dtype=_I32, device=dev) if use_spill else z
-    offs = torch.empty(N, dtype=_I32, device=dev) if use_spill else z
     src = torch.empty(N, dtype=_I32, device=dev) if use_spill else z
     nw = 5 if spliced else 4
     sp_w = torch.empty((N, nw), dtype=_I32, device=dev) if use_spill else z
     sp_ev = (torch.empty(N, dtype=_I32, device=dev)
              if use_spill and has_event else z)
+    # the spill layout's scan state (csrc/pack_slots.cu:pk_config): 8
+    # bytes for each of 5 words and of each block of lanes, at most N
+    state = (torch.empty(8 * (5 + N), dtype=torch.uint8, device=dev)
+             if use_spill else None)
     kernels.KERNELS["pack_slots"].launch(
-        uni.data_ptr(), N, K, Mdev, int(do_select), int(use_spill),
-        int(has_event), int(spliced), dense.data_ptr(), alt.data_ptr(),
-        words.data_ptr(),
-        cnt.data_ptr(), offs.data_ptr(), src.data_ptr(), sp_w.data_ptr(),
-        sp_ev.data_ptr(), stream=kernels.stream_of(uni))
+        ctypes.addressof(tab), ctypes.addressof(k0), len(blocks), N, K, Mdev,
+        int(do_select), int(use_spill), int(has_event), int(spliced),
+        dense.data_ptr(), alt.data_ptr(), src.data_ptr(), sp_w.data_ptr(),
+        sp_ev.data_ptr(), *kernels.scratch_args(state),
+        stream=kernels.stream_of(sc0))
     out = {("u_d2" if k == "dd" and spliced else "u_" + k): dense[i]
            for i, k in enumerate(_DENSE_OUT) if k != "event" or has_event}
     out["u_alt"] = alt

@@ -21,10 +21,10 @@ import torch
 
 from .. import kernels
 from . import compact as compact_ops
+from .compact import NO_ALT
 from . import rank as rk
 
 _OOB_PEN = 100000  # out-of-text column: forces the optimizer to clip it
-NO_ALT = -(2 ** 30)  # alt_score when no alternate representation exists
 
 
 class ExtendResult(NamedTuple):

@@ -1,10 +1,11 @@
 """The hand kernels this port has redesigned, against an earlier
 commit's, in turns on one card: the junction sweeps K13 (pair_sweep) and
 K15 (second_sweep), the indel sweep K8 (indel_sweep), the ungapped
-extension K6+K7 (extend_ungapped) and the FM search K1 (fm_search2, and
-its lane-list mode K17); and, of this tree alone, the device time of the
-kernels not yet redesigned (K4, K5, K9, K10, K16, K20) on the steps that
-launch them.
+extension K6+K7 (extend_ungapped), the FM search K1 (fm_search2, and
+its lane-list mode K17), the candidate compaction K3+K4 (compact_cands)
+and the slot merge K9 (pack_slots, as a region with the schema glue it
+absorbed); and, of this tree alone, the device time of the kernels not
+yet redesigned (K5, K10, K16, K20) on the steps that launch them.
 
     git archive <commit> hisat2_tpu_torch/csrc | tar -x -C DIR
     python3 sweep_ab.py DIR
@@ -13,35 +14,44 @@ launch them.
 the earlier commit's pair_sweep.cu and second_sweep.cu into libraries of
 their own (their C symbols are this tree's), each whole and stopped right
 after its plane prologue (the sp_build call), this tree's stopped the
-same way, the earlier indel_sweep.cu, extend_ungapped.cu and
-fm_search2.cu whole, and the earlier extend_ungapped.cu stopped after
-its scans (that tree's last/next-penalised scan, when it has one): one
-nvcc per library, all started together.  Then it runs chip_smoke.py's
-phases, and on the steps chip_smoke.step_shapes reports it takes the
-step's captured arguments and
+same way, the earlier indel_sweep.cu, extend_ungapped.cu, fm_search2.cu,
+compact_cands.cu and pack_slots.cu whole, and the earlier
+extend_ungapped.cu stopped after its scans (that tree's last/next-
+penalised scan, when it has one): one nvcc per library, all started
+together.  Then it runs chip_smoke.py's phases, and on the steps
+chip_smoke.step_shapes reports it takes the step's captured arguments and
 
 - checks that the earlier kernels give this tree's outputs;
 - times each kernel, 20 launches back to back between two CUDA events
   (median of 5 rounds), in turns: earlier, this, this, earlier.  K13's
   and K15's launches (whole and prologue-only) are issued from the host,
-  on phase 10's and phase 11 (e)'s spliced full step; K8's, K6+K7's and
-  K1's are captured in one CUDA graph (device time), since the
-  wrapper's host work per call outlasts those kernels.  K8 runs on the
+  on phase 10's and phase 11 (e)'s spliced full step; K8's, K6+K7's,
+  K1's, K4's and K9's are captured in one CUDA graph (device time), since
+  the wrapper's host work per call outlasts those kernels.  K8 runs on the
   linear step and config 6's full step; K6+K7's core and extra-slot
   launches on every step where chip_smoke holds them (linear, graph
   full, spliced full, config 6 full, the genome linear step and a rescue
   chunk), with the earlier tree's scans-only copy; K1 on the linear,
   graph full, spliced full and config 6 full steps, and K17 (K1's
   lane-list mode, its lane list made outside the graph) on the spliced
-  and config 6 full steps;
+  and config 6 full steps; K4 and K9 on the linear, graph full, spliced
+  full, genome linear and config 6 full steps, with their bounds
+  (chip_smoke.work) on those steps.  K9 is timed as a region from the
+  step's block dicts: an earlier K9 that takes the schema as one [F, N,
+  K] tensor (two launches) runs behind the schema glue the pipeline ran
+  for it (`schema_glue` below: the blocks' zero planes, the defaults,
+  the torch.stack / torch.cat), this tree's reads the blocks in place;
+  both regions are also timed on the host clock (the enqueue of one
+  call: `host_ms`);
 - times this tree's K1 on the linear step with and without an L2
   access-policy window (persisting) over the fused table, in turns;
-- times this tree's compact_cands (K3+K4), ref_window (K5), pack_slots
-  (K9), inject_indels (K10), inject_known (K16) and resolve_walk (K20)
-  by CUDA graph on every reported step that launches them, alone (no
-  earlier tree): the inputs of the next redesign's ranking.
+- times this tree's ref_window (K5), inject_indels (K10), inject_known
+  (K16) and resolve_walk (K20) by CUDA graph on every reported step that
+  launches them, alone (no earlier tree): the inputs of the next
+  redesign's ranking.
 
-Both trees launch through this tree's wrappers (ops/); only the C entry
+Both trees launch through this tree's wrappers (ops/), except the earlier
+K9 of one [F, N, K] schema (`pack_slots_schema` below); only the C entry
 point differs, so the arguments and the host work per launch are the
 same, except that an earlier K1 of one thread a lane (no FM_G), which
 writes only a lane's events, gets zero-filled outputs (the device work
@@ -49,8 +59,8 @@ its wrapper did).  The earlier
 K15 must take both base pairs of a step in one launch, as this tree's
 does; the earlier K8, K13 and K15 may lack this tree's trailing scratch
 arguments (the scratch, its bytes).  Prints one `[sweep ab] <step> {json}` line per step for K13 +
-K15, one `[sweep ab] <step> <kernel> {json}` line per step for K8, K6+K7
-and K1, then chip_smoke's own lines.
+K15, one `[sweep ab] <step> <kernel> {json}` line per step for K8, K6+K7,
+K1, K4 and K9, then chip_smoke's own lines.
 """
 
 from __future__ import annotations
@@ -61,6 +71,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 import chip_smoke
 
@@ -71,10 +82,17 @@ PRO_SINK = {"pair_sweep": "A.bsel[(size_t)n * 2]", "second_sweep": "A.out[n]"}
 # its scans-only copy stops
 EXT_SCANS_END = "  __syncwarp();\n\n  const int total_pen = sP[L];"
 # the earlier trees' kernels timed whole
-WHOLE = ("indel_sweep", "extend_ungapped", "fm_search2")
+WHOLE = ("indel_sweep", "extend_ungapped", "fm_search2", "compact_cands",
+         "pack_slots")
+# the steps K4 and K9 are compared on
+PACK_STEPS = ("linear", "graph full", "spliced full", "genome linear",
+              "config6 full")
 # this tree's kernels timed alone, by CUDA graph
-ALONE = ("compact_cands", "ref_window", "pack_slots", "inject_indels",
-         "inject_known", "resolve_walk")
+ALONE = ("ref_window", "inject_indels", "inject_known", "resolve_walk")
+# an earlier K9's C entry point that takes the schema as one [F, N, K]
+# tensor: uni, N, K, Mdev, do_select, spill, has_event, spliced, then
+# dense, alt, words, cnt, offs, src, sp_w, sp_ev, the stream
+SCHEMA_K9 = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 8
 # an L2 access-policy window on a stream: the persisting set-aside at its
 # largest and a window over `bytes` from `base` whose hit ratio is the
 # set-aside's share of it (on = 0: no window, the set-aside released)
@@ -160,6 +178,8 @@ def build_libs(kernels, parent_csrc):
             # an earlier kernel without this tree's trailing scratch
             # arguments
             nargs -= arg in this and arg not in text
+        if name == "pack_slots" and "const void* uni" in text:
+            nargs = -len(SCHEMA_K9)   # the schema interface
         jobs.append(((tree, name, pro), so, nargs, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     cu = os.path.join(out, "l2_window.cu")
@@ -171,6 +191,9 @@ def build_libs(kernels, parent_csrc):
          "-shared", "-o", so, cu], stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)))
     fns = {}
+    # an earlier K9 that takes the schema as one [F, N, K] tensor
+    fns["k9_schema"] = "const void* uni" in sweep_source(
+        parent_csrc, "pack_slots", False)
     # an earlier K1 of one thread a lane writes only a lane's events
     fns["k1_fills"] = "FM_G" not in sweep_source(parent_csrc, "fm_search2",
                                                  False)
@@ -187,6 +210,8 @@ def build_libs(kernels, parent_csrc):
             fns["l2_window"] = fn
             continue
         at = kernels.KERNELS[key[1]].argtypes
+        if nargs < 0:
+            at, nargs = SCHEMA_K9 + [ctypes.c_void_p], -nargs
         fn.argtypes = at[:nargs] + at[-1:]
         fn.restype = ctypes.c_int
         fns[key] = (fn, nargs)
@@ -223,6 +248,109 @@ def through(torch, kernels, name, fn, call):
         return call()
     finally:
         del k.launch
+
+
+def schema_glue(torch, blocks, has_event):
+    """The unified schema as the pipeline built it for a K9 that takes
+    one [F, N, K] tensor: each block's constants as planes, made as the
+    block was (one zero plane of the ungapped slots' width for the
+    ungapped, self-sweep and wide blocks, one for each other block; a
+    constant c != 0 as zero + c), then per block a zero plane, the alt
+    and event defaults by adds, the valid plane where absent, one
+    torch.stack of its planes as int32; then one torch.cat.  Equal to
+    ops/compact.py:slot_schema."""
+    from hisat2_tpu_torch.ops import compact
+    i32 = torch.int32
+    fields = compact.SLOT_FIELDS[:17 if has_event else 16]
+    zc = torch.zeros_like(blocks[0]["score"], dtype=i32)
+    parts = []
+    for b in blocks:
+        # the ungapped block (valid), the self-sweep and wide blocks (no
+        # pair ids "i", no n_mm, known 0) shared one zero plane
+        shared = "valid" in b or ("i" not in b and "n_mm" not in b
+                                  and isinstance(b.get("known"), int)
+                                  and b["known"] == 0)
+        z = zc if shared else torch.zeros_like(b["score"], dtype=i32)
+        b = {k: (z + v if v else z) if isinstance(v, int) else v
+             for k, v in b.items()}
+        zw = torch.zeros_like(b["score"], dtype=i32)
+        dflt = {"n_mm": zw, "n_n": zw, "clip_l": zw, "clip_r": zw,
+                "alt": zw + compact.NO_ALT, "event": zw - 1}
+        if "valid" not in b:
+            dflt["valid"] = b["score"] > -(2 ** 30)
+        parts.append(torch.stack([b.get(f, dflt.get(f)).to(i32)
+                                  for f in fields]))
+    return torch.cat(parts, dim=2)
+
+
+def pack_slots_schema(torch, fn, kw):
+    """An earlier K9 that takes the schema as one [F, N, K] tensor, as the
+    pipeline ran it on the step's blocks: the schema glue (schema_glue),
+    then its launches."""
+    from hisat2_tpu_torch.ops import compact
+    f, _ = fn
+    uni = schema_glue(torch, kw["blocks"], kw["has_event"])
+    F, N, K = uni.shape
+    Mdev, spill, spliced = kw["Mdev"], kw["use_spill"], kw["spliced"]
+    has_event = F == 17
+    dev = uni.device
+
+    def e(*shape, on=spill):
+        return torch.empty(shape if on else (0,), dtype=torch.int32,
+                           device=dev)
+    dense = e(11, N, 2 if spill else Mdev, on=True)
+    alt = e(N, 1, on=True)
+    words, cnt, offs, src = e(N * (Mdev - 2), 6), e(N), e(N), e(N)
+    sp_w = e(N, 5 if spliced else 4)
+    sp_ev = e(N, on=spill and has_event)
+    with torch.cuda.device(dev):
+        err = f(uni.data_ptr(), N, K, Mdev, int(Mdev < K or spill),
+                int(spill), int(has_event), int(spliced), dense.data_ptr(),
+                alt.data_ptr(), words.data_ptr(), cnt.data_ptr(),
+                offs.data_ptr(), src.data_ptr(), sp_w.data_ptr(),
+                sp_ev.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    chip_smoke.check(err == 0, f"earlier pack_slots: launch error {err}")
+    out = {("u_d2" if k == "dd" and spliced else "u_" + k): dense[i]
+           for i, k in enumerate(compact._DENSE_OUT)
+           if k != "event" or has_event}
+    out["u_alt"] = alt
+    if spill:
+        out.update(sp_src=src, sp_w=sp_w)
+        if has_event:
+            out["sp_ev"] = sp_ev
+    return out
+
+
+def compare_k9(torch, kernels, fns, tag, kw, info):
+    """K9 as a region on one step's block dicts: the earlier tree's (the
+    schema glue and its launches, or its kernel through this tree's
+    wrapper) against this tree's wrapper; equal outputs, then the device
+    time by CUDA graph in turns, the glue alone, and each region's host
+    enqueue in turns; prints and returns them."""
+    from hisat2_tpu_torch.ops import compact
+    old = fns[("parent", "pack_slots", False)]
+    run = {"parent": (lambda: pack_slots_schema(torch, old, kw))
+           if fns["k9_schema"] else
+           (lambda: through(torch, kernels, "pack_slots", old,
+                            lambda: compact.pack_slots(**kw))),
+           "this": lambda: compact.pack_slots(**kw)}
+    a = chip_smoke.flat_outputs(run["parent"]())
+    b = chip_smoke.flat_outputs(run["this"]())
+    chip_smoke.check(len(a) == len(b) and all(
+        torch.equal(x, y) for x, y in zip(a, b)), f"{tag}: pack_slots != "
+        "parent")
+    glue = lambda: schema_glue(torch, kw["blocks"], kw["has_event"])  # noqa
+    chip_smoke.check(torch.equal(glue(), compact.slot_schema(
+        kw["blocks"], kw["has_event"])), f"{tag}: schema glue != slot_schema")
+    turns = ("parent", "this", "this", "parent")
+    t = [graph_ms(torch, run[tr]) for tr in turns]
+    h = [host_ms(torch, run[tr]) for tr in turns]
+    res = {"parent": [t[0], t[3]], "this": [t[1], t[2]],
+           "glue": graph_ms(torch, glue),
+           "host_parent": [h[0], h[3]], "host_this": [h[1], h[2]]}
+    res.update(info)
+    print(f"[sweep ab] {tag} pack_slots: {json.dumps(res)}", flush=True)
+    return res
 
 
 def l2_window_ab(torch, window, fn, blocked):
@@ -265,6 +393,22 @@ def b2b_ms(torch, fn, reps=20, rounds=5):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
+def host_ms(torch, fn, reps=20, rounds=5):
+    """Host time of one call of fn (its enqueue: Python, the wrapper,
+    the launches), `reps` calls on the host clock after the card is idle,
+    median of `rounds`; the card is not waited on inside a round."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / reps)
+        torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -396,14 +540,15 @@ def main() -> int:
         print("sweep_ab.py: no CUDA device", file=sys.stderr)
         return 1
     from hisat2_tpu_torch import kernels
-    from hisat2_tpu_torch.ops import extend, search, splice
+    from hisat2_tpu_torch.ops import compact, extend, search, splice
     kernels.load()
     fns = build_libs(kernels, os.path.join(os.path.abspath(sys.argv[1]),
                                            "hisat2_tpu_torch", "csrc"))
     from hisat2_tpu_torch.ops import kernel_twins
     twins = kernel_twins()
     done = {"sweeps": [], "indel_sweep": [], "extend_ungapped": [],
-            "fm_search2": [], "alone": []}
+            "fm_search2": [], "compact_cands": [], "pack_slots": [],
+            "alone": []}
     shapes = chip_smoke.step_shapes
 
     def hook(splice_mod, step, cap):
@@ -464,6 +609,30 @@ def main() -> int:
                     {"N": kl["reads"].shape[0], "lanes": lanes.shape[0],
                      "L": kl["reads"].shape[1],
                      "cols": kl["blocked"].shape[1]}))
+        if step in PACK_STEPS:
+            for name in ("compact_cands", "pack_slots"):
+                kw = cap[name]
+                bound, by = chip_smoke.work(torch, name, kw,
+                                            twins[name][0](**kw))
+                info = {"bound_ms": bound, "bound_by": by}
+                if name == "compact_cands":
+                    N, H = kw["top"].shape
+                    J = H * kw["P"] + (kw["top2"].shape[1] * kw["P2"]
+                                       if kw.get("top2") is not None
+                                       else 0)
+                    info.update(N=N, J=J, C=kw["C"],
+                                sampled=kw.get("offs") is not None)
+                    done[name].append(compare_graphed(
+                        torch, kernels, fns, step, name,
+                        lambda: compact.compact_cands(**kw), info))
+                else:
+                    bl = kw["blocks"]
+                    info.update(N=bl[0]["score"].shape[0],
+                                K=sum(b["score"].shape[1] for b in bl),
+                                blocks=len(bl), Mdev=kw["Mdev"],
+                                spill=kw["use_spill"])
+                    done[name].append(compare_k9(torch, kernels, fns, step,
+                                                 kw, info))
         for key in sorted(cap):
             name = key.split("/")[0]
             if name not in ALONE:
@@ -483,7 +652,8 @@ def main() -> int:
     n = {k: len(v) for k, v in done.items()}
     chip_smoke.check(n["sweeps"] == 2 and n["indel_sweep"] == 2
                      and n["extend_ungapped"] >= 8 and n["fm_search2"] >= 6
-                     and n["alone"] >= 10, f"steps compared: {n}")
+                     and n["compact_cands"] == 5 and n["pack_slots"] == 5
+                     and n["alone"] >= 5, f"steps compared: {n}")
     return rc
 
 

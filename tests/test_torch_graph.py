@@ -267,11 +267,11 @@ def test_pack_slots_plain_matches_jax(graph, traced, lite, full_out):
     its outputs."""
     out, _ = traced[(lite, full_out)]
     U = _uni(traced[(lite, False)][1])
-    uni = torch.stack([_t(U[f]).to(torch.int32)
-                       for f in compact.SLOT_FIELDS])
-    K = uni.shape[2]
+    blocks = [{f: _t(U[f]).to(torch.int32) for f in compact.SLOT_FIELDS}]
+    K = blocks[0]["score"].shape[1]
     Mdev = min(K, max(10, _tier(graph["ta"], lite).msize + 2))
-    got = compact.pack_slots_plain(uni, Mdev, not full_out)
+    got = compact.pack_slots_plain(blocks, Mdev, not full_out,
+                                   has_event=True)
     keys = sorted(k for k in out if k.startswith(("u_", "sp_")))
     assert sorted(got) == keys
     for k in keys:

@@ -299,48 +299,124 @@ def test_graph_step_on_card_matches_cpu(gcard):
                if k not in ("rescue_window",) + SPLICED)
 
 
-@pytest.mark.parametrize("N,K,Mdev,spill,dense", [
-    (3000, 23, 12, True, 0.3), (3000, 23, 12, True, 0.05),
-    (2048, 6, 6, True, 0.5), (1000, 47, 22, False, 0.3),
-    (513, 11, 11, False, 0.4)])
-def test_pack_slots_random_on_card(card, N, K, Mdev, spill, dense):
+def _pack_blocks(rng, N, K, dense, ties, event):
+    """Random blocks of a slot schema of K columns over N lanes, read in
+    place: int32, int64, int16, int8, uint8 and bool planes, a strided
+    view, constants and absent fields (their defaults; valid from the
+    score where absent)."""
+    cuts = np.sort(rng.choice(np.arange(1, K), min(K - 1, 4),
+                              replace=False)) if K > 1 else []
+    edges = [0, *cuts, K]
+    t = lambda a, dt=torch.int32: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a)).to(dt).cuda()
+    blocks = []
+    for i, (a, b) in enumerate(zip(edges[:-1], edges[1:])):
+        W = b - a
+        valid = rng.random((N, W)) < dense
+        sc = (rng.integers(-2, 1, (N, W)) if ties
+              else rng.integers(-40, 40, (N, W)))
+        d = {"score": t(np.where(valid, sc, -(2 ** 30) - rng.integers(
+                 0, 2, (N, W))))}
+        d1 = rng.integers(-2 ** 31, 2 ** 31 - 1, (N, W))
+        d["d1"] = t(d1, torch.int64)
+        wide = torch.zeros((N, W + 3), dtype=torch.int32, device="cuda")
+        wide[:, 1:W + 1] = t(d1 + rng.integers(-300, 300, (N, W)),
+                             torch.int64).to(torch.int32)
+        d["d2"] = wide[:, 1:W + 1]                 # strided view
+        d["x"] = t(rng.integers(-5, 300, (N, W)), torch.int16)
+        d["kind"] = t(rng.integers(0, 4, (N, W)), torch.int8)
+        d["spldir"] = (0 if i % 2 else
+                       t(rng.integers(0, 3, (N, W)), torch.int8))
+        d["known"] = t(rng.integers(0, 2, (N, W)), torch.uint8)
+        d["ab"] = t(rng.integers(-3, 200, (N, W)))
+        d["post"] = t(rng.random((N, W)) < 0.5, torch.bool)
+        d["selfgap"] = 1 if i == 1 else t(rng.integers(0, 2, (N, W)),
+                                          torch.uint8)
+        if i % 3 != 2:                             # else absent: 0
+            for f in ("n_mm", "n_n", "clip_l", "clip_r"):
+                d[f] = t(rng.integers(-3, 300, (N, W)))
+        if i % 2 == 0:                             # else NO_ALT
+            d["alt"] = t(rng.integers(-100, 100, (N, W)))
+        if i % 2 == 1:                             # else from the score
+            d["valid"] = t(valid & (rng.random((N, W)) < 0.9), torch.bool)
+        if event and i % 3 == 0:                   # else -1
+            d["event"] = t(rng.integers(-1, 50, (N, W)))
+        blocks.append(d)
+    return blocks
+
+
+@pytest.mark.parametrize(
+    "N,K,Mdev,spill,dense,spliced,ties,inplace", [
+        (3000, 23, 12, True, 0.3, False, False, False),
+        (3000, 23, 12, True, 0.05, False, False, False),
+        (2048, 6, 6, True, 0.5, False, False, False),
+        (1000, 47, 22, False, 0.3, False, False, False),
+        (513, 11, 11, False, 0.4, False, False, False),
+        (8192, 23, 10, True, 0.3, False, True, True),
+        (20001, 23, 10, True, 0.03, True, False, True),
+        (8192, 130, 22, True, 0.9, True, True, True),
+        (8192, 130, 22, True, 0.002, False, False, True),
+        (4096, 70, 66, True, 0.3, False, True, True),
+        (2000, 70, 66, False, 0.3, True, True, True),
+        (20001, 210, 66, True, 0.2, True, True, True),
+        (333, 1, 1, False, 0.5, False, False, True)])
+def test_pack_slots_random_on_card(card, N, K, Mdev, spill, dense, spliced,
+                                   ties, inplace):
     """K9 on random schemas: ties, both layouts, a spill that overflows
-    its S = N rows (dense 0.3) and one that does not, lane counts over
-    the scan block's 1024."""
+    its S = N rows (dense 0.3 and up: far above S at 0.9) and one far
+    below it, spliced words, N not a multiple of the lanes a block (the
+    look-back over up to 2,501 blocks), K up to 210 and Mdev 66; as one
+    block of int32 planes (the rows of one [F, N, K] schema), or as
+    blocks read in place (int64 / int16 / int8 / uint8 / bool planes, a
+    strided view, constants, absent fields)."""
     from hisat2_tpu_torch.ops import compact
     rng = np.random.default_rng(N + K)
-    uni = rng.integers(-40, 1, (17, N, K)).astype(np.int32)
-    valid = rng.random((N, K)) < dense
-    uni[15] = valid
-    uni[0] = np.where(valid, rng.integers(-12, 1, (N, K)), -(2 ** 30))
-    for f in (4, 5, 6, 8, 9):            # kind spldir known post selfgap
-        uni[f] = rng.integers(0, 2 if f != 4 else 4, (N, K))
-    uni[5] = 0
-    uni[16] = np.where(valid, rng.integers(-1, 50, (N, K)), -1)
-    u = torch.from_numpy(uni).cuda()
-    ko = compact.pack_slots(u, Mdev, spill)
-    po = compact.pack_slots_plain(u, Mdev, spill)
+    if inplace:
+        ev = bool(K % 2 == 0)
+        u = _pack_blocks(rng, N, K, dense, ties, ev)
+        args = dict(Mdev=Mdev, use_spill=spill, spliced=spliced,
+                    has_event=ev)
+    else:
+        uni = rng.integers(-40, 1, (17, N, K)).astype(np.int32)
+        valid = rng.random((N, K)) < dense
+        uni[15] = valid
+        uni[0] = np.where(valid, rng.integers(-12, 1, (N, K)), -(2 ** 30))
+        for f in (4, 5, 6, 8, 9):        # kind spldir known post selfgap
+            uni[f] = rng.integers(0, 2 if f != 4 else 4, (N, K))
+        uni[5] = 0
+        uni[16] = np.where(valid, rng.integers(-1, 50, (N, K)), -1)
+        u = [dict(zip(compact.SLOT_FIELDS, torch.from_numpy(uni).cuda()
+                      .unbind(0)))]
+        args = dict(Mdev=Mdev, use_spill=spill, spliced=spliced,
+                    has_event=True)
+    ko = compact.pack_slots(u, **args)
+    po = compact.pack_slots_plain(u, **args)
     torch.cuda.synchronize()
     assert sorted(ko) == sorted(po)
     for k in ko:
         _cmp(ko[k], po[k].contiguous(), k)
-    if spill and dense == 0.3:
+    if spill and dense >= 0.3:
         assert int(ko["sp_src"][-1]) == -2
+    if spill and dense <= 0.01:
+        assert int((ko["sp_src"] >= 0).sum()) < N // 4
+        assert int(ko["sp_src"][-1]) == -1
 
 
-@pytest.mark.parametrize("lane_meta,lite_cap", [(True, 0), (False, 8)])
-def test_compact_cands_random_on_card(card, lane_meta, lite_cap):
-    """K3+K4 on random hits over the card fixture's SA: duplicates,
-    short and long hits, wide hits, stopped lanes, N not a multiple of
-    the warps per block."""
-    from hisat2_tpu_torch.index.format import to_device
-    from hisat2_tpu_torch.ops import compact
-    g, idx = card
-    dev = to_device(idx, "cuda")
-    rng = np.random.default_rng(5 + lite_cap)
-    N, H = 1999, 6
-    rows = idx.meta.rows
-    top = rng.integers(0, rows - 30, (N, H)).astype(np.int32)
+def _compact_args(dev, rng, N, H, P, spliced, sampled, P2=32, H2=2,
+                  max_intron=500_000, synthetic_sa=False, top_hi=None):
+    """Random hits (duplicates, short and long, wide, stopped lanes; tops
+    below top_hi, by default len(SA) - 104) and, in spliced mode,
+    re-search hits; on a sampled SA the resolved rows."""
+    rows = dev.sa.shape[0] - 64
+    top_hi = rows - 40 if top_hi is None else top_hi
+    sa = dev.sa
+    if synthetic_sa:
+        # starts near both ends of int32, so that the distances to the 8
+        # lowest align-capable starts (and to SENT) wrap
+        v = rng.integers(0, 5000, dev.sa.shape[0])
+        v[rng.random(len(v)) < 0.05] = 2 ** 31 - 3
+        sa = torch.from_numpy(v.astype(np.int32)).cuda()
+    top = rng.integers(0, top_hi, (N, H)).astype(np.int32)
     top[:, 1] = top[:, 0]                       # duplicate hits
     w = rng.choice([0, 1, 1, 2, 3, 5, 9, 12, 25], (N, H))
     bot = (top + w).astype(np.int32)
@@ -351,15 +427,74 @@ def test_compact_cands_random_on_card(card, lane_meta, lite_cap):
     post = rng.random((N, H)) < 0.3
     stopped = rng.random(N) < 0.3
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa
-    kw = dict(sa=dev.sa, top=t(top), bot=t(bot), lo=t(lo), hi=t(hi),
-              nh=t(nh), abefore=t(ab), post=t(post), stopped=t(stopped),
-              P=10, C=11, CC=6, min_k=9, maxsize=10, short_rows=5,
-              lite_cap=lite_cap, lane_meta=lane_meta)
+    kw = dict(sa=sa, top=t(top), bot=t(bot), lo=t(lo), hi=t(hi), nh=t(nh),
+              abefore=t(ab), post=t(post), stopped=t(stopped), P=P)
+    if sampled:
+        kw["offs"] = t(np.where(rng.random((N, H, P)) < 0.9, rng.integers(
+            0, 5000, (N, H, P)), 0).astype(np.int32))
+    if spliced:
+        t2 = rng.integers(0, rows - 40, (N, H2)).astype(np.int32)
+        w2 = rng.choice([0, 1, 2, 5, P2, P2 + 1, 2 * P2], (N, H2))
+        kw.update(top2=t(t2), bot2=t((t2 + w2).astype(np.int32)),
+                  lo2=t(rng.integers(0, 60, (N, H2)).astype(np.int32)),
+                  nh2=t(rng.integers(0, H2 + 1, N).astype(np.int32)),
+                  P2=P2, max_intron=max_intron)
+        if sampled:
+            kw["offs2"] = t(rng.integers(0, 5000, (N, H2, P2)).astype(
+                np.int32))
+    return kw
+
+
+@pytest.mark.parametrize("case", [
+    "dna_meta", "dna_lite", "dna_sampled", "spliced_p32_wrap",
+    "spliced_p16_sampled", "spliced_j160", "global"])
+def test_compact_cands_random_on_card(card, monkeypatch, case):
+    """K3+K4 on random hits over the card fixture's SA: duplicates,
+    short and long hits, wide hits, stopped lanes, N not a multiple of
+    the warps per block; the lite tier; the walk's offsets of a sampled
+    SA; spliced mode (re-search hits at P2 32 and 16, their offsets, J =
+    160, starts near both ends of int32 with max_intron 2^31 - 1 so that
+    JAX's int32 distances wrap); and a pool of J = 19,200 slots, which
+    stages in the global scratch, run again with two blocks' scratch."""
+    from hisat2_tpu_torch import kernels
+    from hisat2_tpu_torch.index.format import to_device
+    from hisat2_tpu_torch.ops import compact
+    g, idx = card
+    dev = to_device(idx, "cuda")
+    # the DNA cases: seeds 5 and 13, tops below the index's rows less 30
+    old = {"dna_meta": 5, "dna_lite": 13}
+    rng = np.random.default_rng(old.get(case, sum(map(ord, case))))
+    N, H, P, kw = 1999, 6, 10, {}
+    spl = case.startswith("spliced")
+    if case == "spliced_j160":
+        P = 16                                  # 6 * 16 + 2 * 32 = 160
+    if case == "global":
+        N, H, P = 40, 300, 64
+    a = _compact_args(dev, rng, N, H, P, spl, "sampled" in case,
+                      P2=16 if "p16" in case else 32,
+                      max_intron=2 ** 31 - 1 if "wrap" in case else 500_000,
+                      synthetic_sa="wrap" in case,
+                      top_hi=idx.meta.rows - 30 if case in old else None)
+    kw.update(a, C=11 if case != "global" else 65,
+              CC=6 if case != "global" else 65, min_k=9, maxsize=10,
+              short_rows=5, lite_cap=8 if case == "dna_lite" else 0,
+              lane_meta=case != "dna_lite")
+    if case == "global":
+        kw["maxsize"] = 64
+        assert compact.compact_scratch(H, P, 65, 0, 0, N,
+                                       torch.device("cuda")) is not None
     ko = compact.compact_cands(**kw)
     po = compact.compact_candidates_plain(**kw)
     torch.cuda.synchronize()
     for f in ko._fields:
         _cmp(getattr(ko, f), getattr(po, f), f)
+    if case == "global":
+        with monkeypatch.context() as mp:
+            mp.setattr(kernels, "scratch", _scratch_of_blocks(2))
+            kt = compact.compact_cands(**kw)
+            torch.cuda.synchronize()
+        for f in ko._fields:
+            _cmp(getattr(kt, f), getattr(po, f), f"{f}, two blocks")
 
 
 @pytest.mark.parametrize("L", [100, 150, 300])
