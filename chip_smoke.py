@@ -155,7 +155,13 @@ checks them:
 
 Each kernel's bound (the kernels line's bound_ms) is the larger of the
 bytes it must move over 3.35 TB/s and its operations over the peak rate
-of their type (`work` below states the count for each kernel).
+of their type (`work` below states the count for each kernel).  K19+K20,
+a chain of dependent loads, also reports a latency floor
+(latency_floor_ms): the longest walk's chain of dependent loads on the
+genome linear step (`walk_chain`) at the dependent-load latency a pointer
+chase over a buffer of its table's size measures in the same run
+(dependent_load_ns, `chase_ns`).  K16's live slots and K20's live rows
+are printed as shares on every step they are held on (`[live]`).
 
 Any failed check raises and exits non-zero.  Without a CUDA device, or
 outside the repository, it exits non-zero and prints no result.  The line
@@ -539,12 +545,31 @@ def work(torch, name, kw, out):
         extra = 0
         ops = N * C * (Lr + 1) * (60 + 4 * 30)
     elif name == "inject_known":
+        # Dense: the candidates' starts, valid flags and clips, the lanes'
+        # lens, read ids and minsc, the two 64-entry tables.  Of the reads,
+        # qualities and windows only what the live slots walk: a lane's read
+        # and qualities once if it has a live slot, the len columns of each
+        # (lane, candidate) window a live slot reads (and its SNV windows),
+        # the fresh diagonal's packed words of each live slot (and SNV
+        # planes).  Extra: the site tables once (6 columns of S rows, the
+        # two bucket entries a probe reads), the words of the four junction
+        # chars (two a slot).  ~40 integer ops a slot, ~30 a walked column
         N, C, W = kw["ch"].shape
-        Lr = kw["reads"].shape[1]
         J = out["score"].shape[1]
-        live = int(((out["x"] != 1) | (out["kind"] != 0)).sum())
-        extra = N * J * 2 * 12 * 4               # the site-table probes
-        ops = N * J * 40 + live * 2 * Lr * 12
+        _, _, ok = known_live(torch, kw)
+        lens = kw["lens"].long()
+        nwin = 1 if kw.get("snv1_w") is None else 3
+        lnc = ok.view(N, -1, C).any(1)
+        walked = int((ok.sum(1) * lens).sum())
+        dense = (N * C * 13 + N * 12 + 2 * 64 * 4
+                 + int(lens[ok.any(1)].sum()) * 8
+                 + int((lnc.sum(1) * lens).sum()) * 4 * nwin
+                 + (walked // 16 + 2 * int(ok.sum())) * 4 * nwin)
+        tabs = kw["tabs"]
+        extra = (6 * tabs["ss_kd"].numel() * 4 + N * J * 2 * 4
+                 + (N * C * 2 * 2 * 4 if tabs.get("ss_kd_lob") is not None
+                    else 0))
+        ops = N * J * 40 + walked * 30
     elif name == "merge_sites":
         extra, ops = 0, kw["kd"].shape[0] * 6 * 10
     elif name == "resolve_walk":
@@ -552,13 +577,16 @@ def work(torch, name, kw, out):
         # walked to its mark, and each fetch counted by the 32 B sectors
         # it needs (walk_sectors); then one sa_marked entry per marked
         # row; ~60 integer ops a fetch.  Dense: the mask of every row and
-        # the row index of live rows
+        # the first row of each run of P rows (walk_rows) that holds a
+        # live row
+        rows = walk_rows(torch, kw)
         live = kw["live"] if kw["live"] is not None else torch.ones_like(
-            kw["row"], dtype=torch.bool)
-        dense = kw["row"].numel() * (kw["live"] is not None) \
-            + int(live.sum()) * 4
+            rows, dtype=torch.bool)
+        P = kw.get("P", 1)
+        dense = rows.numel() * (kw["live"] is not None) \
+            + int(live.view(-1, P).any(1).sum()) * 4
         sectors, fetches, marked = walk_sectors(
-            torch, kw, torch.unique(kw["row"][live]))
+            torch, kw, torch.unique(rows[live]))
         extra = sectors * 32 + marked * 4
         ops = fetches * 60
     else:
@@ -566,6 +594,142 @@ def work(torch, name, kw, out):
     by = dense + extra + ob
     t_b, t_o = by / HBM * 1e3, ops / rate * 1e3
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def known_live(torch, kw):
+    """K16's slots on these arguments: (live slots, all slots, the live
+    mask [N, J]); a slot is live where a visible site lies in the read
+    span of a valid candidate, and only the live slots walk the read."""
+    from hisat2_tpu_torch.ops.splice import known_probes
+    _, _, ok = known_probes(kw["starts"], kw["valid"], kw["lens"],
+                            kw["rdids"], kw["tabs"], kw["slots"])
+    return int(ok.sum()), ok.numel(), ok
+
+
+def walk_rows(torch, kw):
+    """K20's SA rows [M] on these arguments: `row` holds the first of each
+    run of P consecutive rows."""
+    P = kw.get("P", 1)
+    row = kw["row"]
+    if P == 1:
+        return row
+    return (row.long()[:, None] + torch.arange(P, device=row.device)).to(
+        torch.int32).reshape(-1)
+
+
+def walk_live(torch, kw):
+    """K20's rows on these arguments: (live rows, rows, distinct live
+    rows)."""
+    row, live = walk_rows(torch, kw), kw["live"]
+    lv = live if live is not None else torch.ones_like(row, dtype=bool)
+    return int(lv.sum()), row.numel(), int(torch.unique(row[lv]).numel())
+
+
+def walk_chain(torch, kw):
+    """The longest chain of dependent loads among K20's walks on these
+    rows: the mask byte and the row index (read together), the walk's
+    block-row fetches (its steps + 1) and its sa_marked entry (a walk that
+    never finds a mark: 2^off_rate + 1 fetches, no entry)."""
+    from hisat2_tpu_torch.ops.resolve import walk_plain
+    row, live = walk_rows(torch, kw), kw["live"]
+    rows = torch.unique(row if live is None else row[live])
+    if rows.numel() == 0:
+        return 0
+    done, _, steps, _ = walk_plain(kw["blocked"], kw["fchr"], kw["zrow"],
+                                   kw["off_rate"], rows)
+    chain = torch.where(done, steps + 3, (1 << kw["off_rate"]) + 2)
+    return int(chain.max())
+
+
+def live_text(torch, key, kw):
+    """K16's live slots or K20's live rows on one captured call, as a
+    share (and K20's distinct live rows and latency floor, once the
+    pointer chase has run)."""
+    if key.startswith("inject_known"):
+        live, tot, _ = known_live(torch, kw)
+        return (f"{key}: {live} live slots of {tot} (share "
+                f"{live / max(tot, 1):.4f})")
+    live, M, dist = walk_live(torch, kw)
+    text = (f"{key}: {live} live rows of {M} (share {live / max(M, 1):.4f}"
+            f", {dist} distinct)")
+    if "ns" in CHASE:
+        chain = walk_chain(torch, kw)
+        text += (f", latency floor {chain * CHASE['ns'] * 1e-6:.4f} ms "
+                 f"({chain} dependent loads)")
+    return text
+
+
+# the pointer chase's library and its latency (ns), once measured
+CHASE = {}
+# A pointer chase: one thread follows dependent loads (cached in L2 only)
+# through a random cycle of nodes 128 bytes apart; its time a load is the
+# card's dependent-load latency, the unit of K20's latency floor.
+CHASE_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void chase(const int* __restrict__ next, int start, int steps,
+                      int* sink) {
+  int p = start;
+  for (int s = 0; s < steps; ++s) p = __ldcg(next + p);
+  *sink = p;
+}
+extern "C" int h2_chase(const void* next, int start, int steps, void* sink,
+                        void* stream) {
+  chase<<<1, 1, 0, (cudaStream_t)stream>>>((const int*)next, start, steps,
+                                           (int*)sink);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def chase_build(kernels):
+    """Start nvcc on CHASE_SRC; returns (the process, the library)."""
+    out = os.path.join(kernels.BUILD_DIR, "chase")
+    os.makedirs(out, exist_ok=True)
+    cu, so = os.path.join(out, "chase.cu"), os.path.join(out, "libchase.so")
+    with open(cu, "w") as f:
+        f.write(CHASE_SRC)
+    return subprocess.Popen(
+        [kernels._nvcc(), *kernels.ARCH_FLAGS, "-O3", "-Xcompiler", "-fPIC",
+         "-shared", "-o", so, cu], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True), so
+
+
+def chase_ns(torch, so, nbytes, steps=20_000):
+    """The dependent-load latency (ns) of a chase over a buffer of
+    `nbytes` (the size of the table the walk reads), CUDA events around
+    one launch of `steps` loads, median of 3."""
+    import ctypes
+    fn = ctypes.CDLL(so).h2_chase
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    nodes = max(2, nbytes // 128)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    perm = (torch.randperm(nodes, device="cuda", generator=gen) * 32).to(
+        torch.int32)
+    nxt = torch.zeros(nodes * 32, dtype=torch.int32, device="cuda")
+    nxt[perm.long()] = torch.roll(perm, -1)
+    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    st = torch.cuda.current_stream().cuda_stream
+
+    def run(k, at):
+        check(fn(nxt.data_ptr(), int(perm[at % nodes]), k, sink.data_ptr(),
+                 st) == 0, "pointer chase: launch error")
+    run(1000, 0)
+    times = []
+    for i in range(3):
+        # each run on its own stretch of the cycle, so that no load finds
+        # its node in a cache from an earlier run
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run(steps, (i + 1) * (steps + 1000))
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) * 1e6 / steps)
+    del nxt, perm
+    return statistics.median(times)
 
 
 def fm_rows(kw, reads, lens):
@@ -1054,7 +1218,10 @@ def spliced_phase(torch, np, g, index, kernels, twins, driver,
         check((n13, n15) == ((0, 0) if tier == "lite" else (1, 1)),
               f"the spliced {tier} step launched K13 {n13} and K15 {n15} "
               f"times")
-    step_shapes(splice, "spliced full", caps["full"])
+    for tier in ("lite", "full"):
+        step_shapes(splice, f"spliced {tier}", caps[tier])
+        print(f"[live] spliced {tier} "
+              f"{live_text(torch, 'inject_known', caps[tier]['inject_known'])}")
     check("search_lanes_live" in caps["full"]
           and caps["full"]["search_lanes_live"]["reads"].shape[0] > 2048,
           "the full step's re-search is not in lane-list mode")
@@ -1284,15 +1451,27 @@ def genome_phase(torch, np, kernels, twins, driver, read_alignments,
           "the sampled step did not search the 49-column rows and resolve "
           "through the walk")
     replay(cap, "genome")
-    step_shapes(splice, "genome linear", cap)
     kw = cap["resolve_walk"]
     out = twins["resolve_walk"][0](**kw)
     bounds["resolve_walk"] = work(torch, "resolve_walk", kw, out)
-    nlive = int(kw["live"].sum())
+    nlive, M, ndist = walk_live(torch, kw)
     steps = (out[kw["live"]].long() & 15).double().mean().item()
-    print(f"[genome kernels] resolve_walk on {kw['row'].shape[0]} rows, "
-          f"{nlive} live, {steps:.2f} steps per live row; bound "
-          f"{bounds['resolve_walk'][0]:.4f} ms ({bounds['resolve_walk'][1]})")
+    # the latency floor: the longest chain of dependent loads at the
+    # dependent-load latency a pointer chase measures over a buffer the
+    # size of the walk's table
+    CHASE["ns"] = chase_ns(torch, CHASE["so"], kw["blocked"].numel() * 4)
+    chain = walk_chain(torch, kw)
+    r = rows["resolve_walk"]
+    r["dependent_load_ns"] = CHASE["ns"]
+    r["latency_floor_ms"] = chain * CHASE["ns"] * 1e-6
+    print(f"[genome kernels] resolve_walk on {M} rows, {nlive} live "
+          f"(share {nlive / M:.4f}, {ndist} distinct), {steps:.2f} steps per "
+          f"live row; bound {bounds['resolve_walk'][0]:.4f} ms "
+          f"({bounds['resolve_walk'][1]}); latency floor "
+          f"{r['latency_floor_ms']:.4f} ms ({chain} dependent loads at "
+          f"{CHASE['ns']:.1f} ns, a pointer chase over "
+          f"{kw['blocked'].numel() * 4} bytes)")
+    step_shapes(splice, "genome linear", cap)
     # K19 alone: the same rows without the live mask (every row walks)
     kwd = dict(kw, live=None)
     err, ms, pms = compare(torch, "resolve_walk", *twins["resolve_walk"], kwd)
@@ -1302,7 +1481,7 @@ def genome_phase(torch, np, kernels, twins, driver, read_alignments,
     r["dense_bound_ms"] = work(torch, "resolve_walk", kwd,
                                twins["resolve_walk"][0](**kwd))[0]
     print(f"[genome kernels] resolve_walk without the live mask (K19 "
-          f"alone, all {kw['row'].shape[0]} rows): equal to plain; kernel "
+          f"alone, all {M} rows): equal to plain; kernel "
           f"{ms:.4f} ms, plain {pms:.4f} ms; bound "
           f"{r['dense_bound_ms']:.4f} ms")
 
@@ -1489,8 +1668,12 @@ def genome_phase(torch, np, kernels, twins, driver, read_alignments,
               f"the config-6 {tier} step ran without the walk or its SNV "
               f"inputs")
         replay(scap, f"genome_c6_{tier}")
+        step_shapes(splice, f"config6 {tier}", scap)
+        for key in ("inject_known", "resolve_walk", "resolve_walk/research"):
+            if key in scap:
+                print(f"[live] config6 {tier} "
+                      f"{live_text(torch, key, scap[key])}")
         if tier == "full":
-            step_shapes(splice, "config6 full", scap)
             for name in ("pair_sweep", "second_sweep", "indel_sweep",
                          "extend_ungapped"):
                 kw = scap[name]
@@ -1960,6 +2143,8 @@ def spliced_long(torch, np, g, index, kernels, TorchAligner, rng, read):
           f"{launches}")
     for k in ("sites", "_col_jl", "_col_jr", "_col_rdid"):
         setattr(scp.splice_db, k, getattr(scu.splice_db, k))
+    from hisat2_tpu_torch.ops import kernel_twins
+    twins = kernel_twins()
     for a, c in ((scu._fast, scp._fast), (scu, scp)):
         rd_, ss = a._step_site_args(rdids)
         rdc, ssc = c._step_site_args(rdids)
@@ -1974,14 +2159,19 @@ def spliced_long(torch, np, g, index, kernels, TorchAligner, rng, read):
               f"spliced long step lite={a.lite} != CPU step")
         hold_slots(torch, f"long spliced {'lite' if a.lite else 'full'}",
                    cap)
+        err, ms, pms = compare(torch, "inject_known", *twins["inject_known"],
+                               cap["inject_known"])
+        print(f"[long] inject_known on the spliced "
+              f"{'lite' if a.lite else 'full'} step at {Ls} bp: equal to "
+              f"plain (tolerance: exact); kernel {ms:.4f} ms, plain "
+              f"{pms:.4f} ms; "
+              f"{live_text(torch, 'inject_known', cap['inject_known'])}")
         print(f"[long] spliced {'lite' if a.lite else 'full'} step at {Ls} "
               f"bp: packed [{bk.shape[0]}, {bk.shape[1]}] equal to the CPU "
               f"plain step (CPU {time.perf_counter() - t2:.1f} s)")
         step_shapes(splice, f"spliced long {'lite' if a.lite else 'full'}",
                     cap)
     # K13 and K15 on this full step, their planes in shared memory
-    from hisat2_tpu_torch.ops import kernel_twins
-    twins = kernel_twins()
     for name in ("pair_sweep", "second_sweep"):
         check(splice.sweep_launch_info(**sweep_shape(splice, name, cap[
             name]))["scratch_per_block"] == 0, f"{name} at {Ls} bp: "
@@ -2120,8 +2310,12 @@ def main() -> int:
           f"device {kind}, {torch.cuda.device_count()} visible")
 
     # 2 build
+    chase_p, chase_so = chase_build(kernels)
     t_build = kernels.build(force=True)
     kernels.load()
+    _, err = chase_p.communicate()
+    check(chase_p.returncode == 0, f"nvcc pointer chase: {err[-2000:]}")
+    CHASE["so"] = chase_so
     print(f"[build] nvcc sm_90a, {len(kernels.KERNELS)} kernels "
           f"({', '.join(kernels.KERNELS)}): {t_build:.2f} s")
     phase_done("build")

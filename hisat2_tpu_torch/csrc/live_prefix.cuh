@@ -17,7 +17,8 @@
 // The chars come from a functor at(col, &rc4, &v1, &v2): the packed
 // reference / SNV planes for a fresh diagonal (H2WordChars), or the
 // pre-gathered diagonal windows for a source diagonal (H2WindowChars).
-// inject_known (K16, splice.py:708) calls the same function.
+// inject_indels (K10) calls it from one thread; inject_known (K16,
+// splice.py:708) calls its warp version, h2_warp_pen_prefix below.
 #pragma once
 
 #include "common.cuh"
@@ -101,5 +102,77 @@ __device__ H2PenScalars h2_live_pen_prefix(const int* rd, const int* qs,
       s.mm_at[1] += mi;
     }
   }
+  return s;
+}
+
+// One column of a penalty plane (pen_planes semantics, as in
+// h2_live_pen_prefix above): its penalty and whether it is a raw mismatch.
+__device__ __forceinline__ void h2_col_pen(int r, int q, int rc4, int v1,
+                                           int v2, bool vp, bool oob,
+                                           const int* mm_pen, int n_pen,
+                                           unsigned& pen, unsigned& mi) {
+  const int rc = min(rc4, 3);
+  v1 = min(v1, 3);
+  v2 = min(v2, 3);
+  const bool isn = vp && r >= 4;
+  const bool mm_raw = vp && r < 4 && r != rc && !oob;
+  const bool snp_ok = mm_raw && ((v1 != 0 && r == ((rc + v1) & 3)) ||
+                                 (v2 != 0 && r == ((rc + v2) & 3)));
+  pen = (unsigned)((mm_raw && !snp_ok ? mm_pen[min(q, 63)] : 0) +
+                   (isn ? n_pen : 0) + (oob ? H2_OOB_PEN : 0));
+  mi = mm_raw ? 1u : 0u;
+}
+
+// h2_live_pen_prefix's scalars in uint32, which wrap as JAX's int32 sums
+// do (about 21,475 out-of-text columns pass 2^31).
+struct H2PenSums {
+  unsigned tot_pen, tot_mm;
+  unsigned pen_at[2], mm_at[2];
+};
+
+// The warp version of h2_live_pen_prefix: the 32 lanes of a warp, all
+// calling it with the same arguments, take the columns c_lo + lane,
+// c_lo + lane + 32, ... below c_hi, each keeps partial sums over its
+// columns, and one __reduce_add_sync a scalar gives every lane the sums
+// over [c_lo, c_hi): the plane total and the prefixes below p0 and p1.
+// With c_lo = 0 and c_hi = L these are h2_live_pen_prefix's scalars; a
+// caller that needs a sum over one run of columns (the columns from a
+// junction to the read's end) walks that run only.  A lane reads a
+// packed reference word once a column, a warp-wide load of the 2-3
+// words its 32 columns share.
+template <class CharAt>
+__device__ H2PenSums h2_warp_pen_prefix(const int* rd, const int* qs,
+                                        int len, int c_lo, int c_hi,
+                                        long long start, long long n_text,
+                                        const int* mm_pen, int n_pen, int p0,
+                                        int p1, CharAt at, int lane) {
+  unsigned s0 = 0, s1 = 0, s2 = 0, s3 = 0, s4 = 0, s5 = 0;
+  for (int col = c_lo + lane; col < c_hi; col += 32) {
+    const long long pos = start + col;
+    const bool vp = col < len;
+    const bool oob = vp && (pos < 0 || pos >= n_text);
+    int rc4, v1, v2;
+    at(col, rc4, v1, v2);
+    unsigned pen, mi;
+    h2_col_pen(rd[col], qs[col], rc4, v1, v2, vp, oob, mm_pen, n_pen, pen,
+               mi);
+    s0 += pen;
+    s1 += mi;
+    if (col < p0) {
+      s2 += pen;
+      s3 += mi;
+    }
+    if (col < p1) {
+      s4 += pen;
+      s5 += mi;
+    }
+  }
+  H2PenSums s;
+  s.tot_pen = __reduce_add_sync(H2_FULL_MASK, s0);
+  s.tot_mm = __reduce_add_sync(H2_FULL_MASK, s1);
+  s.pen_at[0] = __reduce_add_sync(H2_FULL_MASK, s2);
+  s.mm_at[0] = __reduce_add_sync(H2_FULL_MASK, s3);
+  s.pen_at[1] = __reduce_add_sync(H2_FULL_MASK, s4);
+  s.mm_at[1] = __reduce_add_sync(H2_FULL_MASK, s5);
   return s;
 }

@@ -135,7 +135,7 @@ KERNELS = {k.name: k for k in (
            "hisat2_tpu/align/splice_db.py:40 _merge_sorted_tabs (+ :72 "
            "lob_add)"),
     Kernel("resolve_walk", "h2_resolve_walk",
-           [_P, _LL, _P, _P, _LL, _I, _I, _P, _P, _LL, _P] + [_P],
+           [_P, _LL, _P, _P, _LL, _I, _I, _P, _I, _P, _LL, _P] + [_P],
            "hisat2_tpu_torch/csrc/resolve_walk.cu",
            "hisat2_tpu/ops/resolve.py:29 resolve_rows (+ :107 "
            "resolve_rows_sparse)"),

@@ -19,8 +19,11 @@ finds marked, and every dead row, reads 0.
 The JAX sparse walk compacts the live rows (a stable argsort) and walks
 them in chunks under a while_loop; the result does not depend on the
 order of the rows, so the plain twin walks the live rows in one pass and
-the kernel gives each row its own thread.  Packed words are held as
-int64 in [0, 2^32) and counted with SWAR, as in ops/rank.py.
+the kernel puts each block's live rows on a list and walks the list (a
+thread per row without a mask).  The kernel takes the first row of each
+run of P consecutive rows and adds the offsets itself, so the walk's
+callers make no [M] row tensor.  Packed words are held as int64 in
+[0, 2^32) and counted with SWAR, as in ops/rank.py.
 """
 
 from __future__ import annotations
@@ -91,9 +94,13 @@ def walk_plain(blocked, fchr, zrow: int, off_rate: int, row):
 
 
 def resolve_rows_sparse_plain(blocked, fchr, sa_marked, zrow: int,
-                              off_rate: int, row, live=None):
+                              off_rate: int, row, live=None, P: int = 1):
     """Plain twin of K20 (resolve.py:107): K19 over the live rows only,
-    0 for dead rows (live None: every row, as K19)."""
+    0 for dead rows (live None: every row, as K19).  With P > 1, `row`
+    holds the first of each run of P consecutive rows (walk_args)."""
+    if P != 1:
+        row = (row.to(torch.int64)[:, None]
+               + torch.arange(P, device=row.device)).to(_I32).reshape(-1)
     if live is None:
         return resolve_rows_plain(blocked, fchr, sa_marked, zrow, off_rate,
                                   row)
@@ -104,29 +111,32 @@ def resolve_rows_sparse_plain(blocked, fchr, sa_marked, zrow: int,
 
 
 def resolve_rows_sparse(blocked, fchr, sa_marked, zrow: int, off_rate: int,
-                        row, live=None):
+                        row, live=None, P: int = 1):
     """The resolve_walk kernel (K19+K20) on CUDA tensors,
-    resolve_rows_sparse_plain on CPU tensors.  row: int32 [M]; live: bool
-    [M] or None (every row)."""
+    resolve_rows_sparse_plain on CPU tensors.  row: int32 [M / P], the
+    first of each run of P consecutive SA rows (the rows themselves at P
+    = 1); live: bool [M] or None (every row).  Returns int32 [M]."""
     if not row.is_cuda:
         return resolve_rows_sparse_plain(blocked, fchr, sa_marked, zrow,
-                                         off_rate, row, live)
+                                         off_rate, row, live, P)
     if not 0 < off_rate <= 16:
         raise ValueError("resolve_walk: off_rate must be in 1..16")
-    M = row.shape[0]
+    if P < 1:
+        raise ValueError("resolve_walk: P must be >= 1")
+    M = row.shape[0] * P
     kernels.check_cuda("blocked", blocked, _I32)
     if blocked.dim() != 2 or blocked.shape[1] != FUSED_WIDTH:
         raise ValueError("resolve_walk: blocked must be [nblk + 1, 49]")
     kernels.check_cuda("fchr", fchr, _I32, (5,))
     kernels.check_cuda("sa_marked", sa_marked, _I32)
-    kernels.check_cuda("row", row, _I32, (M,))
+    kernels.check_cuda("row", row, _I32, (M // P,))
     if live is not None:
         kernels.check_cuda("live", live, torch.bool, (M,))
     out = torch.empty(M, dtype=_I32, device=row.device)
     kernels.KERNELS["resolve_walk"].launch(
         blocked.data_ptr(), blocked.shape[0], fchr.data_ptr(),
         sa_marked.data_ptr(), sa_marked.shape[0], zrow, off_rate,
-        row.data_ptr(), live.data_ptr() if live is not None else None, M,
+        row.data_ptr(), P, live.data_ptr() if live is not None else None, M,
         out.data_ptr(), stream=kernels.stream_of(row))
     return out
 
@@ -135,12 +145,12 @@ def walk_args(sa_marked, off_rate: int, top, P: int, live, blocked, fchr,
               zrow: int) -> dict:
     """resolve_rows_sparse's arguments for the rows top..top+P-1 of a
     sampled SA (resolve_consecutive's sampled branch, resolve.py:187-195):
-    the rows flattened to int32 [top.numel() * P], `live` [..., P] (or
-    None) flattened with them."""
-    rowm = top[..., None] + torch.arange(P, device=top.device)
+    the first rows `top` flattened to int32 [top.numel()] with P (the
+    kernel adds the offsets, the plain twin expands them), `live` [..., P]
+    (or None) flattened."""
     return dict(blocked=blocked, fchr=fchr, sa_marked=sa_marked, zrow=zrow,
-                off_rate=off_rate,
-                row=rowm.to(_I32).reshape(-1).contiguous(),
+                off_rate=off_rate, row=top.to(_I32).reshape(-1).contiguous(),
+                P=P,
                 live=None if live is None else live.reshape(-1).contiguous())
 
 

@@ -1049,29 +1049,18 @@ def second_sweep_plain(ch, pen_spl, mm_raw, starts, valid, lens, minsc,
     return outs
 
 
-def inject_known_plain(ref_words, n_text: int, reads, quals, lens, rdids,
-                       starts, valid, P_raw, tabs, mm_pen, n_pen: int, minsc,
-                       slots: int, src_clip_l, src_clip_r, clip_pen,
-                       snv_delta1=None, snv_delta2=None):
-    """Plain twin of K16 (splice.py:629 inject_known, line by line, always
-    with the source clips, so the source totals and mismatch prefixes it
-    takes are not read).  tabs: SpliceSiteDB.device_tables; P_raw: the
-    penalty prefixes of the source diagonals [N, C, L+1], SNV-forgiving on
-    a graph index as pipeline.py:1117-1120 passes them; snv_delta1/2: the
-    packed SNV planes, which forgive catalog SNVs on the fresh diagonal
-    (None on a linear index).  The donor-coverage gate is always on.
-    Returns a dict of [N, 2*C*slots] arrays with `src`."""
-    from . import extend as extend_ops
-    i32 = torch.int32
-    dev = reads.device
-    N, C = starts.shape
-    L = reads.shape[1]
+def known_probes(starts, valid, lens, rdids, tabs, slots: int):
+    """K16's site probes (splice.py:665-697): for each slot [N, 2*C*slots]
+    (the donor-keyed ones first, slot t*C + c the t-th site at or after
+    candidate c's key), its junction position x (1 where the slot is
+    dead), the fresh diagonal, and whether the slot is live (a visible
+    site inside the read span of a valid candidate: only those are
+    rescored)."""
     kd, ka, krdid = tabs["ss_kd"], tabs["ss_ka"], tabs["ss_rdid"]
     ka_s, kd_s, krdid_a = tabs["ss_ka_s"], tabs["ss_kd_s"], tabs["ss_rdid_a"]
     S = kd.shape[0]
     rd2 = rdids[:, None]
     lens2 = lens[:, None]
-    srcC = torch.arange(C, device=dev, dtype=i32)[None, :].expand(N, C)
     cand_x, cand_d2, cand_ok = [], [], []
     lo = table_searchsorted(kd, starts, tabs.get("ss_kd_lob"),
                             tabs.get("ss_shift"))
@@ -1097,10 +1086,32 @@ def inject_known_plain(ref_words, n_text: int, reads, quals, lens, rdids,
         cand_x.append(x)
         cand_d2.append(kd_s[idx] - x + 1)
         cand_ok.append(oka)
+    return (torch.cat(cand_x, 1).to(torch.int32),
+            torch.cat(cand_d2, 1).to(torch.int32), torch.cat(cand_ok, 1))
+
+
+def inject_known_plain(ref_words, n_text: int, reads, quals, lens, rdids,
+                       starts, valid, P_raw, tabs, mm_pen, n_pen: int, minsc,
+                       slots: int, src_clip_l, src_clip_r, clip_pen,
+                       snv_delta1=None, snv_delta2=None):
+    """Plain twin of K16 (splice.py:629 inject_known, line by line, always
+    with the source clips, so the source totals and mismatch prefixes it
+    takes are not read).  tabs: SpliceSiteDB.device_tables; P_raw: the
+    penalty prefixes of the source diagonals [N, C, L+1], SNV-forgiving on
+    a graph index as pipeline.py:1117-1120 passes them; snv_delta1/2: the
+    packed SNV planes, which forgive catalog SNVs on the fresh diagonal
+    (None on a linear index).  The donor-coverage gate is always on.
+    Returns a dict of [N, 2*C*slots] arrays with `src`."""
+    from . import extend as extend_ops
+    i32 = torch.int32
+    dev = reads.device
+    N, C = starts.shape
+    L = reads.shape[1]
+    lens2 = lens[:, None]
+    srcC = torch.arange(C, device=dev, dtype=i32)[None, :].expand(N, C)
     J1 = C * slots
-    x_all = torch.cat(cand_x, 1).to(i32)
-    fresh = torch.cat(cand_d2, 1).to(i32)
-    ok_all = torch.cat(cand_ok, 1)
+    x_all, fresh, ok_all = known_probes(starts, valid, lens, rdids, tabs,
+                                        slots)
     src = torch.cat([srcC] * (2 * slots), 1)
     J = x_all.shape[1]
     x_m1 = torch.clamp(x_all - 1, min=0)

@@ -2,10 +2,11 @@
 commit's, in turns on one card: the junction sweeps K13 (pair_sweep) and
 K15 (second_sweep), the indel sweep K8 (indel_sweep), the ungapped
 extension K6+K7 (extend_ungapped), the FM search K1 (fm_search2, and
-its lane-list mode K17), the candidate compaction K3+K4 (compact_cands)
-and the slot merge K9 (pack_slots, as a region with the schema glue it
-absorbed); and, of this tree alone, the device time of the kernels not
-yet redesigned (K5, K10, K16, K20) on the steps that launch them.
+its lane-list mode K17), the candidate compaction K3+K4 (compact_cands),
+the slot merge K9 (pack_slots, as a region with the schema glue it
+absorbed), the splice-site injection K16 (inject_known) and the sampled-SA
+walk K19+K20 (resolve_walk); and, of this tree alone, the device time of
+the kernels not yet redesigned (K5, K10) on the steps that launch them.
 
     git archive <commit> hisat2_tpu_torch/csrc | tar -x -C DIR
     python3 sweep_ab.py DIR
@@ -15,52 +16,64 @@ the earlier commit's pair_sweep.cu and second_sweep.cu into libraries of
 their own (their C symbols are this tree's), each whole and stopped right
 after its plane prologue (the sp_build call), this tree's stopped the
 same way, the earlier indel_sweep.cu, extend_ungapped.cu, fm_search2.cu,
-compact_cands.cu and pack_slots.cu whole, and the earlier
-extend_ungapped.cu stopped after its scans (that tree's last/next-
-penalised scan, when it has one): one nvcc per library, all started
-together.  Then it runs chip_smoke.py's phases, and on the steps
-chip_smoke.step_shapes reports it takes the step's captured arguments and
+compact_cands.cu, pack_slots.cu, inject_known.cu and resolve_walk.cu
+whole, the earlier extend_ungapped.cu stopped after its scans (that
+tree's last/next-penalised scan, when it has one), and the earlier
+inject_known.cu and resolve_walk.cu stopped part-way (STOPS: K16 after its
+site probes and after the probes and junction chars, K20 with its walk cut
+to zero steps, where that tree's source has the marker): one nvcc per
+library, all started together.  Then it runs chip_smoke.py's phases, and
+on the steps chip_smoke.step_shapes reports it takes the step's captured
+arguments and
 
 - checks that the earlier kernels give this tree's outputs;
 - times each kernel, 20 launches back to back between two CUDA events
   (median of 5 rounds), in turns: earlier, this, this, earlier.  K13's
   and K15's launches (whole and prologue-only) are issued from the host,
   on phase 10's and phase 11 (e)'s spliced full step; K8's, K6+K7's,
-  K1's, K4's and K9's are captured in one CUDA graph (device time), since
-  the wrapper's host work per call outlasts those kernels.  K8 runs on the
-  linear step and config 6's full step; K6+K7's core and extra-slot
-  launches on every step where chip_smoke holds them (linear, graph
-  full, spliced full, config 6 full, the genome linear step and a rescue
-  chunk), with the earlier tree's scans-only copy; K1 on the linear,
-  graph full, spliced full and config 6 full steps, and K17 (K1's
-  lane-list mode, its lane list made outside the graph) on the spliced
-  and config 6 full steps; K4 and K9 on the linear, graph full, spliced
-  full, genome linear and config 6 full steps, with their bounds
-  (chip_smoke.work) on those steps.  K9 is timed as a region from the
-  step's block dicts: an earlier K9 that takes the schema as one [F, N,
-  K] tensor (two launches) runs behind the schema glue the pipeline ran
-  for it (`schema_glue` below: the blocks' zero planes, the defaults,
-  the torch.stack / torch.cat), this tree's reads the blocks in place;
-  both regions are also timed on the host clock (the enqueue of one
-  call: `host_ms`);
+  K1's, K4's, K9's, K16's and K20's are captured in one CUDA graph
+  (device time), since the wrapper's host work per call outlasts those
+  kernels.  K8 runs on the linear step and config 6's full step; K6+K7's
+  core and extra-slot launches on every step where chip_smoke holds them
+  (linear, graph full, the spliced and config 6 steps, the genome linear
+  step and a rescue chunk), with the earlier tree's scans-only copy; K1
+  on the linear, graph full, spliced full and config 6 full steps, and
+  K17 (K1's lane-list mode, its lane list made outside the graph) on the
+  spliced and config 6 full steps; K4 and K9 on the linear, graph full,
+  spliced full, genome linear and config 6 full steps, with their bounds
+  (chip_smoke.work) on those steps; K16 on the spliced, config 6 and
+  long spliced lite and full steps (K16_STEPS), with its stopped copies
+  and its live slots; K20 on the genome linear and config 6 lite and
+  full steps and the full step's re-search walk (K20_STEPS), with its
+  zero-step copy, its live rows, its latency floor and this tree's time
+  with every other live row dropped, and on the genome linear step also
+  K19 (no mask) and K20 with every row live.  K9 is timed as a
+  region from the step's block dicts: an earlier K9 that takes the
+  schema as one [F, N, K] tensor (two launches) runs behind the schema
+  glue the pipeline ran for it (`schema_glue` below: the blocks' zero
+  planes, the defaults, the torch.stack / torch.cat), this tree's reads
+  the blocks in place; both regions are also timed on the host clock
+  (the enqueue of one call: `host_ms`).  An earlier K20 that takes every
+  row [M] runs on rows expanded outside the graph and, as a region,
+  behind the row glue the pipeline ran for it (`rows_walk`);
 - times this tree's K1 on the linear step with and without an L2
   access-policy window (persisting) over the fused table, in turns;
-- times this tree's ref_window (K5), inject_indels (K10), inject_known
-  (K16) and resolve_walk (K20) by CUDA graph on every reported step that
-  launches them, alone (no earlier tree): the inputs of the next
-  redesign's ranking.
+- times this tree's ref_window (K5) and inject_indels (K10) by CUDA graph
+  on every reported step that launches them, alone (no earlier tree):
+  the inputs of the next redesign's ranking.
 
 Both trees launch through this tree's wrappers (ops/), except the earlier
-K9 of one [F, N, K] schema (`pack_slots_schema` below); only the C entry
-point differs, so the arguments and the host work per launch are the
-same, except that an earlier K1 of one thread a lane (no FM_G), which
-writes only a lane's events, gets zero-filled outputs (the device work
-its wrapper did).  The earlier
-K15 must take both base pairs of a step in one launch, as this tree's
-does; the earlier K8, K13 and K15 may lack this tree's trailing scratch
-arguments (the scratch, its bytes).  Prints one `[sweep ab] <step> {json}` line per step for K13 +
-K15, one `[sweep ab] <step> <kernel> {json}` line per step for K8, K6+K7,
-K1, K4 and K9, then chip_smoke's own lines.
+K9 of one [F, N, K] schema (`pack_slots_schema` below) and the earlier
+K20 of one row a walk (`rows_walk`); only the C entry point differs, so
+the arguments and the host work per launch are the same, except that an
+earlier K1 of one thread a lane (no FM_G), which writes only a lane's
+events, gets zero-filled outputs (the device work its wrapper did).  The
+earlier K15 must take both base pairs of a step in one launch, as this
+tree's does; the earlier K8, K13 and K15 may lack this tree's trailing
+scratch arguments (the scratch, its bytes).  Prints one `[sweep ab]
+<step> {json}` line per step for K13 + K15, one `[sweep ab] <step>
+<kernel> {json}` line per step for K8, K6+K7, K1, K4, K9, K16 and K20,
+then chip_smoke's own lines.
 """
 
 from __future__ import annotations
@@ -83,16 +96,58 @@ PRO_SINK = {"pair_sweep": "A.bsel[(size_t)n * 2]", "second_sweep": "A.out[n]"}
 EXT_SCANS_END = "  __syncwarp();\n\n  const int total_pen = sP[L];"
 # the earlier trees' kernels timed whole
 WHOLE = ("indel_sweep", "extend_ungapped", "fm_search2", "compact_cands",
-         "pack_slots")
+         "pack_slots", "inject_known", "resolve_walk")
+# copies of the earlier K16 (inject_known) and K20 (resolve_walk) stopped
+# part-way, each writing every output it owes: K16 after its site probes
+# and after the probes and the four junction chars (its score, kind and
+# clip planes as a dead slot's or, for a live slot, 0); K20 with its walk
+# cut to zero steps (the sweep over the mask and the outputs).  (marker in
+# the source, the text put before it, or the text that replaces it)
+K16_STOP = """  {{
+    const size_t NJ_ = (size_t)A.N * J;
+    int* o_ = A.out + k;
+    o_[0] = ok ? 0 : -IK_BIG;
+    o_[NJ_] = donor ? st : fresh;
+    o_[2 * NJ_] = donor ? fresh : st;
+    o_[3 * NJ_] = x;
+    o_[4 * NJ_] = ok ? 1 : 0;
+    o_[5 * NJ_] = {spldir};
+    o_[6 * NJ_] = 0;
+    o_[7 * NJ_] = 0;
+    o_[8 * NJ_] = c;
+    return;
+  }}
+"""
+STOPS = {
+    ("inject_known", "probes"): (
+        "  const int d1 = donor ? st : fresh;\n",
+        K16_STOP.format(spldir="0"), False),
+    ("inject_known", "chars"): (
+        "  int score = -IK_BIG, out_cl = 0, out_cr = 0;\n",
+        K16_STOP.format(spldir="spldir"), False),
+    ("resolve_walk", "nowalk"): (
+        "for (int s = 0; s < max_steps; ++s)",
+        "for (int s = 0; s < 0; ++s)", True)}
 # the steps K4 and K9 are compared on
 PACK_STEPS = ("linear", "graph full", "spliced full", "genome linear",
               "config6 full")
 # this tree's kernels timed alone, by CUDA graph
-ALONE = ("ref_window", "inject_indels", "inject_known", "resolve_walk")
+ALONE = ("ref_window", "inject_indels")
+# the steps K16 and K20 are compared on
+K16_STEPS = ("spliced lite", "spliced full", "config6 lite", "config6 full",
+             "spliced long lite", "spliced long full")
+K20_STEPS = ("genome linear", "config6 lite", "config6 full")
 # an earlier K9's C entry point that takes the schema as one [F, N, K]
 # tensor: uni, N, K, Mdev, do_select, spill, has_event, spliced, then
 # dense, alt, words, cnt, offs, src, sp_w, sp_ev, the stream
 SCHEMA_K9 = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 8
+# an earlier K20's C entry point that takes every row [M] (no runs of P):
+# blocked, nblk, fchr, sa_marked, ns, zrow, off_rate, row, live, M, out,
+# the stream
+ROWS_K20 = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_void_p]
 # an L2 access-policy window on a stream: the persisting set-aside at its
 # largest and a window over `bytes` from `base` whose hit ratio is the
 # set-aside's share of it (on = 0: no window, the set-aside released)
@@ -132,9 +187,16 @@ extern "C" int h2_l2_window(void* base, long long bytes, void* stream,
 
 def sweep_source(src, name, pro):
     """pair_sweep.cu / second_sweep.cu, stopped after sp_build if pro;
-    extend_ungapped.cu stopped after its scans if pro (None where that
-    tree's kernel has no such point); any other source whole."""
+    extend_ungapped.cu stopped after its scans if pro; inject_known.cu /
+    resolve_walk.cu stopped at STOPS[(name, pro)] (None where that tree's
+    kernel has no such point); any source whole if not pro."""
     text = open(os.path.join(src, name + ".cu")).read()
+    if (name, pro) in STOPS:
+        mark, put, swap = STOPS[(name, pro)]
+        if mark not in text:
+            return None
+        at = text.index(mark, text.index("__global__"))
+        return text[:at] + put + text[at + len(mark) * swap:]
     if pro and name in SWEEPS:
         at = text.index("sp_build(", text.index("__global__"))
         end = text.index(");", at) + 2
@@ -161,11 +223,13 @@ def build_libs(kernels, parent_csrc):
     todo += [("this", kernels.CSRC, name, True) for name in SWEEPS]
     todo += [("parent", parent_csrc, name, False) for name in WHOLE]
     todo.append(("parent", parent_csrc, "extend_ungapped", True))
+    todo += [("parent", parent_csrc, name, stop) for name, stop in STOPS]
     for tree, src, name, pro in todo:
         text = sweep_source(src, name, pro)
         if text is None:
             continue
-        tag = f"{tree}_{name}_{'pro' if pro else 'whole'}"
+        tag = (f"{tree}_{name}_"
+               f"{pro if isinstance(pro, str) else 'pro' if pro else 'whole'}")
         cu = os.path.join(out, tag + ".cu")
         with open(cu, "w") as f:
             f.write(text)
@@ -180,6 +244,8 @@ def build_libs(kernels, parent_csrc):
             nargs -= arg in this and arg not in text
         if name == "pack_slots" and "const void* uni" in text:
             nargs = -len(SCHEMA_K9)   # the schema interface
+        if name == "resolve_walk" and "int P" not in text:
+            nargs = -len(ROWS_K20)    # every row, no runs
         jobs.append(((tree, name, pro), so, nargs, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     cu = os.path.join(out, "l2_window.cu")
@@ -194,6 +260,9 @@ def build_libs(kernels, parent_csrc):
     # an earlier K9 that takes the schema as one [F, N, K] tensor
     fns["k9_schema"] = "const void* uni" in sweep_source(
         parent_csrc, "pack_slots", False)
+    # an earlier K20 that takes every row [M]
+    fns["k20_rows"] = "int P" not in sweep_source(parent_csrc,
+                                                  "resolve_walk", False)
     # an earlier K1 of one thread a lane writes only a lane's events
     fns["k1_fills"] = "FM_G" not in sweep_source(parent_csrc, "fm_search2",
                                                  False)
@@ -211,7 +280,8 @@ def build_libs(kernels, parent_csrc):
             continue
         at = kernels.KERNELS[key[1]].argtypes
         if nargs < 0:
-            at, nargs = SCHEMA_K9 + [ctypes.c_void_p], -nargs
+            at, nargs = ((ROWS_K20 if key[1] == "resolve_walk" else SCHEMA_K9)
+                         + [ctypes.c_void_p], -nargs)
         fn.argtypes = at[:nargs] + at[-1:]
         fn.restype = ctypes.c_int
         fns[key] = (fn, nargs)
@@ -319,6 +389,89 @@ def pack_slots_schema(torch, fn, kw):
         if has_event:
             out["sp_ev"] = sp_ev
     return out
+
+
+def rows_walk(torch, fn, kw, rows=None):
+    """An earlier K20 whose C entry point takes every row [M]: the row
+    glue this tree's launch absorbed (walk_args before it took runs: the
+    first rows + arange(P) as int32), unless the rows are given, then its
+    launch."""
+    f, _ = fn
+    if rows is None:
+        top = kw["row"]
+        rows = (top[:, None] + torch.arange(kw.get("P", 1), device=top.device)
+                ).to(torch.int32).reshape(-1).contiguous()
+    live, b, sa = kw["live"], kw["blocked"], kw["sa_marked"]
+    M = rows.numel()
+    out = torch.empty(M, dtype=torch.int32, device=rows.device)
+    with torch.cuda.device(rows.device):
+        err = f(b.data_ptr(), b.shape[0], kw["fchr"].data_ptr(),
+                sa.data_ptr(), sa.shape[0], kw["zrow"], kw["off_rate"],
+                rows.data_ptr(), None if live is None else live.data_ptr(), M,
+                out.data_ptr(), torch.cuda.current_stream(rows.device)
+                .cuda_stream)
+    chip_smoke.check(err == 0, f"earlier resolve_walk: launch error {err}")
+    return out
+
+
+def compare_walk(torch, kernels, fns, tag, key, kw, info):
+    """K20 on one step's arguments: the earlier tree's kernel against this
+    tree's wrapper, equal outputs, then the device time by CUDA graph in
+    turns and the earlier tree's zero-step copy.  An earlier K20 that
+    takes every row [M] runs on rows expanded outside the timing and, as
+    a region, behind the row glue this tree absorbed (`region`)."""
+    from hisat2_tpu_torch.ops import resolve
+    this = lambda: resolve.resolve_rows_sparse(**kw)  # noqa
+    old = {s: fns[("parent", "resolve_walk", s)] for s in (False, "nowalk")
+           if ("parent", "resolve_walk", s) in fns}
+    if fns["k20_rows"]:
+        rows = chip_smoke.walk_rows(torch, kw).contiguous()
+        run = {s: (lambda f=f: rows_walk(torch, f, kw, rows))
+               for s, f in old.items()}
+        region = lambda: rows_walk(torch, old[False], kw)  # noqa
+    else:
+        run = {s: (lambda f=f: through(torch, kernels, "resolve_walk", f,
+                                       this)) for s, f in old.items()}
+        region = None
+    chip_smoke.check(torch.equal(run[False](), this()),
+                     f"{tag}: {key} != parent")
+    t = [graph_ms(torch, run[False] if tr == "parent" else this)
+         for tr in ("parent", "this", "this", "parent")]
+    res = {"parent": [t[0], t[3]], "this": [t[1], t[2]]}
+    if region is not None:
+        chip_smoke.check(torch.equal(region(), this()),
+                         f"{tag}: {key} region != parent")
+        res["parent_region"] = [graph_ms(torch, region) for _ in range(2)]
+    if "nowalk" in run:
+        res["parent_nowalk"] = [graph_ms(torch, run["nowalk"])
+                                for _ in range(2)]
+    if kw["live"] is not None:
+        # every other live row dropped: the time halves where the walks'
+        # random sectors bind, and stays where the longest chain does
+        lv = kw["live"]
+        half = dict(kw, live=lv & (torch.cumsum(lv.to(torch.int32), 0) % 2
+                                   == 0))
+        res["this_half_live"] = [graph_ms(
+            torch, lambda: resolve.resolve_rows_sparse(**half))
+            for _ in range(2)]
+    if tag == "genome linear":
+        # every row walked: K19 (no mask), and K20 with every row live
+        for mode, lv in (("dense", None), ("full_mask", torch.ones_like(
+                kw["live"]))):
+            a = dict(kw, live=lv)
+            par = (lambda a=a: rows_walk(torch, old[False], a, rows)) \
+                if fns["k20_rows"] else (lambda a=a: through(
+                    torch, kernels, "resolve_walk", old[False],
+                    lambda: resolve.resolve_rows_sparse(**a)))
+            thd = lambda a=a: resolve.resolve_rows_sparse(**a)  # noqa
+            chip_smoke.check(torch.equal(par(), thd()),
+                             f"{tag}: {mode} != parent")
+            t = [graph_ms(torch, par if tr == "parent" else thd)
+                 for tr in ("parent", "this", "this", "parent")]
+            res[mode] = {"parent": [t[0], t[3]], "this": [t[1], t[2]]}
+    res.update(info)
+    print(f"[sweep ab] {tag} {key}: {json.dumps(res)}", flush=True)
+    return res
 
 
 def compare_k9(torch, kernels, fns, tag, kw, info):
@@ -526,8 +679,39 @@ def compare_graphed(torch, kernels, fns, tag, key, call, info):
     if name == "extend_ungapped" and pro is not None:
         res["parent_scans_only"] = graph_ms(
             torch, lambda: through(torch, kernels, name, pro, call))
+    for nm, stop in STOPS:
+        fn = fns.get(("parent", nm, stop))
+        if nm == name and fn is not None:
+            res[f"parent_{stop}"] = [graph_ms(torch, lambda: through(
+                torch, kernels, name, fn, call)) for _ in range(2)]
     res.update(info)
     print(f"[sweep ab] {tag} {key}: {json.dumps(res)}", flush=True)
+    return res
+
+
+def k16_info(torch, kw):
+    """K16's shape on one step's arguments: its slots, the live ones (the
+    slots that walk the read) and their columns."""
+    live, tot, ok = chip_smoke.known_live(torch, kw)
+    return {"N": ok.shape[0], "C": kw["starts"].shape[1], "J": ok.shape[1],
+            "L": kw["reads"].shape[1], "slots": kw["slots"], "live": live,
+            "live_share": live / max(tot, 1),
+            "walked_cols": int((ok * kw["lens"][:, None]).sum()),
+            "sites": int(kw["tabs"]["ss_kd"].shape[0]),
+            "snv": kw.get("snv1_w") is not None}
+
+
+def k20_info(torch, kw):
+    """K20's shape on one step's arguments: its rows, the live ones and
+    the distinct live rows, and its latency floor (chip_smoke.walk_chain
+    at the pointer chase's latency)."""
+    nlive, M, dist = chip_smoke.walk_live(torch, kw)
+    res = {"M": M, "P": kw.get("P", 1), "live": nlive,
+           "live_share": nlive / max(M, 1), "distinct_live": dist}
+    if "ns" in chip_smoke.CHASE:
+        chain = chip_smoke.walk_chain(torch, kw)
+        res.update(chain=chain, dependent_load_ns=chip_smoke.CHASE["ns"],
+                   latency_floor_ms=chain * chip_smoke.CHASE["ns"] * 1e-6)
     return res
 
 
@@ -548,7 +732,7 @@ def main() -> int:
     twins = kernel_twins()
     done = {"sweeps": [], "indel_sweep": [], "extend_ungapped": [],
             "fm_search2": [], "compact_cands": [], "pack_slots": [],
-            "alone": []}
+            "inject_known": [], "resolve_walk": [], "alone": []}
     shapes = chip_smoke.step_shapes
 
     def hook(splice_mod, step, cap):
@@ -633,6 +817,18 @@ def main() -> int:
                                 spill=kw["use_spill"])
                     done[name].append(compare_k9(torch, kernels, fns, step,
                                                  kw, info))
+        if step in K16_STEPS:
+            kw = cap["inject_known"]
+            done["inject_known"].append(compare_graphed(
+                torch, kernels, fns, step, "inject_known",
+                lambda: splice.inject_known(**kw), k16_info(torch, kw)))
+        if step in K20_STEPS:
+            for key in ("resolve_walk", "resolve_walk/research"):
+                if key not in cap:
+                    continue
+                done["resolve_walk"].append(compare_walk(
+                    torch, kernels, fns, step, key, cap[key],
+                    k20_info(torch, cap[key])))
         for key in sorted(cap):
             name = key.split("/")[0]
             if name not in ALONE:
@@ -653,6 +849,8 @@ def main() -> int:
     chip_smoke.check(n["sweeps"] == 2 and n["indel_sweep"] == 2
                      and n["extend_ungapped"] >= 8 and n["fm_search2"] >= 6
                      and n["compact_cands"] == 5 and n["pack_slots"] == 5
+                     and n["inject_known"] == len(K16_STEPS)
+                     and n["resolve_walk"] == len(K20_STEPS) + 1
                      and n["alone"] >= 5, f"steps compared: {n}")
     return rc
 

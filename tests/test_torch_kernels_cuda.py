@@ -12,7 +12,10 @@ C in {1, 5, 14, 19, 32, 33, 40} and L from 60 to 2000 (planes in shared
 memory, and in the global scratch where they outgrow it); the FM search
 K1 and its lane-list mode K17 on seeded random lanes; the spliced
 kernels and the spliced step on reads of 600-2000 bp; the DNA step at
--k 64 with a 6,000 bp read (K4's pools in the global scratch).
+-k 64 with a 6,000 bp read (K4's pools in the global scratch); K16 on
+random lanes with every, no or a tenth of its slots live (its work list
+filled mid-tile at five slots a candidate); K20 at 0.1-30% live over 0 to
+2,000,003 rows.
 Needs a CUDA device; skips without one.  On a machine without JAX run it as
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
@@ -788,10 +791,11 @@ def _sweep_world(C, L, seed, N=96, M=16, n=150_000):
     return kw, (s1w, s2w), (kd, ka, rdid), rdids
 
 
-def _site_tabs(kd, ka, rdid, n, lob):
-    """SpliceSiteDB.device_tables' layout of the sites, on the card."""
+def _site_tabs(kd, ka, rdid, n, lob, cap=None):
+    """SpliceSiteDB.device_tables' layout of the sites, on the card (cap:
+    the tables' rows, the sites padded with sentinels)."""
     nn = len(kd)
-    cap = 1 << nn.bit_length()
+    cap = cap or 1 << nn.bit_length()
     o, o2 = np.lexsort((ka, kd)), np.lexsort((kd, ka))
     t = {}
     for nm, v, f in (("ss_kd", kd[o], SENT), ("ss_ka", ka[o], SENT),
@@ -967,6 +971,145 @@ def test_merge_sites_matches_plain_on_card(card, lob):
         _eq(x, y, "merge_sites")
 
 
+KNOWN_L = (31, 100, 129, 600, 2000)
+KNOWN_C = (6, 14, 40)
+
+
+def _known_world(rng, C, L, N, n=60_000, M=16):
+    """K16's inputs on the card: N lanes of reads copied from a seeded
+    genome at their first candidate (mutations, N chars, mixed lengths
+    down to 2), C candidates each, mostly in the text and some past
+    either end (their windows all 4s), invalid ones, inherited clips; SNV
+    planes with a delta at 5% of positions."""
+    from hisat2_tpu_torch.ops import splice
+    g = rng.integers(0, 4, n).astype(np.uint8)
+    lens = np.where(rng.random(N) < 0.3, rng.integers(2, L + 1, N),
+                    L).astype(np.int32)
+    starts = rng.integers(-L // 2, n - L // 2, (N, C))
+    u = rng.random((N, C))
+    starts = np.where(u < 0.05, rng.integers(-3 * L, 0, (N, C)), starts)
+    starts = np.where(u > 0.95, rng.integers(n - L, n + 2 * L, (N, C)),
+                      starts).astype(np.int32)
+    reads = rng.integers(0, 4, (N, L)).astype(np.int32)
+    for i in range(N):
+        p = starts[i, 0] + np.arange(L)
+        inside = (p >= 0) & (p < n)
+        reads[i, inside] = g[p[inside]]
+        mut = rng.random(L) < 0.03
+        reads[i, mut] = (reads[i, mut] + 1) % 4
+        reads[i, rng.random(L) < 0.01] = 4
+    quals = rng.integers(0, 42, (N, L)).astype(np.int32)
+    clip = lambda: np.where(rng.random((N, C)) < 0.3,  # noqa
+                            rng.integers(0, L + 1, (N, C)), 0).astype(
+                                np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa
+    words = _pack2(g)
+    st = t(starts)
+    kw = dict(ref_words=words, n_text=n, reads=t(reads), quals=t(quals),
+              lens=t(lens), rdids=t(rng.integers(0, 1000, N).astype(
+                  np.int32)), starts=st, valid=t(rng.random((N, C)) > 0.1),
+              ch=splice.diag_chars_plain(words, n, st, L, M).contiguous(),
+              margin=M, mm_pen=t(np.array([2 + min(q, 40) * 4 // 40
+                                           for q in range(64)], np.int32)),
+              n_pen=1, minsc=t(np.where(rng.random(N) < 0.5, -(2 ** 31),
+                                        -(lens // 3)).astype(np.int32)),
+              src_clip_l=t(clip()), src_clip_r=t(clip()),
+              clip_pen=t(np.array([1 + min(q, 40) // 20 for q in range(64)],
+                                  np.int32)))
+    deltas = [np.where(rng.random(n) < 0.05, rng.integers(1, 4, n), 0)
+              for _ in (0, 1)]
+    snv_w = [splice.diag_chars_plain(_pack2(v), n, st, L, M).contiguous()
+             for v in deltas]
+    snv = dict(snv1_w=snv_w[0], snv2_w=snv_w[1],
+               snv_delta1=_pack2(deltas[0]), snv_delta2=_pack2(deltas[1]))
+    return kw, starts, lens, snv
+
+
+def _known_sites(rng, mode, starts, lens, n):
+    """Site tables for K16 (kd, ka, rdid, rows): `dense` five donor-keyed
+    and five acceptor-keyed sites inside every candidate's read span (x =
+    1 and len - 1 among them, repeated keys, visible); `none` sites only
+    where no read sees them (temp sites of later reads, or far off);
+    `mixed` sites at a tenth of the candidates, half of them temp sites;
+    `one` a table of one row; `tail` a few sites above most keys, so that
+    lo + t passes the table's end."""
+    N, C = starts.shape
+    st = starts.astype(np.int64).ravel()
+    ln = np.repeat(lens.astype(np.int64), C)
+    if mode == "one":
+        return (np.array([st[0] + max(ln[0] // 2 - 1, 0)]),
+                np.array([st[0] + ln[0] + 700]), np.array([-1]), 1)
+    if mode == "tail":
+        kd = np.sort(st)[-3:] + 1
+        return kd, kd + 400, np.full(3, -1), None
+    pick = (np.ones(len(st), bool) if mode in ("dense", "none")
+            else rng.random(len(st)) < 0.1)
+    st, ln = st[pick], ln[pick]
+    span = np.maximum(ln - 1, 1)
+    u = rng.integers(0, span)
+    u[::7] = 0                              # x = 1
+    u[3::7] = np.maximum(ln[3::7] - 2, 0)   # x = len - 1
+    # five keys a candidate, so that its first five slots each way find a
+    # site in its span
+    ks = np.arange(5 if mode == "dense" else 1)[:, None]
+    kd = (st + np.minimum(u + ks, span - 1)).ravel()
+    ka = kd + rng.integers(-50, 5000, len(kd))
+    ka2 = (st + 1 + np.minimum(rng.integers(0, span) + ks, span - 1)).ravel()
+    kd2 = ka2 - rng.integers(-50, 5000, len(ka2))
+    kd, ka = np.concatenate([kd, kd2]), np.concatenate([ka, ka2])
+    kd = np.concatenate([kd, kd[:5]])       # repeated keys
+    ka = np.concatenate([ka, ka[:5] + 3])
+    rdid = np.full(len(kd), -1)
+    if mode == "none":
+        far = rng.random(len(kd)) < 0.5
+        kd = np.where(far, kd + 3 * n, kd)
+        ka = np.where(far, ka + 3 * n, ka)
+        rdid = np.where(far, -1, 5000)      # later than every read
+    if mode == "mixed":
+        rdid = np.where(rng.random(len(kd)) < 0.5, -1,
+                        rng.integers(0, 1000, len(kd)))
+    return kd, ka, rdid, None
+
+
+@pytest.mark.parametrize("L", KNOWN_L)
+@pytest.mark.parametrize("C", KNOWN_C)
+def test_inject_known_random_on_card(sweep_card, C, L):
+    """K16 against its plain twin on random lanes, its work list stressed:
+    every slot live (two and five slots a candidate; at five a block's
+    list fills and is walked before the probes end), none live, a tenth
+    live with temp sites, a one-row table, probes past the table's end;
+    with and without the bucket index and the SNV planes."""
+    from hisat2_tpu_torch import kernels
+    from hisat2_tpu_torch.ops import splice
+    rng = np.random.default_rng(C * 10_000 + L)
+    N = 64 if L <= 129 else 16 if L <= 600 else 6
+    kw, starts, lens, snv = _known_world(rng, C, L, N)
+    n = kw["n_text"]
+    cases = [("dense", 2, False, False), ("dense", 5, True, True),
+             ("none", 2, True, False), ("mixed", 2, False, True),
+             ("mixed", 3, True, False), ("one", 2, False, False),
+             ("tail", 2, True, True)]
+    for mode, slots, lob, use_snv in cases:
+        kd, ka, rdid, cap = _known_sites(rng, mode, starts, lens, n)
+        a = dict(kw, tabs=_site_tabs(kd, ka, rdid, n, lob, cap),
+                 slots=slots, **(snv if use_snv else {}))
+        po = splice.inject_known_ref(**a)
+        n0 = kernels.KERNELS["inject_known"].launches
+        ko = splice.inject_known(**a)
+        torch.cuda.synchronize()
+        assert kernels.KERNELS["inject_known"].launches == n0 + 1
+        what = f"C={C} L={L} {mode} slots={slots} lob={lob} snv={use_snv}"
+        for f in po:
+            _same(ko[f], po[f], f"{what} {f}")
+        _, _, ok = splice.known_probes(a["starts"], a["valid"], a["lens"],
+                                       a["rdids"], a["tabs"], slots)
+        share = float(ok.float().mean())
+        if mode == "dense":
+            assert share > 0.6, (what, share)
+        if mode == "none":
+            assert share == 0.0, (what, share)
+
+
 @pytest.fixture(scope="module")
 def walk_card():
     """A 300 kbp genome indexed at off_rate 1-5, uploaded to the card."""
@@ -997,6 +1140,34 @@ def test_resolve_walk_matches_plain_on_card(walk_card, off_rate, density):
     live = (None if density is None else
             torch.from_numpy(rng.random(M) < density).cuda())
     args = (d.blocked, d.fchr, d.sa, idx.meta.zrow, off_rate, row, live)
+    n0 = kernels.KERNELS["resolve_walk"].launches
+    got = resolve.resolve_rows_sparse(*args)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["resolve_walk"].launches == n0 + 1
+    _eq(got, resolve.resolve_rows_sparse_plain(*args), "resolve_walk")
+
+
+@pytest.mark.parametrize("M", [0, 1, 1023, 1024, 1025, 100_003,
+                               2_000_003])
+@pytest.mark.parametrize("density", [0.02, 0.001, 0.3])
+def test_resolve_walk_sparse_shapes_on_card(walk_card, M, density):
+    """K20 at live densities of 2%, 0.1% and 30% over M rows (none, one, a
+    tile of 1,024 rows and either side of it, and runs where each block
+    sweeps several tiles and carries rows it has not walked from one tile
+    to the next), rows repeated (drawn from 5,000 distinct rows), the
+    last rows live so that the last block has work."""
+    from hisat2_tpu_torch import kernels
+    from hisat2_tpu_torch.ops import resolve
+    _, idxs = walk_card
+    idx, d = idxs[4]
+    rng = np.random.default_rng(M % 997 + int(density * 1000))
+    pool = rng.integers(0, idx.meta.rows, 5_000)
+    row = torch.from_numpy(pool[rng.integers(0, 5_000, M)].astype(
+        np.int32)).cuda()
+    lv = rng.random(M) < density
+    lv[-3:] = True
+    live = torch.from_numpy(lv).cuda()
+    args = (d.blocked, d.fchr, d.sa, idx.meta.zrow, 4, row, live)
     n0 = kernels.KERNELS["resolve_walk"].launches
     got = resolve.resolve_rows_sparse(*args)
     torch.cuda.synchronize()
