@@ -41,8 +41,9 @@ checks them:
             catalog at the density of HISAT2's GRCh38 graph (12.3 M
             variants over 3.1 Gbp: 11 M SNVs, 728 K deletions, 555 K
             insertions): every kernel on the lite and the full pass's
-            intermediates (K5 on the SNV planes, K6+K7 and K8 with SNVs,
-            K10+K11) against its plain twin; the whole lite and full step
+            intermediates (K5's one launch of the reference and SNV
+            planes for the core and extra start sets, K6+K7 and K8 with
+            SNVs, K10+K11, with K10's live slots) against its plain twin; the whole lite and full step
             against the CPU step; 4 batches of reads carrying catalog
             alleles through dispatch/advance/collect, SAM with Zs
             tags: reads/s, aligned share, SNV-only reads at their true
@@ -463,7 +464,10 @@ def work(torch, name, kw, out):
         extra = rows * 4
         ops = N * J * max(1, (J - 1).bit_length())
     elif name == "ref_window":
-        extra, ops = ob // 16, ob                # a packed word per 16 chars
+        # the starts of every set, a packed word per 16 chars of every
+        # window, the windows written once
+        dense = nbytes(torch, *kw["starts"])
+        extra, ops = ob // 16, ob
     elif name == "extend_ungapped":
         # what the result needs: each lane's read and quals, the len
         # columns [margin, margin + len) of each distinct (lane, start)
@@ -519,9 +523,9 @@ def work(torch, name, kw, out):
         K = sum(b["score"].shape[1] for b in blocks)
         extra, ops = 0, N * (4 * K + 40 * kw["Mdev"])
     elif name == "inject_indels":
-        N, C = kw["starts"].shape
+        # only what the call must read: indel_work
+        dense, ops = indel_work(torch, kw)
         extra = 0
-        ops = N * C * 2 * kw["slots"] * kw["reads"].shape[1] * 10
     elif name == "rescue_window":
         R, L = kw["reads"].shape
         extra = R * ((kw["W"] + L - 1 + 15) // 16) * 4   # 2-bit windows
@@ -594,6 +598,139 @@ def work(torch, name, kw, out):
     by = dense + extra + ob
     t_b, t_o = by / HBM * 1e3, ops / rate * 1e3
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def indel_live(torch, kw):
+    """K10's slots on these arguments: (live slots, all slots, the live
+    mask [N, J]); a slot is live where an event lies in the read span of a
+    valid candidate, inside the read's bounds, with its allele in the read
+    (splice.indel_probes), and only the live slots walk the read."""
+    from hisat2_tpu_torch.ops.splice import indel_probes
+    live = indel_probes(*(kw[k] for k in (
+        "starts", "valid", "lens", "reads", "ip", "ilen", "ins_chars",
+        "rkey", "r_ilen", "r_row")), kw["slots"])["live"]
+    return int(live.sum()), live.numel(), live
+
+
+def _union(torch, lo, hi):
+    """The count of integers in the union of the intervals [lo, hi)."""
+    keep = hi > lo
+    lo, hi = lo[keep], hi[keep]
+    if lo.numel() == 0:
+        return 0
+    lo, order = lo.sort()
+    hi = hi[order]
+    # each interval adds what lies past the furthest end before it
+    reach = hi.cummax(0).values
+    before = torch.cat([lo[:1], reach[:-1]])
+    return int((hi - lo.maximum(before)).clamp(min=0).sum())
+
+
+def _search_rows(torch, tab, key):
+    """Per row of the sorted table tab [E], whether a lower-bound search
+    for any of the keys reads it, and each key's result."""
+    E = tab.shape[0]
+    lo = torch.zeros_like(key, dtype=torch.int64)
+    hi = torch.full_like(lo, E)
+    seen = torch.zeros(E, dtype=torch.bool, device=tab.device)
+    while True:
+        act = lo < hi
+        if not bool(act.any()):
+            return seen, lo
+        mid = (lo + hi) >> 1
+        seen[mid[act]] = True
+        less = tab[mid.clamp(max=E - 1)] < key
+        lo = torch.where(act & less, mid + 1, lo)
+        hi = torch.where(act & ~less, mid, hi)
+
+
+def indel_work(torch, kw):
+    """K10's input bytes and integer operations on these arguments, by
+    what the call must read.  Each candidate's start and valid flag, each
+    lane's len, the 64-entry table, minsc of a lane with a live slot.  Of
+    the event tables, the rows the probes touch, each once: each search's
+    keys and, of a valid candidate, its slots' keys (ip / rkey); each
+    slot's length (ilen / r_ilen, which d1 and d2 need dead or live); a
+    live right-keyed slot's r_row; the I allele chars of each insertion an
+    in-read slot checks.  Of the reads, qualities and windows what the
+    walks and the allele checks read, each column once: a lane's read
+    over the union of its live slots' runs and checked alleles, its
+    qualities over its live slots' runs, each (lane, candidate) source
+    window and its SNV windows over its live slots' source runs, the
+    packed words (ref and SNV) of the live slots' fresh runs.  A live
+    slot's two runs: left-keyed, the source window below x and the fresh
+    diagonal from x + I to the read's end; right-keyed, the reverse.
+    Operations: ~40 integer ops a slot, ~30 a walked column."""
+    from hisat2_tpu_torch.ops.splice import MAX_INS, indel_probes
+    pr = indel_probes(*(kw[k] for k in (
+        "starts", "valid", "lens", "reads", "ip", "ilen", "ins_chars",
+        "rkey", "r_ilen", "r_row")), kw["slots"])
+    i64 = torch.int64
+    starts, valid = kw["starts"], kw["valid"]
+    N, C = starts.shape
+    L = kw["reads"].shape[1]
+    E = kw["ip"].shape[0]
+    slots = kw["slots"]
+    dev = starts.device
+    x, fresh, ev, elen = (pr[k].to(i64) for k in ("x", "fresh", "event",
+                                                   "elen"))
+    live, J = pr["live"], pr["x"].shape[1]
+    I = (-elen).clamp(min=0)
+    ln = kw["lens"].to(i64)[:, None].expand(N, J)
+    lim = ln.clamp(max=L)
+    xr = (x + I).clamp(max=L)
+    j = torch.arange(J, device=dev)
+    left = (j < slots * C)[None, :].expand(N, J)
+    n = torch.arange(N, device=dev)[:, None].expand(N, J)
+    c = j % C
+    by = N * C * 5 + N * 4 + 64 * 4 + int(live.any(1).sum()) * 4
+    # an insertion an in-read slot checks the allele of
+    chk = (pr["okd"] & (x >= 1) & (x + I <= ln - 1) & (elen < 0))
+    for side, tab in ((0, kw["ip"]), (1, kw["rkey"])):
+        seen, lo = _search_rows(torch, tab, starts + 1)
+        used = torch.zeros(E, dtype=torch.bool, device=dev)
+        keyed, event = torch.zeros_like(used), torch.zeros_like(used)
+        for t in range(slots):
+            idx = (lo + t).clamp(max=E - 1)
+            used[idx.reshape(-1)] = True
+            keyed[idx[valid & (lo + t < E)]] = True
+            if side:                    # r_row, the event of a slot
+                at = slice((slots + t) * C, (slots + t + 1) * C)
+                event[idx[live[:, at] | chk[:, at]]] = True
+        by += 4 * int((seen | keyed).sum() + used.sum() + event.sum())
+    allele = torch.zeros(E, dtype=i64, device=dev)
+    allele[ev[chk].clamp(min=0)] = I[chk].clamp(max=MAX_INS)
+    by += int(allele.sum()) * 4
+    # the runs of the live slots: below x, and from x + I to the read's end
+    lv = live
+    below = (torch.zeros_like(x[lv]), torch.minimum(x, lim)[lv])
+    after = (xr.clamp(min=0)[lv], lim[lv])
+    lf = left[lv]
+    key = n[lv] * (L + 1)
+    quals = _union(torch, torch.cat([key + below[0], key + after[0]]),
+                   torch.cat([key + below[1], key + after[1]]))
+    ck, cx = n[chk] * (L + 1), x[chk]
+    reads = _union(torch, torch.cat([key + below[0], key + after[0],
+                                     ck + cx]),
+                   torch.cat([key + below[1], key + after[1],
+                              ck + cx + I[chk]]))
+    src = [torch.where(lf, b, a) for b, a in zip(below, after)]
+    frs = [torch.where(lf, a, b) for b, a in zip(below, after)]
+    wkey = (n * C + c)[lv] * (L + 1)
+    wins = _union(torch, wkey + src[0], wkey + src[1])
+    nwin = 1 if kw.get("snv1_w") is None else 3
+    # the fresh runs' packed words (positions past the text read none)
+    tl = min(int(kw["n_text"]), 16 * kw["ref_words"].shape[0])
+    p0 = (fresh[lv] + frs[0]).clamp(0, tl)
+    p1 = (fresh[lv] + frs[1]).clamp(0, tl)
+    on = p1 > p0
+    words = _union(torch, p0[on] // 16, (p1[on] - 1) // 16 + 1)
+    nsnv = 2 if kw["snv_delta1"].numel() > 0 else 0
+    by += ((reads + quals) * 4 + wins * 4 * nwin
+           + words * 4 * (1 + nsnv))
+    walked = int((below[1] - below[0]).clamp(min=0).sum()
+                 + (after[1] - after[0]).clamp(min=0).sum())
+    return by, live.numel() * 40 + walked * 30
 
 
 def known_live(torch, kw):
@@ -890,14 +1027,25 @@ SHAPED = ("extend_ungapped", "extend_ungapped/extra", "indel_sweep",
           "pair_sweep", "second_sweep")
 
 
-def step_shapes(splice, step, cap):
+def step_shapes(splice, step, cap, k5=None):
     """Print the launch of each kernel of the captured step `step` that
-    launch_shape reports on (sweep_ab.py wraps this function to time the
-    step's kernels against an earlier tree's)."""
+    launch_shape reports on, K5's launches in the step (k5, where the
+    caller counted them) and K10's live slots (sweep_ab.py wraps this
+    function to time the step's kernels against an earlier tree's)."""
     for key in SHAPED:
         if key in cap:
             shape = launch_shape(splice, key.split("/")[0], cap[key])
             print(f"[launch] {step} {key}: {shape}")
+    if k5 is not None:
+        wins = sum(len(v["planes"]) * len(v["starts"]) for k, v in
+                   cap.items() if k.split("/")[0] == "ref_window")
+        print(f"[launch] {step} ref_window: {k5} launches in the step for "
+              f"its {wins} windows (planes x start sets)")
+    if "inject_indels" in cap:
+        import torch
+        live, tot, _ = indel_live(torch, cap["inject_indels"])
+        print(f"[launch] {step} inject_indels: {live} live slots of {tot} "
+              f"(share {live / max(tot, 1):.4f})")
 
 
 def compare(torch, name, kern, plain, kw):
@@ -1205,7 +1353,7 @@ def spliced_phase(torch, np, g, index, kernels, twins, driver,
     minsc = sal._minsc(lens)
     uniform = bool(np.all(lens == L))
     rdids = 10 ** 7 + np.arange(B, dtype=np.int64)
-    caps = {}
+    caps, k5s = {}, {}
     for tier, a in (("lite", sal._fast), ("full", sal)):
         rd_t, ss = a._step_site_args(rdids)
         cap = {}
@@ -1214,12 +1362,16 @@ def spliced_phase(torch, np, g, index, kernels, twins, driver,
                rdids=rd_t, ss=ss)
         caps[tier] = cap
         c1 = kernels.counts()
+        k5s[tier] = c1["ref_window"] - c0["ref_window"]
+        check(k5s[tier] == (1 if tier == "lite" else 2),
+              f"the spliced {tier} step launched K5 {k5s[tier]} times "
+              f"(its windows in one, the re-search's rc0 in another)")
         n13, n15 = (c1[k] - c0[k] for k in ("pair_sweep", "second_sweep"))
         check((n13, n15) == ((0, 0) if tier == "lite" else (1, 1)),
               f"the spliced {tier} step launched K13 {n13} and K15 {n15} "
               f"times")
     for tier in ("lite", "full"):
-        step_shapes(splice, f"spliced {tier}", caps[tier])
+        step_shapes(splice, f"spliced {tier}", caps[tier], k5s[tier])
         print(f"[live] spliced {tier} "
               f"{live_text(torch, 'inject_known', caps[tier]['inject_known'])}")
     check("search_lanes_live" in caps["full"]
@@ -1230,10 +1382,13 @@ def spliced_phase(torch, np, g, index, kernels, twins, driver,
             ("full", "extend_ungapped"),
             ("lite", "inject_known"),
             ("full", "inject_known"), ("full", "compact_cands"),
-            ("full", "pack_slots"), ("lite", "pack_slots")]
-    for tier, name in todo:
-        kw = caps[tier][name]
-        err, ms, pms = compare(torch, name, *twins[name], kw)
+            ("full", "pack_slots"), ("lite", "pack_slots"),
+            ("full", "ref_window"), ("full", "ref_window/rc0"),
+            ("lite", "ref_window")]
+    for tier, key in todo:
+        name = key.split("/")[0]
+        kw = caps[tier][key]
+        err, ms, pms = compare(torch, key, *twins[name], kw)
         row = rows.setdefault(name, {
             "name": name, "route": "cuda",
             "source": kernels.KERNELS[name].source,
@@ -1244,9 +1399,9 @@ def spliced_phase(torch, np, g, index, kernels, twins, driver,
             if tier == "full" or name not in bounds:
                 bounds[name] = work(torch, name, kw, twins[name][0](**kw))
         else:
-            row[f"spliced_{tier}_ms"] = ms
-            row[f"spliced_{tier}_plain_ms"] = pms
-        print(f"[spliced kernels] {tier} {name}: equal to plain (tolerance: "
+            f = f"spliced_{tier}" + key[len(name):].replace("/", "_")
+            row[f + "_ms"], row[f + "_plain_ms"] = ms, pms
+        print(f"[spliced kernels] {tier} {key}: equal to plain (tolerance: "
               f"exact); kernel {ms:.4f} ms, plain {pms:.4f} ms (median of "
               f"10)")
     # K14's yardstick: torch.topk over the [N, C^2] pair scores
@@ -1259,6 +1414,7 @@ def spliced_phase(torch, np, g, index, kernels, twins, driver,
     # torch.sort passes per table set and the cumsum of the lob update
     err, ms, pms = compare(torch, "merge_sites", *twins["merge_sites"],
                            merge_kw)
+    step_shapes(splice, "spliced merge", {"merge_sites": merge_kw})
     bounds["merge_sites"] = work(torch, "merge_sites", merge_kw,
                                  twins["merge_sites"][0](**merge_kw))
     from hisat2_tpu_torch.ops import sites as sites_ops
@@ -1441,7 +1597,9 @@ def genome_phase(torch, np, kernels, twins, driver, read_alignments,
     uniform = bool(np.all(lens == L))
     up = al.upload(codes, quals, lens, minsc)
     cap = {}
+    k5 = kernels.KERNELS["ref_window"].launches
     al.step(*up, uniform, capture=cap)
+    k5 = kernels.KERNELS["ref_window"].launches - k5
     want = ["fm_search2", "resolve_walk", "compact_cands", "ref_window",
             "extend_ungapped", "extend_ungapped/extra", "indel_sweep",
             "pack_slots"]
@@ -1471,7 +1629,7 @@ def genome_phase(torch, np, kernels, twins, driver, read_alignments,
           f"{r['latency_floor_ms']:.4f} ms ({chain} dependent loads at "
           f"{CHASE['ns']:.1f} ns, a pointer chase over "
           f"{kw['blocked'].numel() * 4} bytes)")
-    step_shapes(splice, "genome linear", cap)
+    step_shapes(splice, "genome linear", cap, k5)
     # K19 alone: the same rows without the live mask (every row walks)
     kwd = dict(kw, live=None)
     err, ms, pms = compare(torch, "resolve_walk", *twins["resolve_walk"], kwd)
@@ -1657,9 +1815,11 @@ def genome_phase(torch, np, kernels, twins, driver, read_alignments,
         a = sal._fast if tier == "lite" else sal
         scap = {}
         rd_t, ss = a._step_site_args(np.arange(B), 1)
+        k5 = kernels.KERNELS["ref_window"].launches
         a.step(*a.upload(sc[0], sc[1], sc[2], a._minsc(sc[2])),
                bool(np.all(sc[2] == L)), capture=scap, rdids=rd_t, ss=ss,
                shard=1)
+        k5 = kernels.KERNELS["ref_window"].launches - k5
         check("resolve_walk" in scap
               and scap["inject_known"]["snv_delta1"] is not None
               and (tier == "lite" or (
@@ -1668,14 +1828,16 @@ def genome_phase(torch, np, kernels, twins, driver, read_alignments,
               f"the config-6 {tier} step ran without the walk or its SNV "
               f"inputs")
         replay(scap, f"genome_c6_{tier}")
-        step_shapes(splice, f"config6 {tier}", scap)
+        step_shapes(splice, f"config6 {tier}", scap, k5)
+        check(k5 == (1 if tier == "lite" else 2),
+              f"the config-6 {tier} step launched K5 {k5} times")
         for key in ("inject_known", "resolve_walk", "resolve_walk/research"):
             if key in scap:
                 print(f"[live] config6 {tier} "
                       f"{live_text(torch, key, scap[key])}")
         if tier == "full":
             for name in ("pair_sweep", "second_sweep", "indel_sweep",
-                         "extend_ungapped"):
+                         "extend_ungapped", "inject_known", "inject_indels"):
                 kw = scap[name]
                 bounds[name + "_c6"] = work(torch, name, kw,
                                             twins[name][0](**kw))
@@ -2150,8 +2312,10 @@ def spliced_long(torch, np, g, index, kernels, TorchAligner, rng, read):
         rdc, ssc = c._step_site_args(rdids)
         minsc = a._minsc(lens)
         cap = {}
+        k5 = kernels.KERNELS["ref_window"].launches
         bk = a.step(*a.upload(codes, quals, lens, minsc), False, rdids=rd_,
                     ss=ss, capture=cap)
+        k5 = kernels.KERNELS["ref_window"].launches - k5
         t2 = time.perf_counter()
         bp = c.step(*c.upload(codes, quals, lens, minsc), False, rdids=rdc,
                     ss=ssc)
@@ -2170,7 +2334,7 @@ def spliced_long(torch, np, g, index, kernels, TorchAligner, rng, read):
               f"bp: packed [{bk.shape[0]}, {bk.shape[1]}] equal to the CPU "
               f"plain step (CPU {time.perf_counter() - t2:.1f} s)")
         step_shapes(splice, f"spliced long {'lite' if a.lite else 'full'}",
-                    cap)
+                    cap, k5)
     # K13 and K15 on this full step, their planes in shared memory
     for name in ("pair_sweep", "second_sweep"):
         check(splice.sweep_launch_info(**sweep_shape(splice, name, cap[
@@ -2352,7 +2516,9 @@ def main() -> int:
     uniform = bool(np.all(lens == L))
     up = al.upload(codes, quals, lens, minsc)
     cap = {}
+    k5 = kernels.KERNELS["ref_window"].launches
     al.step(*up, uniform, capture=cap)
+    k5 = kernels.KERNELS["ref_window"].launches - k5
     linear = ["fm_search2", "compact_cands", "ref_window", "extend_ungapped",
               "indel_sweep", "pack_slots"]
     check(sorted(cap) == sorted(linear + ["extend_ungapped/extra"]),
@@ -2373,7 +2539,8 @@ def main() -> int:
         print(f"[kernels] {key}: equal to plain (tolerance: exact), "
               f"max_abs_err {err}; kernel {ms:.4f} ms, plain {pms:.4f} ms "
               f"(median of 10; inputs {shp[:4]})")
-    step_shapes(splice, "linear", cap)
+    step_shapes(splice, "linear", cap, k5)
+    check(k5 == 1, f"the linear step launched K5 {k5} times")
     # K1: its launch, and the share of its lanes' steps whose top and bot
     # lie in one 128-row block (one fused row fetched), from the twin
     from hisat2_tpu_torch.ops import search
@@ -2540,7 +2707,9 @@ def main() -> int:
     for tier, a in (("lite", gal._fast), ("full", gal)):
         gup = a.upload(codes, quals, lens, minsc)
         cap = {}
+        k5 = kernels.KERNELS["ref_window"].launches
         a.step(*gup, True, capture=cap)
+        k5 = kernels.KERNELS["ref_window"].launches - k5
         want = linear[:4] + ["pack_slots"] + (
             ["inject_indels", "indel_sweep", "extend_ungapped/extra"]
             if tier == "full" else [])
@@ -2565,20 +2734,18 @@ def main() -> int:
             print(f"[graph kernels] {tier} {key}: equal to plain "
                   f"(tolerance: exact); kernel {ms:.4f} ms, plain "
                   f"{pms:.4f} ms (median of 10)")
+        step_shapes(splice, f"graph {tier}", cap, k5)
+        # K5 held above on every plane (the reference and the two SNV
+        # planes) of every start set, in the step's one launch
+        rw = cap["ref_window"]
+        check(len(rw["planes"]) == 3 and k5 == 1
+              and len(rw["starts"]) == (2 if tier == "full" else 1),
+              f"the graph {tier} step's windows: {len(rw['planes'])} "
+              f"planes, {len(rw['starts'])} start sets, {k5} launches")
         if tier == "full":
-            step_shapes(splice, "graph full", cap)
             inj = splice.inject_indels(**cap["inject_indels"])
             live = int((inj["event"] >= 0).sum())
             check(live > 0, "no injected known-indel slot in the batch")
-            rw = cap["ref_window"]
-            for pl in ("snv1", "snv2"):
-                kw = dict(rw, ref_words=gd[pl])
-                err, ms, pms = compare(torch, f"ref_window[{pl}]",
-                                       *twins["ref_window"], kw)
-                rows["ref_window"][f"{pl}_ms"] = ms
-                rows["ref_window"][f"{pl}_plain_ms"] = pms
-                print(f"[graph kernels] ref_window on the {pl} plane: equal "
-                      f"to plain; kernel {ms:.4f} ms, plain {pms:.4f} ms")
             print(f"[graph kernels] injected known-indel slots in the "
                   f"batch: {live}")
     phase_done("graph kernels")
@@ -2767,10 +2934,20 @@ def main() -> int:
               f"rescue_candidates {f}")
     # K6+K7 on the chunk's rescoring: 8 diagonals per job, no margin, no
     # minsc (ops/rescue.py)
-    wins_k = [splice.diag_chars(w_, cap["n_text"], ks, L9, 0)
-              if w_ is not None else None
-              for w_ in (cap["ref_words"], cap["snv_delta1"],
-                         cap["snv_delta2"])]
+    # K5 on the chunk's windows: the reference and SNV planes of its 8
+    # diagonals per job in one launch, as rescue_candidates asks for them
+    rkw = dict(planes=[w_ for w_ in (cap["ref_words"], cap["snv_delta1"],
+                                     cap["snv_delta2"]) if w_ is not None],
+               n_text=cap["n_text"], starts=[ks], margins=[0], L=L9)
+    err_w, ms_w, pms_w = compare(torch, "ref_window", *twins["ref_window"],
+                                 rkw)
+    row = rows["ref_window"]
+    row["max_abs_err"] = max(row["max_abs_err"], err_w)
+    row["rescue_ms"], row["rescue_plain_ms"] = ms_w, pms_w
+    print(f"[paired kernels] ref_window on the rescue chunk's "
+          f"{len(rkw['planes'])} planes: equal to plain (tolerance: exact); "
+          f"kernel {ms_w:.4f} ms, plain {pms_w:.4f} ms (median of 10)")
+    wins_k = (splice.diag_chars_multi(**rkw)[0] + [None, None])[:3]
     ekw = dict(n_text=cap["n_text"], reads=cap["reads"], quals=cap["quals"],
                lens=cap["lens"], cand_start=ks, mm_pen=cap["mm_pen"],
                clip_pen=cap["clip_pen"], n_pen=cap["n_pen"],
@@ -2786,7 +2963,8 @@ def main() -> int:
     print(f"[paired kernels] extend_ungapped on the rescue chunk "
           f"{tuple(ks.shape)}: equal to plain (tolerance: exact); kernel "
           f"{ms_e:.4f} ms, plain {pms_e:.4f} ms (median of 10)")
-    step_shapes(splice, "rescue", {"extend_ungapped": ekw})
+    step_shapes(splice, "rescue", {"extend_ungapped": ekw,
+                                   "rescue_window": kw, "ref_window": rkw})
     lib = rescue_library_ms(torch, kw)
     bounds["rescue_window"] = work(torch, "rescue_window", kw,
                                    twins["rescue_window"][0](**kw))

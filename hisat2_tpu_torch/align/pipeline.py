@@ -18,8 +18,11 @@ on the card:
   resolve + compaction     kernel 5  (ops/compact.py:compact_cands, K3+K4;
                                      spliced: re-search rows, proximity;
                                      sampled SA: the walk's offsets)
-  diag_chars               kernel 2  (ops/splice.py), reference windows and,
-                                     on a graph index, the SNV-plane windows
+  diag_chars_multi         kernel 2  (K5, ops/splice.py), the windows of the
+                                     core candidates and the extra slots on
+                                     the reference and, on a graph index,
+                                     the SNV planes, in one launch (the
+                                     spliced re-search's rc0 in one more)
   extend_grouped           kernel 3  (ops/extend.py), core and extra slots
   pair_sweep               K13+K14   (ops/splice.py), spliced full pass
   inject_known             K16       (ops/splice.py), a spliced aligner and
@@ -406,10 +409,11 @@ class TorchAligner(HostPhase):
                 top_a = torch.clamp(top_a, max=d.sa.shape[0] - 1)
                 off_a = d.sa[top_a.to(torch.int64)]
             d0 = off_a - compact_ops.take_cols(hits.lo, first_a)[:, 0]
-            rc0 = call("ref_window", splice_ops.diag_chars,
-                       ref_words=d.ref_words, n_text=meta.n,
-                       starts=d0[:, None].to(_I32).contiguous(), L=L,
-                       margin=0)[:, 0, :]
+            rc0 = call("ref_window", splice_ops.diag_chars_multi,
+                       key="ref_window/rc0", planes=[d.ref_words],
+                       n_text=meta.n,
+                       starts=[d0[:, None].to(_I32).contiguous()],
+                       margins=[0], L=L)[0][0][:, 0, :]
             colL = torch.arange(L, device=dv, dtype=_I32)[None, :]
             mm0 = (colL < al[:, None]) & ((ar != torch.clamp(rc0, max=3))
                                           | (ar > 3) | (rc0 > 3))
@@ -453,14 +457,19 @@ class TorchAligner(HostPhase):
         g_budget = min(g_budget, sp.min_intron - 1)
         margin = max(16, g_budget)
         mstart = torch.where(cvalid, cstart, -1).to(_I32).contiguous()
-        ch = call("ref_window", splice_ops.diag_chars,
-                  ref_words=d.ref_words, n_text=meta.n, starts=mstart, L=L,
-                  margin=margin)
-        s1w = s2w = None
-        if self.graph is not None:
-            # the SNV planes' windows, same starts and margin (:1011-1016)
-            s1w = splice_ops.diag_chars(gd["snv1"], meta.n, mstart, L, margin)
-            s2w = splice_ops.diag_chars(gd["snv2"], meta.n, mstart, L, margin)
+        # the windows of the core candidates (with the margin) and of the
+        # extra slots (none), on the reference and, on a graph index, the
+        # SNV planes (:1011-1016): one launch
+        planes = [d.ref_words] + ([gd["snv1"], gd["snv2"]]
+                                  if self.graph is not None else [])
+        sets, margins = [mstart], [margin]
+        if xstart.shape[1]:
+            sets.append(torch.where(xvalid, xstart, -1).to(_I32)
+                        .contiguous())
+            margins.append(0)
+        wins = call("ref_window", splice_ops.diag_chars_multi, planes=planes,
+                    n_text=meta.n, starts=sets, margins=margins, L=L)
+        ch, s1w, s2w = (wins[0] + [None, None])[:3]
         ext = call("extend_ungapped", extend_ops.extend_grouped,
                    n_text=meta.n, reads=ar, quals=aq, lens=al,
                    cand_start=mstart, mm_pen=params["mm_pen"],
@@ -472,12 +481,8 @@ class TorchAligner(HostPhase):
                    mm_min=self.scoring.mm_min, snv1_win=s1w, snv2_win=s2w)
         ext_x = None
         if xstart.shape[1]:
-            xs_m = torch.where(xvalid, xstart, -1).to(_I32).contiguous()
-            ch_x = splice_ops.diag_chars(d.ref_words, meta.n, xs_m, L, 0)
-            s1x = s2x = None
-            if self.graph is not None:
-                s1x = splice_ops.diag_chars(gd["snv1"], meta.n, xs_m, L, 0)
-                s2x = splice_ops.diag_chars(gd["snv2"], meta.n, xs_m, L, 0)
+            xs_m = sets[1]
+            ch_x, s1x, s2x = (wins[1] + [None, None])[:3]
             ext_x = call("extend_ungapped", extend_ops.extend_grouped,
                          key="extend_ungapped/extra", n_text=meta.n,
                          reads=ar, quals=aq, lens=al, cand_start=xs_m,

@@ -2,7 +2,8 @@
 //
 // Replaces hisat2_tpu/ops/splice.py:inject_known (:629) with
 // table_searchsorted (:192, site_search.cuh) and, for the fresh diagonal,
-// ops/extend.py:live_pen_prefix (:124, live_prefix.cuh's warp version).
+// ops/extend.py:live_pen_prefix (:124, live_prefix.cuh:h2_warp_pen_prefix;
+// K10, inject_indels.cu, has the same two phases).
 // Plain twin: hisat2_tpu_torch/ops/splice.py:inject_known_ref.
 //
 // A lane has J = 2 * slots * C injected slots, the donor-keyed ones first

@@ -1,34 +1,28 @@
-// Penalty prefix scalars along one diagonal (K11, a device function).
+// Penalty sums along one diagonal by a warp (K11, device functions).
 //
-// Replaces hisat2_tpu/ops/extend.py:live_pen_prefix (:124-222) for one
-// live injection column: the SNV-forgiving penalty plane of the read
-// against the diagonal starting at `start` (pen_planes semantics: quality
+// They replace hisat2_tpu/ops/extend.py:live_pen_prefix (:124-222) for one
+// live injected slot: the SNV-forgiving penalty plane of the read against
+// the diagonal starting at `start` (pen_planes semantics: quality
 // mismatch penalty, N penalty, out-of-text penalty; a mismatch that
 // matches a catalog SNV allele of either plane is forgiven), reduced on
-// the fly to the plane total, the raw-mismatch total, and both prefixes
-// (columns < p) at two read positions.  Plain twin:
+// the fly to sums over runs of columns.  Plain twin:
 // hisat2_tpu_torch/ops/extend.py:live_pen_prefix_plain.
 //
 // The JAX version compacts the live columns with a stable argsort and
 // walks them in chunks under a while_loop, a TPU device for skipping dead
-// columns; on the card the caller's dead threads simply never call this.
-// Positions are computed in 64 bits, so no column can overflow.
+// columns; on the card a kernel lists its live slots and a warp walks
+// each (inject_indels, K10; inject_known, K16, splice.py:708), its 32
+// lanes taking the columns 32 apart, the sums in uint32 so that they wrap
+// as JAX's int32 does.  Positions are computed in 64 bits.
 //
 // The chars come from a functor at(col, &rc4, &v1, &v2): the packed
 // reference / SNV planes for a fresh diagonal (H2WordChars), or the
 // pre-gathered diagonal windows for a source diagonal (H2WindowChars).
-// inject_indels (K10) calls it from one thread; inject_known (K16,
-// splice.py:708) calls its warp version, h2_warp_pen_prefix below.
 #pragma once
 
 #include "common.cuh"
 
 #define H2_OOB_PEN 100000
-
-struct H2PenScalars {
-  int tot_pen, tot_mm;
-  int pen_at[2], mm_at[2];
-};
 
 __device__ __forceinline__ int h2_packed_char(const uint32_t* words,
                                               int n_words, long long n_text,
@@ -66,47 +60,10 @@ struct H2WindowChars {
   }
 };
 
-template <class CharAt>
-__device__ H2PenScalars h2_live_pen_prefix(const int* rd, const int* qs,
-                                           int len, int L, long long start,
-                                           long long n_text,
-                                           const int* mm_pen, int n_pen,
-                                           int p0, int p1, CharAt at) {
-  H2PenScalars s{0, 0, {0, 0}, {0, 0}};
-  for (int col = 0; col < L; ++col) {
-    const long long pos = start + col;
-    const bool vp = col < len;
-    const bool oob = vp && (pos < 0 || pos >= n_text);
-    int rc4, v1, v2;
-    at(col, rc4, v1, v2);
-    const int rc = min(rc4, 3);
-    v1 = min(v1, 3);
-    v2 = min(v2, 3);
-    const int r = rd[col];
-    const bool isn = vp && r >= 4;
-    const bool mm_raw = vp && r < 4 && r != rc && !oob;
-    const bool snp_ok = mm_raw && ((v1 != 0 && r == ((rc + v1) & 3)) ||
-                                   (v2 != 0 && r == ((rc + v2) & 3)));
-    const bool mm = mm_raw && !snp_ok;
-    const int pen = (mm ? mm_pen[min(qs[col], 63)] : 0) + (isn ? n_pen : 0) +
-                    (oob ? H2_OOB_PEN : 0);
-    const int mi = mm_raw ? 1 : 0;
-    s.tot_pen += pen;
-    s.tot_mm += mi;
-    if (col < p0) {
-      s.pen_at[0] += pen;
-      s.mm_at[0] += mi;
-    }
-    if (col < p1) {
-      s.pen_at[1] += pen;
-      s.mm_at[1] += mi;
-    }
-  }
-  return s;
-}
-
-// One column of a penalty plane (pen_planes semantics, as in
-// h2_live_pen_prefix above): its penalty and whether it is a raw mismatch.
+// One column of a penalty plane (pen_planes semantics: the quality
+// mismatch penalty unless a catalog SNV allele forgives it, the N
+// penalty, the out-of-text penalty): its penalty and whether it is a raw
+// mismatch.
 __device__ __forceinline__ void h2_col_pen(int r, int q, int rc4, int v1,
                                            int v2, bool vp, bool oob,
                                            const int* mm_pen, int n_pen,
@@ -123,19 +80,19 @@ __device__ __forceinline__ void h2_col_pen(int r, int q, int rc4, int v1,
   mi = mm_raw ? 1u : 0u;
 }
 
-// h2_live_pen_prefix's scalars in uint32, which wrap as JAX's int32 sums
-// do (about 21,475 out-of-text columns pass 2^31).
+// live_pen_prefix's scalars in uint32, which wrap as JAX's int32 sums do
+// (about 21,475 out-of-text columns pass 2^31).
 struct H2PenSums {
   unsigned tot_pen, tot_mm;
   unsigned pen_at[2], mm_at[2];
 };
 
-// The warp version of h2_live_pen_prefix: the 32 lanes of a warp, all
+// live_pen_prefix's scalars by one warp: the 32 lanes of a warp, all
 // calling it with the same arguments, take the columns c_lo + lane,
 // c_lo + lane + 32, ... below c_hi, each keeps partial sums over its
 // columns, and one __reduce_add_sync a scalar gives every lane the sums
 // over [c_lo, c_hi): the plane total and the prefixes below p0 and p1.
-// With c_lo = 0 and c_hi = L these are h2_live_pen_prefix's scalars; a
+// With c_lo = 0 and c_hi = L these are live_pen_prefix's scalars; a
 // caller that needs a sum over one run of columns (the columns from a
 // junction to the read's end) walks that run only.  A lane reads a
 // packed reference word once a column, a warp-wide load of the 2-3
@@ -174,5 +131,29 @@ __device__ H2PenSums h2_warp_pen_prefix(const int* rd, const int* qs,
   s.mm_at[0] = __reduce_add_sync(H2_FULL_MASK, s3);
   s.pen_at[1] = __reduce_add_sync(H2_FULL_MASK, s4);
   s.mm_at[1] = __reduce_add_sync(H2_FULL_MASK, s5);
+  return s;
+}
+
+// This lane's share of the penalty over the run [c_lo, c_hi) of a
+// diagonal: the columns c_lo + lane, c_lo + lane + 32, ...  A caller adds
+// the shares of several runs and reduces them once over the warp
+// (K10's score is two runs, one on each side of the junction).
+template <class CharAt>
+__device__ __forceinline__ unsigned h2_lane_pen_run(
+    const int* rd, const int* qs, int len, int c_lo, int c_hi,
+    long long start, long long n_text, const int* mm_pen, int n_pen,
+    CharAt at, int lane) {
+  unsigned s = 0;
+  for (int col = c_lo + lane; col < c_hi; col += 32) {
+    const long long pos = start + col;
+    const bool vp = col < len;
+    const bool oob = vp && (pos < 0 || pos >= n_text);
+    int rc4, v1, v2;
+    at(col, rc4, v1, v2);
+    unsigned pen, mi;
+    h2_col_pen(rd[col], qs[col], rc4, v1, v2, vp, oob, mm_pen, n_pen, pen,
+               mi);
+    s += pen;
+  }
   return s;
 }

@@ -56,7 +56,7 @@
 // 6 blocks an SM).  The previous design's two launches (a warp per lane
 // ranking all K keys, then one block of 1024 threads for the scan and
 // every row) took 0.058-0.21 ms behind 0.094-0.42 ms of torch.stack /
-// torch.cat building the schema (sweep_ab.py:schema_glue).
+// torch.cat building the schema.
 #include <string.h>
 
 #include "common.cuh"

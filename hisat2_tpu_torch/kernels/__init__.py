@@ -75,11 +75,11 @@ KERNELS = {k.name: k for k in (
            "hisat2_tpu_torch/csrc/fm_search2.cu",
            "hisat2_tpu/ops/search.py:267 search_lanes_live (kernel 1's "
            "lane-list mode)"),
-    Kernel("ref_window", "h2_ref_window",
-           [_P, _I, _LL, _P, _LL, _I, _I, _P, _P],
+    Kernel("ref_window", "h2_ref_window", [_P, _P],
            "hisat2_tpu_torch/csrc/ref_window.cu",
            "hisat2_tpu/ops/rank.py:132 ref_chars_block (via "
-           "ops/splice.py:277 diag_chars)"),
+           "ops/splice.py:277 diag_chars; every plane and start set of a "
+           "step in one launch)"),
     Kernel("extend_ungapped", "h2_extend_ungapped",
            [_P] * 10 + [_LL, _I, _I, _I, _I, _LL] + [_I] * 6 + [_P] * 8
            + [_P],
@@ -102,7 +102,7 @@ KERNELS = {k.name: k for k in (
            "hisat2_tpu/align/pipeline.py:1211-1375 slot merge, top-Mdev, "
            "flags, spill layout"),
     Kernel("inject_indels", "h2_inject_indels",
-           [_P] * 19 + [_LL] + [_I] * 10 + [_P] * 7 + [_P],
+           [_P] * 19 + [_LL] + [_I] * 10 + [_P] * 9 + [_P],
            "hisat2_tpu_torch/csrc/inject_indels.cu",
            "hisat2_tpu/ops/splice.py:838 inject_indels (+ ops/extend.py:124 "
            "live_pen_prefix)"),

@@ -9,7 +9,8 @@ def kernel_twins() -> dict:
     from . import compact, extend, rescue, resolve, search, sites, splice
     return {
         "fm_search2": (search.partial_search2, search.partial_search2_plain),
-        "ref_window": (splice.diag_chars, splice.diag_chars_plain),
+        "ref_window": (splice.diag_chars_multi,
+                       splice.diag_chars_multi_plain),
         "extend_ungapped": (extend.extend_grouped,
                             extend.extend_grouped_plain),
         "indel_sweep": (splice.self_indel_sweep,

@@ -9,8 +9,9 @@ consumes the planes, so none goes to device memory) and evaluates each
 distinct (lane, start) once; on CPU tensors it
 runs `extend_grouped_plain`, which is `pen_planes` + `extend_from_planes`,
 ports of the JAX code line by line.  `live_pen_prefix_plain` is the plain
-twin of the device function in csrc/live_prefix.cuh that kernel 7
-(inject_indels, ops/splice.py) calls per live column.
+twin of the warp sums in csrc/live_prefix.cuh that K10 (inject_indels,
+ops/splice.py) and K16 (inject_known) take over runs of a live slot's
+columns.
 """
 
 from __future__ import annotations

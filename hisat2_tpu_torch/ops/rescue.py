@@ -3,9 +3,10 @@
 
 Each rescue job matches its mate against every diagonal of a window of W
 diagonals and keeps the 8 best (`rescue_window`), then rescores those 8
-exactly with the reference windows (ops/splice.py:diag_chars, kernel 2)
-and the ungapped extension (ops/extend.py:extend_grouped, kernel 3), with
-the SNV planes on a graph index.
+exactly with the reference windows (ops/splice.py:diag_chars_multi,
+kernel 2, one launch for the reference and, on a graph index, the SNV
+planes) and the ungapped extension (ops/extend.py:extend_grouped, kernel
+3), with the SNV planes on a graph index.
 
 `rescue_window` launches kernel 8 (csrc/rescue_window.cu) on CUDA tensors
 and runs `rescue_window_plain` on CPU tensors.  The plain version keeps
@@ -78,11 +79,10 @@ def rescue_candidates(ref_words, n_text: int, reads, quals, lens,
     columns 0..L-1 of them)."""
     L = reads.shape[1]
     starts = rescue_window(ref_words, n_text, reads, win_start, W)
-    ch = splice_ops.diag_chars(ref_words, n_text, starts, L, 0)
-    s1 = s2 = None
-    if snv_delta1 is not None:
-        s1 = splice_ops.diag_chars(snv_delta1, n_text, starts, L, 0)
-        s2 = splice_ops.diag_chars(snv_delta2, n_text, starts, L, 0)
+    planes = [ref_words] + ([snv_delta1, snv_delta2]
+                            if snv_delta1 is not None else [])
+    ch, s1, s2 = (splice_ops.diag_chars_multi(planes, n_text, [starts], [0],
+                                              L)[0] + [None, None])[:3]
     ext = extend_ops.extend_grouped(
         n_text, reads, quals, lens, starts, mm_pen, clip_pen, n_pen, ch, 0,
         allow_softclip=allow_softclip, uniform_len=False, minsc=None,

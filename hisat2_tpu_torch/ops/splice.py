@@ -1,12 +1,16 @@
 """Diagonal windows, the indel sweep, known ALT indel injection and the
 splice machinery (counterpart of hisat2_tpu/ops/splice.py).
 
-`diag_chars` launches kernel 2 (csrc/ref_window.cu) on CUDA tensors and
-runs `diag_chars_plain` on CPU tensors; it serves the reference windows
-and, on a graph index, the SNV-plane windows.  `self_indel_sweep`
+`diag_chars_multi` launches kernel 2 (K5, csrc/ref_window.cu) on CUDA
+tensors and runs `diag_chars_multi_plain` on CPU tensors: in one launch
+the windows of up to two start sets (the core candidates with a margin,
+the extra slots without) on up to three packed planes (the reference and,
+on a graph index, the SNV planes); `diag_chars` is its one-plane,
+one-set case.  `self_indel_sweep`
 launches kernel 4 (csrc/indel_sweep.cu) or runs `self_indel_sweep_plain`;
-`inject_indels` launches kernel 7 (csrc/inject_indels.cu, with
-live_pen_prefix as a device function) or runs `inject_indels_plain`.
+`inject_indels` launches K10+K11 (csrc/inject_indels.cu, with
+live_pen_prefix as warp sums over runs of columns) or runs
+`inject_indels_plain`.
 
 The spliced slice (splice.py:192-626, :1107-1331):
   pair_sweep     K13 + K14 (csrc/pair_sweep.cu): the junction pair sweep
@@ -31,6 +35,7 @@ copied from splice.py:42-107 (the host hybrid replay uses them).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple
 
@@ -134,21 +139,75 @@ def diag_chars_plain(ref_words, n_text: int, starts, L: int, margin: int):
                               L + 2 * margin)
 
 
-def diag_chars(ref_words, n_text: int, starts, L: int, margin: int):
-    """Kernel 2 on CUDA tensors, diag_chars_plain on CPU tensors."""
-    if not starts.is_cuda:
-        return diag_chars_plain(ref_words, n_text, starts, L, margin)
+def diag_chars_multi_plain(planes, n_text: int, starts, margins, L: int):
+    """out[s][p] = diag_chars_plain(planes[p], n_text, starts[s], L,
+    margins[s]): the windows of every start set on every packed plane."""
+    return [[diag_chars_plain(w, n_text, st, L, m) for w in planes]
+            for st, m in zip(starts, margins)]
+
+
+class _RwCall(ctypes.Structure):
+    """Kernel 2's one argument, field for field csrc/ref_window.cu's
+    RwCall (8 bytes each): the planes and their word counts, the counts
+    of planes, text chars and start sets, then each set's starts, count,
+    window width and margin and its windows on planes 0-2."""
+    _fields_ = ([(f"plane{p}", ctypes.c_void_p) for p in range(3)]
+                + [(f"n_words{p}", ctypes.c_longlong) for p in range(3)]
+                + [(k, ctypes.c_longlong) for k in ("n_planes", "n_text",
+                                                    "n_sets")]
+                + [(f"{k}{s}", t) for s in range(2) for k, t in (
+                    ("starts", ctypes.c_void_p), ("n", ctypes.c_longlong),
+                    ("W", ctypes.c_longlong), ("margin", ctypes.c_longlong),
+                    ("out0_", ctypes.c_void_p), ("out1_", ctypes.c_void_p),
+                    ("out2_", ctypes.c_void_p))])
+
+
+def diag_chars_multi(planes, n_text: int, starts, margins, L: int):
+    """Kernel 2 (K5) on CUDA tensors, diag_chars_multi_plain on CPU
+    tensors: one launch for 1-3 packed planes (the reference and, on a
+    graph index, the two SNV planes) and 1-2 start sets (int32 [..., C]
+    each, with its own margin); out[s][p] is int32 [..., C, L +
+    2*margins[s]]."""
+    if not starts[0].is_cuda:
+        return diag_chars_multi_plain(planes, n_text, starts, margins, L)
     i32 = torch.int32
-    kernels.check_cuda("ref_words", ref_words, i32)
-    kernels.check_cuda("starts", starts, i32)
-    W = L + 2 * margin
-    out = torch.empty(tuple(starts.shape) + (W,), dtype=i32,
-                      device=starts.device)
+    P, S = len(planes), len(starts)
+    if not (1 <= P <= 3 and 1 <= S <= 2 and len(margins) == S):
+        raise ValueError("diag_chars_multi: 1-3 planes and 1-2 start sets")
+    # _RwCall's fields in order; a second set left out stays zero
+    vals = [None, None, None, 0, 0, 0, P, n_text, S]
+    for p, w in enumerate(planes):
+        kernels.check_cuda("planes", w, i32)
+        vals[p], vals[3 + p] = w.data_ptr(), w.shape[0]
+    outs = []
+    for st, m in zip(starts, margins):
+        kernels.check_cuda("starts", st, i32)
+        W = L + 2 * m
+        n = st.numel()
+        if m < 0 or W < 1 or n >= 2 ** 31:
+            raise ValueError("diag_chars_multi: a negative margin, an "
+                             "empty window or 2^31 starts in one set")
+        shape = (*st.shape, W)
+        if P > 1 and n * W % 4 == 0:
+            # one allocation for the set's planes: each window still
+            # starts 16-byte aligned, as the kernel's stores need
+            row = list(torch.empty((P, *shape), dtype=i32,
+                                   device=st.device).unbind(0))
+        else:
+            row = [torch.empty(shape, dtype=i32, device=st.device)
+                   for _ in planes]
+        outs.append(row)
+        vals += [st.data_ptr(), n, W, m, *(o.data_ptr() for o in row)]
+        vals += [None] * (3 - P)
     kernels.KERNELS["ref_window"].launch(
-        ref_words.data_ptr(), ref_words.shape[0], n_text, starts.data_ptr(),
-        starts.numel(), W, margin, out.data_ptr(),
-        stream=kernels.stream_of(starts))
-    return out
+        ctypes.byref(_RwCall(*vals)), stream=kernels.stream_of(starts[0]))
+    return outs
+
+
+def diag_chars(ref_words, n_text: int, starts, L: int, margin: int):
+    """diag_chars_multi's one-plane, one-set case: kernel 2 on CUDA
+    tensors, diag_chars_plain on CPU tensors."""
+    return diag_chars_multi([ref_words], n_text, [starts], [margin], L)[0][0]
 
 
 def _sweep_meta(G):
@@ -283,7 +342,6 @@ def _indel_sweep_scratch(L: int, W: int, G: int, snv: bool, NC: int, dev):
     """K8's global staging at these shapes (csrc/indel_sweep.cu:
     h2_indel_sweep_scratch): None where its warps stage in shared memory,
     else the buffer the kernel asks for."""
-    import ctypes
     return kernels.scratch("h2_indel_sweep_scratch",
                            [ctypes.c_int] * 4 + [ctypes.c_longlong], L, W, G,
                            int(snv), NC, dev=dev)
@@ -347,30 +405,23 @@ def _searchsorted_left(tab, v):
         torch.int32)
 
 
-def inject_indels_plain(ref_words, n_text: int, reads, quals, lens, starts,
-                        valid, ch, snv1_w, snv2_w, margin: int, ip, ilen,
-                        ins_chars, rkey, r_ilen, r_row, mm_pen, n_pen: int,
-                        minsc, snv_delta1, snv_delta2, slots: int = 2):
-    """Plain torch twin of kernel 7: splice.py:838 inject_indels, line by
-    line, after building the source diagonals' SNV-forgiving penalty
-    prefixes P_snv [N, C, L+1] / tot_snv [N, C] from their windows, as
-    pipeline.py:1143-1145 does from the pen_planes."""
-    from . import extend as extend_ops
+def indel_probes(starts, valid, lens, reads, ip, ilen, ins_chars, rkey,
+                 r_ilen, r_row, slots: int):
+    """K10's probes (splice.py:874-944 up to the prefix scalars): per
+    injected slot [N, J] (J = 2 * slots * C, the left-keyed slots first,
+    slot t*C + c the t-th event at or after start + 1), its junction
+    position x, fresh diagonal, event row (of the left-sorted table) and
+    signed length (+del / -ins), `okd` (an in-read event on a valid
+    candidate) and `live`: okd, inside the read's bounds and, for an
+    insertion, the skipped read chars equal to the allele.  Only the live
+    slots walk the read, and only they can score."""
     i32 = torch.int32
     dev = reads.device
     N, C = starts.shape
     L = reads.shape[1]
     E = ip.shape[0]
-    planes = extend_ops.pen_planes(
-        n_text, reads, quals, lens, torch.where(valid, starts, -1), mm_pen,
-        n_pen, ch, margin, snv1_w, snv2_w)
-    zero3 = torch.zeros((N, C, 1), dtype=i32, device=dev)
-    P_snv = torch.cat([zero3, torch.cumsum(planes.pen, 2).to(i32)], 2)
-    tot_snv = compact_ops.take_last(P_snv, lens[:, None].expand(N, C))
     lens2 = lens[:, None]
-    srcC = torch.arange(C, device=dev, dtype=i32)[None, :].expand(N, C)
-
-    xs_, d2_, ok_, src_, ev_, ln_ = [], [], [], [], [], []
+    xs_, d2_, ok_, ev_, ln_ = [], [], [], [], []
     # left-keyed: src diagonal is the LEFT side; x = ip - d
     lo = _searchsorted_left(ip, starts + 1)
     for t in range(slots):
@@ -382,7 +433,6 @@ def inject_indels_plain(ref_words, n_text: int, reads, quals, lens, starts,
         ok_.append(okd)
         ev_.append(idx.to(i32))
         ln_.append(ilen[idx])
-        src_.append(srcC)
     # right-keyed: src diagonal is the RIGHT side; x = (ip + ilen) - d
     lo2 = _searchsorted_left(rkey, starts + 1)
     for t in range(slots):
@@ -394,16 +444,55 @@ def inject_indels_plain(ref_words, n_text: int, reads, quals, lens, starts,
         ok_.append(okd)
         ev_.append(r_row[idx])
         ln_.append(r_ilen[idx])
-        src_.append(srcC)
-    J1 = C * slots
     x_all = torch.cat(xs_, dim=1).to(i32)
-    fresh = torch.cat(d2_, dim=1).to(i32)
-    ok_all = torch.cat(ok_, dim=1)
     event = torch.cat(ev_, dim=1).to(i32)
     elen = torch.cat(ln_, dim=1).to(i32)      # +del / -ins
-    src = torch.cat(src_, dim=1)
     J = x_all.shape[1]
-    is_left = torch.arange(J, device=dev)[None, :] < J1
+    I = torch.clamp(-elen, min=0)
+    # insertions: the skipped read bases must equal the variant allele
+    ins_ok = torch.ones((N, J), dtype=torch.bool, device=dev)
+    if E > 0:
+        col = torch.arange(MAX_INS, device=dev, dtype=i32)[None, None, :]
+        rpos = x_all[:, :, None] + col                   # [N, J, MAX_INS]
+        rb = reads[:, None, :].expand(N, J, L).gather(
+            2, torch.clamp(rpos, max=L - 1).to(torch.int64))
+        ev_chars = ins_chars[torch.clamp(event, min=0).to(torch.int64)]
+        need = col < I[:, :, None]
+        ins_ok = torch.where(need, rb == ev_chars, True).all(dim=2)
+        ins_ok = ins_ok | (elen > 0)
+    okd = torch.cat(ok_, dim=1)
+    live = okd & (x_all >= 1) & (x_all + I <= lens2 - 1) & ins_ok
+    return dict(x=x_all, fresh=torch.cat(d2_, dim=1).to(i32), event=event,
+                elen=elen, okd=okd, live=live)
+
+
+def inject_indels_plain(ref_words, n_text: int, reads, quals, lens, starts,
+                        valid, ch, snv1_w, snv2_w, margin: int, ip, ilen,
+                        ins_chars, rkey, r_ilen, r_row, mm_pen, n_pen: int,
+                        minsc, snv_delta1, snv_delta2, slots: int = 2):
+    """Plain torch twin of K10+K11: splice.py:838 inject_indels, line by
+    line (its probes in indel_probes), after building the source
+    diagonals' SNV-forgiving penalty prefixes P_snv [N, C, L+1] / tot_snv
+    [N, C] from their windows, as pipeline.py:1143-1145 does from the
+    pen_planes."""
+    from . import extend as extend_ops
+    i32 = torch.int32
+    dev = reads.device
+    N, C = starts.shape
+    L = reads.shape[1]
+    planes = extend_ops.pen_planes(
+        n_text, reads, quals, lens, torch.where(valid, starts, -1), mm_pen,
+        n_pen, ch, margin, snv1_w, snv2_w)
+    zero3 = torch.zeros((N, C, 1), dtype=i32, device=dev)
+    P_snv = torch.cat([zero3, torch.cumsum(planes.pen, 2).to(i32)], 2)
+    tot_snv = compact_ops.take_last(P_snv, lens[:, None].expand(N, C))
+    pr = indel_probes(starts, valid, lens, reads, ip, ilen, ins_chars, rkey,
+                      r_ilen, r_row, slots)
+    x_all, fresh, event, elen = pr["x"], pr["fresh"], pr["event"], pr["elen"]
+    J = x_all.shape[1]
+    src = torch.arange(C, device=dev, dtype=i32)[None, :].repeat(
+        N, 2 * slots)
+    is_left = torch.arange(J, device=dev)[None, :] < C * slots
     I = torch.clamp(-elen, min=0)
 
     # prefix scalars of the fresh-diagonal planes over LIVE columns only
@@ -411,7 +500,7 @@ def inject_indels_plain(ref_words, n_text: int, reads, quals, lens, starts,
     xr = torch.clamp(x_all + I, max=L)
     tot_f, _, ppfx = extend_ops.live_pen_prefix_plain(
         ref_words, n_text, reads, quals, lens, mm_pen, n_pen,
-        fresh, ok_all, [x_all, xr],
+        fresh, pr["okd"], [x_all, xr],
         snv_delta1=snv_delta1, snv_delta2=snv_delta2)
     (pf_x, _), (pf_xr, _) = ppfx
     src64 = src.to(torch.int64)
@@ -428,20 +517,7 @@ def inject_indels_plain(ref_words, n_text: int, reads, quals, lens, starts,
     d1 = torch.where(is_left, src_start, fresh)
     d2 = torch.where(is_left, fresh, src_start)
 
-    # insertions: the skipped read bases must equal the variant allele
-    ins_ok = torch.ones((N, J), dtype=torch.bool, device=dev)
-    if E > 0:
-        col = torch.arange(MAX_INS, device=dev, dtype=i32)[None, None, :]
-        rpos = x_all[:, :, None] + col                   # [N, J, MAX_INS]
-        rb = reads[:, None, :].expand(N, J, L).gather(
-            2, torch.clamp(rpos, max=L - 1).to(torch.int64))
-        ev_chars = ins_chars[torch.clamp(event, min=0).to(torch.int64)]
-        need = col < I[:, :, None]
-        ins_ok = torch.where(need, rb == ev_chars, True).all(dim=2)
-        ins_ok = ins_ok | (elen > 0)
-
-    ok_all = ok_all & (x_all >= 1) & (x_all + I <= lens2 - 1) & ins_ok
-    ok_all = ok_all & (score >= minsc[:, None])
+    ok_all = pr["live"] & (score >= minsc[:, None])
     score = torch.where(ok_all, score, -_BIG).to(i32)
     return dict(score=score, d1=d1.to(i32), d2=d2.to(i32), x=x_all,
                 kind=torch.where(ok_all,
@@ -454,14 +530,21 @@ def inject_indels_plain(ref_words, n_text: int, reads, quals, lens, starts,
                 src=src.to(i32))
 
 
+def _inject_indels_out(N: int, J: int, dev):
+    """K10's output planes [9, N, J]: score d1 d2 x kind event src spldir
+    splscore (the kernel writes every plane)."""
+    return torch.empty((9, N, J), dtype=torch.int32, device=dev)
+
+
 def inject_indels(ref_words, n_text: int, reads, quals, lens, starts, valid,
                   ch, snv1_w, snv2_w, margin: int, ip, ilen, ins_chars, rkey,
                   r_ilen, r_row, mm_pen, n_pen: int, minsc, snv_delta1,
                   snv_delta2, slots: int = 2):
-    """Kernel 7 on CUDA tensors, inject_indels_plain on CPU tensors.
-    starts/valid: the core candidates [N, C]; ch, snv1_w, snv2_w: their
-    windows (diag_chars with margin); ip .. r_row: the padded indel event
-    tables (index/format.py:graph_to_device)."""
+    """K10+K11 (csrc/inject_indels.cu) on CUDA tensors,
+    inject_indels_plain on CPU tensors.  starts/valid: the core
+    candidates [N, C]; ch, snv1_w, snv2_w: their windows (diag_chars with
+    margin); ip .. r_row: the padded indel event tables
+    (index/format.py:graph_to_device)."""
     if not reads.is_cuda:
         return inject_indels_plain(
             ref_words, n_text, reads, quals, lens, starts, valid, ch, snv1_w,
@@ -490,7 +573,7 @@ def inject_indels(ref_words, n_text: int, reads, quals, lens, starts, valid,
         raise ValueError("inject_indels: SNV planes differ in size or the "
                          "windows are narrower than L + 2*margin")
     J = 2 * slots * C
-    res = torch.empty((7, N, J), dtype=i32, device=reads.device)
+    res = _inject_indels_out(N, J, reads.device)
     kernels.KERNELS["inject_indels"].launch(
         ref_words.data_ptr(), snv_delta1.data_ptr(), snv_delta2.data_ptr(),
         reads.data_ptr(), quals.data_ptr(), lens.data_ptr(),
@@ -499,13 +582,11 @@ def inject_indels(ref_words, n_text: int, reads, quals, lens, starts, valid,
         ins_chars.data_ptr(), rkey.data_ptr(), r_ilen.data_ptr(),
         r_row.data_ptr(), mm_pen.data_ptr(), minsc.data_ptr(), n_text,
         ref_words.shape[0], snv_delta1.shape[0], N, C, L, W, margin, E,
-        slots, n_pen, *(res[i].data_ptr() for i in range(7)),
+        slots, n_pen, *(res[i].data_ptr() for i in range(9)),
         stream=kernels.stream_of(reads))
-    out = dict(zip(("score", "d1", "d2", "x", "kind", "event", "src"),
-                   res.unbind(0)))
-    out["spldir"] = torch.zeros((N, J), dtype=i32, device=reads.device)
-    out["splscore"] = torch.zeros((N, J), dtype=torch.float32,
-                                  device=reads.device)
+    out = dict(zip(("score", "d1", "d2", "x", "kind", "event", "src",
+                    "spldir"), res[:8].unbind(0)))
+    out["splscore"] = res[8].view(torch.float32)
     return out
 
 
@@ -1293,7 +1374,6 @@ def _sweep_scratch(name: str, C: int, L: int, W: int, LP: int, snv: bool,
     h2_second_sweep_scratch): None where a lane's planes fit a block's
     shared memory, else a buffer of the bytes the kernel asks for (a slice
     per block of its grid)."""
-    import ctypes
     args = (C, L, W, LP, int(snv)) if name == "pair_sweep" else (C, L, W,
                                                                   LP)
     return kernels.scratch(

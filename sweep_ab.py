@@ -4,9 +4,12 @@ K15 (second_sweep), the indel sweep K8 (indel_sweep), the ungapped
 extension K6+K7 (extend_ungapped), the FM search K1 (fm_search2, and
 its lane-list mode K17), the candidate compaction K3+K4 (compact_cands),
 the slot merge K9 (pack_slots, as a region with the schema glue it
-absorbed), the splice-site injection K16 (inject_known) and the sampled-SA
-walk K19+K20 (resolve_walk); and, of this tree alone, the device time of
-the kernels not yet redesigned (K5, K10) on the steps that launch them.
+absorbed), the splice-site injection K16 (inject_known), the sampled-SA
+walk K19+K20 (resolve_walk), the known-indel injection K10+K11
+(inject_indels) and the reference windows K5 (ref_window, as a region:
+a step's windows); and, of this tree alone, the device time of the
+kernels not yet redesigned (K12 on a rescue chunk, K18 on the spliced
+slice's first merge).
 
     git archive <commit> hisat2_tpu_torch/csrc | tar -x -C DIR
     python3 sweep_ab.py DIR
@@ -16,64 +19,64 @@ the earlier commit's pair_sweep.cu and second_sweep.cu into libraries of
 their own (their C symbols are this tree's), each whole and stopped right
 after its plane prologue (the sp_build call), this tree's stopped the
 same way, the earlier indel_sweep.cu, extend_ungapped.cu, fm_search2.cu,
-compact_cands.cu, pack_slots.cu, inject_known.cu and resolve_walk.cu
-whole, the earlier extend_ungapped.cu stopped after its scans (that
-tree's last/next-penalised scan, when it has one), and the earlier
-inject_known.cu and resolve_walk.cu stopped part-way (STOPS: K16 after its
-site probes and after the probes and junction chars, K20 with its walk cut
-to zero steps, where that tree's source has the marker): one nvcc per
-library, all started together.  Then it runs chip_smoke.py's phases, and
-on the steps chip_smoke.step_shapes reports it takes the step's captured
-arguments and
+compact_cands.cu, pack_slots.cu, inject_known.cu, resolve_walk.cu,
+inject_indels.cu and ref_window.cu whole, the earlier extend_ungapped.cu
+stopped after its scans (that tree's last/next-penalised scan, when it
+has one), copies of earlier kernels stopped part-way (STOPS, where that
+tree's source has the marker: K10 after its binary search, K5 storing a
+constant in place of the char) and this tree's K5 storing a constant
+(THIS_STOPS): one nvcc per library, all started together.  Then it runs
+chip_smoke.py's phases, and on the steps chip_smoke.step_shapes reports it
+takes the step's captured arguments and
 
 - checks that the earlier kernels give this tree's outputs;
 - times each kernel, 20 launches back to back between two CUDA events
   (median of 5 rounds), in turns: earlier, this, this, earlier.  K13's
   and K15's launches (whole and prologue-only) are issued from the host,
-  on phase 10's and phase 11 (e)'s spliced full step; K8's, K6+K7's,
-  K1's, K4's, K9's, K16's and K20's are captured in one CUDA graph
-  (device time), since the wrapper's host work per call outlasts those
-  kernels.  K8 runs on the linear step and config 6's full step; K6+K7's
-  core and extra-slot launches on every step where chip_smoke holds them
-  (linear, graph full, the spliced and config 6 steps, the genome linear
-  step and a rescue chunk), with the earlier tree's scans-only copy; K1
-  on the linear, graph full, spliced full and config 6 full steps, and
-  K17 (K1's lane-list mode, its lane list made outside the graph) on the
-  spliced and config 6 full steps; K4 and K9 on the linear, graph full,
-  spliced full, genome linear and config 6 full steps, with their bounds
-  (chip_smoke.work) on those steps; K16 on the spliced, config 6 and
-  long spliced lite and full steps (K16_STEPS), with its stopped copies
-  and its live slots; K20 on the genome linear and config 6 lite and
-  full steps and the full step's re-search walk (K20_STEPS), with its
-  zero-step copy, its live rows, its latency floor and this tree's time
-  with every other live row dropped, and on the genome linear step also
-  K19 (no mask) and K20 with every row live.  K9 is timed as a
-  region from the step's block dicts: an earlier K9 that takes the
-  schema as one [F, N, K] tensor (two launches) runs behind the schema
-  glue the pipeline ran for it (`schema_glue` below: the blocks' zero
-  planes, the defaults, the torch.stack / torch.cat), this tree's reads
-  the blocks in place; both regions are also timed on the host clock
-  (the enqueue of one call: `host_ms`).  An earlier K20 that takes every
-  row [M] runs on rows expanded outside the graph and, as a region,
-  behind the row glue the pipeline ran for it (`rows_walk`);
+  on phase 10's and phase 11 (e)'s spliced full step; the others are
+  captured in one CUDA graph (device time), since the wrapper's host
+  work per call outlasts those kernels.  K8 runs on the linear step and
+  config 6's full step; K6+K7's core and extra-slot launches on every
+  step where chip_smoke holds them (linear, graph full, the spliced and
+  config 6 steps, the genome linear step and a rescue chunk), with the
+  earlier tree's scans-only copy; K1 on the linear, graph full, spliced
+  full and config 6 full steps, and K17 (K1's lane-list mode, its lane
+  list made outside the graph) on the spliced and config 6 full steps;
+  K4 and K9 on the linear, graph full, spliced full, genome linear and
+  config 6 full steps, with their bounds (chip_smoke.work) on those
+  steps; K16 on the spliced, config 6 and long spliced lite and full
+  steps (K16_STEPS) with its live slots; K20 on the genome linear and
+  config 6 lite and full steps and the full step's re-search walk
+  (K20_STEPS), with its live rows, its latency floor and this tree's
+  time with every other live row dropped, and on the
+  genome linear step also K19 (no mask) and K20 with every row live; K10
+  on the graph full and config 6 full steps (K10_STEPS), with its
+  search-only copy and its live slots (`k10_info`); K5 as a region on
+  every step that captures it (the linear, graph, spliced, config 6,
+  genome linear and long spliced steps and a rescue chunk): an earlier
+  K5 of one plane and one start set a launch runs a launch a window,
+  each behind that tree's wrapper work (`k5_one_launches`), against this
+  tree's one launch, by CUDA graph and on the host clock (the enqueue of
+  one call: `host_ms`, with and without the launch calls), with each
+  tree's constant-store copy and the region's bound.  K9 is also timed
+  on the host clock;
 - times this tree's K1 on the linear step with and without an L2
   access-policy window (persisting) over the fused table, in turns;
-- times this tree's ref_window (K5) and inject_indels (K10) by CUDA graph
-  on every reported step that launches them, alone (no earlier tree):
-  the inputs of the next redesign's ranking.
+- times this tree's rescue_window (K12) and merge_sites (K18) by CUDA
+  graph alone (no earlier tree): the inputs of the next redesign's
+  ranking.
 
 Both trees launch through this tree's wrappers (ops/), except the earlier
-K9 of one [F, N, K] schema (`pack_slots_schema` below) and the earlier
-K20 of one row a walk (`rows_walk`); only the C entry point differs, so
-the arguments and the host work per launch are the same, except that an
-earlier K1 of one thread a lane (no FM_G), which writes only a lane's
-events, gets zero-filled outputs (the device work its wrapper did).  The
+K5 of one window a launch; only the C entry point differs, so the
+arguments and the host work per launch are the same, except that an
+earlier K10 without the spldir / splscore planes gets them zero-filled
+(its wrapper did that).  The
 earlier K15 must take both base pairs of a step in one launch, as this
 tree's does; the earlier K8, K13 and K15 may lack this tree's trailing
 scratch arguments (the scratch, its bytes).  Prints one `[sweep ab]
 <step> {json}` line per step for K13 + K15, one `[sweep ab] <step>
-<kernel> {json}` line per step for K8, K6+K7, K1, K4, K9, K16 and K20,
-then chip_smoke's own lines.
+<kernel> {json}` line per step for the others, then chip_smoke's own
+lines.
 """
 
 from __future__ import annotations
@@ -96,58 +99,49 @@ PRO_SINK = {"pair_sweep": "A.bsel[(size_t)n * 2]", "second_sweep": "A.out[n]"}
 EXT_SCANS_END = "  __syncwarp();\n\n  const int total_pen = sP[L];"
 # the earlier trees' kernels timed whole
 WHOLE = ("indel_sweep", "extend_ungapped", "fm_search2", "compact_cands",
-         "pack_slots", "inject_known", "resolve_walk")
-# copies of the earlier K16 (inject_known) and K20 (resolve_walk) stopped
-# part-way, each writing every output it owes: K16 after its site probes
-# and after the probes and the four junction chars (its score, kind and
-# clip planes as a dead slot's or, for a live slot, 0); K20 with its walk
-# cut to zero steps (the sweep over the mask and the outputs).  (marker in
-# the source, the text put before it, or the text that replaces it)
-K16_STOP = """  {{
-    const size_t NJ_ = (size_t)A.N * J;
-    int* o_ = A.out + k;
-    o_[0] = ok ? 0 : -IK_BIG;
-    o_[NJ_] = donor ? st : fresh;
-    o_[2 * NJ_] = donor ? fresh : st;
-    o_[3 * NJ_] = x;
-    o_[4 * NJ_] = ok ? 1 : 0;
-    o_[5 * NJ_] = {spldir};
-    o_[6 * NJ_] = 0;
-    o_[7 * NJ_] = 0;
-    o_[8 * NJ_] = c;
-    return;
-  }}
+         "pack_slots", "inject_known", "resolve_walk", "inject_indels",
+         "ref_window")
+# K10 stopped after its binary search: every column writes a dead slot's
+# outputs (its d2 the search's result, so that the search stays live)
+K10_STOP = """  A.score[k] = -INJ_BIG;
+  A.d1[k] = st;
+  A.d2[k] = lo;
+  A.x[k] = 1;
+  A.kind[k] = 0;
+  A.event[k] = -1;
+  A.src[k] = c;
+  return;
 """
+# copies of earlier kernels stopped part-way, each writing every output it
+# owes: K10 after its search, K5 storing a constant (its word and start
+# loads then dead).  (marker in the source, the text put before it, or
+# the text that replaces it)
 STOPS = {
-    ("inject_known", "probes"): (
-        "  const int d1 = donor ? st : fresh;\n",
-        K16_STOP.format(spldir="0"), False),
-    ("inject_known", "chars"): (
-        "  int score = -IK_BIG, out_cl = 0, out_cr = 0;\n",
-        K16_STOP.format(spldir="spldir"), False),
-    ("resolve_walk", "nowalk"): (
-        "for (int s = 0; s < max_steps; ++s)",
-        "for (int s = 0; s < 0; ++s)", True)}
+    ("inject_indels", "probe"): (
+        "  const int idx = min(lo + t, A.E - 1);\n", K10_STOP, False),
+    ("ref_window", "const"): ("  out[k] = ch;", "  out[k] = 4;", True)}
+# this tree's K5 storing a constant in place of each char (its start and
+# word loads then dead)
+THIS_STOPS = {("ref_window", "const"): (
+    "    v[k] = (pos < 0 || pos >= lim) ? 4 : (int)((bits >> (2 * k)) & 3u);",
+    "    v[k] = 4;", True)}
 # the steps K4 and K9 are compared on
 PACK_STEPS = ("linear", "graph full", "spliced full", "genome linear",
               "config6 full")
-# this tree's kernels timed alone, by CUDA graph
-ALONE = ("ref_window", "inject_indels")
+# this tree's kernels timed alone, by CUDA graph: K12 on a rescue chunk
+# and K18 on the spliced slice's first merge
+ALONE = ("rescue_window", "merge_sites")
+# the steps K10 is compared on; K5 is compared as a region on every step
+# that captures it
+K10_STEPS = ("graph full", "config6 full")
 # the steps K16 and K20 are compared on
 K16_STEPS = ("spliced lite", "spliced full", "config6 lite", "config6 full",
              "spliced long lite", "spliced long full")
 K20_STEPS = ("genome linear", "config6 lite", "config6 full")
-# an earlier K9's C entry point that takes the schema as one [F, N, K]
-# tensor: uni, N, K, Mdev, do_select, spill, has_event, spliced, then
-# dense, alt, words, cnt, offs, src, sp_w, sp_ev, the stream
-SCHEMA_K9 = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 8
-# an earlier K20's C entry point that takes every row [M] (no runs of P):
-# blocked, nblk, fchr, sa_marked, ns, zrow, off_rate, row, live, M, out,
-# the stream
-ROWS_K20 = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-            ctypes.c_void_p]
+# an earlier K5 of one plane and one start set a launch: ref_words,
+# n_words, n_text, starts, n_cands, W, margin, out, the stream
+ONE_K5 = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+          ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 # an L2 access-policy window on a stream: the persisting set-aside at its
 # largest and a window over `bytes` from `base` whose hit ratio is the
 # set-aside's share of it (on = 0: no window, the set-aside released)
@@ -185,17 +179,19 @@ extern "C" int h2_l2_window(void* base, long long bytes, void* stream,
 """
 
 
-def sweep_source(src, name, pro):
+def sweep_source(src, name, pro, stops=STOPS):
     """pair_sweep.cu / second_sweep.cu, stopped after sp_build if pro;
-    extend_ungapped.cu stopped after its scans if pro; inject_known.cu /
-    resolve_walk.cu stopped at STOPS[(name, pro)] (None where that tree's
-    kernel has no such point); any source whole if not pro."""
+    extend_ungapped.cu stopped after its scans if pro; a source stopped at
+    stops[(name, pro)] (the first marker after the kernel's __global__, or
+    in a device function before it; None where that tree's kernel has no
+    such point); any source whole if not pro."""
     text = open(os.path.join(src, name + ".cu")).read()
-    if (name, pro) in STOPS:
-        mark, put, swap = STOPS[(name, pro)]
+    if (name, pro) in stops:
+        mark, put, swap = stops[(name, pro)]
         if mark not in text:
             return None
-        at = text.index(mark, text.index("__global__"))
+        at = text.find(mark, text.index("__global__"))
+        at = text.index(mark) if at < 0 else at
         return text[:at] + put + text[at + len(mark) * swap:]
     if pro and name in SWEEPS:
         at = text.index("sp_build(", text.index("__global__"))
@@ -224,8 +220,10 @@ def build_libs(kernels, parent_csrc):
     todo += [("parent", parent_csrc, name, False) for name in WHOLE]
     todo.append(("parent", parent_csrc, "extend_ungapped", True))
     todo += [("parent", parent_csrc, name, stop) for name, stop in STOPS]
+    todo += [("this", kernels.CSRC, name, stop) for name, stop in THIS_STOPS]
     for tree, src, name, pro in todo:
-        text = sweep_source(src, name, pro)
+        text = sweep_source(src, name, pro,
+                            THIS_STOPS if tree == "this" else STOPS)
         if text is None:
             continue
         tag = (f"{tree}_{name}_"
@@ -238,14 +236,13 @@ def build_libs(kernels, parent_csrc):
                "-Xcompiler", "-fPIC", "-shared", "-I", src, "-o", so, cu]
         nargs = len(kernels.KERNELS[name].argtypes) - 1
         this = sweep_source(kernels.CSRC, name, False)
-        for arg in ("void* scratch", "long long scratch_bytes"):
-            # an earlier kernel without this tree's trailing scratch
-            # arguments
+        for arg in ("void* scratch", "long long scratch_bytes",
+                    "void* spldir", "void* splscore"):
+            # an earlier kernel without this tree's trailing scratch (or,
+            # K10, zero-plane) arguments
             nargs -= arg in this and arg not in text
-        if name == "pack_slots" and "const void* uni" in text:
-            nargs = -len(SCHEMA_K9)   # the schema interface
-        if name == "resolve_walk" and "int P" not in text:
-            nargs = -len(ROWS_K20)    # every row, no runs
+        if name == "ref_window" and "n_sets" not in text:
+            nargs = -len(ONE_K5)      # one plane, one start set
         jobs.append(((tree, name, pro), so, nargs, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     cu = os.path.join(out, "l2_window.cu")
@@ -257,15 +254,14 @@ def build_libs(kernels, parent_csrc):
          "-shared", "-o", so, cu], stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)))
     fns = {}
-    # an earlier K9 that takes the schema as one [F, N, K] tensor
-    fns["k9_schema"] = "const void* uni" in sweep_source(
-        parent_csrc, "pack_slots", False)
-    # an earlier K20 that takes every row [M]
-    fns["k20_rows"] = "int P" not in sweep_source(parent_csrc,
-                                                  "resolve_walk", False)
-    # an earlier K1 of one thread a lane writes only a lane's events
-    fns["k1_fills"] = "FM_G" not in sweep_source(parent_csrc, "fm_search2",
-                                                 False)
+    # an earlier K5 of one plane and one start set a launch
+    fns["k5_one"] = "n_sets" not in sweep_source(parent_csrc,
+                                                 "ref_window", False)
+    # an earlier K10 without the spldir / splscore planes (its wrapper
+    # zero-filled them)
+    fns["k10_fills"] = ("void* splscore" in sweep_source(
+        kernels.CSRC, "inject_indels", False) and "void* splscore" not in
+        sweep_source(parent_csrc, "inject_indels", False))
     for key, so, nargs, p in jobs:
         _, err = p.communicate()
         chip_smoke.check(p.returncode == 0, f"nvcc {key}: {err[-3000:]}")
@@ -280,24 +276,118 @@ def build_libs(kernels, parent_csrc):
             continue
         at = kernels.KERNELS[key[1]].argtypes
         if nargs < 0:
-            at, nargs = ((ROWS_K20 if key[1] == "resolve_walk" else SCHEMA_K9)
-                         + [ctypes.c_void_p], -nargs)
+            at, nargs = ONE_K5 + [ctypes.c_void_p], -nargs
         fn.argtypes = at[:nargs] + at[-1:]
         fn.restype = ctypes.c_int
         fns[key] = (fn, nargs)
     return fns
 
 
-def zeroed_outputs(call):
-    """call() with kernel 1's wrapper zero-filling its outputs, as the
-    earlier design (which writes only a lane's events) needs."""
-    from hisat2_tpu_torch.ops import search
-    orig = search._outputs
-    search._outputs = lambda B, H, RW, dev, zeroed: orig(B, H, RW, dev, True)
+def zeroed_k10(call):
+    """call() with K10's wrapper zero-filling its output planes, as the
+    wrapper of an earlier K10 without the spldir / splscore planes did
+    for those two."""
+    from hisat2_tpu_torch.ops import splice
+    orig = splice._inject_indels_out
+    splice._inject_indels_out = lambda N, J, dev: orig(N, J, dev).zero_()
     try:
         return call()
     finally:
-        search._outputs = orig
+        splice._inject_indels_out = orig
+
+
+def k5_windows(kw):
+    """The (plane, starts, margin) of each window one captured K5 call
+    writes (this tree's call of every plane and start set, or an earlier
+    tree's of one each), and its n_text and L."""
+    if "planes" in kw:
+        return ([(w, st, m) for st, m in zip(kw["starts"], kw["margins"])
+                 for w in kw["planes"]], kw["n_text"], kw["L"])
+    return [(kw["ref_words"], kw["starts"], kw["margin"])], kw["n_text"], \
+        kw["L"]
+
+
+def k5_one_launches(torch, kernels, fn, kw, launch=True):
+    """An earlier K5 of one plane and one start set a launch, on the
+    windows of one captured call: a launch a window, each behind the host
+    work of that tree's wrapper (the two checks, the output, the device
+    guard); launch=False: that wrapper work without the device guard and
+    the launch."""
+    f, _ = fn
+    wins, n_text, L = k5_windows(kw)
+    outs = []
+    for w, st, m in wins:
+        kernels.check_cuda("ref_words", w, torch.int32)
+        kernels.check_cuda("starts", st, torch.int32)
+        W = L + 2 * m
+        out = torch.empty(tuple(st.shape) + (W,), dtype=torch.int32,
+                          device=st.device)
+        s = kernels.stream_of(st)
+        if launch:
+            with torch.cuda.device(s.device):
+                err = f(w.data_ptr(), w.shape[0], n_text, st.data_ptr(),
+                        st.numel(), W, m, out.data_ptr(), s.cuda_stream)
+            chip_smoke.check(err == 0, f"earlier ref_window: launch error "
+                             f"{err}")
+        outs.append(out)
+    return outs
+
+
+def compare_k5(torch, kernels, fns, tag, kw):
+    """K5 as a region on one step's captured call: the earlier tree's
+    launches (a launch a window where its K5 takes one plane and one
+    start set) against this tree's wrapper; equal windows, then the
+    device time by CUDA graph in turns, each region's host enqueue in
+    turns, and the earlier tree's constant-store copy; prints and
+    returns them."""
+    from hisat2_tpu_torch.ops import splice
+    this = ((lambda: [o for row in splice.diag_chars_multi(**kw)
+                      for o in row]) if "planes" in kw
+            else (lambda: [splice.diag_chars(**kw)]))
+    par = {}
+    for stop in (False, "const"):
+        fn = fns.get(("parent", "ref_window", stop))
+        if fn is None:
+            continue
+        par[stop] = ((lambda fn=fn: k5_one_launches(torch, kernels, fn, kw))
+                     if fns["k5_one"] else
+                     (lambda fn=fn: through(torch, kernels, "ref_window", fn,
+                                            this)))
+    a, b = par[False](), this()
+    chip_smoke.check(len(a) == len(b) and all(
+        torch.equal(x, y) for x, y in zip(a, b)), f"{tag}: ref_window != "
+        "parent")
+    run = {"parent": par[False], "this": this}
+    turns = ("parent", "this", "this", "parent")
+    t = [graph_ms(torch, run[tr]) for tr in turns]
+    h = [host_ms(torch, run[tr]) for tr in turns]
+    wins, _, _ = k5_windows(kw)
+    res = {"parent": [t[0], t[3]], "this": [t[1], t[2]],
+           "host_parent": [h[0], h[3]], "host_this": [h[1], h[2]],
+           "windows": len(wins),
+           "chars": sum(st.numel() * (kw["L"] + 2 * m) for _, st, m in wins)}
+    if "const" in par:
+        res["parent_const"] = [graph_ms(torch, par["const"])
+                               for _ in range(2)]
+    fn = fns.get(("this", "ref_window", "const"))
+    if fn is not None and "planes" in kw:
+        res["this_const"] = [graph_ms(torch, lambda: through(
+            torch, kernels, "ref_window", fn, this)) for _ in range(2)]
+    # each region's wrapper work on the host without its launches (the
+    # device guard, the C call)
+    k = kernels.KERNELS["ref_window"]
+    k.launch = lambda *args, stream: None
+    try:
+        res["host_this_nolaunch"] = host_ms(torch, this)
+    finally:
+        del k.launch
+    if fns["k5_one"]:
+        fn = fns[("parent", "ref_window", False)]
+        res["host_parent_nolaunch"] = host_ms(torch, lambda: k5_one_launches(
+            torch, kernels, fn, kw, launch=False))
+    res["bound_ms"], _ = chip_smoke.work(torch, "ref_window", kw, b)
+    print(f"[sweep ab] {tag} ref_window: {json.dumps(res)}", flush=True)
+    return res
 
 
 def through(torch, kernels, name, fn, call):
@@ -320,131 +410,25 @@ def through(torch, kernels, name, fn, call):
         del k.launch
 
 
-def schema_glue(torch, blocks, has_event):
-    """The unified schema as the pipeline built it for a K9 that takes
-    one [F, N, K] tensor: each block's constants as planes, made as the
-    block was (one zero plane of the ungapped slots' width for the
-    ungapped, self-sweep and wide blocks, one for each other block; a
-    constant c != 0 as zero + c), then per block a zero plane, the alt
-    and event defaults by adds, the valid plane where absent, one
-    torch.stack of its planes as int32; then one torch.cat.  Equal to
-    ops/compact.py:slot_schema."""
-    from hisat2_tpu_torch.ops import compact
-    i32 = torch.int32
-    fields = compact.SLOT_FIELDS[:17 if has_event else 16]
-    zc = torch.zeros_like(blocks[0]["score"], dtype=i32)
-    parts = []
-    for b in blocks:
-        # the ungapped block (valid), the self-sweep and wide blocks (no
-        # pair ids "i", no n_mm, known 0) shared one zero plane
-        shared = "valid" in b or ("i" not in b and "n_mm" not in b
-                                  and isinstance(b.get("known"), int)
-                                  and b["known"] == 0)
-        z = zc if shared else torch.zeros_like(b["score"], dtype=i32)
-        b = {k: (z + v if v else z) if isinstance(v, int) else v
-             for k, v in b.items()}
-        zw = torch.zeros_like(b["score"], dtype=i32)
-        dflt = {"n_mm": zw, "n_n": zw, "clip_l": zw, "clip_r": zw,
-                "alt": zw + compact.NO_ALT, "event": zw - 1}
-        if "valid" not in b:
-            dflt["valid"] = b["score"] > -(2 ** 30)
-        parts.append(torch.stack([b.get(f, dflt.get(f)).to(i32)
-                                  for f in fields]))
-    return torch.cat(parts, dim=2)
-
-
-def pack_slots_schema(torch, fn, kw):
-    """An earlier K9 that takes the schema as one [F, N, K] tensor, as the
-    pipeline ran it on the step's blocks: the schema glue (schema_glue),
-    then its launches."""
-    from hisat2_tpu_torch.ops import compact
-    f, _ = fn
-    uni = schema_glue(torch, kw["blocks"], kw["has_event"])
-    F, N, K = uni.shape
-    Mdev, spill, spliced = kw["Mdev"], kw["use_spill"], kw["spliced"]
-    has_event = F == 17
-    dev = uni.device
-
-    def e(*shape, on=spill):
-        return torch.empty(shape if on else (0,), dtype=torch.int32,
-                           device=dev)
-    dense = e(11, N, 2 if spill else Mdev, on=True)
-    alt = e(N, 1, on=True)
-    words, cnt, offs, src = e(N * (Mdev - 2), 6), e(N), e(N), e(N)
-    sp_w = e(N, 5 if spliced else 4)
-    sp_ev = e(N, on=spill and has_event)
-    with torch.cuda.device(dev):
-        err = f(uni.data_ptr(), N, K, Mdev, int(Mdev < K or spill),
-                int(spill), int(has_event), int(spliced), dense.data_ptr(),
-                alt.data_ptr(), words.data_ptr(), cnt.data_ptr(),
-                offs.data_ptr(), src.data_ptr(), sp_w.data_ptr(),
-                sp_ev.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    chip_smoke.check(err == 0, f"earlier pack_slots: launch error {err}")
-    out = {("u_d2" if k == "dd" and spliced else "u_" + k): dense[i]
-           for i, k in enumerate(compact._DENSE_OUT)
-           if k != "event" or has_event}
-    out["u_alt"] = alt
-    if spill:
-        out.update(sp_src=src, sp_w=sp_w)
-        if has_event:
-            out["sp_ev"] = sp_ev
-    return out
-
-
-def rows_walk(torch, fn, kw, rows=None):
-    """An earlier K20 whose C entry point takes every row [M]: the row
-    glue this tree's launch absorbed (walk_args before it took runs: the
-    first rows + arange(P) as int32), unless the rows are given, then its
-    launch."""
-    f, _ = fn
-    if rows is None:
-        top = kw["row"]
-        rows = (top[:, None] + torch.arange(kw.get("P", 1), device=top.device)
-                ).to(torch.int32).reshape(-1).contiguous()
-    live, b, sa = kw["live"], kw["blocked"], kw["sa_marked"]
-    M = rows.numel()
-    out = torch.empty(M, dtype=torch.int32, device=rows.device)
-    with torch.cuda.device(rows.device):
-        err = f(b.data_ptr(), b.shape[0], kw["fchr"].data_ptr(),
-                sa.data_ptr(), sa.shape[0], kw["zrow"], kw["off_rate"],
-                rows.data_ptr(), None if live is None else live.data_ptr(), M,
-                out.data_ptr(), torch.cuda.current_stream(rows.device)
-                .cuda_stream)
-    chip_smoke.check(err == 0, f"earlier resolve_walk: launch error {err}")
-    return out
-
-
 def compare_walk(torch, kernels, fns, tag, key, kw, info):
     """K20 on one step's arguments: the earlier tree's kernel against this
     tree's wrapper, equal outputs, then the device time by CUDA graph in
-    turns and the earlier tree's zero-step copy.  An earlier K20 that
-    takes every row [M] runs on rows expanded outside the timing and, as
-    a region, behind the row glue this tree absorbed (`region`)."""
+    turns."""
     from hisat2_tpu_torch.ops import resolve
-    this = lambda: resolve.resolve_rows_sparse(**kw)  # noqa
-    old = {s: fns[("parent", "resolve_walk", s)] for s in (False, "nowalk")
-           if ("parent", "resolve_walk", s) in fns}
-    if fns["k20_rows"]:
-        rows = chip_smoke.walk_rows(torch, kw).contiguous()
-        run = {s: (lambda f=f: rows_walk(torch, f, kw, rows))
-               for s, f in old.items()}
-        region = lambda: rows_walk(torch, old[False], kw)  # noqa
-    else:
-        run = {s: (lambda f=f: through(torch, kernels, "resolve_walk", f,
-                                       this)) for s, f in old.items()}
-        region = None
-    chip_smoke.check(torch.equal(run[False](), this()),
-                     f"{tag}: {key} != parent")
-    t = [graph_ms(torch, run[False] if tr == "parent" else this)
-         for tr in ("parent", "this", "this", "parent")]
-    res = {"parent": [t[0], t[3]], "this": [t[1], t[2]]}
-    if region is not None:
-        chip_smoke.check(torch.equal(region(), this()),
-                         f"{tag}: {key} region != parent")
-        res["parent_region"] = [graph_ms(torch, region) for _ in range(2)]
-    if "nowalk" in run:
-        res["parent_nowalk"] = [graph_ms(torch, run["nowalk"])
-                                for _ in range(2)]
+    old = fns[("parent", "resolve_walk", False)]
+
+    def pair(a):
+        return (lambda: through(torch, kernels, "resolve_walk", old,
+                                lambda: resolve.resolve_rows_sparse(**a)),
+                lambda: resolve.resolve_rows_sparse(**a))
+
+    def turns(par, thd, what):
+        chip_smoke.check(torch.equal(par(), thd()), f"{tag}: {what} != "
+                         "parent")
+        t = [graph_ms(torch, par if tr == "parent" else thd)
+             for tr in ("parent", "this", "this", "parent")]
+        return {"parent": [t[0], t[3]], "this": [t[1], t[2]]}
+    res = turns(*pair(kw), key)
     if kw["live"] is not None:
         # every other live row dropped: the time halves where the walks'
         # random sectors bind, and stays where the longest chain does
@@ -458,48 +442,31 @@ def compare_walk(torch, kernels, fns, tag, key, kw, info):
         # every row walked: K19 (no mask), and K20 with every row live
         for mode, lv in (("dense", None), ("full_mask", torch.ones_like(
                 kw["live"]))):
-            a = dict(kw, live=lv)
-            par = (lambda a=a: rows_walk(torch, old[False], a, rows)) \
-                if fns["k20_rows"] else (lambda a=a: through(
-                    torch, kernels, "resolve_walk", old[False],
-                    lambda: resolve.resolve_rows_sparse(**a)))
-            thd = lambda a=a: resolve.resolve_rows_sparse(**a)  # noqa
-            chip_smoke.check(torch.equal(par(), thd()),
-                             f"{tag}: {mode} != parent")
-            t = [graph_ms(torch, par if tr == "parent" else thd)
-                 for tr in ("parent", "this", "this", "parent")]
-            res[mode] = {"parent": [t[0], t[3]], "this": [t[1], t[2]]}
+            res[mode] = turns(*pair(dict(kw, live=lv)), mode)
     res.update(info)
     print(f"[sweep ab] {tag} {key}: {json.dumps(res)}", flush=True)
     return res
 
 
 def compare_k9(torch, kernels, fns, tag, kw, info):
-    """K9 as a region on one step's block dicts: the earlier tree's (the
-    schema glue and its launches, or its kernel through this tree's
-    wrapper) against this tree's wrapper; equal outputs, then the device
-    time by CUDA graph in turns, the glue alone, and each region's host
-    enqueue in turns; prints and returns them."""
+    """K9 on one step's block dicts: the earlier tree's kernel through this
+    tree's wrapper against this tree's; equal outputs, then the device
+    time by CUDA graph in turns and each one's host enqueue in turns;
+    prints and returns them."""
     from hisat2_tpu_torch.ops import compact
     old = fns[("parent", "pack_slots", False)]
-    run = {"parent": (lambda: pack_slots_schema(torch, old, kw))
-           if fns["k9_schema"] else
-           (lambda: through(torch, kernels, "pack_slots", old,
-                            lambda: compact.pack_slots(**kw))),
+    run = {"parent": lambda: through(torch, kernels, "pack_slots", old,
+                                     lambda: compact.pack_slots(**kw)),
            "this": lambda: compact.pack_slots(**kw)}
     a = chip_smoke.flat_outputs(run["parent"]())
     b = chip_smoke.flat_outputs(run["this"]())
     chip_smoke.check(len(a) == len(b) and all(
         torch.equal(x, y) for x, y in zip(a, b)), f"{tag}: pack_slots != "
         "parent")
-    glue = lambda: schema_glue(torch, kw["blocks"], kw["has_event"])  # noqa
-    chip_smoke.check(torch.equal(glue(), compact.slot_schema(
-        kw["blocks"], kw["has_event"])), f"{tag}: schema glue != slot_schema")
     turns = ("parent", "this", "this", "parent")
     t = [graph_ms(torch, run[tr]) for tr in turns]
     h = [host_ms(torch, run[tr]) for tr in turns]
     res = {"parent": [t[0], t[3]], "this": [t[1], t[2]],
-           "glue": graph_ms(torch, glue),
            "host_parent": [h[0], h[3]], "host_this": [h[1], h[2]]}
     res.update(info)
     print(f"[sweep ab] {tag} pack_slots: {json.dumps(res)}", flush=True)
@@ -663,9 +630,9 @@ def compare_graphed(torch, kernels, fns, tag, key, call, info):
     run = {"parent": lambda: through(torch, kernels, name,
                                      fns[("parent", src, False)], call),
            "this": call}
-    if src == "fm_search2" and fns["k1_fills"]:
+    if name == "inject_indels" and fns["k10_fills"]:
         par = run["parent"]
-        run["parent"] = lambda: zeroed_outputs(par)
+        run["parent"] = lambda: zeroed_k10(par)
     old = chip_smoke.flat_outputs(run["parent"]())
     new = chip_smoke.flat_outputs(run["this"]())
     chip_smoke.check(len(old) == len(new), f"{tag}: {key} output arity")
@@ -701,6 +668,22 @@ def k16_info(torch, kw):
             "snv": kw.get("snv1_w") is not None}
 
 
+def k10_info(torch, kw):
+    """K10's shape on one step's arguments: its slots, the live ones (the
+    slots that walk the read: splice.indel_probes) and their columns."""
+    from hisat2_tpu_torch.ops import splice
+    pr = splice.indel_probes(*(kw[k] for k in (
+        "starts", "valid", "lens", "reads", "ip", "ilen", "ins_chars",
+        "rkey", "r_ilen", "r_row")), kw["slots"])
+    live = pr["live"]
+    N, J = live.shape
+    return {"N": N, "C": kw["starts"].shape[1], "J": J,
+            "L": kw["reads"].shape[1], "slots": kw["slots"],
+            "E": kw["ip"].shape[0], "in_read": int(pr["okd"].sum()),
+            "live": int(live.sum()), "live_share": float(live.float().mean()),
+            "walked_cols": int((live * kw["lens"][:, None]).sum())}
+
+
 def k20_info(torch, kw):
     """K20's shape on one step's arguments: its rows, the live ones and
     the distinct live rows, and its latency floor (chip_smoke.walk_chain
@@ -732,11 +715,12 @@ def main() -> int:
     twins = kernel_twins()
     done = {"sweeps": [], "indel_sweep": [], "extend_ungapped": [],
             "fm_search2": [], "compact_cands": [], "pack_slots": [],
-            "inject_known": [], "resolve_walk": [], "alone": []}
+            "inject_known": [], "resolve_walk": [], "inject_indels": [],
+            "ref_window": [], "alone": []}
     shapes = chip_smoke.step_shapes
 
-    def hook(splice_mod, step, cap):
-        shapes(splice_mod, step, cap)
+    def hook(splice_mod, step, cap, k5=None):
+        shapes(splice_mod, step, cap, k5)
         if step in ("spliced full", "config6 full"):
             done["sweeps"].append(compare_step(
                 torch, kernels, splice, fns, step, cap["pair_sweep"],
@@ -822,6 +806,20 @@ def main() -> int:
             done["inject_known"].append(compare_graphed(
                 torch, kernels, fns, step, "inject_known",
                 lambda: splice.inject_known(**kw), k16_info(torch, kw)))
+        if step in K10_STEPS:
+            kw = cap["inject_indels"]
+            info = k10_info(torch, kw)
+            # this tree's probes alone: no candidate valid, so no slot is
+            # listed or walked (every search still runs)
+            none = dict(kw, valid=torch.zeros_like(kw["valid"]))
+            info["this_none_live"] = [graph_ms(
+                torch, lambda: splice.inject_indels(**none)) for _ in range(2)]
+            done["inject_indels"].append(compare_graphed(
+                torch, kernels, fns, step, "inject_indels",
+                lambda: splice.inject_indels(**kw), info))
+        if "ref_window" in cap:
+            done["ref_window"].append(compare_k5(torch, kernels, fns, step,
+                                                 cap["ref_window"]))
         if step in K20_STEPS:
             for key in ("resolve_walk", "resolve_walk/research"):
                 if key not in cap:
@@ -851,7 +849,9 @@ def main() -> int:
                      and n["compact_cands"] == 5 and n["pack_slots"] == 5
                      and n["inject_known"] == len(K16_STEPS)
                      and n["resolve_walk"] == len(K20_STEPS) + 1
-                     and n["alone"] >= 5, f"steps compared: {n}")
+                     and n["inject_indels"] == len(K10_STEPS)
+                     and n["ref_window"] >= 2 and n["alone"] >= 2,
+                     f"steps compared: {n}")
     return rc
 
 

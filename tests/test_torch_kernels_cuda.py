@@ -182,6 +182,8 @@ def _flat(x):
         return {f: getattr(x, f) for f in x._fields}
     if isinstance(x, dict):
         return x
+    if isinstance(x, (tuple, list)):     # K5: out[set][plane]
+        return {f"out{i}": v for i, v in enumerate(_flat_list(x))}
     return {"out": x}
 
 
@@ -1983,3 +1985,205 @@ def test_fm_search_random_on_card(card, L):
                     f"{what} lane list {f}")
     if L >= 33:
         assert int(b.nh.sum()) > 0
+
+
+def _inject_world(rng, C, L, N, slots, n=60_000, M=16, dense=False,
+                  one=False):
+    """K10's arguments on the card: N lanes of reads copied from a seeded
+    genome across a catalog event at their first candidate (a deletion of
+    1-10 bp, or an insertion of 1-16 bp whose allele the read carries or,
+    one time in three, does not), the event's other diagonal, decoys, a
+    candidate past the text's end, invalid ones; mutations, N chars and
+    shorter reads; SNV planes with a delta at 5% of positions.  dense: a
+    deletion every 2 bp, so that nearly every slot is live; one: a
+    one-event table.  On a text shorter than the reads the fresh
+    diagonals leave it and their penalty sums pass 2^31."""
+    from hisat2_tpu_torch.ops import splice
+    g = rng.integers(0, 4, n).astype(np.uint8)
+    lo_, hi_ = min(100, n // 4), max(n // 4 + 1, n - L - 30)
+    if dense:
+        events = [(int(p), int(rng.integers(1, 11)), [])
+                  for p in range(lo_, n - 20, 2)]
+    else:
+        k = 1 if one else max(8, min(4000, n // 15))
+        events = []
+        for p in np.sort(rng.choice(np.arange(lo_, n - 20), k,
+                                    replace=False)):
+            if len(events) % 2 or one:
+                events.append((int(p), int(rng.integers(1, 11)), []))
+            else:
+                al = rng.integers(0, 4, int(rng.integers(1, 17)))
+                events.append((int(p), -len(al), list(al)))
+    reads = rng.integers(0, 4, (N, L)).astype(np.int32)
+    starts = np.zeros((N, C), np.int32)
+    for i in range(N):
+        p, ln, al = events[int(rng.integers(0, len(events)))]
+        x = int(rng.integers(1, max(2, min(L - 18, p - lo_ + 1))))
+        s = p - x
+        if ln > 0:
+            r = np.concatenate([g[s:p], g[p + ln:]])
+        else:
+            a = np.asarray(al, np.uint8)
+            r = np.concatenate([g[s:p], a if i % 3 else (a + 1) % 4,
+                                g[p:]])
+        r = r[:L]
+        reads[i, :len(r)] = r
+        mut = rng.random(L) < 0.02
+        reads[i, mut] = (reads[i, mut] + 1) % 4
+        reads[i, rng.random(L) < 0.005] = 4
+        row = [s, s + ln, s + int(rng.integers(-3, 4)),
+               int(rng.integers(lo_, hi_)), n + int(rng.integers(0, L)),
+               int(rng.integers(0, n))]
+        starts[i] = (row * C)[:C]
+    lens = np.where(rng.random(N) < 0.3, rng.integers(2, L + 1, N),
+                    L).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa
+    ev = sorted(events)
+    E = 8
+    while E < len(ev) + 1:
+        E *= 2
+    ip = np.full(E, 2 ** 30, np.int32)
+    il = np.zeros(E, np.int32)
+    ch = np.zeros((E, 16), np.int32)
+    for j, (p, ln, al) in enumerate(ev):
+        ip[j], il[j] = p, ln
+        ch[j, :len(al)] = al
+    if one:                      # the one-row table itself: E = 1
+        ip, il, ch, E = ip[:1], il[:1], ch[:1], 1
+    ne = min(len(ev), E)
+    rkey = ip[:ne].astype(np.int64) + il[:ne]
+    o2 = np.argsort(rkey, kind="stable")
+    rk_ = np.full(E, 2 ** 30, np.int32)
+    ril = np.zeros(E, np.int32)
+    rrow = np.zeros(E, np.int32)
+    rk_[:ne], ril[:ne], rrow[:ne] = rkey[o2], il[:ne][o2], o2
+    words = _pack2(g)
+    snv = [_pack2(np.where(rng.random(n) < 0.05, rng.integers(1, 4, n), 0))
+           for _ in (0, 1)]
+    st = t(starts)
+    wins = [splice.diag_chars_plain(w, n, st, L, M).contiguous()
+            for w in (words, *snv)]
+    return dict(ref_words=words, n_text=n, reads=t(reads),
+                quals=t(rng.integers(0, 42, (N, L)).astype(np.int32)),
+                lens=t(lens), starts=st, valid=t(rng.random((N, C)) > 0.1),
+                ch=wins[0], snv1_w=wins[1], snv2_w=wins[2], margin=M,
+                ip=t(ip), ilen=t(il), ins_chars=t(ch), rkey=t(rk_),
+                r_ilen=t(ril), r_row=t(rrow),
+                mm_pen=t(np.array([2 + min(q, 40) * 4 // 40
+                                   for q in range(64)], np.int32)),
+                n_pen=1, minsc=t(np.where(rng.random(N) < 0.5, -(2 ** 31),
+                                          -(lens // 3)).astype(np.int32)),
+                snv_delta1=snv[0], snv_delta2=snv[1], slots=slots)
+
+
+def _hold_indels(kw, what):
+    """K10 against its plain twin on one argument set: one launch, equal
+    outputs; returns the live share (splice.indel_probes)."""
+    from hisat2_tpu_torch import kernels
+    from hisat2_tpu_torch.ops import splice
+    po = splice.inject_indels_plain(**kw)
+    n0 = kernels.KERNELS["inject_indels"].launches
+    ko = splice.inject_indels(**kw)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["inject_indels"].launches == n0 + 1
+    assert sorted(ko) == sorted(po)
+    for f in po:
+        _same(ko[f], po[f], f"{what} {f}")
+    live = splice.indel_probes(*(kw[k] for k in (
+        "starts", "valid", "lens", "reads", "ip", "ilen", "ins_chars",
+        "rkey", "r_ilen", "r_row")), kw["slots"])["live"]
+    return float(live.float().mean()), ko
+
+
+@pytest.mark.parametrize("L", [100, 600, 2000, 22_050])
+@pytest.mark.parametrize("slots", [1, 2, 4])
+def test_inject_indels_random_on_card(card, L, slots):
+    """K10 against its plain twin on catalog-indel lanes at L = 100, 600,
+    2,000 and 22,050 (on a 600 bp text, where the fresh diagonals' sums
+    pass 2^31 and wrap) and 1, 2 and 4 slots a candidate."""
+    rng = np.random.default_rng(L * 10 + slots)
+    N = 256 if L <= 600 else 32 if L <= 2000 else 6
+    kw = _inject_world(rng, 6, L, N, slots,
+                       n=600 if L > 2000 else 60_000)
+    share, ko = _hold_indels(kw, f"L={L} slots={slots}")
+    assert share > 0.0 and bool((ko["kind"] == 2).any())
+    if L > 2000:
+        # a live slot whose score wrapped past 2^31 to a positive number
+        assert bool((ko["score"] > 2 ** 30).any())
+
+
+@pytest.mark.parametrize("case", ["one", "dense4", "dense5", "wide"])
+def test_inject_indels_work_list_on_card(card, case):
+    """K10 on a one-event table (E = 1, probes past its end) and on a
+    dense catalog where nearly every slot is live: 4 slots a candidate at
+    C = 130 (a lane's items take two rounds of probes and the list fills
+    in the first, so it is walked mid-tile), 5 slots at C = 6 (the list is
+    walked between the slots of one round), and 4 slots at C = 6."""
+    rng = np.random.default_rng(len(case))
+    C, slots, dense = {"one": (6, 2, False), "dense4": (130, 4, True),
+                       "dense5": (6, 5, True), "wide": (6, 4, True)}[case]
+    kw = _inject_world(rng, C, 100, 64, slots, n=8_000, dense=dense,
+                       one=case == "one")
+    share, _ = _hold_indels(kw, case)
+    if dense:
+        assert share > 0.5, share
+    else:
+        assert kw["ip"].shape[0] == 1
+
+
+def test_ref_window_multi_on_card(card):
+    """K5 in one launch of three planes and two start sets (W = 133 with
+    margin 16, W = 101 without) against the plain windows of each (set,
+    plane): starts of -1, before the text, near and past its end; an
+    empty extra set; one plane alone."""
+    from hisat2_tpu_torch import kernels
+    from hisat2_tpu_torch.ops import splice
+    g, idx = card
+    rng = np.random.default_rng(133)
+    n, L, N = len(g), 101, 1000
+    planes = [_pack2(g)] + [_pack2(rng.integers(0, 4, n)) for _ in (0, 1)]
+    st = rng.integers(0, n, (N, 6))
+    st[:, 1] = -1
+    st[:, 2] = rng.integers(-150, 0, N)
+    st[:, 3] = n - rng.integers(-20, 140, N)
+    st[:, 4] = n + rng.integers(0, 50, N)
+    core = torch.from_numpy(st.astype(np.int32)).cuda()
+    extra = torch.from_numpy(st[:, :3].astype(np.int32).copy()).cuda()
+    empty = torch.zeros((N, 0), dtype=torch.int32, device="cuda")
+    for ps, sets, margins in ((planes, [core, extra], [16, 0]),
+                              (planes, [core, empty], [16, 0]),
+                              (planes[:1], [extra], [0]),
+                              (planes[:2], [extra, core], [0, 3])):
+        n0 = kernels.KERNELS["ref_window"].launches
+        got = splice.diag_chars_multi(ps, n, sets, margins, L)
+        torch.cuda.synchronize()
+        assert kernels.KERNELS["ref_window"].launches == n0 + 1
+        assert len(got) == len(sets)
+        for s, m, row in zip(sets, margins, got):
+            assert len(row) == len(ps)
+            for w, o in zip(ps, row):
+                _eq(o, splice.diag_chars_plain(w, n, s, L, m),
+                    f"ref_window W={L + 2 * m} set {tuple(s.shape)}")
+
+
+def test_ref_window_past_2_31_chars_on_card(card):
+    """K5 on a set of 8,192 x 40 starts of 6,554-char windows (2^31 +
+    131,072 chars, 8.6 GB of int32: the flat index past 2^31), against
+    the plain windows 512 lanes at a time."""
+    from hisat2_tpu_torch.ops import splice
+    g, idx = card
+    n, L, N, C = len(g), 6_554, 8_192, 40
+    words = _pack2(g)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    st = torch.randint(-L, n, (N, C), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    assert N * C * L >= 2 ** 31
+    out = splice.diag_chars_multi([words], n, [st], [0], L)[0][0]
+    torch.cuda.synchronize()
+    for i in range(0, N, 512):
+        _eq(out[i:i + 512], splice.diag_chars_plain(words, n, st[i:i + 512],
+                                                    L, 0),
+            f"ref_window rows {i}-{i + 511}")
+    del out
+    torch.cuda.empty_cache()

@@ -60,6 +60,33 @@ def test_diag_chars_plain_matches_jax(L, margin):
     np.testing.assert_array_equal(np.asarray(a), b.numpy())
 
 
+@pytest.mark.parametrize("L,margins,nplanes", [(37, (16, 0), 3),
+                                                (101, (0,), 2)])
+def test_diag_chars_multi_plain_matches_jax(L, margins, nplanes):
+    """K5's plain twin of every plane and start set of one launch (W % 4
+    != 0, and margin 0) against JAX's ref_chars_block per (set, plane)."""
+    from hisat2_tpu.ops import rank as jrank
+    g, words, *_, st, _, _ = _setup(L + 1, L=L)
+    n = len(g)
+    rng = np.random.default_rng(L)
+    planes = [words] + [np.concatenate([
+        w, np.zeros((-len(w)) % 128, np.uint32)]) for w in (
+        rng.integers(0, 2 ** 32, (n + 15) // 16, dtype=np.uint64).astype(
+            np.uint32) for _ in range(nplanes - 1))]
+    sets = [st, np.concatenate([st[:, :2], st[:, :1] - L], 1)][:len(margins)]
+    got = tsplice.diag_chars_multi(
+        [u32_to_tensor(w, "cpu") for w in planes], n,
+        [torch.from_numpy(np.ascontiguousarray(s)) for s in sets],
+        list(margins), L)
+    assert len(got) == len(margins)
+    for s, m, row in zip(sets, margins, got):
+        assert len(row) == nplanes and (L + 2 * m) % 4 != 0
+        for w, b in zip(planes, row):
+            a = jrank.ref_chars_block(jnp.asarray(w), n, jnp.asarray(s - m),
+                                      L + 2 * m)
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
 @pytest.mark.parametrize("seed,max_gap,margin", [
     (1, 5, 16), (2, 10, 16), (3, 7, 7)])
 def test_self_indel_sweep_plain_matches_jax(seed, max_gap, margin):
