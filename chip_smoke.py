@@ -53,9 +53,10 @@ checks them:
   9 paired  paired-end DNA at the shape of bench.py config 3 (paired
             100 bp mates, --fr, against the graph index, k = 10), 4096
             pairs per batch, one fused batch of 8192 mates: K12
-            (rescue_window) on the phase's real rescue jobs against its
-            plain twin, with the whole rescue_candidates call and K6+K7
-            on the chunk's rescoring, and timed
+            (rescue_window) on each rescue chunk of the phase's first
+            batch (the last with its all-N padding jobs) against its
+            plain twin, on the first with the whole rescue_candidates
+            call and K6+K7 on the chunk's rescoring, and timed
             beside the library yardstick (a grouped bf16 conv1d plus
             topk); the fused lite and full step against the CPU step
             (K4 and K9 on their arguments against their twins);
@@ -116,7 +117,8 @@ checks them:
             junction reads carrying their junction SNV) with the temp-site
             fixed point: canonical single-junction reads true with the
             planted N (>= 95%), unmodified reads (>= 99%), alignments
-            through known sites on each shard (> 0); (f)
+            through known sites on each shard (> 0), and K18 on each of
+            the slice's incremental merges against its twin; (f)
             `align --device cuda --no-spliced-alignment` on the saved
             index: both chromosomes in the header at their lengths, >= 99%
             of 4096 unmodified reads at their true position
@@ -196,10 +198,10 @@ GENOME = 40_000_000
 # phase 9: 16 distinct 120 bp units, each 24 times at 18 kbp spacing
 REP_UNITS, REP_COPIES, REP_SPACING, REP_BASE = 16, 24, 18_000, 2_000_000
 P_BATCHES = 4
-# the card's peaks (H100 SXM data sheet): HBM bytes/s, bf16 tensor-core
-# flop/s, and the CUDA-core rate (its fp32 figure) used for the integer
-# work of the kernels
-HBM, BF16, CUDA_CORE = 3.35e12, 989e12, 67e12
+# the card's peaks (H100 SXM data sheet): HBM bytes/s, bf16 and int8
+# tensor-core operations/s, and the CUDA-core rate (its fp32 figure) used
+# for the integer work of the kernels
+HBM, BF16, INT8, CUDA_CORE = 3.35e12, 989e12, 1979e12, 67e12
 # HISAT2's GRCh38 graph: 11 M SNVs, 728 K deletions, 555 K insertions over
 # 3.1 Gbp (SURVEY.md), scaled to the genome
 N_SNV = round(11_000_000 * GENOME / 3.1e9)
@@ -430,7 +432,8 @@ def work(torch, name, kw, out):
     written once, and of a large table only what these inputs touch.
     Operations: the kernel's per-element work at the CUDA-core rate,
     except K12, whose JAX original is a one-hot product (2 * 4 * W * L
-    flops per job) at the bf16 tensor-core rate."""
+    operations per job), at the int8 tensor-core rate its kernel runs it
+    at (rescue_bf16_bound: the same count at the bf16 rate)."""
     ob = nbytes(torch, *flat_outputs(out))
     dense = nbytes(torch, *(v for k, v in kw.items() if k not in (
         "blocked", "sa", "sa_marked", "ref_words", "snv_delta1",
@@ -529,7 +532,7 @@ def work(torch, name, kw, out):
     elif name == "rescue_window":
         R, L = kw["reads"].shape
         extra = R * ((kw["W"] + L - 1 + 15) // 16) * 4   # 2-bit windows
-        ops, rate = 2 * 4 * kw["W"] * L * R, BF16
+        ops, rate = 2 * 4 * kw["W"] * L * R, INT8
     elif name == "search_lanes_live":
         live = kw["cut"] >= kw["min_hit_len"]
         rows = fm_rows(kw, kw["reads"][live], kw["cut"][live])
@@ -911,6 +914,13 @@ def walk_sectors(torch, kw, row):
         c = (w >> (2 * (r & 15))) & 3
         r = fc[c] + rank_from_rows(brow, r, c, kw["zrow"])
     return sectors, fetches, marked
+
+
+def rescue_bf16_bound(kw):
+    """K12's one-hot product (work's count) at the bf16 tensor-core rate
+    of the JAX original's convolution, ms."""
+    R, L = kw["reads"].shape
+    return 2 * 4 * kw["W"] * L * R / BF16 * 1e3
 
 
 def rescue_library_ms(torch, kw):
@@ -1867,10 +1877,11 @@ def genome_phase(torch, np, kernels, twins, driver, read_alignments,
     print(f"[genome config6] {GS_CMP_B}-read batch: the config-6 lite and "
           f"full step of shard 1 equal to the CPU plain steps "
           f"({time.perf_counter() - t0:.1f} s)")
-    # the slice, with the temp-site fixed point
+    # the slice, with the temp-site fixed point (its K18 merges captured)
     acc = {"can": 0, "can_true": 0, "snv": 0, "snv_true": 0, "clean": 0,
            "clean_true": 0, "collect": 0.0}
     known_al = [0, 0]
+    sal.splice_db.capture = {}
     kernels.reset_counts()
     t0 = time.perf_counter()
     pend = deque()
@@ -1933,6 +1944,21 @@ def genome_phase(torch, np, kernels, twins, driver, read_alignments,
           f"config 6: K15 launched {slaunch['second_sweep']} times over "
           f"{slaunch['pair_sweep']} spliced full steps (one each)")
     path_launches["genome_spliced"] = slaunch
+    # K18 on each of the slice's incremental merges, against its twin
+    merges = sal.splice_db.capture.get("merge_sites/all", [])
+    sal.splice_db.capture = None
+    for i, mkw in enumerate(merges):
+        err, ms, pms = compare(torch, "merge_sites", *twins["merge_sites"],
+                               mkw)
+        rows["merge_sites"]["max_abs_err"] = max(
+            rows["merge_sites"]["max_abs_err"], err)
+        print(f"[genome config6] merge_sites on the slice's merge {i} "
+              f"(capacity {mkw['kd'].shape[0]}): equal to plain (tolerance: "
+              f"exact); kernel {ms:.4f} ms, plain {pms:.4f} ms (median of "
+              f"10)")
+        step_shapes(splice, f"config6 merge {i}", {"merge_sites": mkw})
+    print(f"[genome config6] {len(merges)} incremental K18 merges in the "
+          f"slice ({slaunch['merge_sites']} launches)")
     # the device's busy share of one more batch through the same entry
     # points, under torch.profiler (kernel time summed over the batch's
     # wall clock; the profiler's own overhead lengthens the wall)
@@ -2896,12 +2922,14 @@ def main() -> int:
     # jobs, the keyword arguments of its first rescue_candidates call
     b1, b2 = pb[0][:2]
     rd0 = np.arange(B, dtype=np.int64)
-    cap = {}
+    cap, chunks = {}, []
     orig_cands = rescue.rescue_candidates
 
     def cands_rec(**kw):
         if not cap:
             cap.update(kw)
+        chunks.append({k: kw[k] for k in ("ref_words", "n_text", "reads",
+                                          "win_start", "W")})
         return orig_cands(**kw)
 
     rescue.rescue_candidates = cands_rec
@@ -2965,6 +2993,17 @@ def main() -> int:
           f"{ms_e:.4f} ms, plain {pms_e:.4f} ms (median of 10)")
     step_shapes(splice, "rescue", {"extend_ungapped": ekw,
                                    "rescue_window": kw, "ref_window": rkw})
+    # the batch's other rescue chunks (the last one padded with all-N jobs)
+    for i, ckw in enumerate(chunks[1:], 1):
+        e_i, ms_i, pms_i = compare(torch, "rescue_window",
+                                   *twins["rescue_window"], ckw)
+        err = max(err, e_i)
+        npad = int((ckw["reads"] >= 4).all(1).sum())
+        print(f"[paired kernels] rescue_window on rescue chunk {i} "
+              f"{tuple(ckw['reads'].shape)} ({npad} padding jobs): equal to "
+              f"plain (tolerance: exact); kernel {ms_i:.4f} ms, plain "
+              f"{pms_i:.4f} ms (median of 10)")
+        step_shapes(splice, f"rescue {i}", {"rescue_window": ckw})
     lib = rescue_library_ms(torch, kw)
     bounds["rescue_window"] = work(torch, "rescue_window", kw,
                                    twins["rescue_window"][0](**kw))
@@ -2972,13 +3011,16 @@ def main() -> int:
     rows["rescue_window"] = {
         "name": "rescue_window", "route": "cuda", "source": k12.source,
         "replaces": k12.replaces, "max_abs_err": err, "paired_ms": ms,
-        "paired_plain_ms": pms, "library_ms": lib}
+        "paired_plain_ms": pms, "library_ms": lib,
+        "bound_bf16_ms": rescue_bf16_bound(kw)}
     print(f"[paired kernels] rescue_window on {tuple(kw['reads'].shape)} "
           f"real rescue jobs (W {kw['W']}): equal to plain (tolerance: "
           f"exact), and the whole rescue_candidates call with SNV planes; "
           f"kernel {ms:.4f} ms, plain {pms:.4f} ms, library (bf16 conv1d "
           f"+ topk) {lib:.4f} ms; bound {bounds['rescue_window'][0]:.4f} "
-          f"ms by {bounds['rescue_window'][1]} (median of 10)")
+          f"ms by {bounds['rescue_window'][1]} at the int8 rate "
+          f"({rows['rescue_window']['bound_bf16_ms']:.4f} at bf16's; median "
+          f"of 10); {len(chunks)} rescue chunks in the batch")
 
     # the fused lite and full step against the CPU step, on one batch
     pcpu = TorchAligner(index, device="cpu", variants=db, k=10,

@@ -48,8 +48,9 @@ _MERGE_ARGS = ("kd", "ka", "rd", "ka_s", "kd_s", "rd_a", "nkd", "nka", "nrd",
 
 class SpliceSiteDB:
     # capture: when a dict, receives the keyword arguments of the first
-    # incremental merge (chip_smoke.py replays them through K18 and its
-    # plain twin); n_merges counts the incremental merges
+    # incremental merge ("merge_sites") and of every one ("merge_sites/all",
+    # a list; chip_smoke.py replays them through K18 and its plain twin);
+    # n_merges counts the incremental merges
     capture = None
     n_merges = 0
 
@@ -340,6 +341,7 @@ class SpliceSiteDB:
                     self._dev(pka), self._dev(prd)) + lob_args))
                 if self.capture is not None:
                     self.capture.setdefault("merge_sites", kw)
+                    self.capture.setdefault("merge_sites/all", []).append(kw)
                 self.n_merges += 1
                 merged = merge_sorted_tabs(**kw)
                 tabs = dict(zip(("ss_kd", "ss_ka", "ss_rdid",

@@ -7,161 +7,288 @@
 // added onto lob.  Plain twin: hisat2_tpu_torch/ops/sites.py:
 // merge_sorted_tabs_plain.
 //
-// No sort of the whole table runs.  Three launches on the caller's stream:
-//   1. one block: each set's new rows are sorted in shared memory by
-//      (packed key, row index) with a bitonic network, and each goes to
-//      its sorted rank plus the count of old rows with key <= its key
-//      (old rows win ties: the JAX concatenation order); the weighted
-//      bins (wts = 1 rows) are sorted the same way.  Sorted keys and bins
-//      go to a small scratch array;
-//   2. one thread per old row: its own index plus the count of new keys
-//      strictly below its key (binary search over <= 512 values);
-//   3. one thread per lob entry b: lob[b] plus the count of new bins < b
-//      (binary search), which replaces the 2^19-bin histogram and cumsum.
+// One launch of independent blocks: no block waits on another, and no
+// sort of the whole table runs.
+//   table blocks (a set and a range of up to 2,048 old rows each): the
+//     set's new rows are sorted by (key, row index) in shared memory, a
+//     bitonic network over 512, so a row's sorted position is its rank
+//     #{(key', idx') < (key, idx)}: JAX's stable order among equal keys.
+//     An old row i goes to i + #{new keys < its key} (a lower-bound
+//     search of the sorted keys); a new row goes to its rank + #{old keys
+//     <= its key} (old rows win ties: the JAX concatenation order), and is
+//     written by the block whose range holds that count (an upper-bound
+//     search of the block's old keys, staged with the key before the
+//     range).  Each block redoes the small sort rather than wait for one;
+//   lob blocks (with the bucket index; a set and 4,096 entries each):
+//     lob_out[b] = lob[b] + the weights of the new bins below b: those
+//     below the range by a block sum, those inside it by a histogram in
+//     shared memory and its exclusive scan, lob read and written with
+//     16-byte loads and stores where aligned; the block that ends at NB
+//     also writes lob_out[NB].
 // Rows whose output index reaches the capacity are dropped, as the JAX
-// slice; the old table's sentinel tail and the padding rows fill it.
+// slice drops them; the old table's sentinel tail and the padding rows
+// fill it.  Keys compare as JAX's int32 lexsort: major, then minor, both
+// signed.  The old tables must be sorted (device_tables builds them so).
 //
-// Bound: bytes: the 6 tables (cap ints each) and 2 lob arrays
-// (2^19 + 1 ints each) read and written once; the 4 MB of lob dominate.
+// Bound: bytes: the 6 tables (cap ints each) and, with the bucket index,
+// the 2 lob arrays (2^19 + 1 ints each) read and written once; the 8.4 MB
+// of lob dominate.  The lob blocks stream them; the table blocks (one a set
+// at the main path's capacity of 1,024) run beside them.
 #include "common.cuh"
 
-#define MS_CHUNK 512
-
-__device__ __forceinline__ long long ms_key(int major, int minor) {
-  return ((long long)major << 32) | (long long)(unsigned)minor;
-}
-
-// ascending bitonic sort of MS_CHUNK (key, idx) pairs, one per thread
-__device__ void ms_bitonic(long long* key, int* idx) {
-  const int t = threadIdx.x;
-  for (int k = 2; k <= MS_CHUNK; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      const int p = t ^ j;
-      if (p > t) {
-        const bool up = (t & k) == 0;
-        const long long a = key[t], b = key[p];
-        const int ia = idx[t], ib = idx[p];
-        const bool gt = a > b || (a == b && ia > ib);
-        if (gt == up) {
-          key[t] = b;
-          key[p] = a;
-          idx[t] = ib;
-          idx[p] = ia;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
+#define MS_CHUNK 512   // new rows a merge, and threads a block
+#define MS_ROWS 2048   // old rows a table block
+#define MS_BINS 4096   // lob entries a lob block
 
 struct MergeArgs {
-  const int* mj[2];    // old tables per set: major, minor, rd
+  const int* mj[2];  // old tables per set: major, minor, rd
   const int* mn[2];
   const int* rd[2];
-  const int* nmj[2];   // new rows per set
+  const int* nmj[2];  // new rows per set
   const int* nmn[2];
   const int* nrd;
   const int* lob[2];
   const int* bins[2];
   const int* wts;
-  int cap, m, NB;
-  int* out;            // [6, cap]
-  int* lob_out;        // [2, NB + 1]
-  long long* scratch;  // [4, MS_CHUNK]: sorted keys per set, sorted bins
+  int cap, m, NB;       // NB < 0: no bucket index
+  int tblocks, lblocks;  // blocks a set
+  int* out;             // [6, cap]
+  int* lob_out[2];      // [NB + 1] each
 };
 
-// the count of old rows of `set` with key < q (strict) or <= q
-__device__ __forceinline__ int ms_old_rank(const MergeArgs& A, int set,
-                                           long long q, bool le) {
-  int lo = 0, hi = A.cap;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    const long long v = ms_key(__ldg(A.mj[set] + mid), __ldg(A.mn[set] + mid));
-    if (v < q || (le && v == q))
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo;
+struct MsTableSmem {
+  unsigned long long key[MS_CHUNK];
+  int idx[MS_CHUNK];
+  unsigned long long old[MS_ROWS + 1];  // the key before the range, then it
+};
+
+struct MsLobSmem {
+  int h[MS_BINS];
+  int warp[MS_CHUNK / 32];
+};
+
+union MsSmem {
+  MsTableSmem t;
+  MsLobSmem l;
+};
+
+// (major, minor) as an unsigned key in signed lexicographic order
+__device__ __forceinline__ unsigned long long ms_key(int major, int minor) {
+  return ((unsigned long long)((unsigned)major ^ 0x80000000u) << 32) |
+         (unsigned long long)((unsigned)minor ^ 0x80000000u);
 }
 
-__global__ void merge_new_kernel(MergeArgs A) {
-  __shared__ long long sKey[MS_CHUNK];
-  __shared__ int sIdx[MS_CHUNK];
+__device__ __forceinline__ int ms_major(unsigned long long k) {
+  return (int)((unsigned)(k >> 32) ^ 0x80000000u);
+}
+
+__device__ __forceinline__ int ms_minor(unsigned long long k) {
+  return (int)((unsigned)k ^ 0x80000000u);
+}
+
+// Thread t's (key, idx) after an ascending sort of the block's MS_CHUNK
+// pairs (a bitonic network: partners in the warp by shuffles, the 10
+// stages across warps through shared memory sk, si).
+__device__ __forceinline__ void ms_sort(unsigned long long& key, int& idx,
+                                        unsigned long long* sk, int* si) {
   const int t = threadIdx.x;
-  for (int set = 0; set < 2; ++set) {
-    sKey[t] = t < A.m ? ms_key(A.nmj[set][t], A.nmn[set][t]) : LLONG_MAX;
-    sIdx[t] = t;
-    __syncthreads();
-    ms_bitonic(sKey, sIdx);
-    const long long key = sKey[t];
-    A.scratch[set * MS_CHUNK + t] = key;
-    if (t < A.m) {
-      const int r = sIdx[t];
-      const int pos = t + ms_old_rank(A, set, key, true);
-      if (pos < A.cap) {
-        A.out[(3 * set) * A.cap + pos] = A.nmj[set][r];
-        A.out[(3 * set + 1) * A.cap + pos] = A.nmn[set][r];
-        A.out[(3 * set + 2) * A.cap + pos] = A.nrd[r];
+#pragma unroll
+  for (int k = 2; k <= MS_CHUNK; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      unsigned long long ok;
+      int oi;
+      if (j >= 32) {
+        sk[t] = key;
+        si[t] = idx;
+        __syncthreads();
+        ok = sk[t ^ j];
+        oi = si[t ^ j];
+        __syncthreads();
+      } else {
+        ok = __shfl_xor_sync(H2_FULL_MASK, key, j);
+        oi = __shfl_xor_sync(H2_FULL_MASK, idx, j);
+      }
+      const bool less = ok < key || (ok == key && oi < idx);
+      if ((((t & j) == 0) == ((t & k) == 0)) == less) {
+        key = ok;
+        idx = oi;
       }
     }
-    __syncthreads();
-    if (A.NB > 0) {
-      sKey[t] = (t < A.m && A.wts[t] != 0) ? (long long)A.bins[set][t]
-                                            : LLONG_MAX;
-      sIdx[t] = t;
-      __syncthreads();
-      ms_bitonic(sKey, sIdx);
-      A.scratch[(2 + set) * MS_CHUNK + t] = sKey[t];
-      __syncthreads();
+  }
+}
+
+// #{v[0..n) < q} (strict) or #{v[0..n) <= q} of an ascending v, n <= 2^B,
+// for R queries at once (branch-free, so the R searches interleave)
+template <int B, int R, bool LE>
+__device__ __forceinline__ void ms_rank(const unsigned long long* v, int n,
+                                        const unsigned long long (&q)[R],
+                                        int (&pos)[R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) pos[r] = 0;
+#pragma unroll
+  for (int step = 1 << B; step > 0; step >>= 1) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int at = pos[r] + step;
+      if (at <= n) {
+        const unsigned long long x = v[at - 1];
+        if (LE ? x <= q[r] : x < q[r]) pos[r] = at;
+      }
     }
   }
 }
 
-// the count of sorted scratch values below q
-__device__ __forceinline__ int ms_new_rank(const long long* v, int n,
-                                           long long q) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (v[mid] < q)
-      lo = mid + 1;
-    else
-      hi = mid;
+#define MS_RPT (MS_ROWS / MS_CHUNK)  // old rows a thread
+
+__device__ void ms_table(const MergeArgs& A, MsTableSmem& s, int set,
+                         int blk) {
+  const int t = threadIdx.x;
+  const int i0 = blk * MS_ROWS, n = min(MS_ROWS, A.cap - i0);
+  // every global load first: the new key, the old keys of the range and
+  // the one before it, the old rows' rd
+  unsigned long long key = ~0ull;
+  int idx = t;
+  if (t < A.m) key = ms_key(__ldg(A.nmj[set] + t), __ldg(A.nmn[set] + t));
+  unsigned long long ok[MS_RPT + 1];
+  int ord[MS_RPT];
+#pragma unroll
+  for (int h = 0; h <= MS_RPT; ++h) {
+    const int k = t + MS_CHUNK * h, i = i0 - 1 + k;
+    ok[h] = k <= n && i >= 0
+                ? ms_key(__ldg(A.mj[set] + i), __ldg(A.mn[set] + i))
+                : 0ull;
+    if (h < MS_RPT)
+      ord[h] = t + MS_CHUNK * h < n ? __ldg(A.rd[set] + i + 1) : 0;
   }
-  return lo;
-}
-
-__global__ void merge_old_kernel(MergeArgs A) {
-  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= 2LL * A.cap) return;
-  const int set = (int)(k / A.cap), i = (int)(k - (long long)set * A.cap);
-  const int mj = A.mj[set][i], mn = A.mn[set][i];
-  const int pos =
-      i + ms_new_rank(A.scratch + set * MS_CHUNK, A.m, ms_key(mj, mn));
-  if (pos < A.cap) {
-    A.out[(3 * set) * A.cap + pos] = mj;
-    A.out[(3 * set + 1) * A.cap + pos] = mn;
-    A.out[(3 * set + 2) * A.cap + pos] = A.rd[set][i];
+#pragma unroll
+  for (int h = 0; h <= MS_RPT; ++h)
+    if (t + MS_CHUNK * h <= n) s.old[t + MS_CHUNK * h] = ok[h];
+  ms_sort(key, idx, s.key, s.idx);
+  s.key[t] = key;
+  s.idx[t] = idx;
+  __syncthreads();
+  int* o = A.out + (size_t)(3 * set) * A.cap;
+  // old row i0 + k (k = t + MS_CHUNK h): i0 + k + #{new keys < its key}
+  unsigned long long q[MS_RPT];
+  int pos[MS_RPT];
+#pragma unroll
+  for (int h = 0; h < MS_RPT; ++h)
+    q[h] = t + MS_CHUNK * h < n ? s.old[t + MS_CHUNK * h + 1] : 0ull;
+  ms_rank<9, MS_RPT, false>(s.key, A.m, q, pos);
+#pragma unroll
+  for (int h = 0; h < MS_RPT; ++h) {
+    const int k = t + MS_CHUNK * h, at = i0 + k + pos[h];
+    if (k < n && at < A.cap) {
+      o[at] = ms_major(q[h]);
+      o[A.cap + at] = ms_minor(q[h]);
+      o[2 * A.cap + at] = ord[h];
+    }
+  }
+  // new row of sorted rank t: its rank + #{old keys <= its key}, written
+  // by the block whose range holds that count (lo == n: a later block's,
+  // or past the capacity)
+  if (t < A.m && (blk == 0 || s.old[0] <= key)) {
+    const unsigned long long qk[1] = {key};
+    int lo[1];
+    ms_rank<11, 1, true>(s.old + 1, n, qk, lo);
+    const int at = i0 + lo[0] + t;
+    if (lo[0] < n && at < A.cap) {
+      o[at] = __ldg(A.nmj[set] + idx);
+      o[A.cap + at] = __ldg(A.nmn[set] + idx);
+      o[2 * A.cap + at] = __ldg(A.nrd + idx);
+    }
   }
 }
 
-__global__ void merge_lob_kernel(MergeArgs A) {
-  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int nb1 = A.NB + 1;
-  if (k >= 2LL * nb1) return;
-  const int set = (int)(k / nb1), b = (int)(k - (long long)set * nb1);
-  A.lob_out[(size_t)set * nb1 + b] =
-      A.lob[set][b] +
-      ms_new_rank(A.scratch + (2 + set) * MS_CHUNK, A.m, (long long)b);
+__device__ void ms_lob(const MergeArgs& A, MsLobSmem& s, int set, int blk) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int b0 = blk * MS_BINS, n = max(0, min(MS_BINS, A.NB - b0));
+  const int e0 = 8 * t;
+  const int* in = A.lob[set] + b0 + e0;
+  int* out = A.lob_out[set] + b0 + e0;
+  const bool vec = e0 + 8 <= n &&
+                   ((reinterpret_cast<size_t>(in) |
+                     reinterpret_cast<size_t>(out)) & 15) == 0;
+  // every global load first: the new row's bin and weight, this
+  // thread's 8 lob entries
+  int b = 0, w = 0;
+  if (t < A.m) {
+    b = __ldg(A.bins[set] + t);
+    w = __ldg(A.wts + t);
+  }
+  int4 x0 = make_int4(0, 0, 0, 0), x1 = x0;
+  if (vec) {
+    x0 = __ldg(reinterpret_cast<const int4*>(in));
+    x1 = __ldg(reinterpret_cast<const int4*>(in) + 1);
+  }
+  for (int k = t; k < MS_BINS; k += MS_CHUNK) s.h[k] = 0;
+  __syncthreads();
+  unsigned below = 0u;
+  if (t < A.m) {
+    if (b < b0)
+      below = (unsigned)w;
+    else if (b - b0 < n)
+      atomicAdd(&s.h[b - b0], w);
+  }
+  below = (unsigned)h2_warp_sum((int)below);
+  if (lane == 0) s.warp[warp] = (int)below;
+  __syncthreads();
+  below = 0u;
+#pragma unroll
+  for (int k = 0; k < MS_CHUNK / 32; ++k) below += (unsigned)s.warp[k];
+  unsigned hv[8], sum = 0u;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    hv[e] = e0 + e < n ? (unsigned)s.h[e0 + e] : 0u;
+    sum += hv[e];
+  }
+  const unsigned inc = (unsigned)h2_warp_incl_sum((int)sum, lane);
+  __syncthreads();  // every thread has read s.warp
+  if (lane == 31) s.warp[warp] = (int)inc;
+  __syncthreads();
+  unsigned run = below + inc - sum;
+  for (int k = 0; k < warp; ++k) run += (unsigned)s.warp[k];
+  if (b0 + n == A.NB && t == MS_CHUNK - 1)  // every new bin is below NB
+    A.lob_out[set][A.NB] = (int)((unsigned)__ldg(A.lob[set] + A.NB) + run +
+                                 sum);
+  if (vec) {
+    int v[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      v[e] = (int)((unsigned)v[e] + run);
+      run += hv[e];
+    }
+    reinterpret_cast<int4*>(out)[0] = make_int4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<int4*>(out)[1] = make_int4(v[4], v[5], v[6], v[7]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      if (e0 + e < n) out[e] = (int)((unsigned)__ldg(in + e) + run);
+      run += hv[e];
+    }
+  }
 }
 
+__global__ void __launch_bounds__(MS_CHUNK) merge_sites_kernel(MergeArgs A) {
+  __shared__ MsSmem s;
+  int b = blockIdx.x;
+  if (b < 2 * A.tblocks) {
+    ms_table(A, s.t, b / A.tblocks, b % A.tblocks);
+    return;
+  }
+  b -= 2 * A.tblocks;
+  ms_lob(A, s.l, b / A.lblocks, b % A.lblocks);
+}
+
+// NB < 0: no bucket index (lob_*, bins_*, wts and lob_out_* unused).
 H2_EXPORT int h2_merge_sites(
     const void* kd, const void* ka, const void* rd, const void* ka_s,
     const void* kd_s, const void* rd_a, const void* nkd, const void* nka,
     const void* nrd, const void* lob_kd, const void* lob_ka,
     const void* bins_kd, const void* bins_ka, const void* wts, int cap,
-    int m, int NB, void* out, void* lob_out, void* scratch, void* stream) {
+    int m, int NB, void* out, void* lob_out_kd, void* lob_out_ka,
+    void* stream) {
   if (cap < 1 || m < 0 || m > MS_CHUNK) return (int)cudaErrorInvalidValue;
   MergeArgs A{{(const int*)kd, (const int*)ka_s},
               {(const int*)ka, (const int*)kd_s},
@@ -171,18 +298,16 @@ H2_EXPORT int h2_merge_sites(
               (const int*)nrd,
               {(const int*)lob_kd, (const int*)lob_ka},
               {(const int*)bins_kd, (const int*)bins_ka},
-              (const int*)wts, cap, m, NB, (int*)out, (int*)lob_out,
-              (long long*)scratch};
-  cudaStream_t st = (cudaStream_t)stream;
-  merge_new_kernel<<<1, MS_CHUNK, 0, st>>>(A);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int threads = 256;
-  merge_old_kernel<<<(unsigned)((2LL * cap + threads - 1) / threads),
-                     threads, 0, st>>>(A);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || NB <= 0) return (int)e;
-  merge_lob_kernel<<<(unsigned)((2LL * (NB + 1) + threads - 1) / threads),
-                     threads, 0, st>>>(A);
+              (const int*)wts,
+              cap,
+              m,
+              NB,
+              (cap + MS_ROWS - 1) / MS_ROWS,
+              NB < 0 ? 0 : NB < 1 ? 1 : (NB + MS_BINS - 1) / MS_BINS,
+              (int*)out,
+              {(int*)lob_out_kd, (int*)lob_out_ka}};
+  const long long grid = 2LL * (A.tblocks + A.lblocks);
+  merge_sites_kernel<<<(unsigned)grid, MS_CHUNK, 0, (cudaStream_t)stream>>>(
+      A);
   return (int)cudaGetLastError();
 }

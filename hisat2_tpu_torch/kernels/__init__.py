@@ -107,7 +107,7 @@ KERNELS = {k.name: k for k in (
            "hisat2_tpu/ops/splice.py:838 inject_indels (+ ops/extend.py:124 "
            "live_pen_prefix)"),
     Kernel("rescue_window", "h2_rescue_window",
-           [_P, _I, _LL, _P, _P, _I, _I, _I, _P] + [_P],
+           [_P, _I, _LL, _P, _P, _I, _I, _I, _P, _P, _P, _LL] + [_P],
            "hisat2_tpu_torch/csrc/rescue_window.cu",
            "hisat2_tpu/ops/rescue.py:25 rescue_candidates (the one-hot "
            "cross-correlation and top_k, :39-59)"),

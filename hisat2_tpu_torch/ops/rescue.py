@@ -2,15 +2,15 @@
 (counterpart of hisat2_tpu/ops/rescue.py: rescue_candidates :25).
 
 Each rescue job matches its mate against every diagonal of a window of W
-diagonals and keeps the 8 best (`rescue_window`), then rescores those 8
-exactly with the reference windows (ops/splice.py:diag_chars_multi,
-kernel 2, one launch for the reference and, on a graph index, the SNV
-planes) and the ungapped extension (ops/extend.py:extend_grouped, kernel
-3), with the SNV planes on a graph index.
+diagonals and keeps the 8 best (`rescue_window`, K12), then rescores those
+8 exactly with the reference windows (ops/splice.py:diag_chars_multi, K5,
+one launch for the reference and, on a graph index, the SNV planes) and
+the ungapped extension (ops/extend.py:extend_grouped, K6+K7), with the SNV
+planes on a graph index.
 
-`rescue_window` launches kernel 8 (csrc/rescue_window.cu) on CUDA tensors
-and runs `rescue_window_plain` on CPU tensors.  The plain version keeps
-the two behaviours of the JAX one-hot convolution and lax.top_k that the
+`rescue_window` launches K12 (csrc/rescue_window.cu) on CUDA tensors and
+runs `rescue_window_plain` on CPU tensors.  The plain version keeps the
+two behaviours of the JAX one-hot convolution and lax.top_k that the
 ranking depends on: each match count is rounded to bfloat16 (exact up to
 256, so only mates longer than 256 bp see it), and ties go to the lower
 diagonal.
@@ -26,6 +26,13 @@ from . import rank as rk
 from . import splice as splice_ops
 
 TOP = 8     # must exceed the reference's nelt cap of 5 (hi_aligner.h:4760)
+# K12's diagonals a unit (csrc/rescue_window.cu:RW_UNIT): a job's window
+# is ceil(W / UNIT) units, and its blocks' top-8 lists (a block a few
+# units) meet in a scratch of at most that many lists
+UNIT = 896
+# per device: K12's tickets, one a job, zero between launches (the job's
+# last block resets its own)
+_TICKETS = {}
 
 
 def rescue_window_plain(ref_words, n_text: int, reads, win_start, W: int):
@@ -47,8 +54,18 @@ def rescue_window_plain(ref_words, n_text: int, reads, win_start, W: int):
     return (win_start[:, None].to(torch.int64) + didx).to(torch.int32)
 
 
+def _tickets(R: int, dev):
+    """K12's zeroed tickets for R jobs on dev, kept across calls (the
+    kernel leaves them zero); launches on one stream share them."""
+    t = _TICKETS.get(dev)
+    if t is None or t.numel() < R:
+        t = torch.zeros(max(R, 128), dtype=torch.int32, device=dev)
+        _TICKETS[dev] = t
+    return t
+
+
 def rescue_window(ref_words, n_text: int, reads, win_start, W: int):
-    """Kernel 8 on CUDA tensors, rescue_window_plain on CPU tensors."""
+    """K12 on CUDA tensors, rescue_window_plain on CPU tensors."""
     if not reads.is_cuda:
         return rescue_window_plain(ref_words, n_text, reads, win_start, W)
     i32 = torch.int32
@@ -59,11 +76,15 @@ def rescue_window(ref_words, n_text: int, reads, win_start, W: int):
     if W < TOP:
         raise ValueError(f"rescue_window: the window must be at least {TOP} "
                          f"wide")
-    out = torch.empty((R, TOP), dtype=i32, device=reads.device)
+    dev = reads.device
+    out = torch.empty((R, TOP), dtype=i32, device=dev)
+    part = torch.empty((R, -(-W // UNIT), TOP), dtype=torch.int64,
+                       device=dev)
     kernels.KERNELS["rescue_window"].launch(
         ref_words.data_ptr(), ref_words.shape[0], n_text, reads.data_ptr(),
         win_start.data_ptr(), R, L, W, out.data_ptr(),
-        stream=kernels.stream_of(reads))
+        _tickets(R, dev).data_ptr(), part.data_ptr(),
+        part.numel() * part.element_size(), stream=kernels.stream_of(reads))
     return out
 
 

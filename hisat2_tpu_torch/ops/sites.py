@@ -57,10 +57,10 @@ def merge_sorted_tabs_plain(kd, ka, rd, ka_s, kd_s, rd_a, nkd, nka, nrd,
 def merge_sorted_tabs(kd, ka, rd, ka_s, kd_s, rd_a, nkd, nka, nrd,
                       lob_kd=None, lob_ka=None, bins_kd=None, bins_ka=None,
                       wts=None):
-    """K18 on CUDA tensors, merge_sorted_tabs_plain on CPU tensors.  The
-    kernel takes the real new rows as those with wts = 1 (a prefix of the
-    chunk, as device_tables builds it) and finds each lob bin's count of
-    them by binary search over their sorted bins."""
+    """K18 on CUDA tensors, merge_sorted_tabs_plain on CPU tensors: one
+    launch of independent blocks (csrc/merge_sites.cu), the tables by
+    rank and search, each lob range by a histogram of the weighted new
+    bins and its scan."""
     if not kd.is_cuda:
         return merge_sorted_tabs_plain(kd, ka, rd, ka_s, kd_s, rd_a, nkd, nka,
                                        nrd, lob_kd, lob_ka, bins_kd, bins_ka,
@@ -77,7 +77,7 @@ def merge_sorted_tabs(kd, ka, rd, ka_s, kd_s, rd_a, nkd, nka, nrd,
         raise ValueError(f"merge_sites: at most {MERGE_CHUNK} new rows")
     have_lob = lob_kd is not None
     out = torch.empty((6, cap), dtype=_I32, device=kd.device)
-    NB = 0
+    NB = -1
     if have_lob:
         NB = lob_kd.shape[0] - 1
         for nm, t, shp in (("lob_kd", lob_kd, (NB + 1,)),
@@ -85,18 +85,18 @@ def merge_sorted_tabs(kd, ka, rd, ka_s, kd_s, rd_a, nkd, nka, nrd,
                            ("bins_kd", bins_kd, (m,)),
                            ("bins_ka", bins_ka, (m,)), ("wts", wts, (m,))):
             kernels.check_cuda(nm, t, _I32, shp)
-        lob_out = torch.empty((2, NB + 1), dtype=_I32, device=kd.device)
-    scratch = torch.empty((4, MERGE_CHUNK), dtype=torch.int64,
-                          device=kd.device)
+        # one tensor each, so that both start 16-byte aligned
+        lob_out = tuple(torch.empty(NB + 1, dtype=_I32, device=kd.device)
+                        for _ in range(2))
     ptr = lambda t: t.data_ptr() if t is not None else kd.data_ptr()  # noqa
     kernels.KERNELS["merge_sites"].launch(
         kd.data_ptr(), ka.data_ptr(), rd.data_ptr(), ka_s.data_ptr(),
         kd_s.data_ptr(), rd_a.data_ptr(), nkd.data_ptr(), nka.data_ptr(),
         nrd.data_ptr(), ptr(lob_kd), ptr(lob_ka), ptr(bins_kd), ptr(bins_ka),
         ptr(wts), cap, m, NB, out.data_ptr(),
-        lob_out.data_ptr() if have_lob else out.data_ptr(),
-        scratch.data_ptr(), stream=kernels.stream_of(kd))
+        *(o.data_ptr() for o in (lob_out if have_lob else (out, out))),
+        stream=kernels.stream_of(kd))
     res = tuple(out.unbind(0))
     if have_lob:
-        res += tuple(lob_out.unbind(0))
+        res += lob_out
     return res

@@ -6,10 +6,9 @@ its lane-list mode K17), the candidate compaction K3+K4 (compact_cands),
 the slot merge K9 (pack_slots, as a region with the schema glue it
 absorbed), the splice-site injection K16 (inject_known), the sampled-SA
 walk K19+K20 (resolve_walk), the known-indel injection K10+K11
-(inject_indels) and the reference windows K5 (ref_window, as a region:
-a step's windows); and, of this tree alone, the device time of the
-kernels not yet redesigned (K12 on a rescue chunk, K18 on the spliced
-slice's first merge).
+(inject_indels), the reference windows K5 (ref_window, as a region:
+a step's windows), the mate-rescue window K12 (rescue_window) and the
+site merge K18 (merge_sites).
 
     git archive <commit> hisat2_tpu_torch/csrc | tar -x -C DIR
     python3 sweep_ab.py DIR
@@ -20,12 +19,14 @@ their own (their C symbols are this tree's), each whole and stopped right
 after its plane prologue (the sp_build call), this tree's stopped the
 same way, the earlier indel_sweep.cu, extend_ungapped.cu, fm_search2.cu,
 compact_cands.cu, pack_slots.cu, inject_known.cu, resolve_walk.cu,
-inject_indels.cu and ref_window.cu whole, the earlier extend_ungapped.cu
-stopped after its scans (that tree's last/next-penalised scan, when it
-has one), copies of earlier kernels stopped part-way (STOPS, where that
-tree's source has the marker: K10 after its binary search, K5 storing a
-constant in place of the char) and this tree's K5 storing a constant
-(THIS_STOPS): one nvcc per library, all started together.  Then it runs
+inject_indels.cu, ref_window.cu, rescue_window.cu and merge_sites.cu
+whole, the earlier extend_ungapped.cu stopped after its scans (that
+tree's last/next-penalised scan, when it has one), copies of earlier
+kernels stopped part-way (STOPS, where that tree's source has the marker:
+K10 after its binary search, K5 storing a constant in place of the char,
+K12 after staging its window and read) and this tree's K5 storing a
+constant and K12 without its units' epilogues (THIS_STOPS): one nvcc per
+library, all started together.  Then it runs
 chip_smoke.py's phases, and on the steps chip_smoke.step_shapes reports it
 takes the step's captured arguments and
 
@@ -58,16 +59,18 @@ takes the step's captured arguments and
   each behind that tree's wrapper work (`k5_one_launches`), against this
   tree's one launch, by CUDA graph and on the host clock (the enqueue of
   one call: `host_ms`, with and without the launch calls), with each
-  tree's constant-store copy and the region's bound.  K9 is also timed
-  on the host clock;
+  tree's constant-store copy and the region's bound; K12 on each rescue
+  chunk of phase 9's first paired batch (its padding jobs counted), with
+  the earlier tree's copy stopped after its staging and the bound at the
+  int8 and bf16 rates; K18 on the spliced slice's first merge and on each
+  of config 6's merges (the earlier K18 through a shim of its own
+  arguments: a [2, NB + 1] lob output and a scratch of sorted keys).  K9
+  is also timed on the host clock;
 - times this tree's K1 on the linear step with and without an L2
-  access-policy window (persisting) over the fused table, in turns;
-- times this tree's rescue_window (K12) and merge_sites (K18) by CUDA
-  graph alone (no earlier tree): the inputs of the next redesign's
-  ranking.
+  access-policy window (persisting) over the fused table, in turns.
 
 Both trees launch through this tree's wrappers (ops/), except the earlier
-K5 of one window a launch; only the C entry point differs, so the
+K5 of one window a launch and the earlier K18; only the C entry point differs, so the
 arguments and the host work per launch are the same, except that an
 earlier K10 without the spldir / splscore planes gets them zero-filled
 (its wrapper did that).  The
@@ -100,7 +103,7 @@ EXT_SCANS_END = "  __syncwarp();\n\n  const int total_pen = sP[L];"
 # the earlier trees' kernels timed whole
 WHOLE = ("indel_sweep", "extend_ungapped", "fm_search2", "compact_cands",
          "pack_slots", "inject_known", "resolve_walk", "inject_indels",
-         "ref_window")
+         "ref_window", "rescue_window", "merge_sites")
 # K10 stopped after its binary search: every column writes a dead slot's
 # outputs (its d2 the search's result, so that the search stays live)
 K10_STOP = """  A.score[k] = -INJ_BIG;
@@ -112,25 +115,42 @@ K10_STOP = """  A.score[k] = -INJ_BIG;
   A.src[k] = c;
   return;
 """
+# an earlier K12 (one block a job) stopped after staging its window and read:
+# each output a staged word, so that the staging stays live
+K12_STOP = """  if (threadIdx.x < RW_TOP)
+    out[(long long)r * RW_TOP + threadIdx.x] =
+        (int)(win[threadIdx.x] ^ wval[threadIdx.x] ^ rw[0] ^ rm[0]);
+  return;
+"""
 # copies of earlier kernels stopped part-way, each writing every output it
 # owes: K10 after its search, K5 storing a constant (its word and start
-# loads then dead).  (marker in the source, the text put before it, or
-# the text that replaces it)
+# loads then dead), K12 after its staging.  (marker in the source, the
+# text put before it, or the text that replaces it)
 STOPS = {
     ("inject_indels", "probe"): (
         "  const int idx = min(lo + t, A.E - 1);\n", K10_STOP, False),
-    ("ref_window", "const"): ("  out[k] = ch;", "  out[k] = 4;", True)}
+    ("ref_window", "const"): ("  out[k] = ch;", "  out[k] = 4;", True),
+    ("rescue_window", "staged"): (
+        "  unsigned long long best[RW_TOP];\n", K12_STOP, False)}
 # this tree's K5 storing a constant in place of each char (its start and
-# word loads then dead)
+# word loads then dead), and its K12 without the epilogue of its units
+# (their counts summed into the block's list, which then goes through the
+# ticket and the job's merge as before)
 THIS_STOPS = {("ref_window", "const"): (
     "    v[k] = (pos < 0 || pos >= lim) ? 4 : (int)((bits >> (2 * k)) & 3u);",
-    "    v[k] = 4;", True)}
+    "    v[k] = 4;", True),
+    ("rescue_window", "noepi"): (
+        "    // accumulator e of n-tile k: row j", """    {
+      int x = 0;
+      for (int k = 0; k < RW_TPW; ++k)
+        x += acc[k][0] + acc[k][1] + acc[k][2] + acc[k][3];
+      best += (uint32_t)x;
+      continue;
+    }
+""", False)}
 # the steps K4 and K9 are compared on
 PACK_STEPS = ("linear", "graph full", "spliced full", "genome linear",
               "config6 full")
-# this tree's kernels timed alone, by CUDA graph: K12 on a rescue chunk
-# and K18 on the spliced slice's first merge
-ALONE = ("rescue_window", "merge_sites")
 # the steps K10 is compared on; K5 is compared as a region on every step
 # that captures it
 K10_STEPS = ("graph full", "config6 full")
@@ -236,8 +256,9 @@ def build_libs(kernels, parent_csrc):
                "-Xcompiler", "-fPIC", "-shared", "-I", src, "-o", so, cu]
         nargs = len(kernels.KERNELS[name].argtypes) - 1
         this = sweep_source(kernels.CSRC, name, False)
-        for arg in ("void* scratch", "long long scratch_bytes",
-                    "void* spldir", "void* splscore"):
+        for arg in ("void* tickets", "void* scratch",
+                    "long long scratch_bytes", "void* spldir",
+                    "void* splscore"):
             # an earlier kernel without this tree's trailing scratch (or,
             # K10, zero-plane) arguments
             nargs -= arg in this and arg not in text
@@ -651,9 +672,79 @@ def compare_graphed(torch, kernels, fns, tag, key, call, info):
         if nm == name and fn is not None:
             res[f"parent_{stop}"] = [graph_ms(torch, lambda: through(
                 torch, kernels, name, fn, call)) for _ in range(2)]
+    for nm, stop in THIS_STOPS:
+        fn = fns.get(("this", nm, stop))
+        if nm == name and fn is not None:
+            res[f"this_{stop}"] = [graph_ms(torch, lambda: through(
+                torch, kernels, name, fn, call)) for _ in range(2)]
     res.update(info)
     print(f"[sweep ab] {tag} {key}: {json.dumps(res)}", flush=True)
     return res
+
+
+def k18_parent(torch, kernels, fn, kw):
+    """The earlier K18 (its C entry point: the 14 inputs, cap, m, NB (0:
+    no bucket index), out [6, cap], lob_out [2, NB + 1], a scratch of 4 x
+    512 sorted keys) on one merge's arguments; its outputs as this tree's
+    wrapper returns them."""
+    f, _ = fn
+    kd = kw["kd"]
+    cap, m = kd.shape[0], kw["nkd"].shape[0]
+    lob = kw.get("lob_kd") is not None
+    NB = kw["lob_kd"].shape[0] - 1 if lob else 0
+    out = torch.empty((6, cap), dtype=torch.int32, device=kd.device)
+    lob_out = (torch.empty((2, NB + 1), dtype=torch.int32, device=kd.device)
+               if lob else out)
+    scratch = torch.empty((4, 512), dtype=torch.int64, device=kd.device)
+    ptrs = [(kw[k] if kw.get(k) is not None else kd).data_ptr() for k in (
+        "kd", "ka", "rd", "ka_s", "kd_s", "rd_a", "nkd", "nka", "nrd",
+        "lob_kd", "lob_ka", "bins_kd", "bins_ka", "wts")]
+    s = kernels.stream_of(kd)
+    with torch.cuda.device(s.device):
+        err = f(*ptrs, cap, m, NB, out.data_ptr(), lob_out.data_ptr(),
+                scratch.data_ptr(), s.cuda_stream)
+    chip_smoke.check(err == 0, f"earlier merge_sites: launch error {err}")
+    res = tuple(out.unbind(0))
+    return res + tuple(lob_out.unbind(0)) if lob else res
+
+
+def compare_k18(torch, kernels, fns, tag, kw):
+    """K18 on one merge's arguments: the earlier tree's launches (through
+    k18_parent) against this tree's wrapper; equal outputs, then the
+    device time by CUDA graph in turns; prints and returns them."""
+    from hisat2_tpu_torch.ops import sites
+    old = fns[("parent", "merge_sites", False)]
+    run = {"parent": lambda: k18_parent(torch, kernels, old, kw),
+           "this": lambda: sites.merge_sorted_tabs(**kw)}
+    a, b = run["parent"](), run["this"]()
+    chip_smoke.check(len(a) == len(b) and all(
+        torch.equal(x, y) for x, y in zip(a, b)), f"{tag}: merge_sites != "
+        "parent")
+    t = [graph_ms(torch, run[tr]) for tr in ("parent", "this", "this",
+                                             "parent")]
+    res = {"parent": [t[0], t[3]], "this": [t[1], t[2]],
+           "cap": kw["kd"].shape[0], "m": kw["nkd"].shape[0],
+           "m_real": int((kw["nkd"] < 2 ** 31 - 2).sum()),
+           "NB": (kw["lob_kd"].shape[0] - 1 if kw.get("lob_kd") is not None
+                  else None)}
+    res["bound_ms"], res["bound_by"] = chip_smoke.work(torch, "merge_sites",
+                                                       kw, b)
+    print(f"[sweep ab] {tag} merge_sites: {json.dumps(res)}", flush=True)
+    return res
+
+
+def k12_info(torch, kw):
+    """K12's shape on one rescue chunk: its jobs, the padding ones (no
+    ACGT column), L, W, and its bound at the int8 and bf16 rates."""
+    from hisat2_tpu_torch.ops import rescue
+    R, L = kw["reads"].shape
+    rd = kw["reads"]
+    bound, by = chip_smoke.work(torch, "rescue_window", kw,
+                                rescue.rescue_window(**kw))
+    return {"R": R, "L": L, "W": kw["W"],
+            "padding_jobs": int((~((rd >= 0) & (rd < 4)).any(1)).sum()),
+            "bound_ms": bound, "bound_by": by,
+            "bound_bf16_ms": chip_smoke.rescue_bf16_bound(kw)}
 
 
 def k16_info(torch, kw):
@@ -707,7 +798,7 @@ def main() -> int:
         print("sweep_ab.py: no CUDA device", file=sys.stderr)
         return 1
     from hisat2_tpu_torch import kernels
-    from hisat2_tpu_torch.ops import compact, extend, search, splice
+    from hisat2_tpu_torch.ops import compact, extend, rescue, search, splice
     kernels.load()
     fns = build_libs(kernels, os.path.join(os.path.abspath(sys.argv[1]),
                                            "hisat2_tpu_torch", "csrc"))
@@ -716,7 +807,7 @@ def main() -> int:
     done = {"sweeps": [], "indel_sweep": [], "extend_ungapped": [],
             "fm_search2": [], "compact_cands": [], "pack_slots": [],
             "inject_known": [], "resolve_walk": [], "inject_indels": [],
-            "ref_window": [], "alone": []}
+            "ref_window": [], "rescue_window": [], "merge_sites": []}
     shapes = chip_smoke.step_shapes
 
     def hook(splice_mod, step, cap, k5=None):
@@ -827,20 +918,14 @@ def main() -> int:
                 done["resolve_walk"].append(compare_walk(
                     torch, kernels, fns, step, key, cap[key],
                     k20_info(torch, cap[key])))
-        for key in sorted(cap):
-            name = key.split("/")[0]
-            if name not in ALONE:
-                continue
-            kw = cap[key]
-            try:
-                t = [graph_ms(torch, lambda: twins[name][0](**kw))
-                     for _ in range(2)]
-                res = {"this": t}
-            except RuntimeError as e:       # a wrapper that syncs
-                res = {"not measured": str(e)[:200]}
-            done["alone"].append(res)
-            print(f"[sweep ab] {step} {key} alone: {json.dumps(res)}",
-                  flush=True)
+        if "rescue_window" in cap:
+            kw = cap["rescue_window"]
+            done["rescue_window"].append(compare_graphed(
+                torch, kernels, fns, step, "rescue_window",
+                lambda: rescue.rescue_window(**kw), k12_info(torch, kw)))
+        if "merge_sites" in cap:
+            done["merge_sites"].append(compare_k18(torch, kernels, fns, step,
+                                                   cap["merge_sites"]))
     chip_smoke.step_shapes = hook
     rc = chip_smoke.main()
     n = {k: len(v) for k, v in done.items()}
@@ -850,7 +935,8 @@ def main() -> int:
                      and n["inject_known"] == len(K16_STEPS)
                      and n["resolve_walk"] == len(K20_STEPS) + 1
                      and n["inject_indels"] == len(K10_STEPS)
-                     and n["ref_window"] >= 2 and n["alone"] >= 2,
+                     and n["ref_window"] >= 2 and n["rescue_window"] >= 1
+                     and n["merge_sites"] >= 1,
                      f"steps compared: {n}")
     return rc
 

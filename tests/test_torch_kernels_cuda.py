@@ -15,7 +15,9 @@ kernels and the spliced step on reads of 600-2000 bp; the DNA step at
 -k 64 with a 6,000 bp read (K4's pools in the global scratch); K16 on
 random lanes with every, no or a tenth of its slots live (its work list
 filled mid-tile at five slots a candidate); K20 at 0.1-30% live over 0 to
-2,000,003 rows.
+2,000,003 rows; K12 at R in {1, 3, 37, 128} x W in {8, 33, 57,344} x L
+from 1 to 2000 (padding tails, ties), K18 at m real in {0, 1, 300, 512}
+and cap 64 and 65,536, and both replayed in one CUDA graph.
 Needs a CUDA device; skips without one.  On a machine without JAX run it as
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
@@ -2187,3 +2189,195 @@ def test_ref_window_past_2_31_chars_on_card(card):
             f"ref_window rows {i}-{i + 511}")
     del out
     torch.cuda.empty_cache()
+
+
+# --- K12 and K18 at every shape the redesign must take ------------------------
+
+RESCUE_SPOTS = [20000 + 18000 * i for i in range(15)]
+
+
+@pytest.fixture(scope="module")
+def rescue_world():
+    """A 300 kbp genome with a 120 bp unit 15 times at 18 kbp spacing
+    (tests/test_rescue.py's tie window), and its packed words on the
+    card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from hisat2_tpu_torch import kernels
+    kernels.load()
+    rng = np.random.default_rng(12)
+    g = rng.integers(0, 4, 300_000).astype(np.uint8)
+    unit = rng.integers(0, 4, 120).astype(np.uint8)
+    for s in RESCUE_SPOTS:
+        g[s:s + 120] = unit
+    return g, _pack2(g)
+
+
+def _rescue_jobs(rng, g, R, L, W):
+    """R rescue jobs: mates from the genome in windows around them, the
+    tie window, windows before the text's start and past its end, Ns, and
+    (R > 3) a tail of all-N padding jobs, as rescue_mates pads a chunk."""
+    n = len(g)
+    reads = np.full((R, L), 4, np.int32)
+    ws = np.zeros(R, np.int64)
+    for i in range(R):
+        s = int(rng.integers(0, n - L))
+        reads[i] = g[s:s + L]
+        ws[i] = s - int(rng.integers(0, max(W - L, 1)))
+    reads[0] = 4
+    k = min(L, 100)
+    reads[0, :k] = g[RESCUE_SPOTS[0] + 10:RESCUE_SPOTS[0] + 10 + k]
+    ws[0] = RESCUE_SPOTS[0] - 5 if W < 4000 else 0
+    if R > 1:
+        ws[1], reads[1] = -56320 if W > L else -3, g[:L]
+    if R > 2:
+        ws[2], reads[2] = n - 1000, g[n - L:]
+    if R > 3:
+        reads[3, ::7] = 4
+        reads[R - R // 3:] = 4          # the chunk's padding jobs
+    return reads, ws.astype(np.int32)
+
+
+@pytest.mark.parametrize("L", [1, 31, 100, 150, 300, 513, 2000])
+def test_rescue_window_shapes_on_card(rescue_world, L):
+    """K12 against its plain twin bit for bit at R in {1, 3, 37, 128} x W
+    in {8, 33, 57,344}: one launch a call; at L = 300 the 299 / 300 bf16
+    tie of the near-copies, at 513 and 2,000 several read chunks."""
+    from hisat2_tpu_torch import kernels
+    from hisat2_tpu_torch.ops import rescue
+    g, words = rescue_world
+    n = len(g)
+    rng = np.random.default_rng(L)
+    gl = g.copy()
+    if L == 300:
+        # copies of one 300 bp unit with 1 and 0 mismatches: 299 and 300
+        # read as 300 in bfloat16, so the lower diagonal ranks first
+        unit = rng.integers(0, 4, L).astype(np.uint8)
+        for c, at in ((1, 240_000), (0, 240_900)):
+            gl[at:at + L] = unit
+            gl[at + np.arange(c) * 7 + 3] ^= 1
+        words = _pack2(gl)
+    for R in (1, 3, 37, 128):
+        for W in (8, 33, 57_344):
+            reads, ws = _rescue_jobs(rng, gl, R, L, W)
+            if L == 300 and R > 1 and W == 57_344:
+                reads[1], ws[1] = unit, 200_000
+            t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+            rd, wst = t(reads), t(ws)
+            n0 = kernels.KERNELS["rescue_window"].launches
+            k = rescue.rescue_window(words, n, rd, wst, W)
+            torch.cuda.synchronize()
+            assert kernels.KERNELS["rescue_window"].launches == n0 + 1
+            p = rescue.rescue_window_plain(words, n, rd, wst, W)
+            _eq(k, p, f"rescue_window R={R} L={L} W={W}")
+            if L == 300 and R > 1 and W == 57_344:
+                assert k[1, :2].tolist() == [240_000, 240_900]
+            if R > 3:
+                pad = torch.arange(8, dtype=torch.int32)
+                assert torch.equal(k[-1].cpu(), int(ws[-1]) + pad)
+
+
+def _merge_args(rng, cap, nn, m, case, lob):
+    """Old table sets of nn real rows (sentinel-padded to cap) and a
+    512-row chunk of m real new rows: random keys with three tied to an
+    old key ("random"), every real row the same key equal to an old key
+    ("equal"), or distinct keys each equal to an old row's ("old")."""
+    SENT = 2 ** 31 - 2
+    kd = np.sort(rng.integers(0, 10 ** 7, nn)).astype(np.int32)
+    kd[5:9] = kd[5]
+    ka = (kd + rng.integers(30, 5000, nn)).astype(np.int32)
+    o = np.lexsort((ka, kd))
+    kd, ka = kd[o], ka[o]
+    rd = rng.integers(-1, 100, nn).astype(np.int32)
+    o2 = np.lexsort((kd, ka))
+    pad = lambda a, f: np.concatenate(  # noqa: E731
+        [a, np.full(cap - nn, f, np.int32)])
+    nkd = np.full(512, SENT, np.int32)
+    nka, nrd = nkd.copy(), np.full(512, -1, np.int32)
+    if case == "equal":
+        nkd[:m], nka[:m] = kd[5], ka[5]
+    elif case == "old":
+        pick = rng.choice(nn, m, replace=False)
+        nkd[:m], nka[:m] = kd[pick], ka[pick]
+    else:
+        nkd[:m] = rng.integers(0, 10 ** 7, m)
+        nkd[:min(m, 3)] = kd[5]
+        nka[:m] = nkd[:m] + 100
+        nka[:min(m, 3)] = ka[5]
+    nrd[:m] = 7 + np.arange(m) % 50
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa
+    kw = dict(kd=T(pad(kd, SENT)), ka=T(pad(ka, SENT)), rd=T(pad(rd, -1)),
+              ka_s=T(pad(ka[o2], SENT)), kd_s=T(pad(kd[o2], SENT)),
+              rd_a=T(pad(rd[o2], -1)), nkd=T(nkd), nka=T(nka), nrd=T(nrd))
+    if lob:
+        shift, NB = 5, 1 << 19
+        edges = np.arange(NB + 1, dtype=np.int64) << shift
+        bkd, bka, w = (np.zeros(512, np.int32) for _ in range(3))
+        bkd[:m] = np.clip(nkd[:m] >> shift, 0, NB - 1)
+        bka[:m] = np.clip(nka[:m] >> shift, 0, NB - 1)
+        if m:
+            bkd[0], bka[m - 1] = 0, NB - 1      # the first and last bins
+        w[:m] = 1
+        kw.update(lob_kd=T(np.searchsorted(kd, edges).astype(np.int32)),
+                  lob_ka=T(np.searchsorted(ka[o2], edges).astype(np.int32)),
+                  bins_kd=T(bkd), bins_ka=T(bka), wts=T(w))
+    return kw
+
+
+@pytest.mark.parametrize("cap,nn,m,case", [
+    (64, 40, 0, "random"), (64, 40, 1, "random"), (64, 40, 300, "random"),
+    (64, 60, 512, "equal"), (64, 40, 30, "old"),
+    (65_536, 60_000, 0, "random"), (65_536, 60_000, 1, "random"),
+    (65_536, 60_000, 300, "old"), (65_536, 65_100, 512, "random"),
+    (65_536, 60_000, 512, "equal")])
+@pytest.mark.parametrize("lob", [False, True])
+def test_merge_sites_shapes_on_card(card, cap, nn, m, case, lob):
+    """K18 against its plain twin bit for bit: m real new rows in {0, 1,
+    300, 512}, all-equal new keys, new keys equal to old ones, new rows cut
+    by the capacity (60 of 64, 65,100 of 65,536 old rows), cap in {64,
+    65,536}, with and without the bucket index (bins at 0 and NB - 1); one
+    launch a call."""
+    from hisat2_tpu_torch import kernels
+    from hisat2_tpu_torch.ops import sites
+    rng = np.random.default_rng(cap + m + lob)
+    kw = _merge_args(rng, cap, nn, m, case, lob)
+    n0 = kernels.KERNELS["merge_sites"].launches
+    got = sites.merge_sorted_tabs(**kw)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["merge_sites"].launches == n0 + 1
+    want = sites.merge_sorted_tabs_plain(**kw)
+    assert len(got) == len(want) == (8 if lob else 6)
+    for i, (x, y) in enumerate(zip(got, want)):
+        _eq(x, y, f"merge_sites output {i}")
+
+
+def test_rescue_merge_graph_replays_on_card(rescue_world, card):
+    """K12 (a 128-job chunk at W = 57,344, 8 slices a job meeting through
+    the tickets) and K18 captured in one CUDA graph and replayed twice:
+    the same outputs as the plain twins each time, so the tickets are
+    back to zero after every launch."""
+    from hisat2_tpu_torch.ops import rescue, sites
+    g, words = rescue_world
+    n, W = len(g), 57_344
+    rng = np.random.default_rng(15)
+    reads, ws = _rescue_jobs(rng, g, 128, 100, W)
+    rd, wst = torch.from_numpy(reads).cuda(), torch.from_numpy(ws).cuda()
+    mkw = _merge_args(rng, 1024, 559, 300, "random", True)
+    want_r = rescue.rescue_window_plain(words, n, rd, wst, W)
+    want_m = sites.merge_sorted_tabs_plain(**mkw)
+    rescue.rescue_window(words, n, rd, wst, W)     # the tickets, outside
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    torch.cuda.synchronize()
+    g_ = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g_, stream=s):
+        got_r = rescue.rescue_window(words, n, rd, wst, W)
+        got_m = sites.merge_sorted_tabs(**mkw)
+    for rep in range(2):
+        for o in (got_r, *got_m):
+            o.fill_(-7)
+        g_.replay()
+        torch.cuda.synchronize()
+        _eq(got_r, want_r, f"rescue_window replay {rep}")
+        for i, (x, y) in enumerate(zip(got_m, want_m)):
+            _eq(x, y, f"merge_sites output {i} replay {rep}")
