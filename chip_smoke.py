@@ -58,8 +58,9 @@ checks them:
             plain twin, on the first with the whole rescue_candidates
             call and K6+K7 on the chunk's rescoring, and timed
             beside the library yardstick (a grouped bf16 conv1d plus
-            topk); the fused lite and full step against the CPU step
-            (K4 and K9 on their arguments against their twins);
+            topk); K4 and K9 on the fused lite and full step's arguments
+            against their twins, and the steps of its first 1024 pairs
+            against the CPU step;
             4 batches through align/driver.py's _dispatch_pair_batch /
             advance / _align_pair_batch with SAM to memory: pairs/s,
             host ms per stage, concordant share (>= 0.95 among pairs
@@ -85,8 +86,10 @@ checks them:
             registers, shared memory and blocks per SM are printed),
             K8 and K17 on a whole 4096-read full step (8192 lanes) and
             K18 on the slice's first merge against their plain twins, the
-            lite and full step against the CPU step, and the CLI on the
-            nss round trip and mj3x against their oracles
+            lite and full step on the batch's first 1024 reads against
+            the CPU step (phase 14 holds a fused 16,384-lane spliced step
+            against the CPU), and the CLI on the nss round trip and mj3x
+            against their oracles
  11 genome  genome scale, the shape of config 6 (BENCH_EXTRA.md:84-112)
             cut to two seeded 140 Mbp chromosomes: build_fm_index with a
             150 Mbp shard limit gives a ShardedFMIndex of two shards, each
@@ -155,6 +158,32 @@ checks them:
             3-4 lanes); K13's and K15's launches (shared or global
             staging) at 600 bp and at config 6's C = 19 with SNV windows
             at L = 500
+ 14 pairs   paired reads on every index the unpaired path takes: (a)
+            spliced paired reads (the CLI's default for -1/-2) on phase
+            3's index with phase 10's introns, driver defaults (k = 5, a
+            spliced PairPolicy, intron lengths from the site table, the
+            temp-site fixed point): 4 batches of 4096 pairs (8,192 fused
+            mates, 16,384 lanes) through _dispatch_pair_batch / advance /
+            _align_pair_batch, phase 9's mix with a third of the pairs
+            carrying one mate across a junction and a tenth a fragment
+            over an intron: pairs/s, host ms per stage, concordant share
+            (>= 0.95 among pairs without a repeat or random mate),
+            canonical junction mates with both anchors >= 20 bp at their
+            true position with the planted N (>= 95%), rescued mates (>
+            0), launches of K12 and K13-K18 (> 0); then the first batch's
+            fused lite and full step against the CPU step, with K13+K14,
+            K15, K16 and K17 on its arguments against their twins; (b)
+            phase 11's two-shard index, the linear aligner, DNA mode (the
+            JAX package fails on spliced paired runs over several shards,
+            and the port refuses them): 2 batches of 4096 pairs over both
+            chromosomes, concordant share (>= 0.95), aligned mates on the
+            second shard (>= 30%), and one rescue chunk of jobs anchored on
+            shard 1, whose windows read past shard 0's words as JAX's do,
+            through K12 and K5 against their twins; (c) `align --device
+            cuda` -1/-2 on the committed pes oracles (spliced on a linear
+            and a --snp --ss index, DNA on two shards), the nss and shard
+            corpora paired, and the sharded graph and sharded spliced runs
+            refused with the JAX fault named
 
 Each kernel's bound (the kernels line's bound_ms) is the larger of the
 bytes it must move over 3.35 TB/s and its operations over the peak rate
@@ -198,6 +227,8 @@ GENOME = 40_000_000
 # phase 9: 16 distinct 120 bp units, each 24 times at 18 kbp spacing
 REP_UNITS, REP_COPIES, REP_SPACING, REP_BASE = 16, 24, 18_000, 2_000_000
 P_BATCHES = 4
+# phase 9's fused step against the CPU: the first P_CMP_B pairs of a batch
+P_CMP_B = 1024
 # the card's peaks (H100 SXM data sheet): HBM bytes/s, bf16 and int8
 # tensor-core operations/s, and the CUDA-core rate (its fp32 figure) used
 # for the integer work of the kernels
@@ -220,6 +251,8 @@ GENOME_KERNELS = ("resolve_walk",)
 # phase 10: 8 batches; introns (canonical short / long, semi-canonical,
 # non-canonical) and two-junction pairs
 S_BATCHES = 8
+# phase 10's step against the CPU: the first S_CMP_B reads of its batch
+S_CMP_B = 1024
 N_CAN, N_SEMI, N_NONCAN, N_PAIRS = 400, 40, 40, 40
 # phase 11: the shape of config 6 (BENCH_EXTRA.md:84-112) at chromosome
 # scale: two 140 Mbp chromosomes, one shard each (150 Mbp shard limit), each
@@ -229,6 +262,13 @@ GS_CHR, GS_SHARD_BP = 140_000_000, 150_000_000
 GS_BATCHES, GS_G_BATCHES, GS_S_BATCHES, GS_CMP_B = 8, 2, 4, 1024
 GS_COUNTS = tuple(round(x * 2 * GS_CHR / 3.1e9)
                   for x in (11_000_000, 728_000, 555_000))
+# phase 14: spliced paired batches on phase 3's index, paired batches on
+# phase 11's two-shard index
+PS_BATCHES, PG_BATCHES = 4, 2
+# phase 14 (a): its warm-up batch's junctions use the first PS_INTRONS
+# canonical introns, each later batch PS_NEW more (the site tables stay
+# inside one capacity, 256 rows, so they grow by K18's merges)
+PS_INTRONS, PS_NEW = 200, 10
 
 
 def check(cond, msg):
@@ -1058,9 +1098,10 @@ def step_shapes(splice, step, cap, k5=None):
               f"(share {live / max(tot, 1):.4f})")
 
 
-def compare(torch, name, kern, plain, kw):
+def compare(torch, name, kern, plain, kw, time_plain=True):
     """Kernel vs plain twin on the same inputs: exact equality.  Returns
-    the max abs error (0) and both median times."""
+    the max abs error (0) and both median times (the plain twin's None
+    without time_plain)."""
     ko, po = flat_outputs(kern(**kw)), flat_outputs(plain(**kw))
     torch.cuda.synchronize()
     check(len(ko) == len(po), f"{name}: output arity")
@@ -1074,7 +1115,8 @@ def compare(torch, name, kern, plain, kw):
         err = max(err, float((a.double() - b.double()).abs().max())
                   if a.numel() else 0.0)
         check(torch.equal(a, b), f"{name}: kernel != plain")
-    return err, median_ms(torch, kern, kw), median_ms(torch, plain, kw)
+    return err, median_ms(torch, kern, kw), (
+        median_ms(torch, plain, kw) if time_plain else None)
 
 
 def hold_slots(torch, tag, cap):
@@ -1094,6 +1136,30 @@ def run_cli(args, cwd, env, timeout):
                        cwd=cwd, env=env, capture_output=True, text=True,
                        timeout=timeout)
     check(r.returncode == 0, f"CLI {args[0]} failed: {r.stderr[-2000:]}")
+
+
+def run_clis(argss, cwd, env, timeout, ok=True):
+    """The CLI once per argument list, the runs side by side (one torch
+    thread each); returns each run's (exit code, standard error), and with
+    `ok` checks that each exited 0."""
+    env1 = dict(env, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, "-m", "hisat2_tpu_torch"]
+                              + a, cwd=cwd, env=env1, text=True,
+                              stdout=subprocess.DEVNULL,
+                              stderr=subprocess.PIPE) for a in argss]
+    out = []
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=timeout)
+            out.append((p.returncode, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for a, (rc, err) in zip(argss, out):
+        check(not ok or rc == 0, f"CLI {a[0]} failed: {err[-2000:]}")
+    return out
 
 
 def pick_introns(np, rng, g, first_slot=8_000_000):
@@ -1221,7 +1287,7 @@ def simulate_config6(np, rng, g, introns, pairs, jsnv, B, L):
 def spliced_phase(torch, np, g, index, kernels, twins, driver,
                   read_alignments, TorchAligner, rows, bounds, path_launches,
                   card, env):
-    """Phase 10 (see the module docstring)."""
+    """Phase 10 (see the module docstring); returns its introns."""
     from hisat2_tpu_torch.ops import splice
     t0 = time.perf_counter()
     srng = np.random.default_rng(1010)
@@ -1442,11 +1508,17 @@ def spliced_phase(torch, np, g, index, kernels, twins, driver,
     for name in SPLICED_KERNELS:
         rows[name].setdefault("library_ms", None)
 
-    # the lite and full step on the card against the CPU step
+    # the lite and full step on the card against the CPU step, on the
+    # batch's first 1024 reads (phase 14 holds a whole fused 16,384-lane
+    # spliced step against the CPU)
     cpu = TorchAligner(index, device="cpu", spliced=True, lane_meta=True)
     cdb = cpu.splice_db
     for k in ("sites", "_col_jl", "_col_jr", "_col_rdid"):
         setattr(cdb, k, getattr(sal.splice_db, k))
+    nc = S_CMP_B
+    codes, quals, lens, minsc, rdids = (codes[:nc], quals[:nc], lens[:nc],
+                                        minsc[:nc], rdids[:nc])
+    uniform = bool(np.all(lens == L))
     for tier in ("_fast", None):
         a = getattr(sal, tier) if tier else sal
         c = getattr(cpu, tier) if tier else cpu
@@ -1465,7 +1537,7 @@ def spliced_phase(torch, np, g, index, kernels, twins, driver,
         check(a._out_specs[w] == c._out_specs[w]
               and a._spill_meta[w] == c._spill_meta[w],
               f"spliced {nm} _out_specs")
-        print(f"[spliced step] {nm} step, {2 * B} lanes: packed "
+        print(f"[spliced step] {nm} step, {2 * nc} lanes: packed "
               f"[{bk.shape[0]}, {w}] equal to the CPU plain step; card "
               f"{1e3 * (t1 - t0):.1f} ms (host clock), CPU "
               f"{time.perf_counter() - t1:.1f} s")
@@ -1481,34 +1553,37 @@ def spliced_phase(torch, np, g, index, kernels, twins, driver,
                            "rb") as f, \
                     open(os.path.join(tmp, f"{tag}.fa"), "wb") as o:
                 o.write(f.read())
-            run_cli(["build", f"{tag}.fa", tag], tmp, env, 300)
+        run_clis([["build", f"{tag}.fa", tag] for tag in ("nss", "mj3x")],
+                 tmp, env, 300)
 
         def body(path, opener=open):
             with opener(path, "rt") as f:
                 return [x for x in f if not x.startswith("@")]
 
+        # p2 reads the oracle's novel.ss, so the three runs are
+        # independent: side by side
         t0 = time.perf_counter()
-        run_cli(["align", "-f", "-x", "nss", "-U",
-                 os.path.join(data, "nss_reads.fa"),
-                 "--novel-splicesite-outfile", "novel.ss", "-S", "p1.sam",
-                 "--device", "cuda"], tmp, env, 600)
+        run_clis([["align", "-f", "-x", "nss", "-U",
+                   os.path.join(data, "nss_reads.fa"),
+                   "--novel-splicesite-outfile", "novel.ss", "-S", "p1.sam",
+                   "--device", "cuda"],
+                  ["align", "-f", "-x", "nss", "-U",
+                   os.path.join(data, "nss_reads.fa"),
+                   "--novel-splicesite-infile",
+                   os.path.join(data, "nss_ref_novel.ss"), "-S", "p2.sam",
+                   "--device", "cuda"],
+                  ["align", "-f", "-x", "mj3x", "-U",
+                   os.path.join(data, "mj3x_reads.fa"), "-S", "mj3.sam",
+                   "--device", "cuda"]], tmp, env, 600)
         with open(os.path.join(tmp, "novel.ss")) as f, \
                 open(os.path.join(data, "nss_ref_novel.ss")) as f2:
             check(f.read() == f2.read(), "novel.ss differs from the oracle")
         check(body(os.path.join(tmp, "p1.sam")) == body(
             os.path.join(data, "nss_ref_p1.sam.gz"), gzip.open),
             "nss p1 SAM body differs from nss_ref_p1")
-        run_cli(["align", "-f", "-x", "nss", "-U",
-                 os.path.join(data, "nss_reads.fa"),
-                 "--novel-splicesite-infile",
-                 os.path.join(data, "nss_ref_novel.ss"), "-S", "p2.sam",
-                 "--device", "cuda"], tmp, env, 600)
         check(body(os.path.join(tmp, "p2.sam")) == body(
             os.path.join(data, "nss_ref_p2.sam.gz"), gzip.open),
             "nss p2 SAM body differs from nss_ref_p2")
-        run_cli(["align", "-f", "-x", "mj3x", "-U",
-                 os.path.join(data, "mj3x_reads.fa"), "-S", "mj3.sam",
-                 "--device", "cuda"], tmp, env, 600)
         got = {x.split("\t")[0]: x for x in body(os.path.join(tmp,
                                                               "mj3.sam"))}
         want = {x.split("\t")[0]: x for x in body(
@@ -1517,10 +1592,12 @@ def spliced_phase(torch, np, g, index, kernels, twins, driver,
                   if k != "mj3_a25"), "mj3x SAM differs from mj3x_ref")
         print(f"[spliced cli] align --device cuda (spliced): nss p1 + "
               f"novel.ss, nss p2 with --novel-splicesite-infile and mj3x "
-              f"({len(want)} reads) equal to their oracles "
-              f"({time.perf_counter() - t0:.1f} s incl. start-up)")
+              f"({len(want)} reads) equal to their oracles (the three "
+              f"side by side {time.perf_counter() - t0:.1f} s incl. "
+              f"start-up)")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return introns
 
 
 def true_place(np, res, start, rc, n_reads):
@@ -2461,6 +2538,551 @@ def sweeps_global(torch, np, g, twins, splice, scu, introns, rng, codes,
               f"to {nt} over a grid of {grid} blocks: equal rows")
 
 
+def simulate_spliced_pairs(np, rng, g, introns, n_can, spots, B, L):
+    """B read pairs, --fr, fragments of 200-500 bp on the transcript, as
+    phase 9 on a linear index: 5% with the left mate in a planted repeat
+    copy, 2% with a right mate of random sequence; of the pairs a third
+    with one mate (left or right at random; it is mate 1) across one of
+    the first n_can canonical phase-10 introns (first exon x in [8, 92]
+    bp, no other edit), a tenth whose fragment spans such an intron (the
+    mates wholly on its two exons), the others genomic, a fifth of all
+    pairs (genomic ones) with 1-3 mismatches on each mate as phase 9's;
+    the other pairs half from the reverse strand (mate 1 is then the right
+    mate).  A run that widens n_can batch by batch finds new junctions in
+    each, as a growing RNA-seq run does; with the junction mate as mate
+    1, the first read to find a site has the lowest read id of its batch
+    (the fused batch repeats the read ids for mate 2), so the site tables
+    grow by K18's incremental merge, not by a rebuild.  Returns mate codes
+    and quals (uint8 [B, L]), per mate its true leftmost position, the
+    length of the intron it crosses (0: none) and the bases it has before
+    the junction, and which pairs have no repeat or random mate."""
+    n = len(g)
+    can = [(d, e) for d, e, c in introns if c == 0][:n_can]
+    left = np.zeros((B, L), np.uint8)
+    right = np.zeros((B, L), np.uint8)
+    lpos, rpos = np.zeros(B, np.int64), np.zeros(B, np.int64)
+    ljl, rjl = np.zeros(B, np.int64), np.zeros(B, np.int64)
+    lx, rx = np.zeros(B, np.int64), np.zeros(B, np.int64)
+    r = rng.random(B)
+    rep, rnd = r < 0.05, (r >= 0.05) & (r < 0.07)
+    plain = ~rep & ~rnd
+    u = rng.random(B)
+    F = rng.integers(200, 501, B)
+    fw = rng.random(B) < 0.5
+    E = 600                      # transcript flank on each side
+    for i in range(B):
+        f = int(F[i])
+        if plain[i] and u[i] < 0.1 + 1 / 3:
+            d, e = can[int(rng.integers(0, len(can)))]
+            t = np.concatenate([g[d - E:d], g[e:e + E]])
+            if u[i] < 1 / 3:                        # one junction mate
+                x = int(rng.integers(8, 93))
+                fw[i] = rng.random() < 0.5
+                if fw[i]:                           # the left mate
+                    f0 = E - x
+                    lpos[i], ljl[i], lx[i] = d - x, e - d, x
+                    rpos[i] = e + f0 + f - L - E
+                else:                               # the right mate
+                    f0 = E - x - f + L
+                    lpos[i] = d - E + f0
+                    rpos[i], rjl[i], rx[i] = d - x, e - d, x
+            else:                                   # spans the intron
+                a = int(rng.integers(L, f - L + 1))
+                f0 = E - a
+                lpos[i], rpos[i] = d - a, e + f - L - a
+            left[i] = t[f0:f0 + L]
+            right[i] = t[f0 + f - L:f0 + f]
+            continue
+        if rep[i]:
+            s = int(np.asarray(spots)[rng.integers(0, REP_UNITS),
+                                      rng.integers(0, REP_COPIES)]) + 10
+        else:
+            s = int(rng.integers(0, n - 700))
+        left[i] = g[s:s + L]
+        right[i] = g[s + f - L:s + f]
+        lpos[i], rpos[i] = s, s + f - L
+    right = (3 - right)[:, ::-1]
+    right[rnd] = rng.integers(0, 4, (int(rnd.sum()), L))
+    errs = plain & (u > 0.8)
+    for m in (left, right):
+        for k in range(3):
+            sel = errs & (rng.random(B) < 0.7 if k else True)
+            rr = np.flatnonzero(sel)
+            p = rng.integers(0, L, len(rr))
+            m[rr, p] = (m[rr, p] + rng.integers(1, 4, len(rr))) % 4
+    m1 = np.where(fw[:, None], left, right).astype(np.uint8)
+    m2 = np.where(fw[:, None], right, left).astype(np.uint8)
+    q1, q2 = (rng.integers(20, 41, (B, L)).astype(np.uint8) for _ in (0, 1))
+    pick = lambda a, b: (np.where(fw, a, b), np.where(fw, b, a))  # noqa
+    return (m1, m2, q1, q2) + pick(lpos, rpos) + pick(ljl, rjl) \
+        + pick(lx, rx) + (plain,)
+
+
+def simulate_genome_pairs(np, rng, g, B, L):
+    """B read pairs, --fr, fragments of 200-500 bp over the two GS_CHR
+    chromosomes (none across their border), half from the reverse strand,
+    a fifth with 1-3 mismatches on the left mate and 2% with a right mate
+    of random sequence.  Returns mate codes and quals, each mate's true
+    leftmost joined position, and which pairs have no random mate."""
+    F = rng.integers(200, 501, B)
+    s = rng.integers(0, 2 * GS_CHR - 700, B)
+    cross = (s < GS_CHR) & (s + 700 > GS_CHR)
+    s[cross] -= 1000
+    left = g[s[:, None] + np.arange(L)].astype(np.uint8)
+    rs = s + F - L
+    right = (3 - g[rs[:, None] + np.arange(L)])[:, ::-1].astype(np.uint8)
+    err = rng.random(B) < 0.2
+    for i in np.flatnonzero(err):
+        q = rng.choice(L, int(rng.integers(1, 4)), replace=False)
+        left[i, q] = (left[i, q] + rng.integers(1, 4, len(q))) % 4
+    rnd = rng.random(B) < 0.02
+    right[rnd] = rng.integers(0, 4, (int(rnd.sum()), L))
+    fw = rng.random(B) < 0.5
+    m1 = np.where(fw[:, None], left, right)
+    m2 = np.where(fw[:, None], right, left)
+    q1, q2 = (rng.integers(20, 41, (B, L)).astype(np.uint8) for _ in (0, 1))
+    return (m1, m2, q1, q2, np.where(fw, s, rs), np.where(fw, rs, s), ~rnd)
+
+
+def primaries(text):
+    """{(pair index, mate 1/2): (flag, 0-based pos, CIGAR, RNAME)} of the
+    primary records of a paired SAM body whose names end in _<index>."""
+    prim = {}
+    for line in text.splitlines():
+        f = line.split("\t", 6)
+        flag = int(f[1])
+        if flag & 256:
+            continue
+        prim[(int(f[0].rsplit("_", 1)[1]), 1 if flag & 64 else 2)] = (
+            flag, int(f[3]) - 1, f[5], f[2])
+    return prim
+
+
+class PairRun:
+    """The paired main path on one aligner: run_align's loop of
+    _dispatch_pair_batch / advance / _align_pair_batch, 3 deep, SAM to
+    memory, with the host clock of each stage (collect, rescue, render)
+    and the rescue jobs.  Read ids run on across runs, as run_align's do
+    across batches (a temp splice site keeps the lowest read id that
+    found it, and a lower one rebuilds the site tables)."""
+
+    def __init__(self, np, driver, al, policy, k, ref_names, ref_lens,
+                 annotate=None):
+        self.np, self.driver, self.al = np, driver, al
+        self.policy, self.k, self.annotate = policy, k, annotate
+        self.names, self.lens = list(ref_names), ref_lens
+        self.rdid0 = 0
+        self.reset()
+
+    def reset(self):
+        self.st = {"collect": 0.0, "batch": 0.0, "render": 0.0,
+                   "rescue": 0.0, "jobs": 0, "rescued": 0, "batches": 0}
+
+    def _wrap(self):
+        al, st = self.al, self.st
+        o_collect, o_rescue = al.collect, al.rescue_mates
+        depth = [0]
+
+        def collect(h, paired=False):
+            # the outermost call only: a two-pass collect calls collect
+            # again for its pass 2
+            depth[0] += 1
+            t = time.perf_counter()
+            try:
+                return o_collect(h, paired=paired)
+            finally:
+                depth[0] -= 1
+                if not depth[0]:
+                    st["collect"] += time.perf_counter() - t
+
+        def rescue(*a):
+            t = time.perf_counter()
+            out = o_rescue(*a)
+            st["rescue"] += time.perf_counter() - t
+            st["jobs"] += len(a[0])
+            st["rescued"] += sum(1 for x in out if x)
+            return out
+
+        al.collect, al.rescue_mates = collect, rescue
+        return o_collect, o_rescue
+
+    def run(self, batches, score):
+        """batches: [(ReadBatch 1, ReadBatch 2, meta)]; score(text, meta)
+        per batch.  Returns the slice's seconds."""
+        np, al, st, drv = self.np, self.al, self.st, self.driver
+        ref_fn = lambda pos, span: al.ref_codes[pos:pos + span]  # noqa
+        saved = self._wrap()
+
+        class Timed:
+            def __init__(self, w):
+                self.w, self.s = w, 0.0
+
+            def write_pair(self, *a, **k):
+                t = time.perf_counter()
+                self.w.write_pair(*a, **k)
+                self.s += time.perf_counter() - t
+
+        def finish(item):
+            b1, b2, rd, h, meta = item
+            sink = io.StringIO()
+            w = Timed(drv.SamWriter(sink, self.names, self.lens,
+                                    no_head=True, annotator=self.annotate))
+            t = time.perf_counter()
+            drv._align_pair_batch(al, w, self.policy, al.scoring, self.k,
+                                  b1, b2, ref_fn, rd, handle=h)
+            st["batch"] += time.perf_counter() - t
+            st["render"] += w.s
+            st["batches"] += 1
+            score(sink.getvalue(), meta)
+
+        try:
+            t0 = time.perf_counter()
+            pend = deque()
+            for b1, b2, meta in batches:
+                rd = self.rdid0 + np.arange(len(b1.names), dtype=np.int64)
+                self.rdid0 += len(b1.names)
+                pend.append((b1, b2, rd,
+                             drv._dispatch_pair_batch(al, b1, b2, rd), meta))
+                if len(pend) >= 2:
+                    p1, p2, pr, (ph, pl), pm = pend[-2]
+                    pend[-2] = (p1, p2, pr, (al.advance(ph, paired=True),
+                                             pl), pm)
+                if len(pend) >= 3:
+                    finish(pend.popleft())
+            while pend:
+                finish(pend.popleft())
+            return time.perf_counter() - t0
+        finally:
+            al.collect, al.rescue_mates = saved
+
+    def stages(self):
+        st, nb = self.st, max(self.st["batches"], 1)
+        pairing = st["batch"] - st["collect"] - st["rescue"] - st["render"]
+        return (f"host ms per batch: collect (device wait + host phases + "
+                f"the temp-site fixed point) {1e3 * st['collect'] / nb:.1f},"
+                f" pairing (give-up replay, best_pairs, finalize, MAPQ) "
+                f"{1e3 * pairing / nb:.1f}, rescue "
+                f"{1e3 * st['rescue'] / nb:.1f}, render "
+                f"{1e3 * st['render'] / nb:.1f}; whole _align_pair_batch "
+                f"{1e3 * st['batch'] / nb:.1f}")
+
+
+def capture_rescue(rescue):
+    """Record every rescue_candidates call's keyword arguments (the chunks
+    of rescue_mates) in the returned list, until `restore()`."""
+    calls = []
+    orig = rescue.rescue_candidates
+
+    def rec(**kw):
+        calls.append(kw)
+        return orig(**kw)
+
+    rescue.rescue_candidates = rec
+
+    def restore():
+        rescue.rescue_candidates = orig
+    return calls, restore
+
+
+def pairs_phase(torch, np, g, index, spots, introns, kernels, twins, driver,
+                TorchAligner, rows, path_launches, card, env):
+    """Phase 14 (see the module docstring): paired reads on every index
+    the unpaired path takes."""
+    from hisat2_tpu_torch.align.paired import PairPolicy
+    from hisat2_tpu_torch.index import FMIndex
+    from hisat2_tpu_torch.io.fasta import ReadBatch
+    from hisat2_tpu_torch.ops import rank, rescue, splice
+    t_ph = time.perf_counter()
+
+    def row_of(name):
+        k = kernels.KERNELS[name]
+        return rows.setdefault(name, {
+            "name": name, "route": "cuda", "source": k.source,
+            "replaces": k.replaces, "max_abs_err": 0.0})
+
+    # (a) spliced paired reads (the CLI's default for -1/-2) on phase 3's
+    # index with phase 10's introns, driver defaults (k = 5, a spliced
+    # PairPolicy, intron lengths from the site table, the fixed point)
+    sal = TorchAligner(index, device="cuda", spliced=True, lane_meta=True)
+    prng = np.random.default_rng(1414)
+    pb = []
+    for bi in range(PS_BATCHES + 1):
+        sim = simulate_spliced_pairs(np, prng, g, introns,
+                                     PS_INTRONS + PS_NEW * bi, spots, B, L)
+        nm = [f"e{bi}_{i}" for i in range(B)]
+        pb.append((ReadBatch(nm, list(sim[0]), list(sim[2])),
+                   ReadBatch(list(nm), list(sim[1]), list(sim[3])),
+                   sim[4:]))
+    acc = {"pairs": 0, "normal": 0, "conc": 0, "can": 0, "can_true": 0}
+
+    def score_spliced(text, meta):
+        pos1, pos2, jl1, jl2, x1, x2, plain = meta
+        prim = primaries(text)
+        conc = np.array([bool(prim[(i, 1)][0] & 2) for i in range(B)])
+        acc["pairs"] += B
+        acc["normal"] += int(plain.sum())
+        acc["conc"] += int((conc & plain).sum())
+        for m, (pos, jl, x) in ((1, (pos1, jl1, x1)), (2, (pos2, jl2, x2))):
+            for i in np.flatnonzero((jl > 0) & (x >= 20) & (L - x >= 20)):
+                flag, p, cig, _ = prim[(int(i), m)]
+                acc["can"] += 1
+                acc["can_true"] += int(not flag & 4 and p == pos[i]
+                                       and cig.count("N") == 1
+                                       and f"{jl[i]}N" in cig)
+
+    run = PairRun(np, driver, sal, PairPolicy(spliced=True), 5,
+                  index.meta.ref_names, index.meta.ref_lens)
+    run.run(pb[:1], lambda text, meta: None)       # warm-up
+    run.reset()
+    fp0 = sal.fixed_point_runs
+    m0 = sal.splice_db.n_merges
+    kernels.reset_counts()
+    t_slice = run.run(pb[1:], score_spliced)
+    launches = kernels.counts()
+    conc_share = acc["conc"] / acc["normal"]
+    can_share = acc["can_true"] / acc["can"]
+    print(f"[pairs spliced] {acc['pairs']} pairs ({2 * acc['pairs']} "
+          f"mates) in {t_slice:.2f} s: {acc['pairs'] / t_slice:.1f} pairs/s"
+          f" on {card}; concordant share {conc_share:.4f} of "
+          f"{acc['normal']} pairs without a repeat or random mate; "
+          f"canonical junction mates (anchors >= 20) at their true "
+          f"position with the planted N {can_share:.4f} ({acc['can_true']}"
+          f"/{acc['can']}); rescue jobs {run.st['jobs']}, rescued mates "
+          f"{run.st['rescued']}; sites {sal.splice_db.n_sites}, K18 merges "
+          f"{sal.splice_db.n_merges - m0}, fixed-point re-runs "
+          f"{sal.fixed_point_runs - fp0}; launches {launches}")
+    print(f"[pairs spliced] {run.stages()}")
+    check(conc_share >= 0.95, "spliced pairs: concordant share < 0.95")
+    check(can_share >= 0.95, "spliced pairs: canonical junction mates "
+          "placed true < 95%")
+    check(run.st["rescued"] > 0, "spliced pairs: no rescued mate")
+    for name in ("rescue_window",) + SPLICED_KERNELS:
+        check(launches[name] > 0, f"{name} never launched on the spliced "
+              f"paired path")
+    path_launches["pairs_spliced"] = launches
+
+    # the first batch's fused lite and full step against the CPU step,
+    # and K13-K17 on its arguments against their twins
+    b1, b2 = pb[0][:2]
+    codes = np.concatenate([b1.codes, b2.codes])
+    quals = np.concatenate([b1.quals, b2.quals])
+    lens = np.concatenate([b1.lens, b2.lens])
+    minsc = sal._minsc(lens)
+    rdids = np.tile(10 ** 8 + np.arange(B, dtype=np.int64), 2)
+    cpu = TorchAligner(index, device="cpu", spliced=True, lane_meta=True)
+    for k in ("sites", "_col_jl", "_col_jr", "_col_rdid"):
+        setattr(cpu.splice_db, k, getattr(sal.splice_db, k))
+    for tier in ("_fast", None):
+        a = getattr(sal, tier) if tier else sal
+        c = getattr(cpu, tier) if tier else cpu
+        nm = "lite" if tier else "full"
+        rd_a, ss_a = a._step_site_args(rdids)
+        rd_c, ss_c = c._step_site_args(rdids)
+        cap = {}
+        t0 = time.perf_counter()
+        bk = a.step(*a.upload(codes, quals, lens, minsc), True, rdids=rd_a,
+                    ss=ss_a, capture=cap)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bp = c.step(*c.upload(codes, quals, lens, minsc), True, rdids=rd_c,
+                    ss=ss_c)
+        w = bk.shape[1]
+        check(torch.equal(bk.cpu(), bp), f"spliced paired {nm} step")
+        check(a._out_specs[w] == c._out_specs[w],
+              f"spliced paired {nm} _out_specs")
+        print(f"[pairs spliced step] fused {nm} step, {2 * len(codes)} "
+              f"lanes: packed [{bk.shape[0]}, {w}] equal to the CPU plain "
+              f"step; card {1e3 * (t1 - t0):.1f} ms (host clock), CPU "
+              f"{time.perf_counter() - t1:.1f} s")
+        keys = ["inject_known"] + ([] if tier else [
+            "search_lanes_live", "pair_sweep", "second_sweep"])
+        for key in keys:
+            kw = cap[key]
+            err, ms, _ = compare(torch, key, *twins[key], kw,
+                                 time_plain=False)
+            row = row_of(key)
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row[f"pairs_{nm}_ms"] = ms
+            print(f"[pairs spliced kernels] {nm} {key} on "
+                  f"{kw['reads'].shape[0]} lanes: equal to plain "
+                  f"(tolerance: exact); kernel {ms:.4f} ms (median of 10)")
+        del cap
+    del cpu, sal
+    torch.cuda.empty_cache()
+    phase_s_a = time.perf_counter() - t_ph
+
+    # (b) phase 11's two-shard 280 Mbp index and the linear aligner, DNA
+    # mode (a spliced paired run on several shards is refused, as the JAX
+    # package fails there: align/pipeline.py:SHARDED_SPLICED_PAIRS)
+    t0 = time.perf_counter()
+    C = GS_CHR
+    gg = np.random.default_rng(1111).integers(0, 4, 2 * C).astype(np.uint8)
+    gi = FMIndex.load(os.path.join(tempfile.gettempdir(),
+                                   f"hisat2_tpu_torch_genome_2x{C}_seed1111"))
+    gal = TorchAligner(gi, device="cuda", lane_meta=True)
+    nw0 = gal.dev.ref_words.shape[0]
+    print(f"[pairs genome] two-shard index loaded and uploaded in "
+          f"{time.perf_counter() - t0:.1f} s; shard 0's words {nw0} "
+          f"(16 x {nw0} = {16 * nw0} chars of a global n of "
+          f"{gal.meta.n}); a rescue window past them reads the last row of "
+          f"{rank.clamp_row(nw0)} words (K5) and the last word (K12)")
+    grng = np.random.default_rng(1415)
+    gpb = []
+    for bi in range(PG_BATCHES + 1):
+        m1, m2, q1, q2, p1, p2, plain = simulate_genome_pairs(
+            np, grng, gg, B, L)
+        nm = [f"h{bi}_{i}" for i in range(B)]
+        gpb.append((ReadBatch(nm, list(m1), list(q1)),
+                    ReadBatch(list(nm), list(m2), list(q2)),
+                    (p1, p2, plain)))
+    gacc = {"pairs": 0, "normal": 0, "conc": 0, "mates": 0, "second": 0}
+
+    def score_genome(text, meta):
+        p1, p2, plain = meta
+        prim = primaries(text)
+        conc = np.array([bool(prim[(i, 1)][0] & 2) for i in range(B)])
+        gacc["pairs"] += B
+        gacc["normal"] += int(plain.sum())
+        gacc["conc"] += int((conc & plain).sum())
+        for v in prim.values():
+            if not v[0] & 4:
+                gacc["mates"] += 1
+                gacc["second"] += int(v[3] == gi.meta.ref_names[1])
+
+    grun = PairRun(np, driver, gal, PairPolicy(), 5, gi.meta.ref_names,
+                   gi.meta.ref_lens)
+    chunks, restore = capture_rescue(rescue)
+    try:
+        grun.run(gpb[:1], lambda text, meta: None)  # warm-up
+    finally:
+        restore()
+    grun.reset()
+    kernels.reset_counts()
+    t_slice = grun.run(gpb[1:], score_genome)
+    launches = kernels.counts()
+    conc_share = gacc["conc"] / gacc["normal"]
+    second = gacc["second"] / gacc["mates"]
+    print(f"[pairs genome] {gacc['pairs']} pairs in {t_slice:.2f} s: "
+          f"{gacc['pairs'] / t_slice:.1f} pairs/s on {card}; concordant "
+          f"share {conc_share:.4f} of {gacc['normal']} pairs without a "
+          f"random mate; aligned mates on the second shard {second:.4f}; "
+          f"rescue jobs {grun.st['jobs']}, rescued mates "
+          f"{grun.st['rescued']}; launches {launches}")
+    print(f"[pairs genome] {grun.stages()}")
+    check(conc_share >= 0.95, "genome pairs: concordant share < 0.95")
+    check(second >= 0.30, "genome pairs: mates on the second shard < 30%")
+    for name in ("fm_search2", "resolve_walk", "compact_cands",
+                 "ref_window", "extend_ungapped", "pack_slots",
+                 "rescue_window"):
+        check(launches[name] > 0, f"{name} never launched on the sharded "
+              f"paired path")
+    path_launches["pairs_shards"] = launches
+
+    # one rescue chunk of the warm-up batch's jobs anchored on shard 1
+    # (their windows read past shard 0's words) through K12 and K5
+    # against their twins
+    end = 16 * nw0
+    check(chunks, "no rescue job in the sharded warm-up batch")
+    kw0 = chunks[0]
+    reads = torch.cat([c["reads"] for c in chunks])
+    ws = torch.cat([c["win_start"] for c in chunks])
+    sel = (ws >= end).nonzero().flatten()[:128]
+    check(sel.numel() > 0, "no rescue job anchored past shard 0's words")
+    kw = dict(ref_words=kw0["ref_words"], n_text=kw0["n_text"],
+              reads=reads[sel].contiguous(), win_start=ws[sel].contiguous(),
+              W=kw0["W"])
+    err, ms, pms = compare(torch, "rescue_window", *twins["rescue_window"],
+                           kw)
+    starts = rescue.rescue_window(**kw)
+    rkw = dict(planes=[kw0["ref_words"]], n_text=kw0["n_text"],
+               starts=[starts], margins=[0], L=reads.shape[1])
+    err_w, ms_w, pms_w = compare(torch, "ref_window", *twins["ref_window"],
+                                 rkw)
+    past = int((starts >= end).sum())
+    for name, e_, m_, p_, clamp in (
+            ("rescue_window", err, ms, pms, "the last word"),
+            ("ref_window", err_w, ms_w, pms_w,
+             f"the last row of {rank.clamp_row(nw0)} words")):
+        row = row_of(name)
+        row["max_abs_err"] = max(row["max_abs_err"], e_)
+        row["pairs_shard1_ms"], row["pairs_shard1_plain_ms"] = m_, p_
+        row["past_words_clamp"] = clamp
+        print(f"[pairs genome kernels] {name} on {sel.numel()} rescue jobs "
+              f"anchored on shard 1 (W {kw['W']}; {past} of their "
+              f"{starts.numel()} diagonals start past shard 0's {end} "
+              f"chars, read through {clamp}): equal to plain (tolerance: "
+              f"exact); kernel {m_:.4f} ms, plain {p_:.4f} ms (median of "
+              f"10)")
+    del gal, gi, gg
+    torch.cuda.empty_cache()
+    phase_s_b = time.perf_counter() - t_ph - phase_s_a
+
+    # (c) the CLI on the card: the pes oracles, the nss and shard corpora
+    # paired, and the runs the JAX package fails on, refused
+    data = os.path.join(REPO, "tests/data")
+    tmp = tempfile.mkdtemp(prefix="h2torch_pes_")
+    try:
+        for tag in ("pes", "nss", "shard"):
+            with gzip.open(os.path.join(data, f"{tag}_genome.fa.gz"),
+                           "rb") as f, \
+                    open(os.path.join(tmp, f"{tag}.fa"), "wb") as o:
+                o.write(f.read())
+        sh = ["--shard-bp", "150000", "--offrate", "4"]
+        gr = ["--snp", os.path.join(data, "pes.snp"), "--ss",
+              os.path.join(data, "pes.ss")]
+        builds = [("pes_lin", "pes", []), ("pes_gra", "pes", gr),
+                  ("pes_sh", "pes", sh), ("pes_shg", "pes", gr + sh),
+                  ("nss", "nss", []), ("shard_sh", "shard", sh)]
+        t0 = time.perf_counter()
+        run_clis([["build"] + a + [f"{c}.fa", i] for i, c, a in builds],
+                 tmp, env, 600)
+        pes = ["-1", os.path.join(data, "pes_reads_1.fa"), "-2",
+               os.path.join(data, "pes_reads_2.fa")]
+        runs = {"pes_ref_rna": ("pes_lin", [], pes),
+                "pes_ref_snpss": ("pes_gra", [], pes),
+                "pes_ref_shard_dna": ("pes_sh", ["--no-spliced-alignment"],
+                                      pes),
+                "pes_ref_nss": ("nss", [], ["-1", os.path.join(
+                    data, "nss_reads.fa"), "-2", os.path.join(
+                    data, "nss_reads.fa")]),
+                "shard_ref_pe": ("shard_sh", ["--no-spliced-alignment"],
+                                 ["-1", os.path.join(data, "shard_reads.fa"),
+                                  "-2", os.path.join(data,
+                                                     "shard_reads.fa")]),
+                "refused_graph_shards": ("pes_shg",
+                                         ["--no-spliced-alignment"], pes),
+                "refused_spliced_shards": ("pes_sh", [], pes)}
+        t1 = time.perf_counter()
+        done = run_clis([["align"] + a + ["-f", "-x", i] + r
+                         + ["-S", f"{k}.sam", "--device", "cuda"]
+                         for k, (i, a, r) in runs.items()], tmp, env, 600,
+                        ok=False)
+        for k, (rc, e_) in zip(runs, done):
+            if k.startswith("refused"):
+                fault = ("KeyError: 'snv1'" if "graph" in k
+                         else "KeyError: 'h_rounds'")
+                check(rc == 1 and fault in e_,
+                      f"{k}: not refused with {fault}: {e_[-2000:]}")
+                continue
+            check(rc == 0, f"CLI {k} failed: {e_[-2000:]}")
+            with open(os.path.join(tmp, f"{k}.sam")) as f:
+                got = [x for x in f if not x.startswith("@")]
+            with gzip.open(os.path.join(data, f"{k}.sam.gz"), "rt") as f:
+                want = f.readlines()
+            check(got == want, f"CLI SAM body differs from {k}")
+            print(f"[pairs cli] align -1 -2 --device cuda "
+                  f"{' '.join(runs[k][1])} on {runs[k][0]}: {len(got)} SAM "
+                  f"records equal to {k}")
+        print(f"[pairs cli] builds {t1 - t0:.1f} s, the seven runs side by "
+              f"side {time.perf_counter() - t1:.1f} s incl. start-up; the "
+              f"sharded graph and sharded spliced runs refused, naming the "
+              f"JAX fault")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[pairs] (a) {phase_s_a:.1f} s, (b) {phase_s_b:.1f} s, (c) "
+          f"{time.perf_counter() - t_ph - phase_s_a - phase_s_b:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2886,61 +3508,22 @@ def main() -> int:
         nm = [f"q{bi}_{i}" for i in range(B)]
         pb.append((ReadBatch(nm, list(m1), list(q1)),
                    ReadBatch(list(nm), list(m2), list(q2)),
-                   pos1, pos2, snv1, snv2, plain))
-    policy = PairPolicy()
-    jobs = {"n": 0, "rescued": 0, "ms": 0.0}
-    orig_rescue = pal.rescue_mates
-
-    def rescue_rec(*a):
-        t = time.perf_counter()
-        out = orig_rescue(*a)
-        jobs["ms"] += 1e3 * (time.perf_counter() - t)
-        jobs["n"] += len(a[0])
-        jobs["rescued"] += sum(1 for x in out if x)
-        return out
-
-    pal.rescue_mates = rescue_rec
-
-    class TimedWriter:
-        """The SAM writer, with the time spent in write_pair (render)."""
-
-        def __init__(self, w):
-            self.w, self.ms = w, 0.0
-
-        def write_pair(self, *a, **k):
-            t = time.perf_counter()
-            self.w.write_pair(*a, **k)
-            self.ms += 1e3 * (time.perf_counter() - t)
-
-    def pair_writer(sink):
-        return TimedWriter(driver.SamWriter(
-            sink, list(index.meta.ref_names), index.meta.ref_lens,
-            no_head=True, annotator=pal.annotate_snps))
-
-    ref_fn = lambda pos, span: pal.ref_codes[pos:pos + span]  # noqa: E731
-    # one batch through _align_pair_batch: warm-up, and the real rescue
-    # jobs, the keyword arguments of its first rescue_candidates call
+                   (pos1, pos2, snv1, snv2, plain)))
+    run = PairRun(np, driver, pal, PairPolicy(), 10, index.meta.ref_names,
+                  index.meta.ref_lens, annotate=pal.annotate_snps)
+    # one batch through the paired loop: warm-up, and the real rescue
+    # jobs, the keyword arguments of each rescue_candidates call
     b1, b2 = pb[0][:2]
-    rd0 = np.arange(B, dtype=np.int64)
-    cap, chunks = {}, []
-    orig_cands = rescue.rescue_candidates
-
-    def cands_rec(**kw):
-        if not cap:
-            cap.update(kw)
-        chunks.append({k: kw[k] for k in ("ref_words", "n_text", "reads",
-                                          "win_start", "W")})
-        return orig_cands(**kw)
-
-    rescue.rescue_candidates = cands_rec
+    calls, restore = capture_rescue(rescue)
     try:
-        driver._align_pair_batch(pal, pair_writer(io.StringIO()), policy,
-                                 pal.scoring, 10, b1, b2, ref_fn, rd0)
+        run.run(pb[:1], lambda text, meta: None)
     finally:
-        rescue.rescue_candidates = orig_cands
-    check(cap, "no rescue job in the warm-up batch")
-    kw = {k: cap[k] for k in ("ref_words", "n_text", "reads", "win_start",
-                              "W")}
+        restore()
+    check(calls, "no rescue job in the warm-up batch")
+    cap = calls[0]
+    chunks = [{k: c[k] for k in ("ref_words", "n_text", "reads",
+                                 "win_start", "W")} for c in calls]
+    kw = chunks[0]
     err, ms, pms = compare(torch, "rescue_window", *twins["rescue_window"],
                            kw)
     ks, ke = rescue.rescue_candidates(**cap)
@@ -3022,26 +3605,32 @@ def main() -> int:
           f"({rows['rescue_window']['bound_bf16_ms']:.4f} at bf16's; median "
           f"of 10); {len(chunks)} rescue chunks in the batch")
 
-    # the fused lite and full step against the CPU step, on one batch
+    # the fused lite and full step: K4 and K9 on the whole batch's
+    # arguments, and the step of its first P_CMP_B pairs against the CPU
+    # step (phase 14 holds a whole fused spliced step against the CPU)
     pcpu = TorchAligner(index, device="cpu", variants=db, k=10,
                         lane_meta=True)
-    codes = np.concatenate([b1.codes, b2.codes])
-    quals = np.concatenate([b1.quals, b2.quals])
-    lens = np.concatenate([b1.lens, b2.lens])
+    nc = P_CMP_B
+    fused = [np.concatenate([getattr(b1, f), getattr(b2, f)])
+             for f in ("codes", "quals", "lens")]
+    codes, quals, lens = (np.concatenate([getattr(b1, f)[:nc],
+                                          getattr(b2, f)[:nc]])
+                          for f in ("codes", "quals", "lens"))
     minsc = pal._minsc(lens)
     for tier in ("_fast", None):
         a = getattr(pal, tier) if tier else pal
         c = getattr(pcpu, tier) if tier else pcpu
-        t0 = time.perf_counter()
+        nm = "lite" if tier else "full"
         pcap = {}
-        bk = a.step(*a.upload(codes, quals, lens, minsc), True,
-                    capture=pcap)
+        a.step(*a.upload(*fused, pal._minsc(fused[2])), True, capture=pcap)
+        hold_slots(torch, f"paired step {nm}", pcap)
+        del pcap
+        t0 = time.perf_counter()
+        bk = a.step(*a.upload(codes, quals, lens, minsc), True)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         bp = c.step(*c.upload(codes, quals, lens, minsc), True)
         w = bk.shape[1]
-        nm = "lite" if tier else "full"
-        hold_slots(torch, f"paired step {nm}", pcap)
         check(torch.equal(bk.cpu(), bp), f"paired {nm} packed step")
         check(a._out_specs[w] == c._out_specs[w], f"paired {nm} _out_specs")
         print(f"[paired step] fused {nm} step, {2 * len(codes)} lanes: "
@@ -3051,86 +3640,40 @@ def main() -> int:
     del pcpu
 
     # the main path: run_align's paired loop (align/driver.py), 3 deep
-    pst = {"pairs": 0, "normal": 0, "conc": 0, "snv": 0, "snv_true": 0,
-           "collect_ms": 0.0, "batch_ms": 0.0, "render_ms": 0.0}
-    orig_collect = pal.collect
+    pst = {"pairs": 0, "normal": 0, "conc": 0, "snv": 0, "snv_true": 0}
 
-    def collect_timed(h, paired=False):
-        t = time.perf_counter()
-        out = orig_collect(h, paired=paired)
-        pst["collect_ms"] += 1e3 * (time.perf_counter() - t)
-        return out
-
-    pal.collect = collect_timed
-    jobs.update(n=0, rescued=0, ms=0.0)
-
-    def finish(item):
-        b1_, b2_, rd_, h_, meta = item
+    def score(text, meta):
         pos1, pos2, snv1, snv2, plain = meta
-        sink = io.StringIO()
-        wr = pair_writer(sink)
-        t = time.perf_counter()
-        driver._align_pair_batch(pal, wr, policy, pal.scoring, 10, b1_, b2_,
-                                 ref_fn, rd_, handle=h_)
-        pst["batch_ms"] += 1e3 * (time.perf_counter() - t)
-        pst["render_ms"] += wr.ms
-        prim = {}
-        for line in sink.getvalue().splitlines():
-            f = line.split("\t", 4)
-            flag = int(f[1])
-            if flag & 256:
-                continue
-            prim[(int(f[0].rsplit("_", 1)[1]), 1 if flag & 64 else 2)] = (
-                flag, int(f[3]) - 1)
+        prim = primaries(text)
         conc = np.array([bool(prim[(i, 1)][0] & 2) for i in range(B)])
         pst["pairs"] += B
         pst["normal"] += int(plain.sum())
         pst["conc"] += int((conc & plain).sum())
         for m, (pos, sv) in ((1, (pos1, snv1)), (2, (pos2, snv2))):
             for i in np.flatnonzero(sv):
-                fl, p = prim[(int(i), m)]
+                fl, p = prim[(int(i), m)][:2]
                 pst["snv"] += 1
                 pst["snv_true"] += int(not fl & 4 and p == pos[i])
 
+    run.reset()
     kernels.reset_counts()
-    t0 = time.perf_counter()
-    pend = deque()
-    for bi, (b1_, b2_, *meta) in enumerate(pb[1:]):
-        rd_ = bi * B + np.arange(B, dtype=np.int64)
-        pend.append((b1_, b2_, rd_,
-                     driver._dispatch_pair_batch(pal, b1_, b2_, rd_), meta))
-        if len(pend) >= 2:
-            p1, p2, pr, (ph, plens), pm = pend[-2]
-            pend[-2] = (p1, p2, pr, (pal.advance(ph, paired=True), plens),
-                        pm)
-        if len(pend) >= 3:
-            finish(pend.popleft())
-    while pend:
-        finish(pend.popleft())
-    t_slice = time.perf_counter() - t0
+    t_slice = run.run(pb[1:], score)
     launches = kernels.counts()
-    pal.collect, pal.rescue_mates = orig_collect, orig_rescue
-    nb = len(pb) - 1
     conc_share = pst["conc"] / pst["normal"]
     snv_true = pst["snv_true"] / pst["snv"]
-    pairing = (pst["batch_ms"] - pst["collect_ms"] - jobs["ms"]
-               - pst["render_ms"]) / nb
     print(f"[paired slice] {pst['pairs']} pairs ({2 * pst['pairs']} mates) "
           f"in {t_slice:.2f} s: {pst['pairs'] / t_slice:.1f} pairs/s on "
           f"{card}; concordant share {conc_share:.4f} of "
           f"{pst['normal']} pairs without a repeat or random mate; SNV-only "
           f"mates at their true position {snv_true:.4f} "
-          f"({pst['snv_true']}/{pst['snv']}); rescue jobs {jobs['n']}, "
-          f"rescued mates {jobs['rescued']}; launches {launches}")
-    print(f"[paired slice] host ms per batch: collect (device wait + host "
-          f"phases) {pst['collect_ms'] / nb:.1f}, pairing (give-up replay, "
-          f"best_pairs, finalize, MAPQ) {pairing:.1f}, rescue "
-          f"{jobs['ms'] / nb:.1f}, render {pst['render_ms'] / nb:.1f}; "
-          f"whole _align_pair_batch {pst['batch_ms'] / nb:.1f}")
+          f"({pst['snv_true']}/{pst['snv']}); rescue jobs "
+          f"{run.st['jobs']}, rescued mates {run.st['rescued']}; launches "
+          f"{launches}")
+    print(f"[paired slice] {run.stages()}")
     check(conc_share >= 0.95, "concordant share < 0.95")
     check(snv_true >= 0.99, "SNV-only mates placed true < 99%")
-    check(jobs["n"] > 0 and jobs["rescued"] > 0, "no rescue job or no "
-          "rescued mate on the paired path")
+    check(run.st["jobs"] > 0 and run.st["rescued"] > 0, "no rescue job or "
+          "no rescued mate on the paired path")
     for name in DNA_KERNELS:
         check(launches[name] > 0, f"{name} never launched on the paired "
               f"path")
@@ -3148,28 +3691,31 @@ def main() -> int:
         run_cli(["build", "g.fa", "idx"], tmp, env, 300)
         run_cli(["build", "--snp", os.path.join(data, "pe.snp"), "g.fa",
                  "idxs"], tmp, env, 300)
-        for idx_name, oracle in (("idx", "pe_ref"), ("idxs", "pe_ref_snp")):
-            t0 = time.perf_counter()
-            run_cli(["align", "--no-spliced-alignment", "-f", "-x",
-                     idx_name, "-1", os.path.join(data, "pe_reads_1.fa"),
-                     "-2", os.path.join(data, "pe_reads_2.fa"), "-S",
-                     "out.sam", "--device", "cuda"], tmp, env, 600)
-            with open(os.path.join(tmp, "out.sam")) as f:
+        t0 = time.perf_counter()
+        runs = (("idx", "pe_ref"), ("idxs", "pe_ref_snp"))
+        run_clis([["align", "--no-spliced-alignment", "-f", "-x", idx_name,
+                   "-1", os.path.join(data, "pe_reads_1.fa"), "-2",
+                   os.path.join(data, "pe_reads_2.fa"), "-S",
+                   f"{oracle}.sam", "--device", "cuda"]
+                  for idx_name, oracle in runs], tmp, env, 600)
+        for idx_name, oracle in runs:
+            with open(os.path.join(tmp, f"{oracle}.sam")) as f:
                 got = [x for x in f if not x.startswith("@")]
             with gzip.open(os.path.join(data, oracle + ".sam.gz"),
                            "rt") as f:
                 want = f.readlines()
             check(got == want, f"paired CLI SAM body differs from {oracle}")
             print(f"[paired cli] align -1 -2 --device cuda on {idx_name}: "
-                  f"{len(got)} SAM records equal to {oracle} "
-                  f"({time.perf_counter() - t0:.1f} s incl. start-up)")
+                  f"{len(got)} SAM records equal to {oracle}")
+        print(f"[paired cli] both runs side by side "
+              f"{time.perf_counter() - t0:.1f} s incl. start-up")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_done("paired")
 
-    spliced_phase(torch, np, g, index, kernels, twins, driver,
-                  read_alignments, TorchAligner, rows, bounds, path_launches,
-                  card, env)
+    introns = spliced_phase(torch, np, g, index, kernels, twins, driver,
+                            read_alignments, TorchAligner, rows, bounds,
+                            path_launches, card, env)
     phase_done("spliced")
 
     genome_phase(torch, np, kernels, twins, driver, read_alignments,
@@ -3183,6 +3729,10 @@ def main() -> int:
     long_phase(torch, np, g, index, spots, kernels, driver, TorchAligner)
     phase_done("long")
 
+    pairs_phase(torch, np, g, index, spots, introns, kernels, twins, driver,
+                TorchAligner, rows, path_launches, card, env)
+    phase_done("pairs")
+
     for name, r in rows.items():
         if name == "sharded_align_step":
             continue                    # K21: complete from phase 12
@@ -3190,7 +3740,8 @@ def main() -> int:
                 if name in SPLICED_KERNELS else "paired")
         r["launches"] = path_launches[path][name]
         for p2 in ("linear", "graph", "paired", "spliced", "genome",
-                   "genome_graph", "genome_spliced"):
+                   "genome_graph", "genome_spliced", "pairs_spliced",
+                   "pairs_shards"):
             r[f"launches_{p2}"] = path_launches[p2][name]
         r["ms"] = r.get("full_ms", r.get("paired_ms", r.get("genome_ms")))
         r["plain_ms"] = r.get("full_plain_ms", r.get(

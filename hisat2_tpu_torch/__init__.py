@@ -27,11 +27,12 @@ Layout (mirrors hisat2_tpu):
             pairing, host replays
   cli/      `python -m hisat2_tpu_torch align|build`
 
-Scope: unpaired and paired DNA reads against linear and graph indexes,
-unpaired spliced RNA reads against a linear index, with a full or a
-sampled suffix array, and unpaired runs against sharded genome-scale
-indexes (ROADMAP.md Queue 1 items 2-6).  Other modes raise or are refused
-naming their ROADMAP item.
+Scope: unpaired and paired reads, DNA and spliced RNA, against linear,
+--ss and SNP graph indexes, with a full or a sampled suffix array, and
+against sharded genome-scale indexes: unpaired reads in every mode,
+paired reads in DNA mode on a linear index.  The paired runs the JAX
+package fails on (spliced, or on a graph index, over several shards) are
+refused with its fault named (align/pipeline.py).
 """
 
 __version__ = "0.1.0"

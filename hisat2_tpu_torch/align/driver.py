@@ -6,14 +6,15 @@ _dispatch_pair_batch and _align_pair_batch (:512-771), verbatim.
 The JAX driver imports hisat2_tpu.align.pipeline (and with it jax) at
 module scope, so the port keeps this copy.  Linear and graph (.var.npz,
 two-tier) indexes run, unpaired (-U, --12) and paired (-1/-2, paired
---12/--tab5/--tab6), DNA (--no-spliced-alignment) and, on a linear index
-and unpaired, spliced RNA (the default) with its splice-site files, on
-linear, --ss and SNP graph indexes, full-SA, sampled-SA and sharded
-(genome-scale), on one host or several (--n-hosts: block-cyclic batch
-ownership, per-host SAM shards, rank 0's ordered merge; :123-138,
-:350-372, :404-411, :436-453).  Modes the port does not run yet are
-refused with the ROADMAP item that will bring them: spliced paired runs
-and paired runs on more than one shard.
+--12/--tab5/--tab6), DNA (--no-spliced-alignment) and spliced RNA (the
+default) with its splice-site files, on linear, --ss and SNP graph
+indexes, full-SA, sampled-SA and sharded (genome-scale), on one host or
+several (--n-hosts: block-cyclic batch ownership, per-host SAM shards,
+rank 0's ordered merge; :123-138, :350-372, :404-411, :436-453).  On an
+index of more than one shard, paired reads run in DNA mode on a linear
+index; the other paired runs there are refused up front, since the JAX
+package fails on them (pipeline.SHARDED_GRAPH_RESCUE,
+pipeline.SHARDED_SPLICED_PAIRS).
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ from . import hybrid as hybrid_mod
 from . import mapq as mapq_mod
 from . import rng as rng_mod
 from .paired import PairPolicy, best_pairs
-from .pipeline import PAIRED_SHARDS, TorchAligner
+from .pipeline import (SHARDED_GRAPH_RESCUE, SHARDED_SPLICED_PAIRS,
+                       TorchAligner)
 from .scoring import Scoring, SimpleFunc
 
 
@@ -72,14 +74,6 @@ def make_scoring(args) -> Scoring:
                    min_anchor_noncan=20 if dta else 14)
 
 
-def _refusal(args):
-    """The reason this port cannot run `args` yet, or None."""
-    if not args.no_spliced_alignment and args.m1 and args.m2:
-        return ("spliced alignment of paired reads (ROADMAP.md Queue 1 "
-                "item 11); pass --no-spliced-alignment")
-    return None
-
-
 def run_align(args) -> int:
     t0 = time.time()
     if getattr(args, "sra_acc", None):
@@ -104,11 +98,6 @@ def run_align(args) -> int:
         print("Warning: Match bonus always = 0 in --end-to-end mode; "
               "ignoring user setting", file=sys.stderr)
         args.ma = 0
-    why = _refusal(args)
-    if why is not None:
-        print(f"error: hisat2_tpu_torch does not run {why}",
-              file=sys.stderr)
-        return 1
     index_base = args.index
     if not os.path.exists(index_base + ".npz"):
         from ..index.ht2 import convert_ht2, is_ht2
@@ -297,14 +286,11 @@ def run_align(args) -> int:
             yield from zip(it1, it2)
 
     paired_mode = (args.m1 and args.m2) or (tab12 and tab_paired)
-    if paired_mode and aligner.spliced:
-        print("error: hisat2_tpu_torch does not run spliced alignment of "
-              "paired reads (ROADMAP.md Queue 1 item 11); pass "
-              "--no-spliced-alignment", file=sys.stderr)
-        return 1
-    if paired_mode and len(aligner.shards) > 1:
-        print(f"error: hisat2_tpu_torch does not run {PAIRED_SHARDS}",
-              file=sys.stderr)
+    if paired_mode and len(aligner.shards) > 1 and (
+            aligner.graph is not None or aligner.spliced):
+        why = (SHARDED_GRAPH_RESCUE if aligner.graph is not None
+               else SHARDED_SPLICED_PAIRS)
+        print(f"error: hisat2_tpu_torch does not run {why}", file=sys.stderr)
         return 1
     secondary = getattr(args, "secondary", False)
     k_rep = 10 ** 9 if getattr(args, "all_hits", False) else args.khits

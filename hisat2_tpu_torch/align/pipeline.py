@@ -1,8 +1,8 @@
 """The batched aligner on torch (counterpart of
-hisat2_tpu/align/pipeline.py TPUAligner: unpaired and paired DNA against
-linear and graph indexes, with mate rescue; unpaired spliced RNA against
-linear, --ss and SNP graph indexes; full-SA, sampled-SA and sharded
-genome-scale indexes, with one device per shard by shard_devices).
+hisat2_tpu/align/pipeline.py TPUAligner: unpaired and paired reads, DNA
+and spliced RNA, against linear, --ss and SNP graph indexes, with mate
+rescue; full-SA, sampled-SA and sharded genome-scale indexes, with one
+device per shard by shard_devices).
 
 Device half: `_align_device` is TPUAligner._align_device (:725-1446) and
 `_pack_out` the output packing of _align_device_packed (:536-600).  The
@@ -88,8 +88,23 @@ from .host import Alignment, BatchResult, HostPhase, SpillOverflow
 from .scoring import Scoring
 
 _I32 = torch.int32
-PAIRED_SHARDS = ("paired reads on an index of more than one shard "
-                 "(ROADMAP.md Queue 1 item 13)")
+# JAX's rescue_mates reads params["snv1"] on a graph index, which holds
+# the SNV planes only when the index has one shard (pipeline.py:412-416):
+# on a sharded graph index its first rescue job raises KeyError
+SHARDED_GRAPH_RESCUE = (
+    "paired reads on a graph index of more than one shard: the JAX "
+    "package's mate rescue fails there (KeyError: 'snv1' at "
+    "hisat2_tpu/align/pipeline.py:1484; its SNV planes are per shard and "
+    "reach the rescue only on one shard, :412-416)")
+# JAX's paired give-up replay reads h_rounds whenever a batch has lane
+# metadata; on several shards lane metadata is off (pipeline.py:333-336)
+# but a lite pass still returns its h_sat (:2280-2281)
+SHARDED_SPLICED_PAIRS = (
+    "spliced paired reads on an index of more than one shard: the JAX "
+    "package's paired give-up replay fails there (KeyError: 'h_rounds' "
+    "at hisat2_tpu/align/driver.py:540; lane metadata is off on several "
+    "shards, pipeline.py:333-336, and the lite pass's lanes carry only "
+    "h_sat, :2280-2281); pass --no-spliced-alignment")
 _DT_NAME = {torch.int32: "int32", torch.bool: "bool",
             torch.float32: "float32"}
 
@@ -896,8 +911,6 @@ class TorchAligner(HostPhase):
         the full pass with the grown table (readid-gated on the device).
         paired: the batch is a fused pair batch (mate 1 reads, then mate 2
         reads), whose host phase skips the unpaired interleave replay."""
-        if paired and len(self.shards) > 1:
-            raise NotImplementedError(PAIRED_SHARDS)
         if handle[0] == "2pass":
             return self._finish_two_pass(
                 self._advance_two_pass(handle, paired), paired)
@@ -1120,10 +1133,18 @@ class TorchAligner(HostPhase):
         strand is reverse-complement.  Returns list[list[Alignment]] with
         read_idx = job index.  The device work is ops/rescue.py:
         rescue_candidates on chunks of at most 128 jobs, padded to a power
-        of two as in the JAX package."""
+        of two as in the JAX package.
+
+        On a sharded index, as in the JAX package (:1472-1480): the
+        windows start at global joined positions and are read from shard
+        0's words (self.dev) up to the global n, so a window on shard 1
+        or later reads past those words (ops/rank.py:clamp_words).  A
+        sharded graph index is refused: JAX fails there."""
         R, L = codes.shape
         if R == 0:
             return []
+        if self.graph is not None and len(self.shards) > 1:
+            raise NotImplementedError(SHARDED_GRAPH_RESCUE)
         WIN_IVAL, WIN_LEN = 56320, 57344
         CHUNK = 128
         Rp = min(CHUNK, 1 << (max(R - 1, 1)).bit_length())

@@ -6,6 +6,12 @@
 // 4 outside [0, n_text).  Plain twin:
 // hisat2_tpu_torch/ops/splice.py:diag_chars_multi_plain.
 //
+// A position past a plane's words but inside the text (a sharded index's
+// mate rescue reads shard 0's words at global positions) reads the word
+// that JAX's gather reads there: the last row of `row` words, at the
+// word's place in its row (ops/rank.py:clamp_words; `row` is the row
+// width of the lowering JAX takes for the plane, ops/rank.py:clamp_row).
+//
 // One launch writes the windows of up to two start sets (the core
 // candidates with their margin, the extra slots with none) on up to
 // three packed planes (the reference and, on a graph index, the two SNV
@@ -44,22 +50,33 @@ struct RwSet {
 
 struct RwArgs {
   const uint32_t* plane[3];
-  long long lim[3];  // min(n_text, 16 * n_words): chars past it read 4
+  long long lim[3];  // n_text (0 on a plane of no words): chars past it read 4
   int n_words[3];
+  int row[3];        // the clamp's row width, a power of two dividing n_words
   int n_planes;
   RwSet set[2];
   long long blocks0;  // blocks of set 0
 };
 
+// the word read for word index wi >= 0 of a plane of n_words > 0 words:
+// wi itself below n_words, else word wi % row of the last row
+__device__ __forceinline__ long long rw_word(long long wi, int n_words,
+                                             int row) {
+  return wi < n_words ? wi : (long long)n_words - row + (wi & (row - 1));
+}
+
 // the 4 chars of a plane from position pos0 on, into v[0..3]
 __device__ __forceinline__ void rw_chars4(const uint32_t* __restrict__ w,
-                                          int n_words, long long lim,
+                                          int n_words, int row, long long lim,
                                           long long pos0, int v[4]) {
   const long long wi = pos0 >> 4;         // floor, also below 0
   const int sh = (int)(pos0 & 15);
-  const uint32_t lo = (wi >= 0 && wi < n_words) ? __ldg(w + wi) : 0u;
-  const uint32_t hi =
-      (sh > 12 && wi + 1 >= 0 && wi + 1 < n_words) ? __ldg(w + wi + 1) : 0u;
+  const bool any = n_words > 0;
+  const uint32_t lo =
+      (wi >= 0 && any) ? __ldg(w + rw_word(wi, n_words, row)) : 0u;
+  const uint32_t hi = (sh > 12 && wi + 1 >= 0 && any)
+                          ? __ldg(w + rw_word(wi + 1, n_words, row))
+                          : 0u;
   const uint32_t bits = __funnelshift_r(lo, hi, 2 * sh);
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
@@ -69,9 +86,12 @@ __device__ __forceinline__ void rw_chars4(const uint32_t* __restrict__ w,
 }
 
 __device__ __forceinline__ int rw_char(const uint32_t* __restrict__ w,
-                                       long long lim, long long pos) {
+                                       int n_words, int row, long long lim,
+                                       long long pos) {
   if (pos < 0 || pos >= lim) return 4;
-  return (int)((__ldg(w + (pos >> 4)) >> (2 * (pos & 15))) & 3u);
+  return (int)((__ldg(w + rw_word(pos >> 4, n_words, row)) >>
+                (2 * (pos & 15))) &
+               3u);
 }
 
 // block `blk` of one start set (its fields read out of the argument
@@ -104,7 +124,8 @@ __device__ __forceinline__ void rw_set(const RwArgs& A, const int* starts,
       for (int p = 0; p < 3; ++p) {
         if (p < P) {
           int v[4];
-          rw_chars4(A.plane[p], A.n_words[p], A.lim[p], pos0, v);
+          rw_chars4(A.plane[p], A.n_words[p], A.row[p], A.lim[p], pos0,
+                    v);
           *reinterpret_cast<int4*>(out[p] + f) =
               make_int4(v[0], v[1], v[2], v[3]);
         }
@@ -117,7 +138,9 @@ __device__ __forceinline__ void rw_set(const RwArgs& A, const int* starts,
         const long long pos = (long long)__ldg(starts + r) - margin + c;
 #pragma unroll
         for (int p = 0; p < 3; ++p)
-          if (p < P) out[p][f + q] = rw_char(A.plane[p], A.lim[p], pos);
+          if (p < P)
+            out[p][f + q] =
+                rw_char(A.plane[p], A.n_words[p], A.row[p], A.lim[p], pos);
       }
     }
     // the thread's next group: 128 chars on
@@ -157,8 +180,9 @@ __global__ void __launch_bounds__(RW_THREADS)
 }
 
 // h2_ref_window's one argument (ops/splice.py:_RwCall lays it out field
-// for field, 8 bytes each, so that a call converts one pointer, not 23
-// scalars): planes 0..n_planes-1 with their word counts, then start sets
+// for field, 8 bytes each, so that a call converts one pointer, not 26
+// scalars): planes 0..n_planes-1 with their word counts and clamp rows
+// (a power of two dividing the word count), then start sets
 // 0..n_sets-1, each its starts, count, window width W and margin and its
 // windows out[p] on plane p, int32 [count, W], each 16-byte aligned.
 struct RwCallSet {
@@ -170,6 +194,7 @@ struct RwCallSet {
 struct RwCall {
   const void* plane[3];
   long long n_words[3];
+  long long row[3];
   long long n_planes, n_text, n_sets;
   RwCallSet set[2];
 };
@@ -181,10 +206,14 @@ H2_EXPORT int h2_ref_window(const RwCall* call, void* stream) {
   RwArgs A;
   for (int p = 0; p < 3; ++p) {
     const long long nw = p < P ? a.n_words[p] : 0;
-    if (nw < 0 || nw >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+    const long long row = p < P ? a.row[p] : 1;
+    if (nw < 0 || nw >= (1LL << 31) || row < 1 || row > 128 ||
+        (row & (row - 1)) != 0 || nw % row != 0)
+      return (int)cudaErrorInvalidValue;
     A.plane[p] = (const uint32_t*)a.plane[p];
     A.n_words[p] = (int)nw;
-    A.lim[p] = a.n_text < 16 * nw ? a.n_text : 16 * nw;
+    A.row[p] = (int)row;
+    A.lim[p] = nw > 0 ? a.n_text : 0;
   }
   A.n_planes = P;
   long long blocks[2];

@@ -163,7 +163,10 @@ __device__ __forceinline__ void rw_mma(int (&c)[4], const uint32_t (&a)[4],
 }
 
 // Stage a warp's window chars [base, base + RW_WIN) as swizzled one-hot
-// words (0 outside the text or past the words), groups lane and lane + 32
+// words (0 outside the text; a position past the words but inside the
+// text reads the last word, as the clamped gather of JAX's ref_char
+// does: a sharded index's rescue reads shard 0's words at global
+// positions), groups lane and lane + 32
 // of 16 chars: the loads first (rw_load), the stores later (rw_store), so
 // that the loads overlap what the warp does between.
 struct RwGroups {
@@ -187,9 +190,9 @@ __device__ __forceinline__ RwGroups rw_load(const uint32_t* __restrict__ ref_wor
     } else {
       for (int j = 0; j < 16; ++j) {
         const long long p = q + j;
-        if (p >= 0 && p < n_text && (p >> 4) < n_words) {
-          w |= ((__ldg(ref_words + (p >> 4)) >> (2 * (p & 15))) & 3u)
-               << (2 * j);
+        if (p >= 0 && p < n_text && n_words > 0) {
+          const long long pw = min(p >> 4, (long long)n_words - 1);
+          w |= ((__ldg(ref_words + pw) >> (2 * (p & 15))) & 3u) << (2 * j);
           vm |= 1u << j;
         }
       }

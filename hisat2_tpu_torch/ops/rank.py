@@ -68,13 +68,44 @@ def gather_rows(blocked, i):
     return as_u32(blocked[i >> 7])
 
 
-def ref_chars_block(ref_words, n_text: int, start, L: int):
+# JAX's ref_chars_block (rank.py:123-129) picks its gather lowering by the
+# word count: 128-word rows above this many words (on a 128-padded
+# array), 8-word rows below it.  Module constant so tests can force the
+# 128-word rows on small fixtures, as JAX's tests do with its own.
+ROW8_MAX_WORDS = 8 << 20
+
+
+def clamp_row(nw: int) -> int:
+    """The row width, in words, of JAX's ref_chars_block lowering for a
+    plane of nw words (rank.py:151, :174, :202): 128 on a 128-padded
+    plane above ROW8_MAX_WORDS, 8 on an 8-padded one, else 1.  It only
+    shows where a position lies past the words but inside the text (a
+    sharded index's rescue reads shard 0's words at global positions):
+    there the gather clamps the ROW to the last one and keeps the word's
+    place in its row."""
+    if nw % 128 == 0 and nw > ROW8_MAX_WORDS:
+        return 128
+    return 8 if nw % 8 == 0 else 1
+
+
+def clamp_words(gw, nw: int, row: int):
+    """The word that JAX's gather reads for word index gw >= 0 of a plane
+    of nw words whose rows are `row` words: gw itself below nw, else word
+    gw % row of the last row (row 1: the last word, as ref_char's clamped
+    gather reads it, rank.py:115-119)."""
+    return (gw // row).clamp(max=nw // row - 1) * row + gw % row
+
+
+def ref_chars_block(ref_words, n_text: int, start, L: int, row=None):
     """Chars ref[start + t] for t in [0, L): int32 [..., L], 4 where the
-    position leaves the text (the semantics of rank.py:132; its three TPU
-    lowerings are not ported).  ref_words: int32 u32 bits; start: [...]."""
+    position leaves the text (rank.py:132; its three TPU lowerings are
+    not ported, only what they read: `clamp_words` with the row width of
+    the lowering JAX takes for these words, or `row` words, 1 for
+    ref_char's clamp).  ref_words: int32 u32 bits; start: [...]."""
     t = torch.arange(L, device=start.device)
     pos = start.to(torch.int64)[..., None] + t
     nw = ref_words.shape[0]
-    w = as_u32(ref_words[(pos >> 4).clamp(0, nw - 1)])
+    row = clamp_row(nw) if row is None else row
+    w = as_u32(ref_words[clamp_words((pos >> 4).clamp(min=0), nw, row)])
     ch = (w >> (2 * (pos & 15))) & 3
     return torch.where((pos < 0) | (pos >= n_text), 4, ch).to(torch.int32)

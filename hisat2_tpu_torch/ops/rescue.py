@@ -40,7 +40,10 @@ def rescue_window_plain(ref_words, n_text: int, reads, win_start, W: int):
     int32 [R, TOP] joined starts, best first.  reads: int32 [R, L] in the
     expected orientation (code 4 matches nothing); win_start: int32 [R]."""
     R, L = reads.shape
-    refc = rk.ref_chars_block(ref_words, n_text, win_start, W + L - 1)
+    # ref_char's gather clamps a word index past the words to the last
+    # word (rescue.py:42-45), not to a row as ref_chars_block does
+    refc = rk.ref_chars_block(ref_words, n_text, win_start, W + L - 1,
+                              row=1)
     cnt = torch.zeros((R, W), dtype=torch.int32, device=reads.device)
     for t in range(L):
         rt = reads[:, t:t + 1]

@@ -148,11 +148,13 @@ def diag_chars_multi_plain(planes, n_text: int, starts, margins, L: int):
 
 class _RwCall(ctypes.Structure):
     """Kernel 2's one argument, field for field csrc/ref_window.cu's
-    RwCall (8 bytes each): the planes and their word counts, the counts
+    RwCall (8 bytes each): the planes, their word counts and their clamp
+    rows (ops/rank.py:clamp_row), the counts
     of planes, text chars and start sets, then each set's starts, count,
     window width and margin and its windows on planes 0-2."""
     _fields_ = ([(f"plane{p}", ctypes.c_void_p) for p in range(3)]
                 + [(f"n_words{p}", ctypes.c_longlong) for p in range(3)]
+                + [(f"row{p}", ctypes.c_longlong) for p in range(3)]
                 + [(k, ctypes.c_longlong) for k in ("n_planes", "n_text",
                                                     "n_sets")]
                 + [(f"{k}{s}", t) for s in range(2) for k, t in (
@@ -175,10 +177,11 @@ def diag_chars_multi(planes, n_text: int, starts, margins, L: int):
     if not (1 <= P <= 3 and 1 <= S <= 2 and len(margins) == S):
         raise ValueError("diag_chars_multi: 1-3 planes and 1-2 start sets")
     # _RwCall's fields in order; a second set left out stays zero
-    vals = [None, None, None, 0, 0, 0, P, n_text, S]
+    vals = [None, None, None, 0, 0, 0, 1, 1, 1, P, n_text, S]
     for p, w in enumerate(planes):
         kernels.check_cuda("planes", w, i32)
         vals[p], vals[3 + p] = w.data_ptr(), w.shape[0]
+        vals[6 + p] = rk.clamp_row(w.shape[0])
     outs = []
     for st, m in zip(starts, margins):
         kernels.check_cuda("starts", st, i32)

@@ -17,7 +17,12 @@ random lanes with every, no or a tenth of its slots live (its work list
 filled mid-tile at five slots a candidate); K20 at 0.1-30% live over 0 to
 2,000,003 rows; K12 at R in {1, 3, 37, 128} x W in {8, 33, 57,344} x L
 from 1 to 2000 (padding tails, ties), K18 at m real in {0, 1, 300, 512}
-and cap 64 and 65,536, and both replayed in one CUDA graph.
+and cap 64 and 65,536, and both replayed in one CUDA graph; K5 and K12
+on windows across and wholly past 16 * n_words with a larger n_text (a
+sharded index's mate rescue reads shard 0's words at global positions),
+on each of the row clamps of JAX's lowerings, and K13+K14, K15, K16 and
+K17 on the two spliced steps of a fused 8,192-mate pair batch (16,384
+lanes).
 Needs a CUDA device; skips without one.  On a machine without JAX run it as
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
@@ -645,6 +650,37 @@ def test_spliced_kernels_match_plain_on_card(scard):
             assert len(ko) == len(po)
             for x, y in zip(ko, po):
                 _cmp(x, y, name)
+
+
+def test_spliced_kernels_at_16384_lanes_on_card(scard):
+    """K13+K14, K15, K16 (lite and full) and K17 on both spliced steps of
+    a fused pair batch of 8,192 mates (16,384 lanes, the width a spliced
+    paired run gives them), against their plain twins."""
+    from hisat2_tpu_torch.ops import kernel_twins
+    twins = kernel_twins()
+    al, _, _, batch = scard
+    codes, quals, lens = batch(8192)
+    rdids = np.tile(2 * 10 ** 6 + np.arange(4096, dtype=np.int64), 2)
+    for a in (al._fast, al):
+        rd, ss = a._step_site_args(rdids)
+        cap = {}
+        a.step(*a.upload(codes, quals, lens, a._minsc(lens)), True,
+               capture=cap, rdids=rd, ss=ss)
+        want = ["inject_known"] + ([] if a.lite else [
+            "pair_sweep", "second_sweep", "search_lanes_live"])
+        assert set(want) <= set(cap)
+        assert cap["inject_known"]["reads"].shape[0] == 16_384
+        for name in want:
+            kern, plain = twins[name]
+            ko = _flat_list(kern(**cap[name]))
+            po = _flat_list(plain(**cap[name]))
+            torch.cuda.synchronize()
+            assert len(ko) == len(po)
+            for x, y in zip(ko, po):
+                _cmp(x, y, f"{name} at 16,384 lanes")
+            del ko, po
+        del cap
+        torch.cuda.empty_cache()
 
 
 def test_spliced_step_on_card_matches_cpu(scard):
@@ -2189,6 +2225,100 @@ def test_ref_window_past_2_31_chars_on_card(card):
             f"ref_window rows {i}-{i + 511}")
     del out
     torch.cuda.empty_cache()
+
+
+def _random_words(rng, nw):
+    return torch.from_numpy(rng.integers(0, 2 ** 32, nw, dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32)).cuda()
+
+
+@pytest.mark.parametrize("row", [8, 128, 1])
+def test_ref_window_past_the_words_on_card(card, monkeypatch, row):
+    """K5 on three planes of n_words words and n_text = 16 * n_words +
+    200,000: windows that cross 16 * n_words, lie wholly past it, and
+    reach n_text, read the word JAX's gather reads there (the last row of
+    8 or 128 words, or the last word on an unpadded plane) as its twin
+    does; below 16 * n_words nothing changes."""
+    from hisat2_tpu_torch.ops import rank, splice
+    nw = 6_253 if row == 1 else 6_272
+    if row == 128:
+        monkeypatch.setattr(rank, "ROW8_MAX_WORDS", 4_096)
+    assert rank.clamp_row(nw) == row
+    rng = np.random.default_rng(row)
+    planes = [_random_words(rng, nw) for _ in range(3)]
+    end, L, N = 16 * nw, 101, 512
+    n = end + 200_000
+    st = rng.integers(0, end - 500, (N, 6))
+    st[:, 1] = end - rng.integers(1, 140, N)        # across the words' end
+    st[:, 2] = end + rng.integers(0, 190_000, N)    # wholly past it
+    st[:, 3] = n - rng.integers(-20, 140, N)        # at the text's end
+    st[:, 4] = end + rng.integers(-3, 3, N)
+    core = torch.from_numpy(st.astype(np.int32)).cuda()
+    extra = torch.from_numpy(st[:, 1:4].astype(np.int32).copy()).cuda()
+    for ps, sets, margins in ((planes, [core, extra], [16, 0]),
+                              (planes[:1], [core], [0])):
+        got = splice.diag_chars_multi(ps, n, sets, margins, L)
+        torch.cuda.synchronize()
+        for s, m, out in zip(sets, margins, got):
+            for w, o in zip(ps, out):
+                p = splice.diag_chars_plain(w, n, s, L, m)
+                _eq(o, p, f"ref_window past the words, row {row}, W "
+                    f"{L + 2 * m}")
+                pos = s.long()[..., None] - m + torch.arange(
+                    L + 2 * m, device="cuda")
+                assert ((p < 4) == ((pos >= 0) & (pos < n))).all()
+
+
+@pytest.mark.parametrize("L", [100, 150])
+def test_rescue_window_past_the_words_on_card(card, L):
+    """K12 on windows across and wholly past 16 * n_words with n_text
+    larger (the clamp of JAX's ref_char: the last word), against its
+    twin, at W 33 and 57,344; mates copied from the text below the words
+    and from what the clamps read past them; then the whole
+    rescue_candidates (K12, K5 with its row clamp, K6+K7) on the card
+    against the CPU."""
+    from hisat2_tpu_torch.align.scoring import Scoring
+    from hisat2_tpu_torch.index.format import score_tables
+    from hisat2_tpu_torch.ops import rank, rescue
+    rng = np.random.default_rng(L)
+    nw = 6_272
+    words = _random_words(rng, nw)
+    end = 16 * nw
+    n = end + 300_000
+    virt = {r: rank.ref_chars_block(words.cpu(), n, torch.tensor([0]), n,
+                                    row=r)[0].numpy() for r in (1, 8)}
+    R = 37
+    ws = np.concatenate([end - rng.integers(100, 60_000, 12),
+                         end + rng.integers(0, 240_000, 20),
+                         [end - 57_344, end, n - 1_000, n - 57_000, -5]])
+    reads = np.full((R, L), 4, np.int32)
+    for i in range(R):
+        v = virt[(1, 8)[i % 2]]
+        s = int(np.clip(ws[i] + rng.integers(0, 2_000), 0, n - L))
+        reads[i] = np.minimum(v[s:s + L], 3)
+        if i % 3 == 2:
+            reads[i, rng.integers(0, L, 4)] = rng.integers(0, 4, 4)
+    reads[-3:] = 4                                  # padding jobs
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa
+    rd, wst = t(reads), t(ws.astype(np.int32))
+    for W in (33, 57_344):
+        k = rescue.rescue_window(words, n, rd, wst, W)
+        p = rescue.rescue_window_plain(words, n, rd, wst, W)
+        _eq(k, p, f"rescue_window past the words L={L} W={W}")
+    sc = Scoring()
+    quals = t(rng.integers(5, 41, (R, L)).astype(np.int32))
+    lens = t(np.full(R, L, np.int32))
+    outs = []
+    for dev in ("cuda", "cpu"):
+        tab = score_tables(sc, dev)
+        outs.append(rescue.rescue_candidates(
+            words.to(dev), n, rd.to(dev), quals.to(dev), lens.to(dev),
+            wst.to(dev), 57_344, tab["mm_pen"], tab["clip_pen"], sc.n_pen))
+    (ks, ke), (ps, pe) = outs
+    _eq(ks, ps, "rescue_candidates starts past the words")
+    for f in ke._fields:
+        _eq(getattr(ke, f), getattr(pe, f), f"rescue_candidates {f}")
+    assert int((ps >= end).sum()) > 100
 
 
 # --- K12 and K18 at every shape the redesign must take ------------------------

@@ -244,9 +244,9 @@ def test_dna_replay_never_reaches_probscore(aligners, monkeypatch):
 @pytest.mark.parametrize("extra,why", [
     # paired reads run, on a linear and on a graph index (why None)
     (["-1", "M1", "-2", "M2", "--no-spliced-alignment"], None),
-    # spliced runs: unpaired ones run (tests/test_torch_spliced_cli.py);
-    # spliced paired reads are refused
-    (["-1", "M1", "-2", "M2"], "item 11"),
+    # spliced runs, unpaired (tests/test_torch_spliced_cli.py) and paired
+    # (the default for -1/-2; tests/test_torch_paired_spliced.py)
+    (["-1", "M1", "-2", "M2"], None),
     # multi-host runs (tests/test_torch_multihost.py runs both ranks):
     # rank 1 of 2 aligns the batches it owns into its SAM shard
     (["-U", "M1", "--no-spliced-alignment", "--n-hosts", "2", "--host-rank",

@@ -18,10 +18,15 @@ two-shard ShardedFMIndex, the torch aligner against hisat2_tpu on the CPU.
   lite and full steps;
 - _merge_shards on fetched per-shard outputs with shard bases [0,
   2^31 + 4096]: int64 global positions, u_event rows mapped per shard;
-- a paired run on two shards is refused.
+- a paired run on two shards: collect(paired=True) on a fused pair
+  batch, and rescue_mates with windows on both shards (those on shard 1
+  read past shard 0's words, as JAX's do); on the graph index JAX's
+  rescue raises and the port's refuses.
 
 Tolerance: exact (integer results).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -220,10 +225,32 @@ def test_two_shard_align_batch_matches_jax(two_shards):
 
 
 def test_two_shard_paired_refused(two_shards):
-    ta = two_shards["ta"]
-    codes, quals, lens = _reads(two_shards["g"], 8, 80, 5)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        ta.collect(ta.dispatch(codes, quals, lens), paired=True)
+    """Paired reads on two shards run as in JAX: a fused pair batch's
+    collect(paired=True), and mate rescue with global window starts read
+    from shard 0's words up to the global n (JAX pipeline.py:1472-1480),
+    anchors on both shards and at their border."""
+    ja, ta, g = two_shards["ja"], two_shards["ta"], two_shards["g"]
+    codes, quals, lens = _reads(g, 16, 80, 5, spots=(10500, 80500))
+    _results_match(ja.collect(ja.dispatch(codes, quals, lens), paired=True),
+                   ta.collect(ta.dispatch(codes, quals, lens), paired=True))
+    rng = np.random.default_rng(6)
+    R, L = 10, 80
+    at = np.array([3000, 20000, 59000, 59990, 60010, 61000, 80500, 100000,
+                   119000, 10500])
+    anchors = at + rng.integers(-300, 300, R)
+    rcf = np.arange(R) % 3 == 1
+    cs = np.zeros((R, L), np.uint8)
+    for i, a in enumerate(at):
+        s = int(min(max(a + 150, 0), len(g) - L))
+        m = g[s:s + L].copy()
+        cs[i] = np.where(m < 4, 3 - m, 4)[::-1] if rcf[i] else m
+    qs = rng.integers(10, 41, (R, L)).astype(np.uint8)
+    ls = np.full(R, L, np.int32)
+    jr = ja.rescue_mates(cs, qs, ls, anchors, rcf, 500)
+    tr = ta.rescue_mates(cs, qs, ls, anchors, rcf, 500)
+    assert [[dataclasses.asdict(a) for a in x] for x in tr] == \
+        [[dataclasses.asdict(a) for a in x] for x in jr]
+    assert sum(bool(x) for x in tr[:3]) == 3        # shard 0's windows
 
 
 # -- two shards, graph --------------------------------------------------------
@@ -301,6 +328,20 @@ def test_graph_two_shard_align_batch_matches_jax(graph_shards):
     refs = np.asarray(cols[2])
     for ref in (0, 1):                 # known-indel alignments per shard
         assert ((jsnp >= 0) & (refs == ref)).any()
+
+
+def test_graph_two_shard_rescue_refused(graph_shards):
+    """Mate rescue on a sharded graph index: JAX's raises KeyError, its
+    SNV planes living per shard (pipeline.py:394-416); the port's refuses
+    with that fault, and never scores on shard 0's planes."""
+    ja, ta = graph_shards["ja"], graph_shards["ta"]
+    job = (graph_shards["codes"][:2], graph_shards["quals"][:2],
+           graph_shards["lens"][:2], np.array([500, 40000]),
+           np.array([False, True]), 500)
+    with pytest.raises(KeyError, match="snv1"):
+        ja.rescue_mates(*job)
+    with pytest.raises(NotImplementedError, match="KeyError: 'snv1'"):
+        ta.rescue_mates(*job)
 
 
 @pytest.mark.parametrize("lite", (True, False))

@@ -1,6 +1,6 @@
 """The port's spliced mode end to end on the CPU: the CLI (the default,
 spliced, mode) on the committed nss and mj3x corpora against their
-oracles, the splice-site files, the refusals of out-of-slice modes, and
+oracles, unpaired and paired, the splice-site files, and
 tests/test_spliced.py's cases re-run on the port (their expectations were
 verified against hisat2-align-s on the same fixtures).  The port alone:
 its output must equal the oracle byte for byte."""
@@ -98,10 +98,14 @@ def test_cli_three_junction_reads(tmp_path_factory):
 
 
 def test_cli_refuses_spliced_paired(nss_idx):
-    r = _run(["align", "-f", "-x", "idx", "-1", f"{DATA}/nss_reads.fa",
-              "-2", f"{DATA}/nss_reads.fa", "-S", "pe.sam", "--device",
-              "cpu"], str(nss_idx), ok=False)
-    assert r.returncode != 0 and "Queue 1 item 11" in r.stderr
+    """Spliced paired reads (the default for -1/-2), every read its own
+    mate: the SAM body equals the JAX CLI's (tests/data/make_pes.py)."""
+    _run(["align", "-f", "-x", "idx", "-1", f"{DATA}/nss_reads.fa",
+          "-2", f"{DATA}/nss_reads.fa", "-S", "pe.sam", "--device",
+          "cpu"], str(nss_idx))
+    got = _body(os.path.join(str(nss_idx), "pe.sam"))
+    assert got == _body(f"{DATA}/pes_ref_nss.sam.gz", gzip.open)
+    assert sum("N" in x.split("\t")[5] for x in got) >= 30
 
 
 _INTRONS = [(30000, 200), (60000, 1000), (90000, 5000), (120000, 80),
