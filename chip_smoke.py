@@ -87,8 +87,10 @@ checks them:
             K8 and K17 on a whole 4096-read full step (8192 lanes) and
             K18 on the slice's first merge against their plain twins, the
             lite and full step on the batch's first 1024 reads against
-            the CPU step (phase 14 holds a fused 16,384-lane spliced step
-            against the CPU), and the CLI on the nss round trip and mj3x
+            the CPU step (phase 14 holds every kernel of a fused
+            16,384-lane spliced step against its twin, and the step of
+            its first 1024 pairs against the CPU), and the CLI on the nss
+            round trip and mj3x
             against their oracles
  11 genome  genome scale, the shape of config 6 (BENCH_EXTRA.md:84-112)
             cut to two seeded 140 Mbp chromosomes: build_fm_index with a
@@ -170,9 +172,12 @@ checks them:
             (>= 0.95 among pairs without a repeat or random mate),
             canonical junction mates with both anchors >= 20 bp at their
             true position with the planted N (>= 95%), rescued mates (>
-            0), launches of K12 and K13-K18 (> 0); then the first batch's
-            fused lite and full step against the CPU step, with K13+K14,
-            K15, K16 and K17 on its arguments against their twins; (b)
+            0), launches of K12 and K13-K18 (> 0); then the fused lite
+            and full step of the first batch's first 1024 pairs against
+            the CPU step, and every kernel of the whole fused batch's
+            lite and full steps (16,384 lanes) on their arguments against
+            its twin;
+            (b)
             phase 11's two-shard index, the linear aligner, DNA mode (the
             JAX package fails on spliced paired runs over several shards,
             and the port refuses them): 2 batches of 4096 pairs over both
@@ -184,6 +189,39 @@ checks them:
             and a --snp --ss index, DNA on two shards), the nss and shard
             corpora paired, and the sharded graph and sharded spliced runs
             refused with the JAX fault named
+ 15 genotype the genotype callers, typing through TorchAligner on the card
+            (hisat2_tpu_torch/genotype/driver.py, each run with the launch
+            counts set to 0 just before): (a) `--alleles` at HLA-A scale,
+            400 alleles of a 3,000 bp locus (2-12 SNVs each), one batch
+            of 4,096 reads of 150 bp, 2:1 from two alleles, through
+            run_genotype (k = 16, max_seeds = 10**6: msize 64, hits
+            hundreds of rows wide): the planted pair ranked on top, a
+            call, K1, K4 and K9 launched; the driver's aligner's step on
+            the batch, every kernel (K4 and K9 among them) against its
+            plain twin on its arguments; the report on the first 512
+            reads equal on --device cuda and cpu; (b) `--msa --assembly`
+            on an STR locus, 1,000 alleles on a 3,464 bp backbone (SNVs
+            and [TCTA]n[TCTG]m repeat lengths, the indels K10+K11 inject
+            as catalog events), 4,096 reads: the planted pair on top,
+            K10+K11 launched, both assembled haplotypes equal the planted
+            alleles a read length away from the locus ends and the
+            repeat block; the driver's graph aligner's lite and full
+            steps on the first batch, every kernel (K10+K11 among them,
+            with live injected events) against its plain twin; the report
+            and the assembly on the first 512 reads equal on --device
+            cuda and cpu; (c) `--run` on phase 8's saved 40 Mbp graph
+            index (its cache base, no new build): three 1,200 bp locus
+            windows with MSAs of 50 alleles mutated from them, 2 batches
+            of 4,096 reads, 5% from the loci as 2:1 mixes and the rest
+            phase 8's mix: each locus ranks its planted pair on top; the
+            genome pass's aligner (k = 10, lane_meta) and the last
+            locus's, the lite and full steps of each on a batch (the
+            first batch; the locus's planted reads), every kernel against
+            its plain twin; each part's reads/s and host seconds; (d) the CLI on the card:
+            `genotype --device cuda` on the committed geno corpus
+            (tests/data/make_geno.py) byte-equal to its four JAX oracles,
+            and `align -A` on a two-line arg file (--device cuda, mm3)
+            whose SAM bodies equal mm3_ref_k10 and mm3_ref_sec
 
 Each kernel's bound (the kernels line's bound_ms) is the larger of the
 bytes it must move over 3.35 TB/s and its operations over the peak rate
@@ -269,6 +307,16 @@ PS_BATCHES, PG_BATCHES = 4, 2
 # canonical introns, each later batch PS_NEW more (the site tables stay
 # inside one capacity, 256 rows, so they grow by K18's merges)
 PS_INTRONS, PS_NEW = 200, 10
+# phase 15 (a): `genotype --alleles` at HLA-A scale (k = 16, max_seeds =
+# 10**6 in the driver), the two planted alleles and the reads held against
+# the CPU's report
+GA_ALLELES, GA_BP, GA_RL, GA_PICKS, GA_CMP_B = 400, 3000, 150, (37, 311), 512
+# (b): `genotype --msa --assembly` on an STR locus of 1,000 alleles
+GB_ALLELES, GB_FLANK, GB_PICKS = 1000, 1700, (123, 789)
+# (c): `genotype --run` on phase 8's saved graph index: three locus
+# windows of the genome, 50 alleles each, 2 batches with 5% locus reads
+GC_LOCI, GC_BP, GC_ALLELES = (12_000_000, 24_000_000, 33_000_000), 1200, 50
+GC_BATCHES, GC_SHARE = 2, 0.05
 
 
 def check(cond, msg):
@@ -1509,8 +1557,8 @@ def spliced_phase(torch, np, g, index, kernels, twins, driver,
         rows[name].setdefault("library_ms", None)
 
     # the lite and full step on the card against the CPU step, on the
-    # batch's first 1024 reads (phase 14 holds a whole fused 16,384-lane
-    # spliced step against the CPU)
+    # batch's first 1024 reads (phase 14 holds every kernel of a fused
+    # 16,384-lane spliced step against its twin)
     cpu = TorchAligner(index, device="cpu", spliced=True, lane_meta=True)
     cdb = cpu.splice_db
     for k in ("sites", "_col_jl", "_col_jr", "_col_rdid"):
@@ -2784,6 +2832,14 @@ def capture_rescue(rescue):
     return calls, restore
 
 
+def kernel_row(kernels, rows, name):
+    """The kernels line's row of kernel `name`, made on first use."""
+    k = kernels.KERNELS[name]
+    return rows.setdefault(name, {
+        "name": name, "route": "cuda", "source": k.source,
+        "replaces": k.replaces, "max_abs_err": 0.0})
+
+
 def pairs_phase(torch, np, g, index, spots, introns, kernels, twins, driver,
                 TorchAligner, rows, path_launches, card, env):
     """Phase 14 (see the module docstring): paired reads on every index
@@ -2793,12 +2849,6 @@ def pairs_phase(torch, np, g, index, spots, introns, kernels, twins, driver,
     from hisat2_tpu_torch.io.fasta import ReadBatch
     from hisat2_tpu_torch.ops import rank, rescue, splice
     t_ph = time.perf_counter()
-
-    def row_of(name):
-        k = kernels.KERNELS[name]
-        return rows.setdefault(name, {
-            "name": name, "route": "cuda", "source": k.source,
-            "replaces": k.replaces, "max_abs_err": 0.0})
 
     # (a) spliced paired reads (the CLI's default for -1/-2) on phase 3's
     # index with phase 10's introns, driver defaults (k = 5, a spliced
@@ -2861,14 +2911,17 @@ def pairs_phase(torch, np, g, index, spots, introns, kernels, twins, driver,
               f"paired path")
     path_launches["pairs_spliced"] = launches
 
-    # the first batch's fused lite and full step against the CPU step,
-    # and K13-K17 on its arguments against their twins
+    # the fused lite and full step of the first batch's first P_CMP_B
+    # pairs against the CPU step (the whole batch's full step took ~100 s
+    # on the CPU), and every kernel of the whole fused batch's steps on
+    # their arguments against its twin
     b1, b2 = pb[0][:2]
     codes = np.concatenate([b1.codes, b2.codes])
     quals = np.concatenate([b1.quals, b2.quals])
     lens = np.concatenate([b1.lens, b2.lens])
     minsc = sal._minsc(lens)
     rdids = np.tile(10 ** 8 + np.arange(B, dtype=np.int64), 2)
+    sub = np.r_[0:P_CMP_B, B:B + P_CMP_B]
     cpu = TorchAligner(index, device="cpu", spliced=True, lane_meta=True)
     for k in ("sites", "_col_jl", "_col_jr", "_col_rdid"):
         setattr(cpu.splice_db, k, getattr(sal.splice_db, k))
@@ -2877,35 +2930,38 @@ def pairs_phase(torch, np, g, index, spots, introns, kernels, twins, driver,
         c = getattr(cpu, tier) if tier else cpu
         nm = "lite" if tier else "full"
         rd_a, ss_a = a._step_site_args(rdids)
-        rd_c, ss_c = c._step_site_args(rdids)
         cap = {}
+        a.step(*a.upload(codes, quals, lens, minsc), True, rdids=rd_a,
+               ss=ss_a, capture=cap)
+        rd_a, ss_a = a._step_site_args(rdids[sub])
+        rd_c, ss_c = c._step_site_args(rdids[sub])
         t0 = time.perf_counter()
-        bk = a.step(*a.upload(codes, quals, lens, minsc), True, rdids=rd_a,
-                    ss=ss_a, capture=cap)
+        bk = a.step(*a.upload(codes[sub], quals[sub], lens[sub],
+                              minsc[sub]), True, rdids=rd_a, ss=ss_a)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        bp = c.step(*c.upload(codes, quals, lens, minsc), True, rdids=rd_c,
-                    ss=ss_c)
+        bp = c.step(*c.upload(codes[sub], quals[sub], lens[sub],
+                              minsc[sub]), True, rdids=rd_c, ss=ss_c)
         w = bk.shape[1]
         check(torch.equal(bk.cpu(), bp), f"spliced paired {nm} step")
         check(a._out_specs[w] == c._out_specs[w],
               f"spliced paired {nm} _out_specs")
-        print(f"[pairs spliced step] fused {nm} step, {2 * len(codes)} "
-              f"lanes: packed [{bk.shape[0]}, {w}] equal to the CPU plain "
-              f"step; card {1e3 * (t1 - t0):.1f} ms (host clock), CPU "
+        print(f"[pairs spliced step] fused {nm} step of the first "
+              f"{P_CMP_B} pairs, {2 * len(sub)} lanes: packed "
+              f"[{bk.shape[0]}, {w}] equal to the CPU plain step; card "
+              f"{1e3 * (t1 - t0):.1f} ms (host clock), CPU "
               f"{time.perf_counter() - t1:.1f} s")
-        keys = ["inject_known"] + ([] if tier else [
-            "search_lanes_live", "pair_sweep", "second_sweep"])
-        for key in keys:
-            kw = cap[key]
-            err, ms, _ = compare(torch, key, *twins[key], kw,
+        for key in sorted(cap):
+            name = key.split("/")[0]
+            err, ms, _ = compare(torch, key, *twins[name], cap[key],
                                  time_plain=False)
-            row = row_of(key)
+            row = kernel_row(kernels, rows, name)
             row["max_abs_err"] = max(row["max_abs_err"], err)
-            row[f"pairs_{nm}_ms"] = ms
-            print(f"[pairs spliced kernels] {nm} {key} on "
-                  f"{kw['reads'].shape[0]} lanes: equal to plain "
-                  f"(tolerance: exact); kernel {ms:.4f} ms (median of 10)")
+            if key == name:
+                row[f"pairs_{nm}_ms"] = ms
+            print(f"[pairs spliced kernels] {nm} {key} on the whole fused "
+                  f"batch ({len(lens)} mates): equal to plain (tolerance: "
+                  f"exact); kernel {ms:.4f} ms (median of 10)")
         del cap
     del cpu, sal
     torch.cuda.empty_cache()
@@ -3003,7 +3059,7 @@ def pairs_phase(torch, np, g, index, spots, introns, kernels, twins, driver,
             ("rescue_window", err, ms, pms, "the last word"),
             ("ref_window", err_w, ms_w, pms_w,
              f"the last row of {rank.clamp_row(nw0)} words")):
-        row = row_of(name)
+        row = kernel_row(kernels, rows, name)
         row["max_abs_err"] = max(row["max_abs_err"], e_)
         row["pairs_shard1_ms"], row["pairs_shard1_plain_ms"] = m_, p_
         row["past_words_clamp"] = clamp
@@ -3081,6 +3137,418 @@ def pairs_phase(torch, np, g, index, spots, introns, kernels, twins, driver,
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[pairs] (a) {phase_s_a:.1f} s, (b) {phase_s_b:.1f} s, (c) "
           f"{time.perf_counter() - t_ph - phase_s_a - phase_s_b:.1f} s")
+
+
+def ranked(text):
+    """The allele names of a report's `N ranked <allele>` lines, per
+    section (a section starts at each `Gene` line)."""
+    out = []
+    for line in text.splitlines():
+        if line.strip().startswith("Gene "):
+            out.append([])
+        elif " ranked " in line:
+            out[-1].append(line.split(" ranked ")[1].split(" ")[0])
+    return out
+
+
+def geno_alleles(np, rng, n=GA_ALLELES, Lk=GA_BP, B=B, RL=GA_RL,
+                 picks=GA_PICKS):
+    """`genotype --alleles` at HLA-A scale: n alleles of an Lk bp locus,
+    2-12 private or shared SNVs each, and B reads of RL bp, 2:1 from the
+    two picked alleles, every other one reverse-complemented."""
+    bb = rng.integers(0, 4, Lk).astype(np.uint8)
+    alleles = []
+    for a in range(n):
+        s = bb.copy()
+        for p in rng.choice(Lk, int(rng.integers(2, 13)), replace=False):
+            s[p] = (s[p] + 1 + rng.integers(0, 3)) % 4
+        alleles.append((f"A*{a // 20 + 1:02d}:{a % 20 + 1:02d}", s))
+    reads = []
+    for i in range(B):
+        src = alleles[picks[0] if i % 3 else picks[1]][1]
+        st = int(rng.integers(0, Lk - RL + 1))
+        r = src[st:st + RL]
+        reads.append((f"r{i}", (3 - r)[::-1] if i % 2 else r))
+    return alleles, reads
+
+
+def geno_str(np, rng, n=GB_ALLELES, flank=GB_FLANK, B=B, RL=GA_RL,
+             picks=GB_PICKS):
+    """`genotype --msa` on an STR locus (tests/test_genotype_strcyp.py's
+    shape at scale): n alleles of a [TCTA]6-14 [TCTG]3-8 repeat between
+    two flank bp flanks (the MSA's gaps at the right end of each block,
+    so repeat lengths are indels against the backbone), 2-12 flank SNVs
+    each; B reads of RL bp, 2:1 from the picks (the second moved to the
+    next allele with another repeat structure than the first's)."""
+    acgt = np.array(list("ACGT"))
+    fl = rng.integers(0, 4, flank)
+    fr = rng.integers(0, 4, flank)
+    rows, seqs, nm = [], [], []
+    for a in range(n):
+        k1, k2 = int(rng.integers(6, 15)), int(rng.integers(3, 9))
+        left, right = fl.copy(), fr.copy()
+        for p in rng.choice(2 * flank, int(rng.integers(2, 13)),
+                            replace=False):
+            side, q = (left, p) if p < flank else (right, p - flank)
+            side[q] = (side[q] + 1 + rng.integers(0, 3)) % 4
+        lt, rt = "".join(acgt[left]), "".join(acgt[right])
+        rows.append((f"STR*{a + 1:04d}", lt + "TCTA" * k1 + "----" * (14 - k1)
+                     + "TCTG" * k2 + "----" * (8 - k2) + rt))
+        seqs.append(lt + "TCTA" * k1 + "TCTG" * k2 + rt)
+        nm.append((k1, k2))
+    p1, p2 = picks
+    while nm[p2] == nm[p1]:
+        p2 += 1
+    reads = []
+    rcm = str.maketrans("ACGT", "TGCA")
+    for i in range(B):
+        src = seqs[p1 if i % 3 else p2]
+        st = int(rng.integers(0, len(src) - RL + 1))
+        r = src[st:st + RL]
+        reads.append((f"s{i}", r.translate(rcm)[::-1] if i % 2 else r))
+    return rows, reads, (p1, p2)
+
+
+def geno_loci(np, rng, g, cat, B=B, RL=GA_RL):
+    """`genotype --run` on the config-2 graph index: GC_LOCI windows of g
+    of GC_BP bp, each with an MSA of GC_ALLELES alleles mutated from it
+    (2-12 SNVs each); GC_BATCHES batches of B reads, GC_SHARE of them
+    from the loci (2:1 from two alleles of each, RL bp, every other one
+    reverse-complemented) and the rest phase 8's mix (simulate_graph).
+    Returns the loci [(gene, lo, hi, msa rows, picked names)] and the
+    reads."""
+    loci = []
+    n_all = B * GC_BATCHES
+    n_loc = round(GC_SHARE * n_all)
+    acgt = np.array(list("ACGT"))
+    reads = []
+    for k, lo in enumerate(GC_LOCI):
+        hi = lo + GC_BP
+        rows = []
+        for a in range(GC_ALLELES):
+            s = g[lo:hi].copy()
+            for p in rng.choice(GC_BP, int(rng.integers(2, 13)),
+                                replace=False):
+                s[p] = (s[p] + 1 + rng.integers(0, 3)) % 4
+            rows.append((f"G{k}*{a + 1:02d}", "".join(acgt[s])))
+        picks = (int(rng.integers(0, GC_ALLELES // 2)),
+                 int(rng.integers(GC_ALLELES // 2, GC_ALLELES)))
+        loci.append((f"G{k}", lo, hi, rows,
+                     {rows[picks[0]][0], rows[picks[1]][0]}))
+        rcm = str.maketrans("ACGT", "TGCA")
+        for i in range(n_loc // len(GC_LOCI)):
+            src = rows[picks[0] if i % 3 else picks[1]][1]
+            st = int(rng.integers(0, GC_BP - RL + 1))
+            r = src[st:st + RL]
+            reads.append((f"G{k}_{i}", r.translate(rcm)[::-1] if i % 2
+                          else r))
+    codes, _, lens, _, _, _ = simulate_graph(np, rng, g, cat,
+                                             n_all - len(reads), L)
+    reads += [(f"bg{i}", codes[i, :lens[i]]) for i in range(len(codes))]
+    order = rng.permutation(len(reads))
+    return loci, [reads[i] for i in order]
+
+
+def hold_tiers(torch, np, kernels, twins, rows, al, b, tag, col,
+               timed=()):
+    """A genotype run's own aligner `al` (recorded as the driver built
+    it): a step of its lite tier, where it has one, and of its full tier
+    on batch b, and every kernel each step launches against its plain
+    twin on the step's arguments (tolerance: exact).  Each error is
+    folded into the kernel's row, and its median put there as
+    `{col}_ms` (the full tier) or `{col}_lite_ms`; the kernels of `timed`
+    also time their plain twins (`{col}_plain_ms`).  Returns each tier's
+    captured arguments."""
+    minsc = al._minsc(b.lens)
+    uniform = bool(np.all(b.lens == b.lens[0]))
+    caps = {}
+    for tier, nm in ((al._fast, "lite"), (al, "full")):
+        if tier is None:
+            continue
+        cap = {}
+        tier.step(*tier.upload(b.codes, b.quals, b.lens, minsc), uniform,
+                  capture=cap)
+        ms_of = {}
+        for key in sorted(cap):
+            name = key.split("/")[0]
+            err, ms, pms = compare(torch, key, *twins[name], cap[key],
+                                   time_plain=key in timed)
+            row = kernel_row(kernels, rows, name)
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            if key == name:
+                row[col + ("_ms" if tier is al else "_lite_ms")] = ms
+            if pms is not None:
+                row[f"{col}_plain_ms"] = pms
+            ms_of[key] = f"{ms:.4f}" + (f" (plain {pms:.4f})" if pms
+                                        is not None else "")
+        caps[nm] = cap
+        print(f"[genotype] ({tag}) the {nm} step on {len(b.lens)} reads: "
+              f"every kernel equal to plain (tolerance: exact); kernel ms "
+              f"(median of 10): {ms_of}")
+    return caps
+
+
+def genotype_phase(torch, np, kernels, twins, g, cat, cache, rows,
+                   path_launches, card, env):
+    """Phase 15 (see the module docstring): the genotype callers, typing
+    through TorchAligner on the card."""
+    import importlib.util
+    from hisat2_tpu_torch.genotype import driver as gdriver
+    from hisat2_tpu_torch.genotype.msa import parse_msa
+    from hisat2_tpu_torch.io.fasta import read_batches
+    from hisat2_tpu_torch.ops import splice
+    t_ph = time.perf_counter()
+    data = os.path.join(REPO, "tests", "data")
+    spec = importlib.util.spec_from_file_location(
+        "make_geno", os.path.join(data, "make_geno.py"))
+    mg = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mg)
+    tmp = tempfile.mkdtemp(prefix="h2torch_geno_")
+    launches = dict.fromkeys(kernels.KERNELS, 0)
+    part_s = {}
+
+    def run(argv, tag):
+        """The driver's genotype run on the card: its report, host
+        seconds and kernel launches (counts set to 0 just before)."""
+        args = gdriver.build_parser().parse_args(argv + ["--device", "cuda"])
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        with mg.recorded_aligners() as made:
+            rc = {"alleles": gdriver.run_genotype,
+                  "msa": gdriver.run_genotype_msa,
+                  "run": gdriver.run_genotype_full}[tag](args)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = kernels.counts()
+        check(rc == 0, f"genotype {tag} returned {rc}")
+        for k, v in got.items():
+            launches[k] += v
+        with open(args.out) as f:
+            return f.read(), dt, got, made
+
+    def cpu_equal(tag, argv, outs):
+        """The driver's run of argv on --device cuda, then on cpu, to the
+        same paths (a report names its assembly's): each file of `outs`
+        written alike."""
+        t0 = time.perf_counter()
+        texts = []
+        for dev in ("cuda", "cpu"):
+            check(gdriver.main(argv + ["--device", dev]) == 0,
+                  f"({tag}) --device {dev}")
+            texts.append([open(o, "rb").read() for o in outs])
+        check(texts[0] == texts[1], f"({tag}): the card's {outs} on the "
+              f"first {GA_CMP_B} reads differ from the CPU's")
+        print(f"[genotype] ({tag}) "
+              f"{', '.join(os.path.basename(o) for o in outs)} on the "
+              f"first {GA_CMP_B} reads equal on cuda and cpu "
+              f"({time.perf_counter() - t0:.1f} s)")
+
+    try:
+        # (a) --alleles at HLA-A scale
+        rng = np.random.default_rng(1515)
+        alleles, reads = geno_alleles(np, rng)
+        af, rf = os.path.join(tmp, "alleles.fa"), os.path.join(tmp, "r.fa")
+        mg.write_fa(af, alleles)
+        mg.write_fa(rf, reads)
+        rep, dt, got, made = run(["--alleles", af, "-U", rf, "--out",
+                                  os.path.join(tmp, "a.txt")], "alleles")
+        want = {alleles[p][0] for p in GA_PICKS}
+        top = ranked(rep)
+        check(len(top) == 1 and set(top[0][:2]) == want and "call:" in rep,
+              f"--alleles: the planted pair {sorted(want)} is not on top:"
+              f"\n{rep}")
+        for name in ("fm_search2", "compact_cands", "pack_slots"):
+            check(got[name] > 0, f"--alleles: {name} never launched")
+        part_s["a"] = dt
+        print(f"[genotype] (a) --alleles, {GA_ALLELES} alleles x {GA_BP} bp "
+              f"(k = 16, max_seeds = 10**6), {B} reads of {GA_RL} bp in "
+              f"{dt:.2f} s (host clock; index build, upload, step and the "
+              f"host's class resolution): {B / dt:.1f} reads/s on {card}; "
+              f"top {top[0][:2]} = the planted pair; launches {got}")
+        al = made[-1]
+        check(len(made) == 1 and (al.msize, al.max_cands) == (64, 65),
+              f"--alleles aligner: msize {al.msize}, {al.max_cands} cands")
+        caps = hold_tiers(torch, np, kernels, twins, rows, al,
+                          next(read_batches(rf, B)), "a", "allele",
+                          timed=("compact_cands", "pack_slots"))
+        cc = caps["full"]["compact_cands"]
+        width = int((cc["bot"] - cc["top"]).max())
+        check(width > 64, f"--alleles: widest hit {width} rows")
+        print(f"[genotype] (a) the step's widest hit {width} rows "
+              f"(msize {al.msize}, {al.max_cands} candidates a lane)")
+        del made, al, caps, cc
+        rf5 = os.path.join(tmp, "r512.fa")
+        mg.write_fa(rf5, reads[:GA_CMP_B])
+        out = os.path.join(tmp, "a512.txt")
+        cpu_equal("a", ["--alleles", af, "-U", rf5, "--out", out], [out])
+
+        # (b) --msa --assembly on an STR locus
+        rng = np.random.default_rng(1516)
+        msa, reads, picks = geno_str(np, rng)
+        mf = os.path.join(tmp, "str.msa.fa")
+        rf = os.path.join(tmp, "s.fa")
+        mg.write_fa(mf, msa)
+        mg.write_fa(rf, reads)
+        base = os.path.join(tmp, "asm")
+        rep, dt, got, made = run(["--msa", mf, "-U", rf, "--out",
+                                  os.path.join(tmp, "b.txt"), "--assembly",
+                                  "--out-base", base], "msa")
+        want = {msa[p][0] for p in picks}
+        top = ranked(rep)
+        check(len(top) == 1 and set(top[0][:2]) == want and "call:" in rep,
+              f"--msa: the planted pair {sorted(want)} is not on top:\n{rep}")
+        check(got["inject_indels"] > 0, "--msa: K10+K11 never launched")
+        bb, avars, _, _ = parse_msa(mf)
+        # away from the read-length edges: of the locus, and of the repeat
+        # block, where the JAX assembly phases the mismatches of reads
+        # placed across a repeat-length indel as SNVs (ROADMAP Queue 3)
+        keep = np.ones(len(bb), bool)
+        keep[:GA_RL] = keep[len(bb) - GA_RL:] = False
+        keep[GB_FLANK - GA_RL:len(bb) - GB_FLANK + GA_RL] = False
+
+        def on_backbone(p):
+            s = bb.copy()
+            for v in avars[msa[p][0]]:
+                if v[0] == "S":
+                    s[v[1]] = "ACGT".index(v[2])
+            return "".join("ACGT"[c] for c in s[keep])
+
+        with open(base + ".assembly.fa") as f:
+            fa = f.read().splitlines()
+        haps = {"".join(np.array(list(h))[keep]) for h in (fa[1], fa[3])}
+        check(haps == {on_backbone(p) for p in picks},
+              "--msa --assembly: the haplotypes differ from the planted "
+              "alleles' SNVs on the backbone")
+        part_s["b"] = dt
+        print(f"[genotype] (b) --msa --assembly, {GB_ALLELES} alleles on a "
+              f"{len(bb)} bp backbone ({sum(len(v) for v in avars.values())}"
+              f" allele variants, STR repeat lengths as catalog indels), "
+              f"{B} reads in {dt:.2f} s (host clock): {B / dt:.1f} reads/s "
+              f"on {card}; top {top[0][:2]} = the planted pair; both "
+              f"assembled haplotypes equal the planted alleles on "
+              f"{int(keep.sum())} of {len(bb)} backbone positions (a read "
+              f"length from the locus ends and the repeat block); "
+              f"launches {got}")
+        al = made[-1]
+        check(al.has_indels and al._fast is not None,
+              "--msa aligner: no indel catalog or no lite tier")
+        caps = hold_tiers(torch, np, kernels, twins, rows, al,
+                          next(read_batches(rf, B)), "b", "msa")
+        check("inject_indels" in caps["full"], "--msa: the full step "
+              "launched no K10+K11")
+        inj = splice.inject_indels_plain(**caps["full"]["inject_indels"])
+        live = int((inj["event"] >= 0).sum())
+        check(live > 0, "--msa: K10+K11 injected no event on the batch")
+        print(f"[genotype] (b) K10+K11 on the full step: {live} injected "
+              f"repeat-length events")
+        del made, al, caps, inj
+        rf5 = os.path.join(tmp, "s512.fa")
+        mg.write_fa(rf5, reads[:GA_CMP_B])
+        out, asm = os.path.join(tmp, "b512.txt"), os.path.join(tmp, "b512")
+        cpu_equal("b", ["--msa", mf, "-U", rf5, "--out", out, "--assembly",
+                        "--out-base", asm], [out, asm + ".assembly.fa"])
+
+        # (c) --run on phase 8's saved 40 Mbp graph index
+        rng = np.random.default_rng(1517)
+        loci, reads = geno_loci(np, rng, g, cat)
+        msa_dir = os.path.join(tmp, "msa")
+        os.makedirs(msa_dir)
+        gbase = os.path.join(tmp, "gg")
+        with open(gbase + ".locus", "w") as f:
+            for gene, lo, hi, rws, _ in loci:
+                mg.write_fa(os.path.join(msa_dir, f"{gene}.msa.fa"), rws)
+                f.write(f"HLA\t{gene}*01\tc2\t{lo}\t{hi - 1}\t{lo}-{hi - 1}"
+                        "\t+\n")
+        rf = os.path.join(tmp, "g.fa")
+        mg.write_fa(rf, reads)
+        rep, dt, got, made = run(["--run", gbase, "--index", cache,
+                                  "--msa-dir", msa_dir, "-U", rf, "--out",
+                                  os.path.join(tmp, "c.txt")], "run")
+        top = ranked(rep)
+        check(len(top) == len(loci), f"--run: {len(top)} gene sections:\n"
+              f"{rep}")
+        for (gene, _, _, _, want), t in zip(loci, top):
+            check(set(t[:2]) == want, f"--run: {gene} ranks {t[:2]}, not "
+                  f"the planted {sorted(want)}:\n{rep}")
+        for name in ("fm_search2", "compact_cands", "pack_slots",
+                     "inject_indels"):
+            check(got[name] > 0, f"--run: {name} never launched")
+        part_s["c"] = dt
+        n_r = len(reads)
+        print(f"[genotype] (c) --run on the 40 Mbp graph index (loaded from "
+              f"{os.path.basename(cache)}), {len(loci)} loci of {GC_BP} bp "
+              f"with {GC_ALLELES} alleles each, {n_r} reads ({GC_SHARE:.0%} "
+              f"from the loci) in {dt:.2f} s (host clock; index load, graph "
+              f"set-up, the genome pass and each locus's typing): "
+              f"{n_r / dt:.1f} reads/s on {card}; every locus ranks its "
+              f"planted pair on top; launches {got}")
+        print("[genotype] (c) report:\n" + rep.rstrip())
+        gp = next(x for x in made if x._fast is not None)
+        check(int(gp.meta.ref_lens[0]) == len(g) and gp.has_indels,
+              "--run: the genome pass's aligner is not on the graph index")
+        caps = hold_tiers(torch, np, kernels, twins, rows, gp,
+                          next(read_batches(rf, B)), "c genome pass", "run")
+        check("inject_indels" in caps["full"], "--run: the genome pass's "
+              "full step launched no K10+K11")
+        k = len(loci) - 1
+        lf = os.path.join(tmp, "locus.fa")
+        mg.write_fa(lf, [r for r in reads if r[0].startswith(f"G{k}_")])
+        hold_tiers(torch, np, kernels, twins, rows, made[-1],
+                   next(read_batches(lf, B)), f"c locus G{k}", "run_locus")
+        del made, gp, caps
+        torch.cuda.empty_cache()
+        path_launches["genotype"] = dict(launches)
+
+        # (d) the CLI on the card: the committed geno oracles, align -A
+        cdir = os.path.join(tmp, "cli")
+        mg.stage(cdir)
+        with gzip.open(os.path.join(data, "mm3_genome.fa.gz"), "rb") as f, \
+                open(os.path.join(cdir, "mm3.fa"), "wb") as o:
+            o.write(f.read())
+        lines = {nm: ["--no-spliced-alignment", "-f", "-x", "mm3", "-U",
+                      os.path.join(data, "mm3_reads.fa"), "-S",
+                      f"A_{nm}.sam", "--device", "cuda", "--quiet"] + extra
+                 for nm, extra in (("k10", ["-k", "10"]),
+                                   ("sec", ["-k", "3", "--secondary"]))}
+        with open(os.path.join(cdir, "args.txt"), "w") as f:
+            f.write("".join(" ".join(v) + "\n" for v in lines.values()))
+        t0 = time.perf_counter()
+        geno = [["genotype"] + mg.RUNS[k][0] + ["--device", "cuda"]
+                for k in ("alleles", "msa")]
+        run_clis([["build", "--snp", "geno_gg.snp", "geno_gg.fa", mg.IDX],
+                  ["build", "mm3.fa", "mm3"]] + geno, cdir, env, 600)
+        t1 = time.perf_counter()
+        run_clis([["genotype"] + mg.RUNS[k][0] + ["--device", "cuda"]
+                  for k in ("run", "extract")] + [["align", "-A",
+                                                   "args.txt"]],
+                 cdir, env, 600)
+        for k, (_, outs) in mg.RUNS.items():
+            for got_f, oracle in outs:
+                with open(os.path.join(cdir, got_f), "rb") as f, gzip.open(
+                        os.path.join(data, oracle + ".gz"), "rb") as o:
+                    check(f.read() == o.read(),
+                          f"genotype {k} --device cuda: {got_f} differs "
+                          f"from {oracle}")
+        for nm in lines:
+            with open(os.path.join(cdir, f"A_{nm}.sam")) as f:
+                body = [x for x in f if not x.startswith("@")]
+            with gzip.open(os.path.join(data, f"mm3_ref_{nm}.sam.gz"),
+                           "rt") as f:
+                check(body == [x for x in f if not x.startswith("@")],
+                      f"align -A: the {nm} line's SAM differs from "
+                      f"mm3_ref_{nm}")
+        print(f"[genotype cli] genotype --device cuda --alleles, --msa "
+              f"--assembly, --run and --extract-reads on the geno corpus: "
+              f"every report and file equal to its JAX oracle; align -A "
+              f"(two lines, --device cuda) on mm3: both SAM bodies equal "
+              f"to mm3_ref_k10 and mm3_ref_sec; builds and the first two "
+              f"runs side by side {t1 - t0:.1f} s, the other three "
+              f"{time.perf_counter() - t1:.1f} s incl. start-up")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[genotype] parts (host clock): " + ", ".join(
+        f"({k}) {v:.1f} s" for k, v in part_s.items())
+        + f"; phase {time.perf_counter() - t_ph:.1f} s")
 
 
 def main() -> int:
@@ -3607,7 +4075,8 @@ def main() -> int:
 
     # the fused lite and full step: K4 and K9 on the whole batch's
     # arguments, and the step of its first P_CMP_B pairs against the CPU
-    # step (phase 14 holds a whole fused spliced step against the CPU)
+    # step (phase 14 holds a fused spliced step's kernels against their
+    # twins)
     pcpu = TorchAligner(index, device="cpu", variants=db, k=10,
                         lane_meta=True)
     nc = P_CMP_B
@@ -3733,6 +4202,10 @@ def main() -> int:
                 TorchAligner, rows, path_launches, card, env)
     phase_done("pairs")
 
+    genotype_phase(torch, np, kernels, twins, g, cat, cache, rows,
+                   path_launches, card, env)
+    phase_done("genotype")
+
     for name, r in rows.items():
         if name == "sharded_align_step":
             continue                    # K21: complete from phase 12
@@ -3741,7 +4214,7 @@ def main() -> int:
         r["launches"] = path_launches[path][name]
         for p2 in ("linear", "graph", "paired", "spliced", "genome",
                    "genome_graph", "genome_spliced", "pairs_spliced",
-                   "pairs_shards"):
+                   "pairs_shards", "genotype"):
             r[f"launches_{p2}"] = path_launches[p2][name]
         r["ms"] = r.get("full_ms", r.get("paired_ms", r.get("genome_ms")))
         r["plain_ms"] = r.get("full_plain_ms", r.get(

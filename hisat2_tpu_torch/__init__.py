@@ -25,14 +25,21 @@ Layout (mirrors hisat2_tpu):
   csrc/     the CUDA C++ kernels
   align/    TorchAligner (device step + host phase + mate rescue), driver,
             pairing, host replays
-  cli/      `python -m hisat2_tpu_torch align|build`
+  genotype/ the genotype callers (allele, MSA, genotype-genome typing,
+            read extraction; the database converters), copies of the JAX
+            package's that type through TorchAligner
+  tools/    the GTF, VCF and UCSC extractors and the read simulator
+            (copies)
+  cli/      `python -m hisat2_tpu_torch align|build|inspect|...`: every
+            command of `python -m hisat2_tpu`
 
 Scope: unpaired and paired reads, DNA and spliced RNA, against linear,
 --ss and SNP graph indexes, with a full or a sampled suffix array, and
 against sharded genome-scale indexes: unpaired reads in every mode,
 paired reads in DNA mode on a linear index.  The paired runs the JAX
 package fails on (spliced, or on a graph index, over several shards) are
-refused with its fault named (align/pipeline.py).
+refused with its fault named (align/pipeline.py).  The genotype callers
+align on the card (`genotype --device cuda`, the default).
 """
 
 __version__ = "0.1.0"

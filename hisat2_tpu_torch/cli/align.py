@@ -3,8 +3,9 @@
 
 `_base_parser` is copied verbatim from hisat2_tpu/cli/align.py:17-268
 (build_parser), but for the help of --coordinator (a torch.distributed
-address here); that module's `main` imports the JAX driver, so it is not
-copied.
+address here); that module's `main` imports the JAX driver, so `main`
+here is its own: the same `-A <argfile>` mode (hisat2_tpu/cli/align.py:
+274-295, its messages and return codes), then the port's driver.
 """
 
 from __future__ import annotations
@@ -281,6 +282,28 @@ def build_parser():
 def main(argv=None):
     if argv is None:
         argv = sys.argv[1:]
+    # -A <argfile>: run one alignment per non-empty line of arguments
+    # (hisat2_main.cpp:43-66); each line names its own --device
+    if len(argv) >= 2 and argv[0] == "-A":
+        lastret = -1
+        try:
+            f_test = open(argv[1])
+            f_test.close()
+        except OSError as e:
+            print(f"Error: could not open arg file {argv[1]}: {e}",
+                  file=sys.stderr)
+            return 1
+        with open(argv[1]) as f:
+            for line in f:
+                toks = line.split()
+                if not toks:
+                    continue
+                lastret = main(toks)
+        if lastret == -1:
+            print(f"Warning: No arg strings parsed from {argv[1]}",
+                  file=sys.stderr)
+            return 0
+        return lastret
     args = build_parser().parse_args(argv)
     from ..align import mapq as mapq_mod
     mapq_mod.VERSION = args.mapq_v

@@ -2511,3 +2511,101 @@ def test_rescue_merge_graph_replays_on_card(rescue_world, card):
         _eq(got_r, want_r, f"rescue_window replay {rep}")
         for i, (x, y) in enumerate(zip(got_m, want_m)):
             _eq(x, y, f"merge_sites output {i} replay {rep}")
+
+
+@pytest.fixture(scope="module")
+def allele_card(card):
+    """An allele index as `genotype --alleles` builds it: 300 alleles of a
+    2,000 bp locus with 2-8 SNVs each, so a 150 bp read matches most of
+    them exactly (hits hundreds of rows wide); 768 reads, 2:1 from two
+    alleles, and 64 random ones."""
+    rng = np.random.default_rng(1616)
+    Lk = 2000
+    bb = rng.integers(0, 4, Lk)
+    seqs = []
+    for a in range(300):
+        s = bb.copy()
+        for p in rng.choice(Lk, int(rng.integers(2, 9)), replace=False):
+            s[p] = (s[p] + 1 + rng.integers(0, 3)) % 4
+        seqs.append((f"Y*{a:03d}", s.astype(np.uint8)))
+    idx = build_fm_index(seqs)
+    reads = np.zeros((832, 150), np.int32)
+    for i in range(768):
+        src = seqs[7 if i % 3 else 201][1]
+        st = int(rng.integers(0, Lk - 150))
+        reads[i] = src[st:st + 150]
+        if i % 2:
+            reads[i] = (3 - reads[i])[::-1]
+    reads[768:] = rng.integers(0, 4, (64, 150))
+    quals = np.full(reads.shape, 40, np.int32)
+    lens = np.full(len(reads), 150, np.int32)
+    return idx, reads, quals, lens
+
+
+def test_allele_index_step_on_card(allele_card):
+    """The genotype allele aligner's step (k = 16, max_seeds = 10**6:
+    msize 64, 65 candidates a lane) with hits wider than 64 rows: every
+    kernel it launches, K4 and K9 among them, against its plain twin on
+    the step's own arguments, and the packed step against the CPU's."""
+    from hisat2_tpu_torch.align.pipeline import TorchAligner
+    idx, reads, quals, lens = allele_card
+    kw = dict(k=16, max_seeds=10 ** 6, spliced=False)
+    cu = TorchAligner(idx, device="cuda", **kw)
+    cp = TorchAligner(idx, device="cpu", **kw)
+    assert (cu.msize, cu.max_cands) == (64, 65)
+    minsc = cu._minsc(lens)
+    cap = {}
+    cu.step(*cu.upload(reads, quals, lens, minsc), True, capture=cap)
+    cc = cap["compact_cands"]
+    width = (cc["bot"] - cc["top"]).max().item()
+    assert width > 64, f"widest hit {width} rows"
+    assert {"compact_cands", "pack_slots"} <= set(cap)
+    _replay(cap, list(cap))
+    for full in (False, True):
+        bk = cu.step(*cu.upload(reads, quals, lens, minsc), True, full)
+        bp = cp.step(*cp.upload(reads, quals, lens, minsc), True, full)
+        _eq(bk, bp, f"allele step full_out={full}")
+        assert cu._out_specs == cp._out_specs
+
+
+def test_msa_graph_step_on_card(monkeypatch, tmp_path, card):
+    """`genotype --msa --assembly --device cuda` on the committed geno
+    STR locus: the report and the assembly equal the JAX oracles, K10+K11
+    ran; then the driver's own graph aligner (the MSA's union variants,
+    repeat-length indels as catalog events): its lite and full steps on
+    the first batch, every kernel against its plain twin (K10+K11 on
+    live injected slots)."""
+    import gzip as gz
+    import importlib.util
+    from hisat2_tpu_torch import kernels
+    from hisat2_tpu_torch.genotype import driver
+    from hisat2_tpu_torch.io.fasta import read_batches
+    from hisat2_tpu_torch.ops import splice
+    data = os.path.join(os.path.dirname(__file__), "data")
+    spec = importlib.util.spec_from_file_location(
+        "make_geno", os.path.join(data, "make_geno.py"))
+    mg = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mg)
+    mg.stage(str(tmp_path))
+    monkeypatch.chdir(tmp_path)
+    argv, outs = mg.RUNS["msa"]
+    kernels.reset_counts()
+    with mg.recorded_aligners() as made:
+        assert driver.main(argv + ["--device", "cuda"]) == 0
+    assert kernels.counts()["inject_indels"] > 0
+    for got, oracle in outs:
+        with gz.open(os.path.join(data, oracle + ".gz"), "rb") as f:
+            assert open(got, "rb").read() == f.read(), oracle
+    al = made[-1]
+    assert al.has_indels and al._fast is not None
+    b = next(read_batches("geno_reads_msa.fa", 4096))
+    minsc = al._minsc(b.lens)
+    for tier in (al._fast, al):
+        cap = {}
+        tier.step(*tier.upload(b.codes, b.quals, b.lens, minsc), False,
+                  capture=cap)
+        if tier is al:
+            assert "inject_indels" in cap
+            inj = splice.inject_indels_plain(**cap["inject_indels"])
+            assert int((inj["event"] >= 0).sum()) > 0
+        _replay(cap, list(cap))
